@@ -1,0 +1,46 @@
+"""horovod_tpu_torch.torch — the ``horovod.torch``-shaped surface of the
+PyTorch port (counterpart of ``horovod_tpu/torch``).
+
+Usage (the reference's shape)::
+
+    import horovod_tpu_torch.torch as hvd
+    hvd.init()                      # NCCL on cuda:{local_rank}
+    optimizer = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
+        named_parameters=model.named_parameters(),
+        compression=hvd.Compression.fp16,
+        gradient_predivide_factor=2.0)
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+"""
+
+from __future__ import annotations
+
+from ..comm.eager import allreduce, barrier, broadcast, broadcast_
+from ..comm.reduce_ops import Average, Sum
+from ..core.exceptions import NotInitializedError
+from ..core.process_set import ProcessSet, global_process_set
+from ..core.state import (
+    device,
+    init,
+    is_initialized,
+    local_rank,
+    rank,
+    shutdown,
+    size,
+)
+from .compression import Compression
+from .functions import (
+    broadcast_object,
+    broadcast_optimizer_state,
+    broadcast_parameters,
+)
+from .optimizer import DistributedOptimizer
+
+__all__ = [
+    "init", "shutdown", "is_initialized", "rank", "size", "local_rank",
+    "device", "ProcessSet", "global_process_set", "NotInitializedError",
+    "Compression", "Sum", "Average",
+    "allreduce", "broadcast", "broadcast_", "barrier",
+    "broadcast_parameters", "broadcast_optimizer_state",
+    "broadcast_object", "DistributedOptimizer",
+]

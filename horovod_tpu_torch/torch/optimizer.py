@@ -1,0 +1,272 @@
+"""Torch DistributedOptimizer (parity: horovod/torch/optimizer.py
+``_DistributedOptimizer`` / ``DistributedOptimizer``; counterpart of
+``horovod_tpu/torch/optimizer.py``).
+
+Wraps any ``torch.optim.Optimizer``.  Per-parameter post-accumulate-grad
+hooks mark each gradient ready.  The gradients are grouped by the
+deterministic bucket plan of ``comm/fusion.py`` (sorted names, fusion
+threshold), and a bucket launches once it and every bucket before it in
+plan order are ready, so every rank issues the same collectives in the
+same order.  ``synchronize()`` (run by ``step()``) launches what is left,
+waits, and writes the reduced gradients back in place.
+
+One group's reduction mirrors the staged fused path of the JAX engine
+(``eager/controller.py`` ``_execute_allreduce``): per-tensor prescale
+through the ``fused_scale_cast`` kernel (only when it is not 1), wire
+compression, ``pack_flat``, one ``all_reduce(SUM)`` launched with
+``async_op=True``, then at finish ``unpack_flat``, decompression and
+per-tensor postscale through the kernel.  The order holds in a world of
+one too: nothing is short-cut.
+
+``gradient_predivide_factor=f`` (requires ``op=Average``) reduces with
+``op=Sum``, prescale ``1/f`` and postscale ``f/n``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import warnings
+from typing import Callable, List, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+from ..comm.eager import average_
+from ..comm.fusion import plan_buckets
+from ..comm.packing import pack_flat, unpack_flat
+from ..comm.reduce_ops import ReduceOp, normalize_op
+from ..core import state as core_state
+from ..core.process_set import ProcessSet, global_process_set
+from ..ops.scale_cast import fused_scale_cast
+from .compression import Compression
+
+
+@dataclasses.dataclass
+class PendingGroup:
+    """One fused allreduce in flight."""
+
+    flat: torch.Tensor
+    specs: list
+    ctxs: list
+    work: object
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupReduction:
+    """The reduction of one fused group of gradients.
+
+    ``scale`` is the pre/postscale function; the optimizer uses the
+    ``fused_scale_cast`` kernel wrapper.
+    """
+
+    op: ReduceOp
+    prescale: float
+    postscale: float
+    compression: type
+    process_set: ProcessSet
+    scale: Callable = fused_scale_cast
+
+    def _apply_scale(self, t: torch.Tensor, factor: float) -> torch.Tensor:
+        # controller._apply_scale parity: floats through the one-pass
+        # scale kernel, integers keep the truncating-scale semantics
+        if t.is_floating_point():
+            return self.scale(t.reshape(-1), factor).reshape(t.shape)
+        return t * torch.tensor(factor, dtype=t.dtype, device=t.device)
+
+    def launch(self, tensors: Sequence[torch.Tensor]) -> PendingGroup:
+        wires, ctxs = [], []
+        for t in tensors:
+            if self.prescale != 1.0:
+                t = self._apply_scale(t, self.prescale)
+            t, ctx = self.compression.compress(t)
+            wires.append(t)
+            ctxs.append(ctx)
+        flat, specs = pack_flat(wires)
+        work = dist.all_reduce(flat, op=dist.ReduceOp.SUM,
+                               group=self.process_set.group, async_op=True)
+        return PendingGroup(flat, specs, ctxs, work)
+
+    def finish(self, pending: PendingGroup) -> List[torch.Tensor]:
+        pending.work.wait()
+        flat = pending.flat
+        if self.op == ReduceOp.AVERAGE:
+            average_(flat, self.process_set.size)
+        outs = []
+        for piece, ctx in zip(unpack_flat(flat, pending.specs),
+                              pending.ctxs):
+            out = self.compression.decompress(piece, ctx)
+            if self.postscale != 1.0:
+                out = self._apply_scale(out, self.postscale)
+            outs.append(out)
+        return outs
+
+    def reduce(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        return self.finish(self.launch(tensors))
+
+
+class _DistributedOptimizer(torch.optim.Optimizer):
+    def __init__(self, params, named_parameters=None,
+                 compression=Compression.none,
+                 backward_passes_per_step: int = 1,
+                 op=None, gradient_predivide_factor: float = 1.0,
+                 process_set: Optional[ProcessSet] = None):
+        super(self.__class__, self).__init__(params)
+        st = core_state.require_init("DistributedOptimizer")
+        op = normalize_op(op)
+        if gradient_predivide_factor != 1.0 and op != ReduceOp.AVERAGE:
+            raise ValueError(
+                "gradient_predivide_factor requires op=Average"
+            )
+        if op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
+            raise NotImplementedError(
+                f"op={op.name} is not ported yet (Sum, Average)")
+        process_set = process_set or global_process_set
+        if process_set is not global_process_set:
+            raise NotImplementedError(
+                "only the global process set is supported so far")
+        self.backward_passes_per_step = backward_passes_per_step
+
+        if gradient_predivide_factor != 1.0:
+            self.reduction = GroupReduction(
+                ReduceOp.SUM, 1.0 / gradient_predivide_factor,
+                gradient_predivide_factor / process_set.size,
+                compression, process_set)
+        else:
+            self.reduction = GroupReduction(op, 1.0, 1.0, compression,
+                                            process_set)
+
+        named = list(named_parameters) if named_parameters is not None else []
+        name_of = {id(p): n for n, p in named}
+        self._params: List[torch.nn.Parameter] = []
+        names = []
+        for group in self.param_groups:
+            for p in group["params"]:
+                if not p.requires_grad:
+                    continue
+                names.append(name_of.get(
+                    id(p), f"allreduce.noname.{len(self._params)}"))
+                self._params.append(p)
+        plan = plan_buckets(names, self._params,
+                            st.config.fusion_threshold_bytes)
+        # the parameters of each bucket, in plan order
+        self.buckets = [[self._params[e.index] for e in b]
+                        for b in plan.buckets]
+        self._bucket_of = {p: k for k, b in enumerate(self.buckets)
+                           for p in b}
+
+        self._passes = {p: 0 for p in self._params}
+        self._ready = set()
+        self._ready_count = [0] * len(self.buckets)
+        self._next_bucket = 0
+        self._pending: List[tuple] = []
+        self._synchronized = False
+        self._should_synchronize = True
+        for p in self._params:
+            p.register_post_accumulate_grad_hook(self._on_grad_ready)
+
+    # -- hook plumbing ----------------------------------------------------
+    def _on_grad_ready(self, p):
+        if p in self._ready:
+            raise AssertionError(
+                "Gradients were computed more than "
+                "backward_passes_per_step times before call to step(). "
+                "Increase backward_passes_per_step to accumulate more."
+            )
+        self._passes[p] += 1
+        if self._passes[p] == self.backward_passes_per_step:
+            self._mark_ready(p)
+            self._launch_ready()
+
+    def _mark_ready(self, p):
+        self._ready.add(p)
+        self._ready_count[self._bucket_of[p]] += 1
+
+    def _launch_ready(self):
+        """Launch, in plan order, every bucket whose gradients are all
+        ready and whose predecessors have launched."""
+        while (self._next_bucket < len(self.buckets)
+               and self._ready_count[self._next_bucket]
+               == len(self.buckets[self._next_bucket])):
+            k = self._next_bucket
+            grads = [p.grad for p in self.buckets[k]]
+            self._pending.append((k, self.reduction.launch(grads)))
+            self._next_bucket += 1
+
+    # -- public contract --------------------------------------------------
+    def synchronize(self):
+        """Reduce every registered gradient; grads are updated in place.
+
+        A parameter whose hook never fired (unused this step, or a
+        partial accumulation) is reduced too, with zeros when it has no
+        grad: every rank must issue the same collectives."""
+        for p in self._params:
+            if p not in self._ready:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+                self._mark_ready(p)
+        self._launch_ready()
+        with torch.no_grad():
+            for k, pending in self._pending:
+                outs = self.reduction.finish(pending)
+                for p, out in zip(self.buckets[k], outs):
+                    p.grad.copy_(out)
+        self._pending.clear()
+        self._ready.clear()
+        self._ready_count = [0] * len(self.buckets)
+        self._next_bucket = 0
+        for p in self._passes:
+            self._passes[p] = 0
+        self._synchronized = True
+
+    @contextlib.contextmanager
+    def skip_synchronize(self):
+        """Run step() without synchronizing (caller already did; parity:
+        optimizer.skip_synchronize() in the reference)."""
+        self._should_synchronize = False
+        try:
+            yield
+        finally:
+            self._should_synchronize = True
+
+    def step(self, closure=None):
+        if self._should_synchronize:
+            if self._synchronized:
+                warnings.warn(
+                    "optimizer.step() called without a preceding "
+                    "backward; called synchronize() twice"
+                )
+            self.synchronize()
+        self._synchronized = False
+        return super(self.__class__, self).step(closure)
+
+    def zero_grad(self, set_to_none: bool = True):
+        if self._ready or self._pending:
+            raise AssertionError(
+                "optimizer.zero_grad() was called after loss.backward() "
+                "but before optimizer.step() or optimizer.synchronize(). "
+                "This is prohibited as it can cause a race condition."
+            )
+        return super(self.__class__, self).zero_grad(set_to_none)
+
+
+def DistributedOptimizer(optimizer: torch.optim.Optimizer,
+                         named_parameters=None,
+                         compression=Compression.none,
+                         backward_passes_per_step: int = 1,
+                         op=None,
+                         gradient_predivide_factor: float = 1.0,
+                         process_set: Optional[ProcessSet] = None
+                         ) -> torch.optim.Optimizer:
+    """Wrap ``optimizer`` for data-parallel training (parity:
+    hvd.DistributedOptimizer for torch).
+
+    Dynamically subclasses the optimizer's own class (same trick as
+    horovod/torch/optimizer.py) so isinstance checks and hyperparameter
+    access keep working.
+    """
+    cls = type(optimizer.__class__.__name__, (optimizer.__class__,),
+               dict(_DistributedOptimizer.__dict__))
+    return cls(optimizer.param_groups, named_parameters, compression,
+               backward_passes_per_step, op, gradient_predivide_factor,
+               process_set)

@@ -1,0 +1,55 @@
+"""Carry ResNet weights from the flax model to the PyTorch port.
+
+``resnet_params_from_jax(params, batch_stats)`` takes the flax
+``params`` and ``batch_stats`` trees of ``horovod_tpu.models.ResNet`` as
+nested dicts of numpy arrays and returns a ``state_dict`` for
+``horovod_tpu_torch.models.ResNet``: conv kernels HWIO -> OIHW, the Dense
+kernel (in, out) -> (out, in), BatchNorm scale/bias/mean/var as they
+are.  The module names are the same on both sides, so the mapping is one
+to one.  The arrays are plain numpy: nothing of JAX is imported here.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
+    out = {}
+    for key, value in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(value, Mapping):
+            out.update(_flatten(value, path + "."))
+        else:
+            out[path] = value
+    return out
+
+
+def _tensor(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+
+
+def resnet_params_from_jax(params: Mapping[str, Any],
+                           batch_stats: Mapping[str, Any]
+                           ) -> Dict[str, torch.Tensor]:
+    state = {}
+    for path, value in _flatten(params).items():
+        module, leaf = path.rsplit(".", 1)
+        a = np.asarray(value)
+        if leaf == "kernel" and a.ndim == 4:      # conv HWIO -> OIHW
+            state[f"{module}.weight"] = _tensor(a.transpose(3, 2, 0, 1))
+        elif leaf == "kernel" and a.ndim == 2:    # Dense (in,out) -> (out,in)
+            state[f"{module}.weight"] = _tensor(a.T)
+        elif leaf in ("scale", "bias"):
+            state[path] = _tensor(a)
+        else:
+            raise ValueError(f"unexpected flax parameter {path} {a.shape}")
+    for path, value in _flatten(batch_stats).items():
+        module, leaf = path.rsplit(".", 1)
+        if leaf not in ("mean", "var"):
+            raise ValueError(f"unexpected flax batch stat {path}")
+        state[path] = _tensor(np.asarray(value))
+    return state

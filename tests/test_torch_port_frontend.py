@@ -1,0 +1,88 @@
+"""The first slice of the PyTorch port against the JAX package's torch
+frontend, on the CPU.
+
+3 training steps of the narrow ResNet through the port's
+``DistributedOptimizer`` (SGD momentum 0.9, predivide 2.0) against the
+same model through ``horovod_tpu.torch.DistributedOptimizer`` with the
+same settings, its Pallas kernels in interpret mode:
+
+* compression none: parameters **bitwise** equal.  The scales 1/2 and
+  2/1 are powers of two, exact in float32, so how the JAX controller
+  groups tensors cannot change the result;
+* compression fp16: rtol 2e-3, because at world size 1 the JAX engine
+  applies fp16 only to multi-tensor groups (``comm/eager.py`` skips
+  compression for a single payload) while the port compresses every
+  group.
+"""
+
+import copy
+
+import numpy as np
+import pytest
+import torch
+
+import horovod_tpu_torch as hvd
+from torch_port_util import narrow_resnet, synthetic_batches, train_steps
+
+STEPS = 3
+
+
+@pytest.fixture
+def port_cpu():
+    hvd.init(device="cpu")
+    yield hvd
+    hvd.shutdown()
+
+
+@pytest.fixture
+def ref_torch(tmp_path, monkeypatch):
+    """The JAX package's torch frontend, Pallas kernels interpreted."""
+    import horovod_tpu as hvt_mod
+    import horovod_tpu.torch as ref_hvd
+
+    monkeypatch.setenv("HVTPU_FLIGHT_DIR", str(tmp_path))
+    monkeypatch.setenv("HVTPU_PALLAS_INTERPRET", "1")
+    ref_hvd.init()
+    yield ref_hvd
+    hvt_mod.shutdown()
+
+
+def _pair(port_compression, ref_hvd, ref_compression):
+    model = narrow_resnet(seed=0)
+    ref_model = copy.deepcopy(model)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
+        named_parameters=model.named_parameters(),
+        compression=port_compression, gradient_predivide_factor=2.0)
+    ref_opt = ref_hvd.DistributedOptimizer(
+        torch.optim.SGD(ref_model.parameters(), lr=0.1, momentum=0.9),
+        named_parameters=ref_model.named_parameters(),
+        compression=ref_compression, gradient_predivide_factor=2.0)
+    return model, opt, ref_model, ref_opt
+
+
+def test_slice_bitwise_against_jax_torch_frontend(port_cpu, ref_torch):
+    model, opt, ref_model, ref_opt = _pair(
+        hvd.Compression.none, ref_torch, ref_torch.Compression.none)
+    batches = synthetic_batches(STEPS)
+    losses = train_steps(model, opt, batches)
+    ref_losses = train_steps(ref_model, ref_opt, batches)
+    assert losses == ref_losses
+    ref_state = ref_model.state_dict()
+    for name, t in model.state_dict().items():
+        assert torch.equal(t, ref_state[name]), name
+    assert all(np.isfinite(losses))
+
+
+def test_slice_fp16_against_jax_torch_frontend(port_cpu, ref_torch):
+    model, opt, ref_model, ref_opt = _pair(
+        hvd.Compression.fp16, ref_torch, ref_torch.Compression.fp16)
+    batches = synthetic_batches(STEPS)
+    losses = train_steps(model, opt, batches)
+    ref_losses = train_steps(ref_model, ref_opt, batches)
+    np.testing.assert_allclose(losses, ref_losses, rtol=2e-3)
+    ref_params = dict(ref_model.named_parameters())
+    for name, p in model.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(),
+                                   ref_params[name].detach().numpy(),
+                                   rtol=2e-3, atol=1e-5, err_msg=name)
