@@ -16,7 +16,20 @@ Builds the port's CUDA kernels from ``horovod_tpu_torch/csrc`` and then:
    exactly 2 x 161 kernel launches per step;
 4. reduces one batch's gradients through the optimizer's group reduction
    with the kernel and with the plain version: bitwise equal;
-5. checks a narrow float32 ResNet trained 2 steps on the card against the
+5. holds kernels A2/A3, ``quantize_int8_blocks`` (both rounding modes)
+   and ``dequantize_int8_blocks``, bitwise against their plain versions
+   (any NaN equal to any NaN) over float32/bfloat16/float16 in and out,
+   lengths 1..2^20+3, aligned and offset views, the NaN/inf/zero/
+   subnormal blocks and every ResNet-50 gradient shape, and times them;
+6. drives the int8 path at full width: one backward of the ResNet-50 of
+   phase 3, its 161 gradients and their packed buffer through the
+   engine's ``Compression.int8`` and ``int8_stochastic`` (161 + 1 A2 and
+   A3 launches a codec), error bounds per block, stochastic rounding
+   unbiased and moving the expected share of codes off ``rint``, the
+   world-of-one ``allreduce(compression=int8)`` rule, and
+   ``quantized_allreduce`` over the one-rank NCCL group bitwise equal to
+   the same call on the CPU;
+7. checks a narrow float32 ResNet trained 2 steps on the card against the
    same steps computed on the CPU with plain PyTorch.
 
 Prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true,
@@ -50,6 +63,13 @@ TIMED_STEPS = 5
 PREDIVIDE = 2.0
 RESNET50_GRADS = 161
 LENGTHS = [1, 127, 1024, 1025, 2 ** 20 + 3]
+INT8_LENGTHS = [1, 1023, 1024, 1025, 2 ** 20 + 3]
+FLT_MIN = 2.0 ** -126
+# stochastic rounding over the 25.56 M buffer: |mean((x_hat - x) /
+# scale)|, and the share of codes moved off rint against its expectation;
+# each term is independent given the data and spans at most 1, so either
+# mean's standard deviation is below 0.5 / sqrt(25.56e6) = 1e-4
+UNBIASED_BOUND = 1e-3
 
 
 class SmokeFailure(Exception):
@@ -301,7 +321,355 @@ def parity_phase(model, opt, x, y):
         f"over {len(opt.buckets)} buckets")
 
 
-# -- phase 5: a small run against plain PyTorch on the CPU --------------------
+# -- phase 5: kernels A2/A3 against their plain versions ------------------------
+
+def same_bits(a, b) -> bool:
+    """Equal dtype, shape and bits, with any NaN equal to any NaN (the
+    kernel and PyTorch narrow a NaN to other bits)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    na, nb = torch.isnan(a), torch.isnan(b)
+    if not torch.equal(na, nb):
+        return False
+    as_int = {4: torch.int32, 2: torch.int16}[a.element_size()]
+    return torch.equal(a.view(as_int)[~na], b.view(as_int)[~na])
+
+
+def max_abs_diff(a, b) -> float:
+    import torch
+
+    both = torch.isfinite(a) & torch.isfinite(b)
+    if not both.any():
+        return 0.0
+    return float((a[both].double() - b[both].double()).abs().max())
+
+
+def wide_values(n: int, dtype, device, gen):
+    """float32 values over 50 decades, subnormals included, cast to
+    ``dtype``."""
+    import torch
+
+    mag = 10.0 ** (torch.rand(n, generator=gen, device=device) * 50 - 40)
+    return (torch.randn(n, generator=gen, device=device) * mag).to(dtype)
+
+
+def special_blocks(device, gen):
+    """Blocks of 1024 that the TPU's float32 semantics decide: NaN, inf,
+    -inf, zero, a subnormal absmax, scale FLT_MIN with a subnormal
+    element, a scale below FLT_MIN, and rounding ties, between ordinary
+    blocks, then a ragged tail."""
+    import torch
+
+    rows = [
+        [1.0, math.nan, 2.0, -3.0],
+        [1.0, math.inf, 2.0],
+        [1.0, -math.inf, 2.0],
+        [],
+        [3e-39, -2e-39, 1e-39],
+        [FLT_MIN * 127.0, 1.1e-38, 1e-37],
+        [1e-37, -5e-38],
+        [127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5],
+    ]
+    parts = []
+    for vals in rows:
+        parts.append(torch.randn(1024, generator=gen, device=device))
+        block = torch.zeros(1024, device=device)
+        block[:len(vals)] = torch.tensor(vals, dtype=torch.float32)
+        parts.append(block)
+    parts.append(torch.randn(700, generator=gen, device=device))
+    return torch.cat(parts)
+
+
+def _int8_bytes(n: int, in_size: int, out_size: int, quantize: bool):
+    """Bytes the function must move: the input once, the output once.
+    Quantize writes whole blocks of codes and one f32 scale a block;
+    dequantize reads the n codes it needs and the scales."""
+    blocks = -(-n // 1024)
+    if quantize:
+        return n * in_size + blocks * 1024 + 4 * blocks
+    return n + 4 * blocks + n * out_size
+
+
+def int8_kernel_phase(device, grad_shapes, big_n: int, reps: int):
+    import torch
+
+    from horovod_tpu_torch.ops import (
+        dequantize_int8_blocks,
+        dequantize_int8_blocks_plain,
+        quantize_int8_blocks,
+        quantize_int8_blocks_plain,
+    )
+
+    dtypes = [torch.float32, torch.bfloat16, torch.float16]
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    seed = torch.tensor(1234567, dtype=torch.int32, device=device)
+    err = {"q": 0.0, "s": 0.0, "d": 0.0}
+    compared = 0
+
+    def compare(x, what):
+        nonlocal compared
+        for stochastic in (False, True):
+            tag = f"{what} stochastic={stochastic}"
+            q, s, n = quantize_int8_blocks(x, stochastic=stochastic,
+                                           seed=seed)
+            pq, ps, pn = quantize_int8_blocks_plain(x, stochastic=stochastic,
+                                                    seed=seed)
+            check(n == pn and torch.equal(q, pq), f"A2 codes {tag}")
+            check(same_bits(s, ps), f"A2 scales {tag}")
+            err["q"] = max(err["q"], max_abs_diff(q.float(), pq.float()))
+            err["s"] = max(err["s"], max_abs_diff(s, ps))
+            for out_dt in dtypes:
+                d = dequantize_int8_blocks(q, s, n, out_dt)
+                dp = dequantize_int8_blocks_plain(q, s, n, out_dt)
+                check(same_bits(d, dp), f"A3 -> {out_dt} {tag}")
+                err["d"] = max(err["d"], max_abs_diff(d, dp))
+            compared += 1
+
+    for in_dt in dtypes:
+        for n in INT8_LENGTHS:
+            x = wide_values(n + 1, in_dt, device, gen)
+            # offset 0: 16-byte aligned, vector loads; offset 1: scalar
+            compare(x[:n], f"{in_dt} n={n}")
+            compare(x[1:], f"{in_dt} n={n} offset 1")
+        blocks = special_blocks(device, gen).to(in_dt)
+        compare(blocks, f"{in_dt} special blocks")
+        compare(blocks[1:], f"{in_dt} special blocks offset 1")
+    for shape in grad_shapes:
+        compare(wide_values(math.prod(shape), torch.float32, device, gen),
+                f"gradient {shape}")
+    torch.cuda.synchronize()
+    log(f"int8 kernels: A2 (both modes) and A3 (3 output dtypes) bitwise "
+        f"equal to the plain versions in {compared} x 2 comparisons "
+        f"(inputs f32/bf16/f16, lengths {INT8_LENGTHS} aligned and offset, "
+        f"the special blocks, {len(grad_shapes)} ResNet-50 gradient shapes)")
+
+    # Timing 1: one pass over the main path's shapes, as the int8 codec
+    # issues it: 161 float32 gradients (ResNet-50's parameters are
+    # float32), one launch each, A3 writing float32.
+    grads = [torch.randn(s, generator=gen, device=device).reshape(-1)
+             for s in grad_shapes]
+    coded = [quantize_int8_blocks(g) for g in grads]
+    before = (quantize_int8_blocks.launches, dequantize_int8_blocks.launches)
+
+    def pass_of(fn):
+        return lambda: [fn(g) for g in grads]
+
+    def deq_pass(fn):
+        return lambda: [fn(q, s, n, torch.float32) for q, s, n in coded]
+
+    def library_deq_pass():
+        # int8 x float32 promotes to float32: one call dequantizes a
+        # block-padded tensor; the trim to n is a view
+        return [torch.mul(q.view(-1, 1024), s) for q, s, _ in coded]
+
+    for (q, s, n), lib in zip(coded, library_deq_pass()):
+        check(same_bits(lib.reshape(-1)[:n],
+                        dequantize_int8_blocks_plain(q, s, n)),
+              "A3's library call computes another function")
+    q_bytes = sum(_int8_bytes(g.numel(), 4, 0, True) for g in grads)
+    d_bytes = sum(_int8_bytes(g.numel(), 0, 4, False) for g in grads)
+    total = sum(g.numel() for g in grads)
+    path = {}
+    for name, fn, plain, library, nbytes, flops in (
+        ("quantize_deterministic",
+         pass_of(quantize_int8_blocks),
+         pass_of(quantize_int8_blocks_plain), None, q_bytes, 4 * total),
+        ("quantize_stochastic",
+         pass_of(lambda g: quantize_int8_blocks(g, stochastic=True,
+                                                seed=seed)),
+         pass_of(lambda g: quantize_int8_blocks_plain(g, stochastic=True,
+                                                      seed=seed)),
+         None, q_bytes, 5 * total),
+        ("dequantize", deq_pass(dequantize_int8_blocks),
+         deq_pass(dequantize_int8_blocks_plain), library_deq_pass,
+         d_bytes, total),
+    ):
+        b_ms, b_by = _bound_ms(nbytes, flops)
+        path[name] = dict(
+            tensors=len(grads), elements=total, ms=time_cuda(fn, reps),
+            plain_ms=time_cuda(plain, max(2, reps // 4)),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=time_cuda(library, reps) if library else None)
+        log(f"int8_path_pass {name} " + json.dumps(path[name]))
+
+    # Timing 2: one buffer of every ResNet-50 gradient (25.56 M
+    # elements), the bandwidth-bound case.
+    big = {}
+    for in_dt in (torch.float32, torch.bfloat16):
+        x = torch.randn(big_n, generator=gen, device=device).to(in_dt)
+        size = x.element_size()
+        cases = [("quantize_deterministic",
+                  lambda: quantize_int8_blocks(x),
+                  lambda: quantize_int8_blocks_plain(x), None,
+                  _int8_bytes(big_n, size, 0, True), 4 * big_n)]
+        if in_dt == torch.float32:
+            q, s, n = quantize_int8_blocks(x)
+            cases += [
+                ("quantize_stochastic",
+                 lambda: quantize_int8_blocks(x, stochastic=True, seed=seed),
+                 lambda: quantize_int8_blocks_plain(x, stochastic=True,
+                                                    seed=seed), None,
+                 _int8_bytes(big_n, 4, 0, True), 5 * big_n)]
+            for out_dt in (torch.float32, torch.bfloat16):
+                padded = torch.empty((s.shape[0], 1024), dtype=out_dt,
+                                     device=device)
+                torch.mul(q.view(-1, 1024), s, out=padded)
+                check(same_bits(padded.reshape(-1)[:n],
+                                dequantize_int8_blocks_plain(q, s, n, out_dt)),
+                      f"A3's library call to {out_dt} computes another "
+                      "function")
+                cases.append((
+                    f"dequantize_to_{str(out_dt)[6:]}",
+                    lambda o=out_dt: dequantize_int8_blocks(q, s, n, o),
+                    lambda o=out_dt: dequantize_int8_blocks_plain(q, s, n, o),
+                    lambda p=padded: torch.mul(q.view(-1, 1024), s, out=p),
+                    _int8_bytes(big_n, 0, padded.element_size(), False),
+                    big_n))
+        for name, fn, plain, library, nbytes, flops in cases:
+            b_ms, b_by = _bound_ms(nbytes, flops)
+            row = dict(n=big_n, input=str(in_dt)[6:], ms=time_cuda(fn, reps),
+                       plain_ms=time_cuda(plain, max(2, reps // 4)),
+                       bound_ms=b_ms, bound_by=b_by,
+                       library_ms=(time_cuda(library, reps) if library
+                                   else None))
+            big[f"{name}_{row['input']}"] = row
+            log(f"int8_big_buffer {name} " + json.dumps(row))
+        del x
+    quantize_int8_blocks.launches, dequantize_int8_blocks.launches = before
+    return dict(compared=compared, err=err, path_pass=path, big_buffer=big)
+
+
+# -- phase 6: the int8 path at full width ----------------------------------
+
+def int8_path_phase(model, x, y):
+    """One backward of the training phase's ResNet-50 (bfloat16 compute,
+    float32 parameters, so float32 gradients), its gradients and their
+    packed buffer through the engine's int8 codecs,
+    then the world-of-one allreduce and the quantized allreduce."""
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.comm import eager, quantized
+    from horovod_tpu_torch.comm.compression import Compression
+    from horovod_tpu_torch.comm.packing import pack_flat
+    from horovod_tpu_torch.ops import (
+        dequantize_int8_blocks,
+        dequantize_int8_blocks_plain,
+        quantize_int8_blocks,
+    )
+
+    params = [p for p in model.parameters() if p.requires_grad]
+    loss = F.cross_entropy(model(x), y)
+    grads = list(torch.autograd.grad(loss, params))
+    bucket, _ = pack_flat(grads)
+    tensors = grads + [bucket]
+
+    quantize_int8_blocks.launches = 0      # the int8 path's run starts here
+    dequantize_int8_blocks.launches = 0
+    runs, launches = {}, {}
+    for mode, codec in (("deterministic", Compression.int8),
+                        ("stochastic", Compression.int8_stochastic)):
+        before = quantize_int8_blocks.launches
+        runs[mode] = []
+        for t in tensors:
+            wire, ctx = codec.compress(t)
+            runs[mode].append((wire, ctx, codec.decompress(wire, ctx)))
+        launches[mode] = quantize_int8_blocks.launches - before
+    torch.cuda.synchronize()
+    a2, a3 = quantize_int8_blocks.launches, dequantize_int8_blocks.launches
+    per_codec = len(tensors)
+    check(launches == {"deterministic": per_codec, "stochastic": per_codec}
+          and a3 == 2 * per_codec,
+          f"int8 path: {launches} A2 and {a3} A3 launches, expected "
+          f"{per_codec} of each a codec")
+
+    worst = {"deterministic": 0.0, "stochastic": 0.0}
+    for i, t in enumerate(tensors):
+        x32 = t.float().reshape(-1)
+        (dw, dctx, dback), (sw, sctx, sback) = (runs["deterministic"][i],
+                                                runs["stochastic"][i])
+        check(int((sw.int() - dw.int()).abs().max()) <= 1,
+              f"tensor {i}: stochastic codes more than 1 from deterministic")
+        for mode, wire, ctx, back, slack in (
+                ("deterministic", dw, dctx, dback, 0.5),
+                ("stochastic", sw, sctx, sback, 1.0)):
+            _, shape, n, scale = ctx
+            deq = dequantize_int8_blocks_plain(wire.reshape(-1, 128), scale,
+                                               n)
+            check(back.dtype == t.dtype and tuple(back.shape) == shape,
+                  f"tensor {i} {mode}: dtype/shape")
+            check(same_bits(back.reshape(-1), deq.to(t.dtype)),
+                  f"tensor {i} {mode}: decompress is not the cast of q*s")
+            per_elem = scale.reshape(-1).repeat_interleave(1024)[:n]
+            # float32 rounding of x*inv and q*s adds < 3e-5 scale;
+            # a flushed subnormal adds < FLT_MIN
+            excess = ((deq - x32).abs()
+                      - (per_elem * slack * (1 + 1e-4) + FLT_MIN))
+            check(float(excess.max()) <= 0.0,
+                  f"tensor {i} {mode}: error beyond {slack} scale")
+            rel = ((deq - x32).abs() / per_elem.clamp_min(FLT_MIN)).max()
+            worst[mode] = max(worst[mode], float(rel))
+            if i == len(tensors) - 1:
+                pos = per_elem > 0
+                bias = float(((deq - x32)[pos] / per_elem[pos])
+                             .double().mean())
+                if mode == "stochastic":
+                    check(abs(bias) <= UNBIASED_BOUND,
+                          f"stochastic rounding biased: {bias}")
+                    # deterministic rounding passes the checks above too;
+                    # a dither moves an element off rint(t) with
+                    # probability |t - rint(t)|, t = x / scale
+                    t = x32[pos] / per_elem[pos]
+                    expected = float((t - t.round()).abs().double().mean())
+                    moved = float((sw.reshape(-1)[:n][pos]
+                                   != dw.reshape(-1)[:n][pos])
+                                  .double().mean())
+                    check(expected > 10 * UNBIASED_BOUND
+                          and abs(moved - expected) <= UNBIASED_BOUND,
+                          f"stochastic codes differ from deterministic in "
+                          f"{moved} of the elements, expected {expected}")
+                    worst["dithered_share"] = [moved, expected]
+                worst[f"bias_{mode}"] = bias
+    check(worst["stochastic"] > 0.5 + 1e-3,
+          f"stochastic error never exceeds 0.5 scale ({worst['stochastic']})")
+
+    # world of one: no wire compression, one multiply by pre * post
+    before = quantize_int8_blocks.launches
+    got = eager.allreduce(bucket, compression=Compression.int8,
+                          prescale_factor=0.5, postscale_factor=3.0)
+    check(quantize_int8_blocks.launches == before,
+          "allreduce at world size 1 compressed the wire")
+    check(same_bits(got, bucket * torch.tensor(1.5, dtype=bucket.dtype,
+                                               device=bucket.device)),
+          "allreduce(compression=int8) at world size 1 is not bucket * 1.5")
+
+    # the two-phase quantized allreduce over the one-rank NCCL group,
+    # against the same call on the CPU over gloo
+    cpu_group = dist.new_group(backend="gloo")
+    try:
+        for stochastic in (False, True):
+            on_card = quantized.quantized_allreduce(bucket,
+                                                    stochastic=stochastic)
+            on_cpu = quantized.quantized_allreduce(
+                bucket.cpu(), group=cpu_group, stochastic=stochastic)
+            check(same_bits(on_card.cpu(), on_cpu),
+                  f"quantized_allreduce(stochastic={stochastic}): card and "
+                  "CPU differ")
+    finally:
+        dist.destroy_process_group(cpu_group)
+    result = dict(tensors=len(grads), elements=bucket.numel(),
+                  a2_launches=launches, a3_launches=a3,
+                  worst_error_in_scales=worst)
+    log("int8_path " + json.dumps(result))
+    return result
+
+
+# -- phase 7: a small run against plain PyTorch on the CPU --------------------
 
 def reference_phase(hvd, device):
     """2 steps of a narrow float32 ResNet through the port on the card,
@@ -389,12 +757,14 @@ def main() -> int:
         check(len(grad_shapes) == RESNET50_GRADS, "ResNet-50 inventory")
         big_n = sum(math.prod(s) for s in grad_shapes)
         kern = kernel_phase(device, grad_shapes, big_n, reps=20)
+        int8_kern = int8_kernel_phase(device, grad_shapes, big_n, reps=20)
 
         torch.backends.cudnn.benchmark = True
         model, opt, x, y, train = train_phase(hvd, device, BATCH, IMAGE,
                                               [3, 4, 6, 3])
         check(train["grads"] == RESNET50_GRADS, "ResNet-50 gradients")
         parity_phase(model, opt, x, y)
+        int8_path = int8_path_phase(model, x, y)
         del model, opt, x, y
         reference_phase(hvd, device)
     finally:
@@ -403,7 +773,7 @@ def main() -> int:
     log(f"{smi} | ResNet-50 bf16 batch {BATCH} {IMAGE}x{IMAGE}: "
         f"{train['images_per_s']:.1f} images/s")
     pp = kern["path_pass"]
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "fused_scale_cast",
         "route": "cuda",
         "source": "horovod_tpu_torch/csrc/scale_cast.cu",
@@ -415,7 +785,33 @@ def main() -> int:
         "bound_ms": pp["bound_ms"],
         "bound_by": pp["bound_by"],
         "library_ms": pp["library_ms"],
-    }]}), flush=True)
+    }]
+    ipp, err = int8_kern["path_pass"], int8_kern["err"]
+    for name, key, line, launches, max_err in (
+            ("quantize_int8_blocks (deterministic)", "quantize_deterministic",
+             185, int8_path["a2_launches"]["deterministic"],
+             max(err["q"], err["s"])),
+            ("quantize_int8_blocks (stochastic)", "quantize_stochastic", 185,
+             int8_path["a2_launches"]["stochastic"],
+             max(err["q"], err["s"])),
+            ("dequantize_int8_blocks", "dequantize", 214,
+             int8_path["a3_launches"], err["d"])):
+        # A3's library call is one torch.mul of the codes by the scales;
+        # A2 has none
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "horovod_tpu_torch/csrc/quantize_int8.cu",
+            "replaces": f"horovod_tpu/ops/pallas_ops.py:{line}",
+            "launches": launches,
+            "max_abs_err": max_err,
+            "ms": ipp[key]["ms"],
+            "plain_ms": ipp[key]["plain_ms"],
+            "bound_ms": ipp[key]["bound_ms"],
+            "bound_by": ipp[key]["bound_by"],
+            "library_ms": ipp[key]["library_ms"],
+        })
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,22 +1,35 @@
 """Synchronous collectives on torch tensors over ``torch.distributed``.
 
 Counterpart of the public eager ops of ``horovod_tpu/comm/eager.py``
-(``allreduce``, ``broadcast``, ``barrier``) with the reduction semantics
-of ``horovod_tpu/comm/spmd.py`` ``allreduce``: prescale in the tensor's
-dtype, sum, Average divides by the participant count (floor division for
-integers), postscale in the output's dtype.  Each op returns a new
-tensor.  Only Sum and Average exist so far.
+(``allreduce``, ``grouped_allreduce``, ``allgather``, ``broadcast``,
+``alltoall``, ``reducescatter``, ``barrier``) with the reduction
+semantics of ``horovod_tpu/comm/spmd.py`` ``allreduce``:
+
+* in a world of one, every op is the identity: ``allreduce`` multiplies
+  once by ``prescale * postscale`` in the tensor's dtype (a copy when
+  that is 1) and skips wire compression;
+* otherwise the prescale multiplies in the tensor's dtype, then Sum and
+  Average with an int8 codec on a floating tensor take the two-phase
+  ``quantized_allreduce``, other codecs compress, sum and decompress;
+  Average divides by the rank count (floor division for integers); Min
+  and Max reduce; Product gathers and multiplies; the postscale
+  multiplies in the output's dtype.
+
+Every op returns a new tensor.  Only the global process set exists.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
 from ..core import state as core_state
 from ..core.process_set import ProcessSet, global_process_set
+from .compression import Int8Compressor, NoneCompressor
+from .packing import pack_flat, unpack_flat
+from .quantized import quantized_allreduce
 from .reduce_ops import ReduceOp, normalize_op
 
 
@@ -29,10 +42,30 @@ def _resolve_process_set(process_set: Optional[ProcessSet], name: str):
     return ps
 
 
+def _is_int8(compression) -> bool:
+    """Subclass-aware: ``Int8StochasticCompressor`` counts too."""
+    return (isinstance(compression, Int8Compressor)
+            or (isinstance(compression, type)
+                and issubclass(compression, Int8Compressor)))
+
+
+def _is_stochastic_int8(compression) -> bool:
+    return _is_int8(compression) and bool(
+        getattr(compression, "STOCHASTIC", False))
+
+
 def _scale(t: torch.Tensor, factor: float) -> torch.Tensor:
-    # spmd.py parity: ``t * jnp.asarray(factor, t.dtype)`` — the factor
-    # takes the tensor's dtype first (integers truncate it).
+    # eager.py parity at world size 1: ``x * jnp.asarray(factor,
+    # x.dtype)`` — the factor takes the tensor's dtype first (integers
+    # truncate it).
     return t * torch.tensor(factor, dtype=t.dtype, device=t.device)
+
+
+def _scale_f32(t: torch.Tensor, factor: float) -> torch.Tensor:
+    # eager.py parity across ranks: the factor travels as a float32
+    # scalar and is cast to the tensor's dtype (``pre.astype(x.dtype)``)
+    f = torch.tensor(factor, dtype=torch.float32, device=t.device)
+    return t * f.to(t.dtype)
 
 
 def average_(t: torch.Tensor, n: int) -> torch.Tensor:
@@ -43,6 +76,40 @@ def average_(t: torch.Tensor, n: int) -> torch.Tensor:
     return t.floor_divide_(n)
 
 
+def _gather(x: torch.Tensor, ps: ProcessSet) -> torch.Tensor:
+    """``(size,) + x.shape``: every rank's ``x``, in rank order."""
+    x = x.contiguous().reshape((1,) + tuple(x.shape))
+    out = x.new_empty((ps.size,) + tuple(x.shape[1:]))
+    dist.all_gather_into_tensor(out, x, group=ps.group)
+    return out
+
+
+def _reduce(x: torch.Tensor, rop: ReduceOp, compression,
+            ps: ProcessSet) -> torch.Tensor:
+    """The reduction of ``spmd.allreduce`` over ``ps``; ``x`` is a
+    contiguous tensor the caller owns."""
+    if rop in (ReduceOp.SUM, ReduceOp.AVERAGE):
+        if _is_int8(compression) and x.is_floating_point():
+            # int8 codes cannot be summed (per-rank scales, overflow):
+            # the two-phase quantized allreduce
+            return quantized_allreduce(
+                x, group=ps.group, average=rop == ReduceOp.AVERAGE,
+                stochastic=_is_stochastic_int8(compression)).to(x.dtype)
+        wire, ctx = compression.compress(x)
+        dist.all_reduce(wire, op=dist.ReduceOp.SUM, group=ps.group)
+        out = compression.decompress(wire, ctx)
+        if rop == ReduceOp.AVERAGE:
+            out = average_(out, ps.size)
+        return out
+    if rop in (ReduceOp.MIN, ReduceOp.MAX):
+        dist.all_reduce(x, op=dist.ReduceOp.MIN if rop == ReduceOp.MIN
+                        else dist.ReduceOp.MAX, group=ps.group)
+        return x
+    if rop == ReduceOp.PRODUCT:
+        return torch.prod(_gather(x, ps), dim=0, dtype=x.dtype)
+    raise ValueError(f"unsupported op {rop}")
+
+
 def allreduce(
     tensor: torch.Tensor,
     *,
@@ -50,22 +117,141 @@ def allreduce(
     average: Optional[bool] = None,
     prescale_factor: float = 1.0,
     postscale_factor: float = 1.0,
+    compression=NoneCompressor,
     process_set: Optional[ProcessSet] = None,
+    name: Optional[str] = None,
 ) -> torch.Tensor:
+    """Reduce ``tensor`` over the ranks (``compression`` is an engine
+    codec of ``comm/compression.py``; ``name`` is accepted for parity and
+    unused until the port has a timeline)."""
     rop = normalize_op(op, average)
-    if rop not in (ReduceOp.SUM, ReduceOp.AVERAGE):
-        raise NotImplementedError(
-            f"allreduce op {rop.name} is not ported yet (Sum, Average)")
+    if rop == ReduceOp.ADASUM:
+        if _is_int8(compression):
+            # size-independent, as in the reference: dot products over
+            # per-rank block-scaled codes are meaningless
+            raise ValueError(
+                "int8 compression cannot ride Adasum (per-rank scales "
+                "would corrupt the dot products); use fp16/bf16/none")
+        raise NotImplementedError("Adasum is not ported yet")
     ps = _resolve_process_set(process_set, "allreduce")
-    out = tensor.detach().clone(memory_format=torch.contiguous_format)
+    x = tensor.detach()
+    if ps.size == 1:
+        factor = prescale_factor * postscale_factor
+        if factor != 1.0:
+            return _scale(x, factor)
+        return x.clone(memory_format=torch.contiguous_format)
+    x = x.clone(memory_format=torch.contiguous_format)
     if prescale_factor != 1.0:
-        out = _scale(out, prescale_factor)
-    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=ps.group)
-    if rop == ReduceOp.AVERAGE:
-        average_(out, ps.size)
+        x = _scale_f32(x, prescale_factor)
+    out = _reduce(x, rop, compression, ps)
     if postscale_factor != 1.0:
-        out = _scale(out, postscale_factor)
+        out = _scale_f32(out, postscale_factor)
     return out
+
+
+def grouped_allreduce(
+    tensors: Sequence[torch.Tensor],
+    *,
+    op: Optional[ReduceOp] = None,
+    average: Optional[bool] = None,
+    prescale_factor: float = 1.0,
+    postscale_factor: float = 1.0,
+    compression=NoneCompressor,
+    process_set: Optional[ProcessSet] = None,
+) -> List[torch.Tensor]:
+    """Reduce a list of tensors as one unit: Sum/Average pack into one
+    flat buffer and one allreduce; Min/Max/Product go tensor by
+    tensor."""
+    rop = normalize_op(op, average)
+    tensors = list(tensors)
+    if not tensors:
+        return []
+    kwargs = dict(prescale_factor=prescale_factor,
+                  postscale_factor=postscale_factor,
+                  compression=compression, process_set=process_set)
+    if rop not in (ReduceOp.SUM, ReduceOp.AVERAGE):
+        return [allreduce(t, op=rop, **kwargs) for t in tensors]
+    flat, specs = pack_flat([t.detach() for t in tensors])
+    return unpack_flat(allreduce(flat, op=rop, **kwargs), specs)
+
+
+def allgather(tensor: torch.Tensor, *,
+              process_set: Optional[ProcessSet] = None) -> torch.Tensor:
+    """Concatenate every rank's tensor along dim 0; dim 0 may differ per
+    rank (the sizes are exchanged first)."""
+    ps = _resolve_process_set(process_set, "allgather")
+    x = tensor.detach()
+    if ps.size == 1:
+        return x.clone(memory_format=torch.contiguous_format)
+    dim0 = torch.tensor([x.shape[0]], dtype=torch.int64, device=x.device)
+    sizes = _gather(dim0, ps).reshape(-1).tolist()
+    maxd = max(sizes)
+    if x.shape[0] != maxd:
+        x = torch.cat([x, x.new_zeros((maxd - x.shape[0],) + x.shape[1:])])
+    gathered = _gather(x, ps)                       # (size, maxd, ...)
+    if all(s == maxd for s in sizes):
+        return gathered.reshape((-1,) + tuple(x.shape[1:]))
+    return torch.cat([gathered[r, :s] for r, s in enumerate(sizes)])
+
+
+def alltoall(tensor: torch.Tensor, splits=None, *,
+             process_set: Optional[ProcessSet] = None):
+    """Send ``splits[i]`` rows of dim 0 to rank i (equal splits when
+    ``splits`` is None).  Returns the received tensor, or ``(received,
+    received_splits)`` when ``splits`` is given."""
+    ps = _resolve_process_set(process_set, "alltoall")
+    x = tensor.detach()
+    p = ps.size
+    return_splits = splits is not None
+    if splits is None:
+        if x.shape[0] % p:
+            raise ValueError(
+                f"alltoall dim0 {x.shape[0]} not divisible by size {p}")
+        splits = [x.shape[0] // p] * p
+    splits = torch.as_tensor(splits)
+    if splits.shape != (p,) or int(splits.sum()) != x.shape[0]:
+        raise ValueError("splits must be a (size,) vector summing to dim0")
+    splits = splits.tolist()
+    if p == 1:
+        out = x.clone(memory_format=torch.contiguous_format)
+        return (out, torch.tensor(splits, dtype=torch.int32)) \
+            if return_splits else out
+    # row r of the split matrix: what rank r sends to each rank
+    mine = torch.tensor(splits, dtype=torch.int64, device=x.device)
+    matrix = _gather(mine, ps).tolist()
+    rank = core_state.global_state().rank
+    recv = [row[rank] for row in matrix]
+    out = x.new_empty((sum(recv),) + tuple(x.shape[1:]))
+    dist.all_to_all_single(out, x.contiguous(), output_split_sizes=recv,
+                           input_split_sizes=splits, group=ps.group)
+    return (out, torch.tensor(recv, dtype=torch.int32)) \
+        if return_splits else out
+
+
+def reducescatter(tensor: torch.Tensor, *, op: Optional[ReduceOp] = None,
+                  process_set: Optional[ProcessSet] = None) -> torch.Tensor:
+    """Reduce over the ranks and return this rank's dim-0 shard.  An
+    uneven dim 0 gives the first ``dim0 % size`` ranks one extra row."""
+    rop = normalize_op(op, None)
+    ps = _resolve_process_set(process_set, "reducescatter")
+    x = tensor.detach()
+    p = ps.size
+    if p == 1:
+        return x.clone(memory_format=torch.contiguous_format)
+    if x.shape[0] % p == 0:
+        if rop not in (ReduceOp.SUM, ReduceOp.AVERAGE):
+            raise ValueError("reducescatter supports Sum and Average")
+        out = x.new_empty((x.shape[0] // p,) + tuple(x.shape[1:]))
+        dist.reduce_scatter_tensor(out, x.contiguous(),
+                                   op=dist.ReduceOp.SUM, group=ps.group)
+        if rop == ReduceOp.AVERAGE:
+            average_(out, p)
+        return out
+    reduced = allreduce(x, op=rop, process_set=ps)
+    r = core_state.global_state().rank
+    base, extra = divmod(x.shape[0], p)
+    start = r * base + min(r, extra)
+    return reduced[start:start + base + (1 if r < extra else 0)]
 
 
 def broadcast(tensor: torch.Tensor, root_rank: int = 0,

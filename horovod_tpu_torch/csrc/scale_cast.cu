@@ -31,6 +31,9 @@ namespace {
 
 constexpr int kVec = 8;        // elements per thread per step
 constexpr int kThreads = 256;
+// grid-stride loop: 8 blocks on each of an H100's 132 SMs; a larger grid
+// would only queue
+constexpr int64_t kMaxBlocks = 1056;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
@@ -87,18 +90,6 @@ scale_cast_kernel(const InT* __restrict__ x, OutT* __restrict__ out,
     out[i] = from_f32<OutT>(__fmul_rn(to_f32(x[i]), scale));
 }
 
-int sm_count() {
-  static int count = 0;
-  if (count == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount,
-                               dev) != cudaSuccess || count <= 0)
-      count = 132;
-  }
-  return count;
-}
-
 template <typename InT, typename OutT>
 int launch(const void* x, void* out, int64_t n, float scale,
            cudaStream_t stream) {
@@ -106,8 +97,7 @@ int launch(const void* x, void* out, int64_t n, float scale,
                           (reinterpret_cast<uintptr_t>(out) % 16 == 0);
   const int64_t work = vectorized ? (n / kVec + n % kVec) : n;
   int64_t blocks = (work + kThreads - 1) / kThreads;
-  const int64_t cap = (int64_t)sm_count() * 8;
-  if (blocks > cap) blocks = cap;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   if (blocks < 1) blocks = 1;
   scale_cast_kernel<InT, OutT><<<(unsigned)blocks, kThreads, 0, stream>>>(
       static_cast<const InT*>(x), static_cast<OutT*>(out), n, scale,

@@ -1,6 +1,17 @@
 """Hand-written CUDA kernels of the PyTorch port and their plain PyTorch
 versions (counterpart of ``horovod_tpu/ops``)."""
 
+from .quantize import (
+    QBLOCK,
+    dequantize_int8_blocks,
+    dequantize_int8_blocks_plain,
+    quantize_int8_blocks,
+    quantize_int8_blocks_plain,
+)
 from .scale_cast import fused_scale_cast, fused_scale_cast_plain
 
-__all__ = ["fused_scale_cast", "fused_scale_cast_plain"]
+__all__ = [
+    "fused_scale_cast", "fused_scale_cast_plain",
+    "QBLOCK", "quantize_int8_blocks", "quantize_int8_blocks_plain",
+    "dequantize_int8_blocks", "dequantize_int8_blocks_plain",
+]

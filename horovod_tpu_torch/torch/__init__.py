@@ -11,12 +11,27 @@ Usage (the reference's shape)::
         compression=hvd.Compression.fp16,
         gradient_predivide_factor=2.0)
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+
+The sync collectives take the engine's wire codecs
+(``horovod_tpu_torch.comm.compression.Compression``, int8 included)::
+
+    from horovod_tpu_torch.comm.compression import Compression
+    hvd.allreduce(t, compression=Compression.int8)
 """
 
 from __future__ import annotations
 
-from ..comm.eager import allreduce, barrier, broadcast, broadcast_
-from ..comm.reduce_ops import Average, Sum
+from ..comm.eager import (
+    allgather,
+    allreduce,
+    alltoall,
+    barrier,
+    broadcast,
+    broadcast_,
+    grouped_allreduce,
+    reducescatter,
+)
+from ..comm.reduce_ops import Average, Max, Min, Product, Sum
 from ..core.exceptions import NotInitializedError
 from ..core.process_set import ProcessSet, global_process_set
 from ..core.state import (
@@ -39,8 +54,9 @@ from .optimizer import DistributedOptimizer
 __all__ = [
     "init", "shutdown", "is_initialized", "rank", "size", "local_rank",
     "device", "ProcessSet", "global_process_set", "NotInitializedError",
-    "Compression", "Sum", "Average",
-    "allreduce", "broadcast", "broadcast_", "barrier",
+    "Compression", "Sum", "Average", "Min", "Max", "Product",
+    "allreduce", "grouped_allreduce", "allgather", "alltoall",
+    "reducescatter", "broadcast", "broadcast_", "barrier",
     "broadcast_parameters", "broadcast_optimizer_state",
     "broadcast_object", "DistributedOptimizer",
 ]

@@ -10,13 +10,23 @@ plan order are ready, so every rank issues the same collectives in the
 same order.  ``synchronize()`` (run by ``step()``) launches what is left,
 waits, and writes the reduced gradients back in place.
 
-One group's reduction mirrors the staged fused path of the JAX engine
-(``eager/controller.py`` ``_execute_allreduce``): per-tensor prescale
-through the ``fused_scale_cast`` kernel (only when it is not 1), wire
-compression, ``pack_flat``, one ``all_reduce(SUM)`` launched with
-``async_op=True``, then at finish ``unpack_flat``, decompression and
-per-tensor postscale through the kernel.  The order holds in a world of
-one too: nothing is short-cut.
+One group's reduction follows the JAX engine's
+(``eager/controller.py`` ``_execute_allreduce``):
+
+* a group of several tensors takes the staged fused path: per-tensor
+  prescale through the ``fused_scale_cast`` kernel (only when it is not
+  1), wire compression, ``pack_flat``, one ``all_reduce(SUM)`` launched
+  with ``async_op=True``, then at finish ``unpack_flat``, decompression
+  and per-tensor postscale through the kernel.  The order holds in a
+  world of one too;
+* a group of one tensor goes through ``comm/eager.allreduce`` with the
+  group's op, scales and codec, which in a world of one skips the wire
+  compression and multiplies once by ``prescale * postscale``.
+
+The wire codec is the engine's (``comm/compression.py``): the torch
+surface's ``Compression.fp16`` / ``bf16`` map onto it and anything else
+onto ``none``, as ``horovod_tpu/torch/mpi_ops.py`` maps them, so the
+fp16 wire casts every floating gradient, bfloat16 ones included.
 
 ``gradient_predivide_factor=f`` (requires ``op=Average``) reduces with
 ``op=Sum``, prescale ``1/f`` and postscale ``f/n``.
@@ -32,7 +42,8 @@ from typing import Callable, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from ..comm.eager import average_
+from ..comm import eager
+from ..comm.compression import Compression as EngineCompression
 from ..comm.fusion import plan_buckets
 from ..comm.packing import pack_flat, unpack_flat
 from ..comm.reduce_ops import ReduceOp, normalize_op
@@ -42,21 +53,34 @@ from ..ops.scale_cast import fused_scale_cast
 from .compression import Compression
 
 
+def engine_compression(compression):
+    """The engine codec of a torch-surface ``Compression`` (parity:
+    ``horovod_tpu/torch/mpi_ops.py`` ``_engine_compression``)."""
+    if compression is Compression.fp16:
+        return EngineCompression.fp16
+    if compression is Compression.bf16:
+        return EngineCompression.bf16
+    return EngineCompression.none
+
+
 @dataclasses.dataclass
 class PendingGroup:
-    """One fused allreduce in flight."""
+    """One group's allreduce in flight; a single-tensor group is
+    reduced at launch and carries its result in ``outs``."""
 
-    flat: torch.Tensor
-    specs: list
-    ctxs: list
-    work: object
+    flat: Optional[torch.Tensor] = None
+    specs: Optional[list] = None
+    ctxs: Optional[list] = None
+    work: object = None
+    outs: Optional[List[torch.Tensor]] = None
 
 
 @dataclasses.dataclass(frozen=True)
 class GroupReduction:
-    """The reduction of one fused group of gradients.
+    """The reduction of one group of gradients.
 
-    ``scale`` is the pre/postscale function; the optimizer uses the
+    ``compression`` is an engine codec; ``scale`` is the pre/postscale
+    function of the fused path, the optimizer uses the
     ``fused_scale_cast`` kernel wrapper.
     """
 
@@ -75,6 +99,12 @@ class GroupReduction:
         return t * torch.tensor(factor, dtype=t.dtype, device=t.device)
 
     def launch(self, tensors: Sequence[torch.Tensor]) -> PendingGroup:
+        if len(tensors) == 1:
+            return PendingGroup(outs=[eager.allreduce(
+                tensors[0], op=self.op, prescale_factor=self.prescale,
+                postscale_factor=self.postscale,
+                compression=self.compression,
+                process_set=self.process_set)])
         wires, ctxs = [], []
         for t in tensors:
             if self.prescale != 1.0:
@@ -88,10 +118,12 @@ class GroupReduction:
         return PendingGroup(flat, specs, ctxs, work)
 
     def finish(self, pending: PendingGroup) -> List[torch.Tensor]:
+        if pending.outs is not None:
+            return pending.outs
         pending.work.wait()
         flat = pending.flat
         if self.op == ReduceOp.AVERAGE:
-            average_(flat, self.process_set.size)
+            eager.average_(flat, self.process_set.size)
         outs = []
         for piece, ctx in zip(unpack_flat(flat, pending.specs),
                               pending.ctxs):
@@ -127,14 +159,14 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                 "only the global process set is supported so far")
         self.backward_passes_per_step = backward_passes_per_step
 
+        wire = engine_compression(compression)
         if gradient_predivide_factor != 1.0:
             self.reduction = GroupReduction(
                 ReduceOp.SUM, 1.0 / gradient_predivide_factor,
                 gradient_predivide_factor / process_set.size,
-                compression, process_set)
+                wire, process_set)
         else:
-            self.reduction = GroupReduction(op, 1.0, 1.0, compression,
-                                            process_set)
+            self.reduction = GroupReduction(op, 1.0, 1.0, wire, process_set)
 
         named = list(named_parameters) if named_parameters is not None else []
         name_of = {id(p): n for n, p in named}

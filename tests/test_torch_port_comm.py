@@ -215,8 +215,62 @@ def test_eager_allreduce_integer_average_floors(port_cpu):
 
 
 def test_eager_allreduce_rejects_unported_op(port_cpu):
+    # Min/Max/Product are ported now; Adasum is not yet
     with pytest.raises(NotImplementedError):
-        eager.allreduce(torch.ones(3), op=reduce_ops.Max)
+        eager.allreduce(torch.ones(3), op=reduce_ops.Adasum)
+    for op in (reduce_ops.Min, reduce_ops.Max, reduce_ops.Product):
+        out = eager.allreduce(torch.arange(3.0), op=op)
+        assert torch.equal(out, torch.arange(3.0))   # world of one
+
+
+@pytest.mark.parametrize("predivide", [1.0, 2.0, 49.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_single_tensor_groups_match_jax_eager_bitwise(monkeypatch, hvt_jax,
+                                                      predivide, dtype):
+    """At world size 1 a group of one tensor goes through
+    ``comm/eager.allreduce`` as the JAX controller sends it
+    (``eager/controller.py:2252-2265``): no fp16 wire, one multiply by
+    prescale * postscale.  A threshold of 1 byte makes every bucket a
+    single tensor."""
+    from horovod_tpu.comm import eager as jax_eager
+    from horovod_tpu.comm.compression import Compression as JaxCompression
+    from torch_port_util import narrow_resnet, synthetic_batches
+    import torch.nn.functional as F
+
+    monkeypatch.setenv("HVTPU_FUSION_THRESHOLD", "1")
+    hvd.init(device="cpu")
+    try:
+        model = narrow_resnet(seed=3)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.1),
+            named_parameters=model.named_parameters(),
+            compression=hvd.Compression.fp16,
+            gradient_predivide_factor=predivide)
+        assert all(len(b) == 1 for b in opt.buckets)
+        x, y = synthetic_batches(1, batch=4, seed=5)[0]
+        params = [p for p in model.parameters() if p.requires_grad]
+        loss = F.cross_entropy(model(torch.from_numpy(x)),
+                               torch.from_numpy(y))
+        grads = [g.to(dtype) for g in torch.autograd.grad(loss, params)]
+        red = opt.reduction
+        changed = 0
+        for g in grads:
+            (got,) = red.reduce([g])
+            want = jax_eager.allreduce(
+                jnp.asarray(g.float().numpy()).astype(_TORCH_TO_JNP[dtype]),
+                op=jax_reduce_ops.ReduceOp(int(red.op)),
+                prescale_factor=red.prescale,
+                postscale_factor=red.postscale,
+                compression=JaxCompression.fp16)
+            assert got.dtype == dtype and got.shape == g.shape
+            np.testing.assert_array_equal(
+                got.float().numpy(), np.asarray(want).astype(np.float32))
+            # the fused path would have rounded through fp16
+            fused = red.scale(g.reshape(-1), red.prescale).to(torch.float16)
+            changed += not torch.equal(fused.to(dtype).reshape(g.shape), g)
+        assert changed > 0
+    finally:
+        hvd.shutdown()
 
 
 def test_broadcast_single_rank(port_cpu):

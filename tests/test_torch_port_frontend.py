@@ -9,10 +9,13 @@ same settings, its Pallas kernels in interpret mode:
 * compression none: parameters **bitwise** equal.  The scales 1/2 and
   2/1 are powers of two, exact in float32, so how the JAX controller
   groups tensors cannot change the result;
-* compression fp16: rtol 2e-3, because at world size 1 the JAX engine
-  applies fp16 only to multi-tensor groups (``comm/eager.py`` skips
-  compression for a single payload) while the port compresses every
-  group.
+* compression fp16: rtol 2e-3.  Both packages send a group of one
+  tensor through the eager allreduce, which at world size 1 skips the
+  fp16 wire, and cast every tensor of a larger group through fp16.  But
+  the JAX controller groups whatever tensors are ready in a cycle, while
+  the port groups by its fixed bucket plan, so a tensor can be alone in
+  a group in one package and share one in the other.
+  ``test_torch_port_comm.py`` holds the single-tensor groups bitwise.
 """
 
 import copy

@@ -81,3 +81,81 @@ def two_rank_worker(rank: int, world: int, store_path: str, out_dir: str,
         hvd.shutdown()
     finally:
         dist.destroy_process_group()
+
+
+# -- the collectives of the second slice, 2 ranks over gloo -------------------
+
+INT8_N = 1500          # not a multiple of 2 * 512
+
+
+def collective_inputs(rank: int) -> dict:
+    """Per-rank inputs of ``collectives_worker``, made with numpy from a
+    seed; the test makes the same arrays for its references."""
+    rng = np.random.RandomState(40 + rank)
+    return dict(
+        int8=(rng.randn(INT8_N) * (1 + rank)).astype(np.float32),
+        int8_bf16=(rng.randn(7, 300) * 3).astype(np.float32),
+        group_a=rng.randn(5, 3).astype(np.float32),
+        group_b=rng.randint(-50, 50, size=(9,)).astype(np.int32),
+        group_c=rng.randn(4).astype(np.float32),
+        gather=rng.randn(3 + 2 * rank, 2).astype(np.float32),
+        a2a=rng.randn(6, 3).astype(np.float32),
+        rs_even=rng.randn(6, 2).astype(np.float32),
+        rs_odd=rng.randn(5, 2).astype(np.float32),
+        rs_int=rng.randint(-9, 9, size=(4,)).astype(np.int32),
+        minmax=rng.randn(11).astype(np.float32),
+        prod=(rng.rand(11) + 0.5).astype(np.float32),
+    )
+
+
+A2A_SPLITS = {0: [2, 4], 1: [5, 1]}
+
+
+def collectives_worker(rank: int, world: int, store_path: str,
+                       out_dir: str) -> None:
+    torch.set_num_threads(1)
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.comm.compression import Compression
+
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    try:
+        hvd.init(device="cpu")
+        x = {k: torch.from_numpy(v) for k, v in collective_inputs(rank).items()}
+        res = {}
+        for name, op in (("sum", hvd.Sum), ("avg", hvd.Average)):
+            res[f"int8_{name}"] = hvd.allreduce(
+                x["int8"], op=op, compression=Compression.int8)
+        res["int8_scaled"] = hvd.allreduce(
+            x["int8"], op=hvd.Sum, compression=Compression.int8,
+            prescale_factor=0.5, postscale_factor=3.0)
+        res["int8_bf16"] = hvd.allreduce(
+            x["int8_bf16"].to(torch.bfloat16), op=hvd.Average,
+            compression=Compression.int8).float()
+        res["int8_stoch"] = hvd.allreduce(
+            x["int8"], op=hvd.Sum, compression=Compression.int8_stochastic)
+        res["fp16_avg"] = hvd.allreduce(
+            x["int8"], op=hvd.Average, compression=Compression.fp16)
+        outs = hvd.grouped_allreduce(
+            [x["group_a"], x["group_b"], x["group_c"]], op=hvd.Sum)
+        res.update(group_a=outs[0], group_b=outs[1], group_c=outs[2])
+        res["group_max"] = torch.cat([t.reshape(-1).float() for t in
+                                      hvd.grouped_allreduce(
+                                          [x["group_a"], x["group_c"]],
+                                          op=hvd.Max)])
+        res["gather"] = hvd.allgather(x["gather"])
+        a2a, splits = hvd.alltoall(x["a2a"], A2A_SPLITS[rank])
+        res.update(a2a=a2a, a2a_splits=splits)
+        res["a2a_equal"] = hvd.alltoall(x["a2a"])
+        res["rs_even_sum"] = hvd.reducescatter(x["rs_even"], op=hvd.Sum)
+        res["rs_even_avg"] = hvd.reducescatter(x["rs_even"], op=hvd.Average)
+        res["rs_odd_sum"] = hvd.reducescatter(x["rs_odd"], op=hvd.Sum)
+        res["rs_int_avg"] = hvd.reducescatter(x["rs_int"], op=hvd.Average)
+        res["min"] = hvd.allreduce(x["minmax"], op=hvd.Min)
+        res["max"] = hvd.allreduce(x["minmax"], op=hvd.Max)
+        res["prod"] = hvd.allreduce(x["prod"], op=hvd.Product)
+        np.savez(os.path.join(out_dir, f"coll{rank}.npz"),
+                 **{k: v.numpy() for k, v in res.items()})
+        hvd.shutdown()
+    finally:
+        dist.destroy_process_group()
