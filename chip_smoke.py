@@ -29,10 +29,21 @@ Builds the port's CUDA kernels from ``horovod_tpu_torch/csrc`` and then:
    world-of-one ``allreduce(compression=int8)`` rule, and
    ``quantized_allreduce`` over the one-rank NCCL group bitwise equal to
    the same call on the CPU;
-7. checks a narrow float32 ResNet trained 2 steps on the card against the
+7. runs the ring collectives at full width: phase 3's batch as 8 virtual
+   ranks of 8 images, each rank's 161 gradients packed (25.56 M float32),
+   reduced on the card by ``ring_allreduce`` (A5 Sum and Average, A6
+   quantized) and gathered by ``ring_allgather_2d`` (A4, each rank's
+   1/8): one launch a call, outputs identical on every rank and bitwise
+   the plain versions, A5 within ``n * 2^-23 * sum|x|`` of the float64
+   sum, A6 within ``2(n-1) * max sum|x| / 127``, A4 bitwise
+   ``torch.cat``; then rings of 2 and 3 ranks, and of 3 ranks of
+   NaN/inf/subnormal values, bitwise the plain versions, timing, and the
+   last timed call checked again;
+8. checks a narrow float32 ResNet trained 2 steps on the card against the
    same steps computed on the CPU with plain PyTorch.
 
-Prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true,
+Prints one ``ring_path {...}`` line, one ``{"kernels": [...]}`` line of 7
+entries and, last, ``{"ok": true,
 "device": {...}}``.  Exits non-zero, printing no result, when CUDA is
 absent, when the package is not beside this script, or when any phase
 fails.  Imports nothing of JAX.
@@ -70,6 +81,8 @@ FLT_MIN = 2.0 ** -126
 # each term is independent given the data and spans at most 1, so either
 # mean's standard deviation is below 0.5 / sqrt(25.56e6) = 1e-4
 UNBIASED_BOUND = 1e-3
+RING_RANKS = 8            # phase 3's batch of 64 as 8 ranks of 8 images
+RING_SMALL = 1_000_003    # elements a rank of the 2- and 3-rank rings
 
 
 class SmokeFailure(Exception):
@@ -669,7 +682,207 @@ def int8_path_phase(model, x, y):
     return result
 
 
-# -- phase 7: a small run against plain PyTorch on the CPU --------------------
+# -- phase 7: the ring collectives A4/A5/A6 over 8 virtual ranks -----------
+
+def ring_buckets(model, x, y, ranks: int):
+    """Data-parallel ResNet-50 over ``ranks`` virtual ranks: the batch in
+    ``ranks`` shards, one backward each, each rank's 161 float32 gradients
+    packed into one buffer."""
+    import torch
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.comm.packing import pack_flat
+
+    params = [p for p in model.parameters() if p.requires_grad]
+    buckets = []
+    for xs, ys in zip(x.chunk(ranks), y.chunk(ranks)):
+        grads = torch.autograd.grad(F.cross_entropy(model(xs), ys), params)
+        check(len(grads) == RESNET50_GRADS, "ring: ResNet-50 gradients")
+        buckets.append(pack_flat(list(grads))[0])
+    for b in buckets:
+        check(b.dtype == torch.float32 and bool(torch.isfinite(b).all()),
+              "ring: a rank's gradients are not finite float32")
+    check(not torch.equal(buckets[0], buckets[1]),
+          "ring: the ranks' gradients are equal")
+    return buckets
+
+
+def _ring_counts():
+    from horovod_tpu_torch.ops import ring_allgather_2d, ring_allreduce
+
+    return {"A4": ring_allgather_2d.launches, "A5": ring_allreduce.launches,
+            "A6": ring_allreduce.quantized_launches}
+
+
+def _set_ring_counts(counts) -> None:
+    from horovod_tpu_torch.ops import ring_allgather_2d, ring_allreduce
+
+    ring_allgather_2d.launches = counts["A4"]
+    ring_allreduce.launches = counts["A5"]
+    ring_allreduce.quantized_launches = counts["A6"]
+
+
+def _one_launch(kernel: str, fn):
+    """``fn()``, checked to launch ``kernel`` once and nothing else."""
+    before = _ring_counts()
+    out = fn()
+    after = _ring_counts()
+    want = dict(before, **{kernel: before[kernel] + 1})
+    check(after == want, f"ring: {kernel} call launched {after} from {before}")
+    return out
+
+
+def _held(outs, want, what: str) -> float:
+    """Every rank's output bitwise equal to every other's and to the
+    plain version's; returns the largest difference (0.0)."""
+    for r, o in enumerate(outs):
+        check(same_bits(o, outs[0]), f"ring: {what}: rank {r} differs "
+              "from rank 0")
+    check(len(outs) == len(want) and same_bits(outs[0], want[0]),
+          f"ring: {what}: kernel and plain version differ")
+    return max_abs_diff(outs[0], want[0])
+
+
+def ring_phase(buckets, reps: int):
+    """The ring collectives at full width (8 ranks x 25.56 M float32
+    gradients, the main path), then rings of 2 and 3 ranks, timing, and
+    calls back to back."""
+    import torch
+
+    from horovod_tpu_torch.ops import (
+        ring_allgather_2d,
+        ring_allgather_2d_plain,
+        ring_allreduce,
+        ring_allreduce_plain,
+    )
+    from horovod_tpu_torch.ops.ring import chunk_elems
+    from horovod_tpu_torch.ops.quantize import flush
+
+    n, size = len(buckets), buckets[0].numel()
+    e = chunk_elems(size, n)
+    # rank r's 1/n of its bucket, zero-padded as the allreduce pads it
+    padded = [torch.nn.functional.pad(b, (0, n * e - size)) for b in buckets]
+    blocks = [p[r * e:(r + 1) * e].reshape(-1, 128)
+              for r, p in enumerate(padded)]
+
+    _set_ring_counts({"A4": 0, "A5": 0, "A6": 0})   # the main path starts here
+    sums = ring_allreduce(buckets)
+    avgs = ring_allreduce(buckets, average=True)
+    quant = ring_allreduce(buckets, quantized=True)
+    gathered = ring_allgather_2d(blocks)
+    torch.cuda.synchronize()
+    launches = _ring_counts()                       # read just after it
+    check(launches == {"A4": 1, "A5": 2, "A6": 1},
+          f"ring: main path launched {launches}, expected one a call")
+
+    err = {"A4": 0.0, "A5": 0.0, "A6": 0.0}
+    err["A5"] = max(_held(sums, ring_allreduce_plain(buckets), "A5 sum"),
+                    _held(avgs, ring_allreduce_plain(buckets, average=True),
+                          "A5 average"))
+    check(same_bits(avgs[0], flush(sums[0] * torch.tensor(
+        1.0 / n, dtype=torch.float32))), "ring: Average is not sum * f32(1/n)")
+    stacked = torch.stack(buckets)
+    exact = stacked.double().sum(0)
+    magnitude = stacked.abs().double().sum(0)
+    check(bool(((sums[0].double() - exact).abs()
+                <= n * 2.0 ** -23 * magnitude).all()),
+          "ring: A5 beyond n * 2^-23 * sum|x| of the float64 sum")
+    err["A6"] = _held(quant, ring_allreduce_plain(buckets, quantized=True),
+                      "A6")
+    q_err = (quant[0].double() - exact).abs()
+    q_bound = 2 * (n - 1) * float(magnitude.max()) / 127
+    check(float(q_err.max()) <= q_bound,
+          f"ring: A6 error {float(q_err.max())} beyond {q_bound}")
+    a6_err = (float(q_err.max()), float(q_err.mean()))
+    whole = torch.cat(blocks)
+    err["A4"] = _held(gathered, ring_allgather_2d_plain(blocks), "A4")
+    check(same_bits(gathered[0], whole), "ring: A4 is not torch.cat")
+    del exact, magnitude, q_err, sums, avgs, quant, gathered
+    log(f"ring: {n} ranks x {size} elements, A5 Sum/Average and A6 "
+        "identical on every rank and bitwise the plain versions, A4 "
+        "bitwise torch.cat")
+
+    # smaller rings: n = 2 (no ACK is ever sent) and n = 3 (not a power
+    # of two: the reciprocal Average), then 3 ranks of values over 50
+    # decades with subnormals, NaN, inf and -inf; comparisons, not the
+    # main path
+    saved = _ring_counts()
+    gen = torch.Generator(device=buckets[0].device).manual_seed(SEED + 4)
+    special = [wide_values(RING_SMALL, torch.float32, buckets[0].device, gen)
+               for _ in range(3)]
+    special[0][5], special[1][1030], special[2][2100] = (
+        math.nan, math.inf, -math.inf)
+    rings = [(f"n={m}", [b[:RING_SMALL] for b in buckets[:m]])
+             for m in (2, 3)] + [("special n=3", special)]
+    for what, xs in rings:
+        for kernel, kw in (("A5", {}), ("A5", {"average": True}),
+                           ("A6", {"quantized": True})):
+            outs = _one_launch(kernel, lambda: ring_allreduce(xs, **kw))
+            err[kernel] = max(err[kernel], _held(
+                outs, ring_allreduce_plain(xs, **kw), f"{what} {kw}"))
+    small = []
+    for m in (2, 3):
+        rows = RING_SMALL // 128
+        bl = [b[:rows * 128].reshape(rows, 128) for b in buckets[:m]]
+        outs = _one_launch("A4", lambda: ring_allgather_2d(bl))
+        err["A4"] = max(err["A4"], _held(outs, ring_allgather_2d_plain(bl),
+                                         f"A4 n={m}"))
+        check(same_bits(outs[0], torch.cat(bl)), f"ring: A4 n={m} cat")
+        small.append(m)
+
+    # timing at full width; the last timed call is checked again
+    last = {}
+
+    def timed(key, fn):
+        return lambda: last.__setitem__(key, fn())
+
+    a5 = dict(ms=time_cuda(timed("A5", lambda: ring_allreduce(buckets)),
+                           reps),
+              plain_ms=time_cuda(lambda: ring_allreduce_plain(buckets), 2, 1),
+              library_ms=time_cuda(lambda: stacked.sum(0), reps))
+    _held(last["A5"], ring_allreduce_plain(buckets), "A5 after timing")
+    a6 = dict(ms=time_cuda(timed("A6", lambda: ring_allreduce(
+        buckets, quantized=True)), reps),
+              plain_ms=time_cuda(lambda: ring_allreduce_plain(
+                  buckets, quantized=True), 2, 1),
+              library_ms=None)
+    _held(last["A6"], ring_allreduce_plain(buckets, quantized=True),
+          "A6 after timing")
+    a4 = dict(ms=time_cuda(timed("A4", lambda: ring_allgather_2d(blocks)),
+                           reps),
+              plain_ms=time_cuda(lambda: ring_allgather_2d_plain(blocks), 2,
+                                 1),
+              library_ms=time_cuda(lambda: torch.cat(blocks), reps))
+    _held(last["A4"], ring_allgather_2d_plain(blocks), "A4 after timing")
+    _set_ring_counts(saved)
+
+    # the least bytes: each rank's input read once, its output written
+    # once; the ring's own traffic (payload into the neighbour's slot and
+    # back out, the local chunk again each reduce-scatter hop) beside it
+    inputs = n * size * 4
+    a5.update(zip(("bound_ms", "bound_by"),
+                  _bound_ms(inputs + n * size * 4, (n - 1) * size)))
+    a6.update(zip(("bound_ms", "bound_by"),
+                  _bound_ms(inputs + n * size * 4,
+                            size * (6 * (n - 1) + 4) + n * size)))
+    a4.update(zip(("bound_ms", "bound_by"),
+                  _bound_ms(n * e * 4 + n * n * e * 4, 0)))
+    hop_bytes = {"A5": 4 * e * (6 * n - 4),
+                 "A6": e * (8 + 2 * (n - 1) * (6 + 1 / 128)),
+                 "A4": 4 * e * (2 + 3 * (n - 1))}
+    result = dict(ranks=n, elements=size, chunk=e, launches=launches,
+                  small_rings=small, small_elements=RING_SMALL,
+                  a6_max_err=a6_err[0], a6_mean_err=a6_err[1],
+                  a6_bound=q_bound, max_abs_err=err,
+                  ring_bytes={k: n * v for k, v in hop_bytes.items()},
+                  ring_bytes_ms={k: n * v / HBM_BYTES_PER_S * 1e3
+                                 for k, v in hop_bytes.items()},
+                  A4=a4, A5=a5, A6=a6)
+    log("ring_path " + json.dumps(result))
+    return result
+
+
+# -- phase 8: a small run against plain PyTorch on the CPU --------------------
 
 def reference_phase(hvd, device):
     """2 steps of a narrow float32 ResNet through the port on the card,
@@ -765,6 +978,7 @@ def main() -> int:
         check(train["grads"] == RESNET50_GRADS, "ResNet-50 gradients")
         parity_phase(model, opt, x, y)
         int8_path = int8_path_phase(model, x, y)
+        ring = ring_phase(ring_buckets(model, x, y, RING_RANKS), reps=10)
         del model, opt, x, y
         reference_phase(hvd, device)
     finally:
@@ -810,6 +1024,24 @@ def main() -> int:
             "bound_ms": ipp[key]["bound_ms"],
             "bound_by": ipp[key]["bound_by"],
             "library_ms": ipp[key]["library_ms"],
+        })
+    for key, name, line in (("A4", "ring_allgather_2d", 94),
+                            ("A5", "ring_allreduce", 180),
+                            ("A6", "ring_allreduce (quantized)", 296)):
+        # A5's library call is x.sum(0) on the stacked ranks, A4's
+        # torch.cat; A6 has none
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "horovod_tpu_torch/csrc/ring.cu",
+            "replaces": f"horovod_tpu/ops/ring.py:{line}",
+            "launches": ring["launches"][key],
+            "max_abs_err": ring["max_abs_err"][key],
+            "ms": ring[key]["ms"],
+            "plain_ms": ring[key]["plain_ms"],
+            "bound_ms": ring[key]["bound_ms"],
+            "bound_by": ring[key]["bound_by"],
+            "library_ms": ring[key]["library_ms"],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,8 @@ semantics of ``horovod_tpu/comm/spmd.py`` ``allreduce``:
 * otherwise the prescale multiplies in the tensor's dtype, then Sum and
   Average with an int8 codec on a floating tensor take the two-phase
   ``quantized_allreduce``, other codecs compress, sum and decompress;
-  Average divides by the rank count (floor division for integers); Min
+  Average multiplies by the reciprocal of the rank count (floor division
+  for integers); Min
   and Max reduce; Product gathers and multiplies; the postscale
   multiplies in the output's dtype.
 
@@ -69,11 +70,21 @@ def _scale_f32(t: torch.Tensor, factor: float) -> torch.Tensor:
 
 
 def average_(t: torch.Tensor, n: int) -> torch.Tensor:
-    """In-place Average over ``n`` participants (spmd.py parity:
-    integers floor-divide, floats divide)."""
-    if t.is_floating_point():
-        return t.div_(n)
-    return t.floor_divide_(n)
+    """In-place Average over ``n`` participants, as XLA compiles
+    spmd.py's ``out / n`` (read from its optimized HLO on the CPU):
+    floats multiply by the reciprocal ``1/n`` rounded to their dtype, and
+    bfloat16 computes ``f32(x) * f32(1/n)`` then rounds once; integers
+    floor-divide.  For an ``n`` that is not a power of two this differs
+    from ``x / n`` in the last bit of many elements."""
+    if not t.is_floating_point():
+        return t.floor_divide_(n)
+    if t.dtype == torch.bfloat16:
+        return t.copy_(t.float().mul_(_reciprocal(n, torch.float32)))
+    return t.mul_(_reciprocal(n, t.dtype))
+
+
+def _reciprocal(n: int, dtype: torch.dtype) -> torch.Tensor:
+    return torch.tensor(1.0 / n, dtype=torch.float64).to(dtype)
 
 
 def _gather(x: torch.Tensor, ps: ProcessSet) -> torch.Tensor:

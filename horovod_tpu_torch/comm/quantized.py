@@ -11,7 +11,7 @@ The two-phase allreduce the reference expresses in XLA, over a
    sums them in float32;
 2. **allgather phase**: the reduced chunk is quantized again and
    ``all_gather_into_tensor`` gives every rank every chunk, which it
-   dequantizes and trims; Average then divides by the rank count.
+   dequantizes and trims; Average then multiplies by ``f32(1/n)``.
 
 Plain torch ops, as the reference is plain XLA (no Pallas kernel), with
 its own ``BLOCK = 512``.  The arithmetic is what XLA compiles the
@@ -38,7 +38,14 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from ..ops.quantize import INV_127, dither_bits, flush, round_codes, uniform
+from ..ops.quantize import (
+    INV_127,
+    dither_bits,
+    flush,
+    fma_f32,
+    round_codes,
+    uniform,
+)
 
 BLOCK = 512
 _KEY0 = 0x51DE
@@ -62,16 +69,12 @@ def _quantize(x: torch.Tensor, key: Optional[torch.Tensor] = None):
 
 
 def _dequantize_sum(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """``sum_r q[r] * scale[r]`` as an FMA chain in rank order.  Each
-    step rounds once: the float64 product of an int8 code and a float32
-    scale is exact, and so is its float64 sum with the float32
-    accumulator unless the two differ by more than 2**22 in magnitude,
-    where the emulated FMA may round twice."""
-    acc = torch.zeros(q.shape[1:], dtype=torch.float64, device=q.device)
+    """``sum_r q[r] * scale[r]`` as an FMA chain in rank order, each step
+    rounded once."""
+    acc = torch.zeros(q.shape[1:], dtype=torch.float32, device=q.device)
     for r in range(q.shape[0]):
-        step = q[r].to(torch.float64) * scale[r].to(torch.float64) + acc
-        acc = flush(step.to(torch.float32)).to(torch.float64)
-    return acc.to(torch.float32)
+        acc = flush(fma_f32(q[r], scale[r], acc))
+    return acc
 
 
 def _dither_key(flat: torch.Tensor, rank: int) -> torch.Tensor:
@@ -119,6 +122,7 @@ def quantized_allreduce(tensor: torch.Tensor, *, group=None,
     # trim each chunk's block padding before joining the chunks
     out = deq[:, :chunk].reshape(-1)[:n]
     if average:
-        out = flush(out / n_ranks)
+        # XLA compiles ``out / n_ranks`` to a multiply by f32(1/n)
+        out = flush(out * torch.tensor(1.0 / n_ranks, dtype=torch.float32))
     return out.reshape(orig_shape).to(
         orig_dtype if orig_dtype.is_floating_point else torch.float32)

@@ -14,8 +14,9 @@
 // with the TPU's treatment of subnormals (a float32 input, product or
 // scale of magnitude below FLT_MIN counts as 0), a NaN-propagating absmax
 // (a block holding NaN gets scale NaN and codes 0) and a NaN code
-// clipped to 0.  The plain versions in ops/quantize.py compute the same,
-// bit for bit.
+// clipped to 0: the formula of quant_common.cuh, which ring.cu's A6
+// shares.  The plain versions in ops/quantize.py compute the same, bit for
+// bit.
 //
 // u is 23 random bits over 2^23: u = (bits >> 9) * 2^-23, bits =
 // dither_bits(seed, element index), a counter-based hash (two rounds of
@@ -46,13 +47,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "quant_common.cuh"
+
 namespace {
 
-constexpr int kBlock = 1024;   // elements per quantization block
+using hvtpu::flush;
+using hvtpu::max_nan;
+
+constexpr int kBlock = hvtpu::kQBlock;   // elements per quantization block
 constexpr int kThreads = 128;  // threads per quantization block
 constexpr int kPer = kBlock / kThreads;  // 8 elements a thread
-constexpr float kInv127 = 0x1.020408p-7f;  // f32(1/127)
-constexpr float kFltMin = 0x1p-126f;
 // dequantize's grid-stride loop: 2048 blocks of 256 threads fill any
 // current card (H100: 132 SMs x 8 such blocks), more would only queue
 constexpr int64_t kMaxDequantizeBlocks = 2048;
@@ -73,16 +77,6 @@ template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
-}
-
-// the TPU flushes float32 subnormals; NaN compares false and stays
-__device__ __forceinline__ float flush(float v) {
-  return fabsf(v) < kFltMin ? 0.0f : v;
-}
-
-// max that propagates NaN (fmaxf drops it)
-__device__ __forceinline__ float max_nan(float a, float b) {
-  return (a > b || a != a) ? a : b;
 }
 
 __device__ __forceinline__ uint32_t mix32(uint32_t h) {
@@ -130,18 +124,15 @@ quantize_kernel(const InT* __restrict__ x, int8_t* __restrict__ codes,
     v[k] = flush(v[k]);
     m = max_nan(m, fabsf(v[k]));
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    m = max_nan(m, __shfl_xor_sync(0xFFFFFFFFu, m, off));
+  m = hvtpu::warp_max_nan(m);
   __shared__ float warp_max[kThreads / 32];
   if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
   __syncthreads();
   m = max_nan(max_nan(warp_max[0], warp_max[1]),
               max_nan(warp_max[2], warp_max[3]));
 
-  float scale = __fmul_rn(m, kInv127);
-  if (scale < kFltMin) scale = 0.0f;  // NaN stays NaN
-  const float inv = scale > 0.0f ? __fdiv_rn(1.0f, scale) : 0.0f;
+  float inv;
+  const float scale = hvtpu::block_scale(m, &inv);
   const uint32_t key = kStochastic ? (uint32_t)*seed : 0u;
 
   union {
@@ -150,18 +141,14 @@ quantize_kernel(const InT* __restrict__ x, int8_t* __restrict__ codes,
   } out;
 #pragma unroll
   for (int k = 0; k < kPer; ++k) {
-    const float t = flush(__fmul_rn(v[k], inv));
-    float r;
     if (kStochastic) {
+      const float t = flush(__fmul_rn(v[k], inv));
       const uint32_t bits = dither_bits(key, (uint32_t)(base + k));
       const float u = __fmul_rn((float)(bits >> 9), 0x1p-23f);
-      r = floorf(__fadd_rn(t, u));
+      out.q[k] = hvtpu::code_of(floorf(__fadd_rn(t, u)));
     } else {
-      r = rintf(t);
+      out.q[k] = hvtpu::round_code(v[k], inv);
     }
-    if (r != r) r = 0.0f;
-    r = fminf(fmaxf(r, -127.0f), 127.0f);
-    out.q[k] = (int8_t)(int)r;
   }
   // codes hold whole blocks and are 8-byte aligned (the wrapper allocates
   // them), so every thread stores its 8 codes at once

@@ -8,10 +8,18 @@ from .quantize import (
     quantize_int8_blocks,
     quantize_int8_blocks_plain,
 )
+from .ring import (
+    ring_allgather_2d,
+    ring_allgather_2d_plain,
+    ring_allreduce,
+    ring_allreduce_plain,
+)
 from .scale_cast import fused_scale_cast, fused_scale_cast_plain
 
 __all__ = [
     "fused_scale_cast", "fused_scale_cast_plain",
     "QBLOCK", "quantize_int8_blocks", "quantize_int8_blocks_plain",
     "dequantize_int8_blocks", "dequantize_int8_blocks_plain",
+    "ring_allreduce", "ring_allreduce_plain",
+    "ring_allgather_2d", "ring_allgather_2d_plain",
 ]

@@ -6,7 +6,8 @@ the stream travel as ``c_void_p``.  No PyTorch headers are included, so a
 build takes seconds.
 
 Libraries land in ``build/horovod_tpu_torch/`` beside the package, named
-by a hash of the sources and flags, so an edit rebuilds and an unchanged
+by a hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edit rebuilds and an unchanged
 tree reuses the last build.  ``build_all()`` starts one ``nvcc`` per
 source, all at once, and waits for them together.  Nothing is built at
 import time.
@@ -39,8 +40,11 @@ def sources() -> List[Path]:
 
 
 def lib_path(source: Path) -> Path:
-    """Output path of ``source``, keyed on its text and the flags."""
+    """Output path of ``source``, keyed on its text, the text of every
+    header beside it (a ``.cu`` may include any of them) and the flags."""
     h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{source.stem}-{h.hexdigest()[:16]}.so"
 

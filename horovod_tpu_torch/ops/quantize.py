@@ -80,6 +80,26 @@ def block_scale_inv(xg: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return scale, inv
 
 
+def fma_f32(q: torch.Tensor, s: torch.Tensor, x: torch.Tensor
+            ) -> torch.Tensor:
+    """float32 ``q * s + x`` rounded once, as one fused multiply-add (the
+    card's ``__fmaf_rn``, XLA's fused dequantize-and-add) computes it;
+    ``q * s`` must be exact in float64 (an int8 code times a float32).
+    The float64 sum is rounded to odd (its error, from TwoSum, moves an
+    inexact even result one step toward the exact value), so rounding it
+    to float32 cannot round twice."""
+    p = q.to(torch.float64) * s.to(torch.float64)
+    c = x.to(torch.float64)
+    t = p + c
+    back = t - p
+    err = (p - (t - back)) + (c - back)
+    bits = t.view(torch.int64)
+    odd = (err != 0) & ((bits & 1) == 0) & torch.isfinite(t)
+    step = torch.where((err > 0) == (t > 0), 1, -1)
+    return torch.where(odd, bits + step, bits).view(torch.float64).to(
+        torch.float32)
+
+
 def round_codes(t: torch.Tensor, u: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
     """int8 codes: ``rint(t)``, or ``floor(t + u)`` when ``u`` is given;

@@ -159,3 +159,52 @@ def collectives_worker(rank: int, world: int, store_path: str,
         hvd.shutdown()
     finally:
         dist.destroy_process_group()
+
+
+# -- Average over a rank count that is not a power of two, 3 ranks over gloo --
+
+AVG_N = 3000
+
+
+def average_inputs(rank: int) -> dict:
+    """Per-rank inputs of ``average_worker``.  The plain allreduce inputs
+    are quarters of small integers, so every partial sum is exact in
+    float32, bfloat16 and float16 and the backends' summation orders
+    agree: what differs is only how Average scales the sum."""
+    rng = np.random.RandomState(60 + rank)
+    quarters = (rng.randint(-64, 65, size=AVG_N) * 0.25).astype(np.float32)
+    return dict(
+        exact=quarters,
+        int8=(rng.randn(AVG_N) * (1 + rank)).astype(np.float32),
+        ints=rng.randint(-100, 100, size=(AVG_N,)).astype(np.int32),
+        rs=quarters[:6 * 50].reshape(6, 50),
+    )
+
+
+def average_worker(rank: int, world: int, store_path: str,
+                   out_dir: str) -> None:
+    torch.set_num_threads(1)
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.comm.compression import Compression
+    from horovod_tpu_torch.comm.quantized import quantized_allreduce
+
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    try:
+        hvd.init(device="cpu")
+        x = {k: torch.from_numpy(v) for k, v in average_inputs(rank).items()}
+        res = {}
+        for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16),
+                         ("f16", torch.float16)):
+            res[f"avg_{name}"] = hvd.allreduce(x["exact"].to(dt),
+                                               op=hvd.Average).float()
+        res["avg_int"] = hvd.allreduce(x["ints"], op=hvd.Average)
+        res["avg_int8"] = hvd.allreduce(x["int8"], op=hvd.Average,
+                                        compression=Compression.int8)
+        res["quantized_avg"] = quantized_allreduce(x["int8"], average=True)
+        res["rs_avg"] = hvd.reducescatter(x["rs"], op=hvd.Average)
+        np.savez(os.path.join(out_dir, f"avg{rank}.npz"),
+                 **{k: v.numpy() for k, v in res.items()})
+        hvd.shutdown()
+    finally:
+        dist.destroy_process_group()
