@@ -31,18 +31,23 @@ Builds the port's CUDA kernels from ``horovod_tpu_torch/csrc`` and then:
    the same call on the CPU;
 7. runs the ring collectives at full width: phase 3's batch as 8 virtual
    ranks of 8 images, each rank's 161 gradients packed (25.56 M float32),
-   reduced on the card by ``ring_allreduce`` (A5 Sum and Average, A6
-   quantized) and gathered by ``ring_allgather_2d`` (A4, each rank's
-   1/8): one launch a call, outputs identical on every rank and bitwise
-   the plain versions, A5 within ``n * 2^-23 * sum|x|`` of the float64
-   sum, A6 within ``2(n-1) * max sum|x| / 127``, A4 bitwise
-   ``torch.cat``; then rings of 2 and 3 ranks, and of 3 ranks of
-   NaN/inf/subnormal values, bitwise the plain versions, timing, and the
-   last timed call checked again;
+   reduced on the card by ``ring_allreduce`` (A5 Sum and Average on the
+   cluster kernel, A6 quantized on the global-slot kernel) and gathered
+   by ``ring_allgather_2d`` (A4 on the cluster kernel, each rank's 1/8):
+   one launch a call, outputs identical on every rank and bitwise the
+   plain versions, A5 within ``n * 2^-23 * sum|x|`` of the float64 sum,
+   A6 within ``2(n-1) * max sum|x| / 127``, A4 bitwise ``torch.cat``;
+   then rings of 2 and 3 ranks, and of 3 ranks of NaN/inf/subnormal
+   values, bitwise the plain versions; a ring of 12 ranks of 1,000,003
+   elements on the global-slot A4/A5 kernels, its own path; timing
+   against the plain versions and the library calls that fill one
+   output and every rank's (the 12-rank kernels at half a bucket a
+   rank, and a call's time at 1,000,003), and the last timed call
+   checked again;
 8. checks a narrow float32 ResNet trained 2 steps on the card against the
    same steps computed on the CPU with plain PyTorch.
 
-Prints one ``ring_path {...}`` line, one ``{"kernels": [...]}`` line of 7
+Prints one ``ring_path {...}`` line, one ``{"kernels": [...]}`` line of 9
 entries and, last, ``{"ok": true,
 "device": {...}}``.  Exits non-zero, printing no result, when CUDA is
 absent, when the package is not beside this script, or when any phase
@@ -82,7 +87,8 @@ FLT_MIN = 2.0 ** -126
 # mean's standard deviation is below 0.5 / sqrt(25.56e6) = 1e-4
 UNBIASED_BOUND = 1e-3
 RING_RANKS = 8            # phase 3's batch of 64 as 8 ranks of 8 images
-RING_SMALL = 1_000_003    # elements a rank of the 2- and 3-rank rings
+RING_SMALL = 1_000_003    # elements a rank of the 2-, 3- and 12-rank rings
+RING_WIDE = 12            # ranks of the ring past a cluster's 8 CTAs
 
 
 class SmokeFailure(Exception):
@@ -707,19 +713,37 @@ def ring_buckets(model, x, y, ranks: int):
     return buckets
 
 
+RING_KERNELS = ("A4_cluster", "A5_cluster", "A4_global", "A5_global", "A6")
+
+
 def _ring_counts():
     from horovod_tpu_torch.ops import ring_allgather_2d, ring_allreduce
 
-    return {"A4": ring_allgather_2d.launches, "A5": ring_allreduce.launches,
+    return {"A4_cluster": ring_allgather_2d.cluster_launches,
+            "A5_cluster": ring_allreduce.cluster_launches,
+            "A4_global": ring_allgather_2d.launches,
+            "A5_global": ring_allreduce.launches,
             "A6": ring_allreduce.quantized_launches}
 
 
 def _set_ring_counts(counts) -> None:
     from horovod_tpu_torch.ops import ring_allgather_2d, ring_allreduce
 
-    ring_allgather_2d.launches = counts["A4"]
-    ring_allreduce.launches = counts["A5"]
+    ring_allgather_2d.cluster_launches = counts["A4_cluster"]
+    ring_allreduce.cluster_launches = counts["A5_cluster"]
+    ring_allgather_2d.launches = counts["A4_global"]
+    ring_allreduce.launches = counts["A5_global"]
     ring_allreduce.quantized_launches = counts["A6"]
+
+
+def _ring_key(kind: str, n: int) -> str:
+    """The counter of the kernel that serves ``kind`` (A4, A5, A6) at
+    ``n`` ranks: the wrapper's own dispatch."""
+    from horovod_tpu_torch.ops.ring import kernel_route
+
+    if kind == "A6":
+        return "A6"
+    return f"{kind}_{kernel_route(n)}"
 
 
 def _one_launch(kernel: str, fn):
@@ -743,10 +767,74 @@ def _held(outs, want, what: str) -> float:
     return max_abs_diff(outs[0], want[0])
 
 
-def ring_phase(buckets, reps: int):
-    """The ring collectives at full width (8 ranks x 25.56 M float32
-    gradients, the main path), then rings of 2 and 3 ranks, timing, and
-    calls back to back."""
+def _ring_path(buckets, blocks, quantized: bool):
+    """One path of the ring: Sum, Average, A6 when ``quantized`` and the
+    all-gather, through the user's entry points, with every count set to
+    0 just before and read just after."""
+    import torch
+
+    from horovod_tpu_torch.ops import ring_allgather_2d, ring_allreduce
+
+    _set_ring_counts(dict.fromkeys(RING_KERNELS, 0))
+    sums = ring_allreduce(buckets)
+    avgs = ring_allreduce(buckets, average=True)
+    quant = ring_allreduce(buckets, quantized=True) if quantized else None
+    gathered = ring_allgather_2d(blocks)
+    torch.cuda.synchronize()
+    launches = _ring_counts()
+    n = len(buckets)
+    want = dict.fromkeys(RING_KERNELS, 0)
+    want[_ring_key("A5", n)] = 2
+    want[_ring_key("A4", n)] = 1
+    if quantized:
+        want["A6"] = 1
+    check(launches == want, f"ring: {n}-rank path launched {launches}, "
+          f"expected {want}")
+    return sums, avgs, quant, gathered, launches
+
+
+def _sum_checks(sums, avgs, buckets, what: str) -> float:
+    """A5 Sum and Average bitwise the plain versions, Average bitwise
+    ``sum * f32(1/n)``, the sum within ``n 2^-23 sum|x|`` of float64."""
+    import torch
+
+    from horovod_tpu_torch.ops import ring_allreduce_plain
+    from horovod_tpu_torch.ops.quantize import flush
+
+    n = len(buckets)
+    err = max(_held(sums, ring_allreduce_plain(buckets), f"{what} sum"),
+              _held(avgs, ring_allreduce_plain(buckets, average=True),
+                    f"{what} average"))
+    check(same_bits(avgs[0], flush(sums[0] * torch.tensor(
+        1.0 / n, dtype=torch.float32))),
+        f"ring: {what}: Average is not sum * f32(1/n)")
+    stacked = torch.stack(buckets)
+    exact = stacked.double().sum(0)
+    magnitude = stacked.abs().double().sum(0)
+    check(bool(((sums[0].double() - exact).abs()
+                <= n * 2.0 ** -23 * magnitude).all()),
+          f"ring: {what}: A5 beyond n * 2^-23 * sum|x| of the float64 sum")
+    return err
+
+
+def _rank_blocks(buckets):
+    """Rank r's 1/n of its bucket as ``(CH, 128)``, zero-padded as the
+    allreduce pads it."""
+    import torch
+
+    from horovod_tpu_torch.ops.ring import chunk_elems
+
+    n, size = len(buckets), buckets[0].numel()
+    e = chunk_elems(size, n)
+    return [torch.nn.functional.pad(b, (0, n * e - size))[r * e:(r + 1) * e]
+            .reshape(-1, 128) for r, b in enumerate(buckets)]
+
+
+def _time_ring(buckets, blocks, reps: int, plain_reps: int = 2):
+    """ms of A5 (Sum) and A4 through the wrappers, their plain versions,
+    one library call that fills one output and the library calls that
+    fill every rank's output; the last timed call of each is checked
+    again."""
     import torch
 
     from horovod_tpu_torch.ops import (
@@ -755,38 +843,101 @@ def ring_phase(buckets, reps: int):
         ring_allreduce,
         ring_allreduce_plain,
     )
-    from horovod_tpu_torch.ops.ring import chunk_elems
-    from horovod_tpu_torch.ops.quantize import flush
+
+    n = len(buckets)
+    stacked = torch.stack(buckets)
+    total = torch.empty_like(buckets[0])
+    sum_outs = [torch.empty_like(b) for b in buckets]
+    whole = torch.cat(blocks)
+    cat_outs = [torch.empty_like(whole) for _ in range(n)]
+
+    def sum_all_ranks():
+        torch.sum(stacked, 0, out=total)
+        for o in sum_outs:
+            o.copy_(total)
+
+    def cat_all_ranks():
+        for o in cat_outs:
+            torch.cat(blocks, out=o)
+
+    last = {}
+
+    def timed(key, fn):
+        return lambda: last.__setitem__(key, fn())
+
+    a5 = dict(ms=time_cuda(timed("A5", lambda: ring_allreduce(buckets)),
+                           reps),
+              plain_ms=time_cuda(lambda: ring_allreduce_plain(buckets),
+                                 plain_reps, 1),
+              library_ms=time_cuda(lambda: stacked.sum(0), reps),
+              library_all_ranks_ms=time_cuda(sum_all_ranks, reps))
+    _held(last["A5"], ring_allreduce_plain(buckets), f"A5 n={n} after timing")
+    check(same_bits(sum_outs[-1], stacked.sum(0)),
+          "ring: the all-ranks library call of A5 computes another sum")
+    a4 = dict(ms=time_cuda(timed("A4", lambda: ring_allgather_2d(blocks)),
+                           reps),
+              plain_ms=time_cuda(lambda: ring_allgather_2d_plain(blocks),
+                                 plain_reps, 1),
+              library_ms=time_cuda(lambda: torch.cat(blocks), reps),
+              library_all_ranks_ms=time_cuda(cat_all_ranks, reps))
+    _held(last["A4"], ring_allgather_2d_plain(blocks),
+          f"A4 n={n} after timing")
+    check(same_bits(cat_outs[-1], whole),
+          "ring: the all-ranks library call of A4 is not torch.cat")
+    return a4, a5
+
+
+def _ring_bounds(n: int, size: int, e: int):
+    """The least bytes of A4 and A5 (each rank's input read once, its
+    output written once) and A5's float32 additions."""
+    a5 = _bound_ms(2 * n * size * 4, (n - 1) * size)
+    a4 = _bound_ms(n * e * 4 + n * n * e * 4, 0)
+    return dict(zip(("bound_ms", "bound_by"), a4)), dict(
+        zip(("bound_ms", "bound_by"), a5))
+
+
+def _wide_ranks(buckets, m: int, elements: int):
+    """``m`` ranks of ``elements`` gradients each, distinct slices of the
+    ``n`` buckets (rank r: bucket r mod n, slice r // n), each slice at a
+    16-byte aligned offset so that no wrapper copies it."""
+    n = len(buckets)
+    stride = -(-elements // 4) * 4
+    check(-(-m // n) * stride <= buckets[0].numel(),
+          f"ring: {m} ranks of {elements} do not fit the buckets")
+    return [buckets[r % n][(r // n) * stride:(r // n) * stride + elements]
+            for r in range(m)]
+
+
+def ring_phase(buckets, reps: int):
+    """The ring collectives at full width (8 ranks x 25.56 M float32
+    gradients, the main path: A4 and A5 on the cluster kernels, A6 on
+    the global-slot kernel), rings of 2 and 3 ranks, the 12-rank ring on
+    the global-slot A4/A5 kernels (a path of its own), timing (the
+    12-rank kernels at half a bucket a rank, where the kernel and not
+    the call around it takes the time), and calls back to back."""
+    import torch
+
+    from horovod_tpu_torch.ops import (
+        ring_allgather_2d,
+        ring_allgather_2d_plain,
+        ring_allreduce,
+        ring_allreduce_plain,
+    )
+    from horovod_tpu_torch.ops.ring import chunk_elems, cluster_info
 
     n, size = len(buckets), buckets[0].numel()
     e = chunk_elems(size, n)
-    # rank r's 1/n of its bucket, zero-padded as the allreduce pads it
-    padded = [torch.nn.functional.pad(b, (0, n * e - size)) for b in buckets]
-    blocks = [p[r * e:(r + 1) * e].reshape(-1, 128)
-              for r, p in enumerate(padded)]
+    blocks = _rank_blocks(buckets)
 
-    _set_ring_counts({"A4": 0, "A5": 0, "A6": 0})   # the main path starts here
-    sums = ring_allreduce(buckets)
-    avgs = ring_allreduce(buckets, average=True)
-    quant = ring_allreduce(buckets, quantized=True)
-    gathered = ring_allgather_2d(blocks)
-    torch.cuda.synchronize()
-    launches = _ring_counts()                       # read just after it
-    check(launches == {"A4": 1, "A5": 2, "A6": 1},
-          f"ring: main path launched {launches}, expected one a call")
-
-    err = {"A4": 0.0, "A5": 0.0, "A6": 0.0}
-    err["A5"] = max(_held(sums, ring_allreduce_plain(buckets), "A5 sum"),
-                    _held(avgs, ring_allreduce_plain(buckets, average=True),
-                          "A5 average"))
-    check(same_bits(avgs[0], flush(sums[0] * torch.tensor(
-        1.0 / n, dtype=torch.float32))), "ring: Average is not sum * f32(1/n)")
+    # the main path
+    sums, avgs, quant, gathered, launches = _ring_path(buckets, blocks, True)
+    check(_ring_key("A5", n) == "A5_cluster",
+          f"ring: {n} ranks not on the cluster kernels")
+    err = dict.fromkeys(RING_KERNELS, 0.0)
+    err["A5_cluster"] = _sum_checks(sums, avgs, buckets, f"n={n}")
     stacked = torch.stack(buckets)
     exact = stacked.double().sum(0)
     magnitude = stacked.abs().double().sum(0)
-    check(bool(((sums[0].double() - exact).abs()
-                <= n * 2.0 ** -23 * magnitude).all()),
-          "ring: A5 beyond n * 2^-23 * sum|x| of the float64 sum")
     err["A6"] = _held(quant, ring_allreduce_plain(buckets, quantized=True),
                       "A6")
     q_err = (quant[0].double() - exact).abs()
@@ -794,19 +945,17 @@ def ring_phase(buckets, reps: int):
     check(float(q_err.max()) <= q_bound,
           f"ring: A6 error {float(q_err.max())} beyond {q_bound}")
     a6_err = (float(q_err.max()), float(q_err.mean()))
-    whole = torch.cat(blocks)
-    err["A4"] = _held(gathered, ring_allgather_2d_plain(blocks), "A4")
-    check(same_bits(gathered[0], whole), "ring: A4 is not torch.cat")
-    del exact, magnitude, q_err, sums, avgs, quant, gathered
-    log(f"ring: {n} ranks x {size} elements, A5 Sum/Average and A6 "
-        "identical on every rank and bitwise the plain versions, A4 "
-        "bitwise torch.cat")
+    err["A4_cluster"] = _held(gathered, ring_allgather_2d_plain(blocks), "A4")
+    check(same_bits(gathered[0], torch.cat(blocks)),
+          "ring: A4 is not torch.cat")
+    del stacked, exact, magnitude, q_err, sums, avgs, quant, gathered
+    log(f"ring: {n} ranks x {size} elements, A5 Sum/Average (cluster) and "
+        "A6 (global slots) identical on every rank and bitwise the plain "
+        "versions, A4 (cluster) bitwise torch.cat")
 
-    # smaller rings: n = 2 (no ACK is ever sent) and n = 3 (not a power
-    # of two: the reciprocal Average), then 3 ranks of values over 50
-    # decades with subnormals, NaN, inf and -inf; comparisons, not the
-    # main path
-    saved = _ring_counts()
+    # smaller rings: n = 2 and n = 3 (not a power of two: the reciprocal
+    # Average), then 3 ranks of values over 50 decades with subnormals,
+    # NaN, inf and -inf; comparisons, not a path
     gen = torch.Generator(device=buckets[0].device).manual_seed(SEED + 4)
     special = [wide_values(RING_SMALL, torch.float32, buckets[0].device, gen)
                for _ in range(3)]
@@ -815,69 +964,101 @@ def ring_phase(buckets, reps: int):
     rings = [(f"n={m}", [b[:RING_SMALL] for b in buckets[:m]])
              for m in (2, 3)] + [("special n=3", special)]
     for what, xs in rings:
-        for kernel, kw in (("A5", {}), ("A5", {"average": True}),
-                           ("A6", {"quantized": True})):
-            outs = _one_launch(kernel, lambda: ring_allreduce(xs, **kw))
-            err[kernel] = max(err[kernel], _held(
+        m = len(xs)
+        for kind, kw in (("A5", {}), ("A5", {"average": True}),
+                         ("A6", {"quantized": True})):
+            key = _ring_key(kind, m)
+            outs = _one_launch(key, lambda: ring_allreduce(xs, **kw))
+            err[key] = max(err[key], _held(
                 outs, ring_allreduce_plain(xs, **kw), f"{what} {kw}"))
-    small = []
-    for m in (2, 3):
         rows = RING_SMALL // 128
-        bl = [b[:rows * 128].reshape(rows, 128) for b in buckets[:m]]
-        outs = _one_launch("A4", lambda: ring_allgather_2d(bl))
-        err["A4"] = max(err["A4"], _held(outs, ring_allgather_2d_plain(bl),
-                                         f"A4 n={m}"))
-        check(same_bits(outs[0], torch.cat(bl)), f"ring: A4 n={m} cat")
-        small.append(m)
+        bl = [x[:rows * 128].reshape(rows, 128) for x in xs]
+        key = _ring_key("A4", m)
+        outs = _one_launch(key, lambda: ring_allgather_2d(bl))
+        err[key] = max(err[key], _held(outs, ring_allgather_2d_plain(bl),
+                                       f"A4 {what}"))
+        check(same_bits(outs[0], torch.cat(bl)), f"ring: A4 {what} cat")
 
-    # timing at full width; the last timed call is checked again
+    # the 12-rank ring: past a cluster's 8 CTAs, so A4 and A5 take the
+    # global-slot kernels; each rank a distinct RING_SMALL slice of the
+    # gradients
+    m = RING_WIDE
+    wide = _wide_ranks(buckets, m, RING_SMALL)
+    wide_blocks = _rank_blocks(wide)
+    wsums, wavgs, _, wgathered, wide_launches = _ring_path(
+        wide, wide_blocks, False)
+    check(_ring_key("A5", m) == "A5_global",
+          f"ring: {m} ranks not on the global-slot kernels")
+    err["A5_global"] = _sum_checks(wsums, wavgs, wide, f"n={m}")
+    err["A4_global"] = _held(wgathered, ring_allgather_2d_plain(wide_blocks),
+                             f"A4 n={m}")
+    check(same_bits(wgathered[0], torch.cat(wide_blocks)),
+          f"ring: A4 n={m} is not torch.cat")
+    del wsums, wavgs, wgathered
+    log(f"ring: {m} ranks x {RING_SMALL} elements on the global-slot A4/A5 "
+        "kernels, identical on every rank and bitwise the plain versions")
+
+    # timing; the last timed call of each is checked again
+    saved = _ring_counts()
+    a4c, a5c = _time_ring(buckets, blocks, reps)
     last = {}
-
-    def timed(key, fn):
-        return lambda: last.__setitem__(key, fn())
-
-    a5 = dict(ms=time_cuda(timed("A5", lambda: ring_allreduce(buckets)),
-                           reps),
-              plain_ms=time_cuda(lambda: ring_allreduce_plain(buckets), 2, 1),
-              library_ms=time_cuda(lambda: stacked.sum(0), reps))
-    _held(last["A5"], ring_allreduce_plain(buckets), "A5 after timing")
-    a6 = dict(ms=time_cuda(timed("A6", lambda: ring_allreduce(
-        buckets, quantized=True)), reps),
+    a6 = dict(ms=time_cuda(lambda: last.__setitem__(
+        "A6", ring_allreduce(buckets, quantized=True)), reps),
               plain_ms=time_cuda(lambda: ring_allreduce_plain(
                   buckets, quantized=True), 2, 1),
-              library_ms=None)
+              library_ms=None, library_all_ranks_ms=None)
     _held(last["A6"], ring_allreduce_plain(buckets, quantized=True),
           "A6 after timing")
-    a4 = dict(ms=time_cuda(timed("A4", lambda: ring_allgather_2d(blocks)),
-                           reps),
-              plain_ms=time_cuda(lambda: ring_allgather_2d_plain(blocks), 2,
-                                 1),
-              library_ms=time_cuda(lambda: torch.cat(blocks), reps))
-    _held(last["A4"], ring_allgather_2d_plain(blocks), "A4 after timing")
+    # the 12-rank kernels: per call at RING_SMALL (launch, flag memset,
+    # slot allocation and 22 handshakes a slice outweigh the bytes), then
+    # at half a bucket a rank, the size the kernel's rate is read at
+    wide_small_ms = {
+        "A5_global": time_cuda(lambda: ring_allreduce(wide), reps),
+        "A4_global": time_cuda(lambda: ring_allgather_2d(wide_blocks), reps)}
+    wide_elements = size // 2 // 4 * 4
+    big = _wide_ranks(buckets, m, wide_elements)
+    big_blocks = _rank_blocks(big)
+    a4g, a5g = _time_ring(big, big_blocks, reps)
+    del big, big_blocks
     _set_ring_counts(saved)
 
-    # the least bytes: each rank's input read once, its output written
-    # once; the ring's own traffic (payload into the neighbour's slot and
-    # back out, the local chunk again each reduce-scatter hop) beside it
-    inputs = n * size * 4
-    a5.update(zip(("bound_ms", "bound_by"),
-                  _bound_ms(inputs + n * size * 4, (n - 1) * size)))
+    we = chunk_elems(wide_elements, m)
+    b4, b5 = _ring_bounds(n, size, e)
+    a4c.update(b4)
+    a5c.update(b5)
     a6.update(zip(("bound_ms", "bound_by"),
-                  _bound_ms(inputs + n * size * 4,
+                  _bound_ms(2 * n * size * 4,
                             size * (6 * (n - 1) + 4) + n * size)))
-    a4.update(zip(("bound_ms", "bound_by"),
-                  _bound_ms(n * e * 4 + n * n * e * 4, 0)))
-    hop_bytes = {"A5": 4 * e * (6 * n - 4),
-                 "A6": e * (8 + 2 * (n - 1) * (6 + 1 / 128)),
-                 "A4": 4 * e * (2 + 3 * (n - 1))}
+    wb4, wb5 = _ring_bounds(m, wide_elements, we)
+    a4g.update(wb4)
+    a5g.update(wb5)
+    # what each ring moves besides the bound: the cluster kernels' hops
+    # through distributed shared memory; the global-slot kernels' hops
+    # through HBM (payload into the neighbour's slot and back out, the
+    # local chunk again each reduce-scatter hop)
+    dsmem_bytes = {"A5_cluster": n * 4 * e * (2 * n - 2),
+                   "A4_cluster": n * 4 * e * (n - 1)}
+    hbm_ring_bytes = {
+        "A6": n * e * (8 + 2 * (n - 1) * (6 + 1 / 128)),
+        "A5_global": m * 4 * we * (6 * m - 4),
+        "A4_global": m * 4 * we * (2 + 3 * (m - 1))}
+    config = {name: cluster_info(allreduce, n)
+              for name, allreduce in (("A4_cluster", False),
+                                      ("A5_cluster", True))}
     result = dict(ranks=n, elements=size, chunk=e, launches=launches,
-                  small_rings=small, small_elements=RING_SMALL,
+                  wide_ranks=m, wide_elements=RING_SMALL,
+                  wide_launches=wide_launches,
+                  wide_small_ms=wide_small_ms,
+                  wide_timed_elements=wide_elements, small_rings=[2, 3],
+                  small_elements=RING_SMALL,
                   a6_max_err=a6_err[0], a6_mean_err=a6_err[1],
                   a6_bound=q_bound, max_abs_err=err,
-                  ring_bytes={k: n * v for k, v in hop_bytes.items()},
-                  ring_bytes_ms={k: n * v / HBM_BYTES_PER_S * 1e3
-                                 for k, v in hop_bytes.items()},
-                  A4=a4, A5=a5, A6=a6)
+                  cluster_config=config, dsmem_bytes=dsmem_bytes,
+                  hbm_ring_bytes=hbm_ring_bytes,
+                  hbm_ring_ms={k: v / HBM_BYTES_PER_S * 1e3
+                               for k, v in hbm_ring_bytes.items()},
+                  A4_cluster=a4c, A5_cluster=a5c, A4_global=a4g,
+                  A5_global=a5g, A6=a6)
     log("ring_path " + json.dumps(result))
     return result
 
@@ -1025,23 +1206,33 @@ def main() -> int:
             "bound_by": ipp[key]["bound_by"],
             "library_ms": ipp[key]["library_ms"],
         })
-    for key, name, line in (("A4", "ring_allgather_2d", 94),
-                            ("A5", "ring_allreduce", 180),
-                            ("A6", "ring_allreduce (quantized)", 296)):
+    for key, name, line, source, path in (
+            ("A4_cluster", "ring_allgather_2d (cluster, n <= 8)", 94,
+             "ring_cluster.cu", "launches"),
+            ("A5_cluster", "ring_allreduce (cluster, n <= 8)", 180,
+             "ring_cluster.cu", "launches"),
+            ("A4_global", "ring_allgather_2d (global slots, n > 8)", 94,
+             "ring.cu", "wide_launches"),
+            ("A5_global", "ring_allreduce (global slots, n > 8)", 180,
+             "ring.cu", "wide_launches"),
+            ("A6", "ring_allreduce (quantized)", 296, "ring.cu",
+             "launches")):
         # A5's library call is x.sum(0) on the stacked ranks, A4's
-        # torch.cat; A6 has none
+        # torch.cat, each filling one output; library_all_ranks_ms fills
+        # every rank's; A6 has none
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": "horovod_tpu_torch/csrc/ring.cu",
+            "source": f"horovod_tpu_torch/csrc/{source}",
             "replaces": f"horovod_tpu/ops/ring.py:{line}",
-            "launches": ring["launches"][key],
+            "launches": ring[path][key],
             "max_abs_err": ring["max_abs_err"][key],
             "ms": ring[key]["ms"],
             "plain_ms": ring[key]["plain_ms"],
             "bound_ms": ring[key]["bound_ms"],
             "bound_by": ring[key]["bound_by"],
             "library_ms": ring[key]["library_ms"],
+            "library_all_ranks_ms": ring[key]["library_all_ranks_ms"],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,6 +8,7 @@
 // computes.  Every multiply and division is an _rn intrinsic, so nvcc
 // contracts nothing into an FMA.  ops/quantize.py's flush /
 // block_scale_inv / round_codes are the plain versions, bit for bit.
+// flush is also the subnormal rule of every ring kernel (ring_common.cuh).
 
 #pragma once
 

@@ -1,4 +1,7 @@
 // Ring collectives over the virtual ranks of one card, for Hopper (sm_90a).
+// A4 and A5 run here only past 8 ranks, where a thread block cluster no
+// longer holds a CTA a rank (ring_cluster.cu takes 2 to 8; ops/ring.py
+// kernel_route picks); A6 runs here at every n.
 //
 // Replaces horovod_tpu/ops/ring.py:_allgather_kernel (A4, called from
 // ring_allgather_2d), :_allreduce_kernel (A5) and
@@ -72,11 +75,16 @@
 #include <stdint.h>
 
 #include "quant_common.cuh"
+#include "ring_common.cuh"
 
 namespace {
 
 using hvtpu::flush;
+using hvtpu::flush4;
 using hvtpu::kQBlock;
+using hvtpu::load4;
+using hvtpu::store4;
+using hvtpu::zero4;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -148,34 +156,6 @@ struct Ring {
     if (i < n - 2) raise_flag(ack_flag(left(), slot));
   }
 };
-
-__device__ __forceinline__ float4 zero4() {
-  return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-}
-
-__device__ __forceinline__ float4 flush4(float4 v) {
-  return make_float4(flush(v.x), flush(v.y), flush(v.z), flush(v.w));
-}
-
-// elements g..g+3 of x, zero at and past `size` (the reference's padding)
-__device__ __forceinline__ float4 load4(const float* x, int64_t g,
-                                        int64_t size) {
-  if (g + 4 <= size) return __ldg(reinterpret_cast<const float4*>(x + g));
-  float v[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) v[k] = g + k < size ? __ldg(x + g + k) : 0.0f;
-  return make_float4(v[0], v[1], v[2], v[3]);
-}
-
-__device__ __forceinline__ void store4(float* out, int64_t g, int64_t size,
-                                       float4 v) {
-  if (g + 4 <= size) {
-    *reinterpret_cast<float4*>(out + g) = v;
-    return;
-  }
-  const float w[4] = {v.x, v.y, v.z, v.w};
-  for (int k = 0; k < 4 && g + k < size; ++k) out[g + k] = w[k];
-}
 
 __device__ __forceinline__ float4 slot4(const Rank& r, int slot,
                                         int64_t chunk, int64_t e) {

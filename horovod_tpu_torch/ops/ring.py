@@ -7,15 +7,29 @@ Counterpart of ``horovod_tpu/ops/ring.py`` (Pallas bodies
 ``_quantized_allreduce_kernel``).  The JAX functions run once per rank
 inside ``shard_map``; these take one tensor per rank and return one
 output per rank, the counterpart of a ``shard_map`` body over an
-``n``-rank axis.  On CUDA tensors every rank's buffers sit in one card's
-memory and one cooperative launch of ``csrc/ring.cu`` runs every rank,
-through the reference's protocol: double-buffered slots per phase,
-per-slot receive flags and ACK backpressure.  Each wrapper counts its
-launches (``ring_allgather_2d.launches``, ``ring_allreduce.launches``
-for A5, ``ring_allreduce.quantized_launches`` for A6).  CPU tensors
-take the plain versions beside them, which walk the same ring hop by
-hop with the same arithmetic.  There is no other path: CUDA tensors the
-kernel cannot take raise, and ranks on more than one card raise
+``n``-rank axis.  CPU tensors take the plain versions beside them, which
+walk the same ring hop by hop with the same arithmetic.  On CUDA tensors
+every rank's buffers sit in one card's memory and one launch runs every
+rank; :func:`kernel_route` picks the kernel from ``n`` alone:
+
+* ``"cluster"`` (A4 and A5 at ``2 <= n <= 8``): ``csrc/ring_cluster.cu``,
+  one thread block cluster of ``n`` CTAs a ring, the slots in shared
+  memory, each hop's payload stored into the neighbour's slot through
+  distributed shared memory and one cluster barrier a hop.  HBM sees
+  each input read once and each output written once, the bound; the
+  wrapper allocates only the outputs.  Counted in
+  ``ring_allgather_2d.cluster_launches`` and
+  ``ring_allreduce.cluster_launches``.
+* ``"global"`` (A4 and A5 at ``n > 8``, A6 at every n):
+  ``csrc/ring.cu``, one cooperative launch through the reference's
+  protocol: double-buffered slots per phase in device memory, per-slot
+  receive flags and ACK backpressure.  Counted in
+  ``ring_allgather_2d.launches``, ``ring_allreduce.launches`` (A5) and
+  ``ring_allreduce.quantized_launches`` (A6).  These are the kernels to
+  extend across cards.
+
+There is no other path: CUDA tensors a kernel cannot take raise, a
+launch that fails raises, and ranks on more than one card raise
 ``NotImplementedError`` (peer-mapped memory across cards is later
 work).
 
@@ -49,6 +63,19 @@ from .quantize import QBLOCK, block_scale_inv, flush, fma_f32, round_codes
 LANES = 128
 ROW_QUANTUM = 8               # a rank's chunk is a multiple of 8 rows
 SLICE = 8 * QBLOCK            # elements a CUDA block carries a hop
+CLUSTER_MAX_RANKS = 8         # CTAs of a portable thread block cluster
+
+
+def kernel_route(n: int, quantized: bool = False) -> str:
+    """The CUDA kernel that serves a ring of ``n >= 2`` ranks on one
+    card: ``"cluster"`` (``csrc/ring_cluster.cu``) for A4 and A5 at
+    ``n <= 8``, ``"global"`` (``csrc/ring.cu``) for A4 and A5 at
+    ``n > 8`` and for A6 (``quantized``) at every n."""
+    if n < 2:
+        raise ValueError(f"a ring needs 2 or more ranks, got {n}")
+    if quantized or n > CLUSTER_MAX_RANKS:
+        return "global"
+    return "cluster"
 
 
 # -- shapes and checks --------------------------------------------------------
@@ -212,6 +239,112 @@ def _kernels():
     return fns
 
 
+def bind_cluster(lib: ctypes.CDLL):
+    """The all-gather, allreduce and info functions of a loaded
+    ``ring_cluster`` library, their C signatures set."""
+    fns = (lib.hvtpu_ring_cluster_allgather, lib.hvtpu_ring_cluster_allreduce,
+           lib.hvtpu_ring_cluster_info)
+    if fns[0].argtypes is None:
+        ptrs = ctypes.POINTER(ctypes.c_int64)
+        # xs, outs, n, chunk, stream
+        fns[0].argtypes = [ptrs, ptrs, ctypes.c_int, ctypes.c_int64,
+                           ctypes.c_void_p]
+        # xs, outs, n, size, chunk, stream
+        fns[1].argtypes = [ptrs, ptrs, ctypes.c_int, ctypes.c_int64,
+                           ctypes.c_int64, ctypes.c_void_p]
+        # allreduce, n, info[6]
+        fns[2].argtypes = [ctypes.c_int, ctypes.c_int,
+                           ctypes.POINTER(ctypes.c_int)]
+        for fn in fns:
+            fn.restype = ctypes.c_int
+    return fns
+
+
+def _cluster_kernels():
+    return bind_cluster(_build.load("ring_cluster"))
+
+
+def _cluster_table(what: str, xs, outs, x_numel: int, out_numel: int):
+    """The per-rank pointer arrays of a cluster launch, after the checks
+    of what the kernel takes: 2 to 8 ranks, one output a rank, every
+    tensor float32, contiguous, of its length, on one device and at a
+    16-byte aligned address."""
+    n = len(xs)
+    if not 2 <= n <= CLUSTER_MAX_RANKS:
+        raise ValueError(f"{what}: a cluster ring takes 2 to "
+                         f"{CLUSTER_MAX_RANKS} ranks, got {n}")
+    if len(outs) != n:
+        raise ValueError(f"{what}: {n} inputs but {len(outs)} outputs")
+    devices = {t.device for t in (*xs, *outs)}
+    if len(devices) != 1:
+        raise ValueError(f"{what}: ranks on mixed devices "
+                         f"{sorted(map(str, devices))}")
+    for kind, ts, numel in (("input", xs, x_numel), ("output", outs,
+                                                      out_numel)):
+        for r, t in enumerate(ts):
+            if (t.dtype != torch.float32 or not t.is_contiguous()
+                    or t.numel() != numel):
+                raise ValueError(
+                    f"{what}: rank {r}'s {kind} must be {numel} contiguous "
+                    f"float32, got {t.dtype} {tuple(t.shape)}")
+            if t.data_ptr() % 16:
+                raise ValueError(f"{what}: rank {r}'s {kind} is not 16-byte "
+                                 "aligned")
+    table = ctypes.c_int64 * n
+    return (table(*(t.data_ptr() for t in xs)),
+            table(*(t.data_ptr() for t in outs)))
+
+
+def _cluster_call(what: str, fn, n: int, device, *args) -> None:
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{what}: cluster launch over {n} ranks failed "
+                           f"with cudaError {err}")
+
+
+def cluster_allreduce_sum(flats: Sequence[torch.Tensor]
+                          ) -> List[torch.Tensor]:
+    """A5's Sum by one cluster launch over 1-D float32 CUDA tensors, one
+    a rank."""
+    n, size = len(flats), flats[0].numel()
+    e = chunk_elems(size, n)
+    outs = [torch.empty(size, dtype=torch.float32, device=f.device)
+            for f in flats]
+    xs, os_ = _cluster_table("ring_allreduce", flats, outs, size, size)
+    _cluster_call("ring_allreduce", _cluster_kernels()[1], n,
+                  flats[0].device, xs, os_, n, size, e)
+    ring_allreduce.cluster_launches += 1
+    return outs
+
+
+def cluster_allgather(blocks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """A4 by one cluster launch over float32 ``(CH, 128)`` CUDA blocks,
+    one a rank."""
+    n, ch = len(blocks), blocks[0].shape[0]
+    e = ch * LANES
+    outs = [torch.empty((n * ch, LANES), dtype=torch.float32,
+                        device=blocks[0].device) for _ in range(n)]
+    xs, os_ = _cluster_table("ring_allgather_2d", blocks, outs, e, n * e)
+    _cluster_call("ring_allgather_2d", _cluster_kernels()[0], n,
+                  blocks[0].device, xs, os_, n, e)
+    ring_allgather_2d.cluster_launches += 1
+    return outs
+
+
+def cluster_info(allreduce: bool, n: int) -> dict:
+    """What the current card gives a cluster kernel: registers and spill
+    bytes a thread, shared memory and CTAs an SM, clusters of ``n``
+    resident at once, and the kernel's slice in elements."""
+    info = (ctypes.c_int * 6)()
+    err = _cluster_kernels()[2](int(allreduce), n, info)
+    if err != 0:
+        raise RuntimeError(f"cluster_info: cudaError {err}")
+    return dict(zip(("registers", "spill_bytes", "shared_bytes",
+                     "ctas_per_sm", "clusters", "slice"), info))
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` contiguous at a 16-byte aligned address (the kernel loads
     16 bytes a thread); a copy only when it is not."""
@@ -250,9 +383,11 @@ def _launch(fn, what: str, xs, outs, slot_bytes: int, scale_slot_bytes: int,
 
 def _ring_sum_kernel(flats: Sequence[torch.Tensor], quantized: bool
                      ) -> List[torch.Tensor]:
+    xs = [_aligned(f) for f in flats]
+    if kernel_route(len(xs), quantized) == "cluster":
+        return cluster_allreduce_sum(xs)
     n, size = len(flats), flats[0].numel()
     e = chunk_elems(size, n)
-    xs = [_aligned(f) for f in flats]
     outs = [torch.empty(size, dtype=torch.float32, device=f.device)
             for f in flats]
     slot = e if quantized else 4 * e             # int8 codes or float32
@@ -278,24 +413,33 @@ def ring_allreduce(tensors: Sequence[torch.Tensor], *, average: bool = False,
     return _allreduce(tensors, average, quantized, False, "ring_allreduce")
 
 
+def _allgather_kernel(blocks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    n, ch = len(blocks), blocks[0].shape[0]
+    xs = [_aligned(b) for b in blocks]
+    if kernel_route(n) == "cluster":
+        return cluster_allgather(xs)
+    outs = [torch.empty((n * ch, LANES), dtype=torch.float32,
+                        device=xs[0].device) for _ in range(n)]
+    e = ch * LANES
+    _launch(_kernels()[0], "ring_allgather_2d", xs, outs, 4 * e, 0, e, e,
+            False)
+    ring_allgather_2d.launches += 1
+    return outs
+
+
 def ring_allgather_2d(blocks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """All-gather rank r's float32 ``(CH, 128)`` block: every rank gets
     the ``(n*CH, 128)`` concatenation in rank order (A4)."""
     blocks, device = _check_blocks(blocks, "ring_allgather_2d")
     if device.type == "cpu":
         return ring_allgather_2d_plain(blocks)
-    n, ch = len(blocks), blocks[0].shape[0]
-    outs = [torch.empty((n * ch, LANES), dtype=torch.float32, device=device)
-            for _ in range(n)]
-    if ch == 0:
-        return outs
-    e = ch * LANES
-    _launch(_kernels()[0], "ring_allgather_2d", [_aligned(b) for b in blocks],
-            outs, 4 * e, 0, e, e, False)
-    ring_allgather_2d.launches += 1
-    return outs
+    if len(blocks) == 1 or blocks[0].shape[0] == 0:
+        return [torch.cat(blocks) for _ in blocks]     # nothing to send
+    return _allgather_kernel(blocks)
 
 
-ring_allgather_2d.launches = 0
-ring_allreduce.launches = 0
-ring_allreduce.quantized_launches = 0
+ring_allgather_2d.launches = 0            # csrc/ring.cu, n > 8
+ring_allgather_2d.cluster_launches = 0    # csrc/ring_cluster.cu, n <= 8
+ring_allreduce.launches = 0               # A5, csrc/ring.cu, n > 8
+ring_allreduce.cluster_launches = 0       # A5, csrc/ring_cluster.cu
+ring_allreduce.quantized_launches = 0     # A6, csrc/ring.cu

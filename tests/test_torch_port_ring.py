@@ -316,14 +316,18 @@ def test_library_key_covers_the_shared_headers(tmp_path):
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     headers = sorted(csrc.glob("*.cuh"))
-    assert [h.name for h in headers] == ["quant_common.cuh"]
+    assert [h.name for h in headers] == ["quant_common.cuh",
+                                         "ring_common.cuh"]
     sources = sorted(csrc.glob("*.cu"))
-    before = {s.name: _build.lib_path(s) for s in sources}
-    assert before == {s.name: _build.lib_path(s) for s in sources}
-    headers[0].write_bytes(headers[0].read_bytes() + b"\n")
-    after = {s.name: _build.lib_path(s) for s in sources}
-    assert all(after[k] != before[k] for k in before)
-    assert {s.name for s in sources} >= {"ring.cu", "quantize_int8.cu"}
-    assert '#include "quant_common.cuh"' in (csrc / "ring.cu").read_text()
-    assert '#include "quant_common.cuh"' in (
-        csrc / "quantize_int8.cu").read_text()
+    assert {s.name for s in sources} >= {"ring.cu", "ring_cluster.cu",
+                                         "quantize_int8.cu"}
+    for header in headers:
+        before = {s.name: _build.lib_path(s) for s in sources}
+        assert before == {s.name: _build.lib_path(s) for s in sources}
+        header.write_bytes(header.read_bytes() + b"\n")
+        after = {s.name: _build.lib_path(s) for s in sources}
+        assert all(after[k] != before[k] for k in before)
+    for name in ("ring.cu", "ring_cluster.cu", "quantize_int8.cu"):
+        assert '#include "quant_common.cuh"' in (csrc / name).read_text()
+    for name in ("ring.cu", "ring_cluster.cu"):
+        assert '#include "ring_common.cuh"' in (csrc / name).read_text()
