@@ -6,16 +6,28 @@
 Builds the port's CUDA kernels from ``horovod_tpu_torch/csrc`` and then:
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. holds kernel A1, ``fused_scale_cast``, bitwise against its plain
-   PyTorch version over all 9 dtype pairs, lengths 1..2^20+3, aligned and
-   unaligned buffers and every ResNet-50 gradient shape, and times it;
+2. holds kernel A1 bitwise against its plain PyTorch versions: one
+   tensor (``fused_scale_cast``, a table of one entry) over all 9 dtype
+   pairs, lengths 1..2^20+3, aligned and unaligned buffers and every
+   ResNet-50 gradient shape; the grouped passes (``scale_cast_pack``,
+   ``unpack_cast_scale``, any NaN equal to any NaN) over the 161
+   ResNet-50 gradients in both directions, the 9 (in, out) dtype pairs
+   with each own dtype, scale 1 among the scales, sources and destinations at odd element
+   offsets, a zero-length entry, NaN/inf/subnormal/-0 values, and a
+   group larger than one table (more than one launch); then times the
+   two passes over the 161 gradients against their bound,
+   ``_foreach_mul`` and the per-tensor composition they replace, and one
+   25.56 M buffer against ``torch.mul``;
 3. trains full-width ResNet-50 (bf16, NHWC 224x224, batch 64, synthetic
    data from a seed) through ``hvd.DistributedOptimizer`` (SGD momentum
    0.9, ``Compression.fp16``, ``gradient_predivide_factor=2.0``) in a
    one-rank NCCL world: 2 warm-up and 5 timed steps, finite loss, and
-   exactly 2 x 161 kernel launches per step;
+   exactly 2 A1 launches per multi-tensor bucket a step;
 4. reduces one batch's gradients through the optimizer's group reduction
-   with the kernel and with the plain version: bitwise equal;
+   with the kernel and with the plain versions: bitwise equal; then
+   times the group reduction over the real buckets, grouped and tensor
+   by tensor; both in the training's configuration and in the
+   optimizer's default (Average, no predivide: both scales 1);
 5. holds kernels A2/A3, ``quantize_int8_blocks`` (both rounding modes)
    and ``dequantize_int8_blocks``, bitwise against their plain versions
    (any NaN equal to any NaN) over float32/bfloat16/float16 in and out,
@@ -152,12 +164,143 @@ def resnet50_grad_shapes():
     return [tuple(p.shape) for p in model.parameters()]
 
 
-# -- phase 2: kernel A1 against its plain version -----------------------------
+# -- phase 2: kernel A1 against its plain versions ----------------------------
+
+def special_values(dtype, device):
+    """NaN, +-inf, +-0, float32/bfloat16/float16 subnormals, the edges of
+    float16's range and ties of the narrow roundings, in ``dtype``."""
+    import torch
+
+    vals = [math.nan, math.inf, -math.inf, 0.0, -0.0, 1e-40, -3e-39,
+            FLT_MIN, 6e-8, -3e-5, 65504.0, 65520.0, -7e4, 3.0e38, 1e-38,
+            1.0 + 2.0 ** -8, 1.0 + 2.0 ** -11, -(1.0 + 3 * 2.0 ** -9)]
+    return torch.tensor(vals, dtype=torch.float32, device=device).to(dtype)
+
+
+def _group_compare(tensors, scale: float, codec, what: str, outs=None):
+    """``scale_cast_pack`` and ``unpack_cast_scale`` (into ``outs`` when
+    given) bitwise their plain versions on one group; the unpack reads
+    the packed buffer back, then a flat buffer of new values.  Returns
+    the largest difference (0.0)."""
+    import torch
+
+    from horovod_tpu_torch.comm.compression import Compression
+    from horovod_tpu_torch.ops import (
+        scale_cast_pack,
+        scale_cast_pack_plain,
+        unpack_cast_scale,
+        unpack_cast_scale_plain,
+    )
+
+    flat, specs = scale_cast_pack(tensors, scale, codec)
+    pflat, pspecs = scale_cast_pack_plain(tensors, scale, codec)
+    check(specs == pspecs, f"scale_cast_pack {what}: specs")
+    check(same_bits(flat, pflat), f"scale_cast_pack {what}: differs from "
+          "the plain version")
+    err = max_abs_diff(flat, pflat)
+    gen = torch.Generator(device=flat.device).manual_seed(SEED + 5)
+    # the contexts the codec's compress returns: None under none
+    ctxs = [None if codec is Compression.none else t.dtype for t in tensors]
+    for reduced in (flat, wide_values(flat.numel(), flat.dtype, flat.device,
+                                      gen)):
+        got = unpack_cast_scale(reduced, specs, ctxs, 1.0 / scale, outs)
+        want = unpack_cast_scale_plain(reduced, specs, ctxs, 1.0 / scale)
+        check(outs is None or all(g is o for g, o in zip(got, outs)),
+              f"unpack_cast_scale {what}: did not write into outs")
+        for i, (g, w) in enumerate(zip(got, want)):
+            check(same_bits(g, w), f"unpack_cast_scale {what}: tensor {i} "
+                  "differs from the plain version")
+            err = max(err, max_abs_diff(g, w))
+    return err
+
+
+def _offset_views(tensors):
+    """Each tensor again as a contiguous view one element into a larger
+    buffer: a pointer 16-byte aligned in no dtype."""
+    import torch
+
+    out = []
+    for t in tensors:
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = buf[1:].view(t.shape)
+        out.append(view.copy_(t))
+    return out
+
+
+def grouped_checks(device, grad_shapes, gen):
+    """The grouped passes bitwise their plain versions: returns (max
+    difference, groups compared, launches of the group larger than one
+    table)."""
+    import torch
+
+    from horovod_tpu_torch.comm.compression import Compression
+    from horovod_tpu_torch.ops import fused_scale_cast
+    from horovod_tpu_torch.ops.scale_cast import max_entries
+
+    dtypes = [torch.float32, torch.bfloat16, torch.float16]
+    err, groups = 0.0, 0
+
+    # the main path: 161 float32 gradients, prescale 1/2 into the fp16
+    # wire, postscale 2 back into float32 (spread and 50-decade values);
+    # and the optimizer's default (Average, no predivide): scale 1 both
+    # ways
+    for values in (spread_values, wide_values):
+        grads = [values(math.prod(s), torch.float32, device, gen).view(s)
+                 for s in grad_shapes]
+        outs = [torch.empty_like(g) for g in grads]
+        for scale in (1.0 / PREDIVIDE, 1.0):
+            err = max(err, _group_compare(grads, scale, Compression.fp16,
+                                          f"ResNet-50 scale {scale}", outs))
+            groups += 1
+
+    # every (in, out) pair with each own dtype: a group of all three
+    # dtypes under the none (flat float32), bf16 and fp16 wires; sizes
+    # that put pieces at odd offsets, a zero-length entry, the special
+    # values; then every tensor and out one element off alignment
+    for codec in (Compression.none, Compression.bf16, Compression.fp16):
+        group = []
+        for n in LENGTHS:
+            group += [spread_values(n, dt, device, gen) for dt in dtypes]
+        group.insert(4, torch.empty(0, device=device))
+        group += [special_values(dt, device) for dt in dtypes]
+        for scale in (0.5, 2.0, 1.0 / 3.0, 1.0):
+            what = f"{codec.__name__} scale {scale}"
+            err = max(err, _group_compare(group, scale, codec, what))
+            err = max(err, _group_compare(
+                _offset_views(group), scale, codec, f"{what} offset 1",
+                _offset_views([torch.empty_like(t) for t in group])))
+            groups += 2
+
+    # a group larger than one table: several launches, each counted
+    m = max_entries()
+    many = [spread_values(i % 7 + 1, dtypes[i % 3], device, gen)
+            for i in range(m + 5)]
+    before = fused_scale_cast.launches
+    err = max(err, _group_compare(many, 0.5, Compression.none,
+                                  f"{m + 5} tensors"))
+    launches = fused_scale_cast.launches - before
+    # one pack and two unpacks, each a launch a table
+    check(launches == 3 * -(-len(many) // m),
+          f"a group of {len(many)} tensors took {launches} launches, "
+          f"{m} a table")
+    torch.cuda.synchronize()
+    return err, groups + 1, dict(tensors=len(many), max_entries=m,
+                                 launches=launches)
+
 
 def kernel_phase(device, grad_shapes, big_n: int, reps: int):
     import torch
 
-    from horovod_tpu_torch.ops import fused_scale_cast, fused_scale_cast_plain
+    from horovod_tpu_torch.comm.compression import Compression
+    from horovod_tpu_torch.comm.packing import pack_flat, unpack_flat
+    from horovod_tpu_torch.ops import (
+        fused_scale_cast,
+        fused_scale_cast_plain,
+        scale_cast_pack,
+        scale_cast_pack_plain,
+        unpack_cast_scale,
+        unpack_cast_scale_plain,
+    )
 
     dtypes = [torch.float32, torch.bfloat16, torch.float16]
     scales = [0.5, 2.0, 1.0 / 3.0]
@@ -185,7 +328,7 @@ def kernel_phase(device, grad_shapes, big_n: int, reps: int):
                 x = spread_values(n + 1, in_dt, device, gen)
                 for scale in scales:
                     # offset 0: 16-byte aligned, vector loop; offset 1:
-                    # unaligned view, scalar loop
+                    # unaligned view, scalar head and tail
                     compare(x[:n], scale, out_dt, f"{in_dt}->{out_dt} n={n}")
                     compare(x[1:], scale, out_dt,
                             f"{in_dt}->{out_dt} n={n} unaligned")
@@ -198,38 +341,66 @@ def kernel_phase(device, grad_shapes, big_n: int, reps: int):
     log(f"kernel: fused_scale_cast bitwise equal to the plain version in "
         f"{compared} comparisons (9 dtype pairs, lengths {LENGTHS}, "
         f"{len(grad_shapes)} ResNet-50 gradient shapes, scales {scales})")
+    g_err, groups, many = grouped_checks(device, grad_shapes, gen)
+    max_err = max(max_err, g_err)
+    log(f"kernel: scale_cast_pack and unpack_cast_scale bitwise equal to "
+        f"the plain versions over {groups} groups (the 161 ResNet-50 "
+        f"gradients at scales 1/2 and 1, 9 (in, out) pairs x 3 own dtypes "
+        f"x 4 scales, offset 1, a zero-length entry, NaN/inf/subnormal/-0); "
+        f"{many}")
 
-    # Timing 1: one pass over the main path's shapes (161 float32
-    # gradients, the prescale 1/2), as the optimizer issues it.
+    # Timing 1: the two passes over the main path's shapes (161 float32
+    # gradients, prescale 1/2 into the fp16 wire, postscale 2 back), as
+    # the optimizer issues them, against the per-tensor composition they
+    # replace (kernel per tensor, codec, pack / unpack, codec, kernel per
+    # tensor and the copy into the gradient).
+    launches_before = fused_scale_cast.launches
     grads = [torch.randn(s, generator=gen, device=device) for s in grad_shapes]
     flats = [g.reshape(-1) for g in grads]
+    outs = [torch.empty_like(g) for g in grads]
     total = sum(f.numel() for f in flats)
-    pre = 1.0 / PREDIVIDE
+    pre, post, codec = 1.0 / PREDIVIDE, PREDIVIDE, Compression.fp16
+    flat, specs = scale_cast_pack(grads, pre, codec)
+    ctxs = [torch.float32] * len(grads)
 
-    def kernel_pass():
-        for f in flats:
-            fused_scale_cast(f, pre)
+    def per_tensor_pre():
+        wires = [codec.compress(fused_scale_cast(f, pre).reshape(g.shape))[0]
+                 for f, g in zip(flats, grads)]
+        return pack_flat(wires)
 
-    def plain_pass():
-        for f in flats:
-            fused_scale_cast_plain(f, pre)
+    def per_tensor_post():
+        for piece, ctx, o in zip(unpack_flat(flat, specs), ctxs, outs):
+            g = codec.decompress(piece, ctx)
+            o.copy_(fused_scale_cast(g.reshape(-1), post).reshape(g.shape))
 
-    def library_pass():
-        torch._foreach_mul(flats, pre)
-
-    launches_before = fused_scale_cast.launches
-    ms = time_cuda(kernel_pass, reps)
-    plain_ms = time_cuda(plain_pass, reps)
-    library_ms = time_cuda(library_pass, reps)
-    fused_scale_cast.launches = launches_before  # timing launches not counted
-    bound_ms, bound_by = _bound_ms(total * 8, total)
-    path_pass = dict(elements=total, tensors=len(flats), ms=ms,
-                     plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                     library_ms=library_ms)
-    log("kernel_path_pass " + json.dumps(path_pass))
+    bound_ms, bound_by = _bound_ms(total * (4 + 2), total)
+    passes = {}
+    for name, fn, plain, library, per_tensor in (
+            ("pre", lambda: scale_cast_pack(grads, pre, codec),
+             lambda: scale_cast_pack_plain(grads, pre, codec),
+             lambda: torch._foreach_mul(flats, pre), per_tensor_pre),
+            ("post", lambda: unpack_cast_scale(flat, specs, ctxs, post, outs),
+             lambda: unpack_cast_scale_plain(flat, specs, ctxs, post, outs),
+             lambda: torch._foreach_mul(outs, post), per_tensor_post)):
+        passes[name] = dict(
+            elements=total, tensors=len(grads), ms=time_cuda(fn, reps),
+            plain_ms=time_cuda(plain, reps), bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=time_cuda(library, reps),
+            per_tensor_ms=time_cuda(per_tensor, reps))
+        log(f"kernel_path_pass {name} " + json.dumps(passes[name]))
+    # the last timed calls, checked again
+    check(same_bits(scale_cast_pack(grads, pre, codec)[0],
+                    per_tensor_pre()[0]), "the pre pass after timing is "
+          "not the per-tensor composition")
+    unpack_cast_scale(flat, specs, ctxs, post, outs)
+    got = [o.clone() for o in outs]
+    per_tensor_post()
+    check(all(same_bits(g, o) for g, o in zip(got, outs)),
+          "the post pass after timing is not the per-tensor composition")
+    del flat, outs, got
 
     # Timing 2: one buffer of every ResNet-50 gradient (25.56 M elements),
-    # the bandwidth-bound case.
+    # the bandwidth-bound case, through the table of one entry.
     big = torch.randn(big_n, generator=gen, device=device)
     rows = []
     for out_dt in (torch.float32, torch.bfloat16):
@@ -243,12 +414,12 @@ def kernel_phase(device, grad_shapes, big_n: int, reps: int):
                          ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
                          bound_ms=b_ms, bound_by=b_by))
         log("kernel_big_buffer " + json.dumps(rows[-1]))
-    fused_scale_cast.launches = launches_before
-    return dict(max_abs_err=max_err, compared=compared, path_pass=path_pass,
-                big_buffer=rows)
+    fused_scale_cast.launches = launches_before  # timing launches not counted
+    return dict(max_abs_err=max_err, compared=compared, groups=groups,
+                many=many, passes=passes, big_buffer=rows)
 
 
-# -- phase 3: the training path -------------------------------------------------
+# -- phase 3: the training path -----------------------------------------------
 
 def make_optimizer(hvd, model, compression):
     import torch
@@ -276,6 +447,9 @@ def train_phase(hvd, device, batch: int, image: int, stage_sizes):
     y = torch.randint(0, 1000, (batch,), generator=dgen, device=device)
     opt = make_optimizer(hvd, model, hvd.Compression.fp16)
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    # one pre and one post pass of A1 a multi-tensor bucket; a bucket of
+    # one tensor goes through comm/eager.allreduce
+    multi = sum(len(b) > 1 for b in opt.buckets)
 
     losses, step_s = [], []
     fused_scale_cast.launches = 0      # the main path's run starts here
@@ -290,18 +464,42 @@ def train_phase(hvd, device, batch: int, image: int, stage_sizes):
         step_s.append(time.perf_counter() - t0)
         losses.append(float(loss.detach()))
         delta = fused_scale_cast.launches - before
-        check(delta == 2 * n_grads,
+        check(delta == 2 * multi,
               f"step {step}: {delta} fused_scale_cast launches, expected "
-              f"{2 * n_grads}")
+              f"{2 * multi}")
         check(math.isfinite(losses[-1]), f"step {step}: loss {losses[-1]}")
     launches = fused_scale_cast.launches  # read just after the main path
     timed = step_s[WARMUP_STEPS:]
+
+    # the same step with the group reduction tensor by tensor (as before
+    # the grouped passes), in turns with the grouped one: 1 warm-up and
+    # TIMED_STEPS timed steps a turn; launches not counted
+    def turn(reduction):
+        opt.reduction = reduction
+        secs = []
+        for _ in range(1 + TIMED_STEPS):
+            t0 = time.perf_counter()
+            opt.zero_grad()
+            F.cross_entropy(model(x), y).backward()
+            opt.step()
+            torch.cuda.synchronize(device)
+            secs.append(time.perf_counter() - t0)
+        return batch * TIMED_STEPS / sum(secs[1:])
+
+    grouped, per_tensor = opt.reduction, per_tensor_reduction(opt.reduction)
+    turns = {"per_tensor": [], "grouped": []}
+    for name, reduction in (("per_tensor", per_tensor), ("grouped", grouped),
+                            ("grouped", grouped), ("per_tensor", per_tensor)):
+        turns[name].append(turn(reduction))
+    opt.reduction = grouped
+    fused_scale_cast.launches = launches
     result = dict(
         batch=batch, image=image, grads=n_grads, losses=losses,
         step_ms=[t * 1e3 for t in step_s],
         images_per_s=batch * len(timed) / sum(timed),
+        images_per_s_turns=turns,
         launches=launches, launches_per_step=launches // len(step_s),
-        buckets=len(opt.buckets),
+        buckets=len(opt.buckets), multi_tensor_buckets=multi,
         peak_mem_gib=torch.cuda.max_memory_allocated(device) / 2 ** 30)
     log("train " + json.dumps(result))
     return model, opt, x, y, result
@@ -309,38 +507,108 @@ def train_phase(hvd, device, batch: int, image: int, stage_sizes):
 
 # -- phase 4: the group reduction with the kernel and with the plain version --
 
-def parity_phase(model, opt, x, y):
+def per_tensor_reduction(reduction):
+    """``reduction`` with the grouped passes turned off: every group takes
+    the reference's steps tensor by tensor (``fused_scale_cast`` a
+    tensor), as the optimizer did before the grouped passes."""
+    from horovod_tpu_torch.torch.optimizer import GroupReduction
+
+    @dataclasses.dataclass(frozen=True)
+    class PerTensor(GroupReduction):
+        def grouped(self, tensors) -> bool:
+            return False
+
+    fields = {f.name: getattr(reduction, f.name)
+              for f in dataclasses.fields(reduction)}
+    return PerTensor(**fields)
+
+
+def parity_phase(model, opt, x, y, reps: int):
+    """The optimizer's group reduction over one batch's real buckets,
+    kernel against plain, bitwise, then timed grouped and tensor by
+    tensor: in the main path's configuration (predivide 2: prescale
+    1/2, postscale 1/2 for one rank) and in the optimizer's default
+    (Average, no predivide: both scales 1)."""
     import torch
     import torch.nn.functional as F
 
-    from horovod_tpu_torch.ops import fused_scale_cast, fused_scale_cast_plain
+    from horovod_tpu_torch.comm.reduce_ops import ReduceOp
+    from horovod_tpu_torch.ops import (
+        fused_scale_cast,
+        fused_scale_cast_plain,
+        scale_cast_pack,
+        scale_cast_pack_plain,
+        unpack_cast_scale,
+        unpack_cast_scale_plain,
+    )
 
     params = [p for p in model.parameters() if p.requires_grad]
     loss = F.cross_entropy(model(x), y)
-    # autograd.grad leaves .grad alone, so the optimizer's hooks stay quiet
-    grads = dict(zip(params, torch.autograd.grad(loss, params)))
-    plain = dataclasses.replace(opt.reduction, scale=fused_scale_cast_plain)
-    check(opt.reduction.scale is fused_scale_cast,
+    # autograd.grad leaves .grad alone, so the optimizer's hooks stay
+    # quiet; its results keep the layout the backward gave them, so they
+    # are made contiguous, as AccumulateGrad lays out p.grad
+    grads = {p: g.contiguous()
+             for p, g in zip(params, torch.autograd.grad(loss, params))}
+    red = opt.reduction
+    check(red.pack is scale_cast_pack and red.unpack is unpack_cast_scale
+          and red.scale is fused_scale_cast,
           "the optimizer's reduction does not use the kernel")
+    # {name: (reduction, prefix of its timing keys)}
+    configs = {"predivide": (red, ""), "default": (dataclasses.replace(
+        red, op=ReduceOp.AVERAGE, prescale=1.0, postscale=1.0), "default_")}
     launches_before = fused_scale_cast.launches
+    buckets = [[grads[p] for p in bucket] for bucket in opt.buckets]
+    multi = sum(len(b) > 1 for b in buckets)
     n = 0
-    for bucket in opt.buckets:
-        bucket_grads = [grads[p] for p in bucket]
-        got = opt.reduction.reduce(bucket_grads)
-        want = plain.reduce(bucket_grads)
-        for g, w in zip(got, want):
-            check(torch.equal(g, w), "group reduction: kernel and plain "
-                  "version differ")
-            n += 1
-    check(fused_scale_cast.launches - launches_before == 2 * n,
-          "the group reduction did not launch the kernel")
-    fused_scale_cast.launches = launches_before
+    for name, (cfg, _) in configs.items():
+        plain = dataclasses.replace(cfg, scale=fused_scale_cast_plain,
+                                    pack=scale_cast_pack_plain,
+                                    unpack=unpack_cast_scale_plain)
+        before = fused_scale_cast.launches
+        for bucket_grads in buckets:
+            got = cfg.reduce(bucket_grads)
+            want = plain.reduce(bucket_grads)
+            for g, w in zip(got, want):
+                check(torch.equal(g, w), f"group reduction {name}: kernel "
+                      "and plain versions differ")
+                n += 1
+        check(fused_scale_cast.launches - before == 2 * multi,
+              f"the group reduction {name} did not launch the kernel once a "
+              "direction a multi-tensor bucket")
     torch.cuda.synchronize()
     log(f"parity: {n} reduced gradients bitwise equal, kernel vs plain, "
-        f"over {len(opt.buckets)} buckets")
+        f"over {len(opt.buckets)} buckets, predivide {PREDIVIDE} and the "
+        "default configuration")
+
+    # the optimizer's reduction over the real buckets, launch + finish
+    # into the gradients, grouped and tensor by tensor (one rank: NCCL
+    # moves nothing; host-bound, so the events read the host's time)
+    outs = [[torch.empty_like(g) for g in b] for b in buckets]
+
+    def reduce_all(reduction):
+        def run():
+            for b, o in zip(buckets, outs):
+                reduction.finish(reduction.launch(b), o)
+        return run
+
+    timing = {}
+    for name, (cfg, key) in configs.items():
+        per_tensor = per_tensor_reduction(cfg)
+        timing[f"{key}group_reduce_ms"] = time_cuda(reduce_all(cfg), reps)
+        timing[f"{key}per_tensor_reduce_ms"] = time_cuda(
+            reduce_all(per_tensor), reps)
+        by_tensor = [o.clone() for b in outs for o in b]  # last timed run
+        reduce_all(cfg)()
+        check(all(same_bits(w, o) for w, o in zip(
+            by_tensor, [o for b in outs for o in b])),
+            f"the grouped reduction {name} after timing is not the "
+            "per-tensor one")
+    fused_scale_cast.launches = launches_before
+    log("reduction " + json.dumps(timing))
+    return timing
 
 
-# -- phase 5: kernels A2/A3 against their plain versions ------------------------
+# -- phase 5: kernels A2/A3 against their plain versions ----------------------
 
 def same_bits(a, b) -> bool:
     """Equal dtype, shape and bits, with any NaN equal to any NaN (the
@@ -1157,7 +1425,7 @@ def main() -> int:
         model, opt, x, y, train = train_phase(hvd, device, BATCH, IMAGE,
                                               [3, 4, 6, 3])
         check(train["grads"] == RESNET50_GRADS, "ResNet-50 gradients")
-        parity_phase(model, opt, x, y)
+        reduction = parity_phase(model, opt, x, y, reps=20)
         int8_path = int8_path_phase(model, x, y)
         ring = ring_phase(ring_buckets(model, x, y, RING_RANKS), reps=10)
         del model, opt, x, y
@@ -1167,19 +1435,29 @@ def main() -> int:
 
     log(f"{smi} | ResNet-50 bf16 batch {BATCH} {IMAGE}x{IMAGE}: "
         f"{train['images_per_s']:.1f} images/s")
-    pp = kern["path_pass"]
+    pre, post = kern["passes"]["pre"], kern["passes"]["post"]
+    # A1: the grouped pre pass (scale_cast_pack) over the 161 gradients;
+    # the post pass (unpack_cast_scale) beside it; library_ms is
+    # _foreach_mul over the same tensors, per_tensor_ms the per-tensor
+    # composition the passes replace
     kernels = [{
-        "name": "fused_scale_cast",
+        "name": "fused_scale_cast (grouped: scale_cast_pack / "
+                "unpack_cast_scale)",
         "route": "cuda",
         "source": "horovod_tpu_torch/csrc/scale_cast.cu",
         "replaces": "horovod_tpu/ops/pallas_ops.py:101",
         "launches": train["launches"],
         "max_abs_err": kern["max_abs_err"],
-        "ms": pp["ms"],
-        "plain_ms": pp["plain_ms"],
-        "bound_ms": pp["bound_ms"],
-        "bound_by": pp["bound_by"],
-        "library_ms": pp["library_ms"],
+        "ms": pre["ms"],
+        "plain_ms": pre["plain_ms"],
+        "bound_ms": pre["bound_ms"],
+        "bound_by": pre["bound_by"],
+        "library_ms": pre["library_ms"],
+        "per_tensor_ms": pre["per_tensor_ms"],
+        "post": {k: post[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "library_ms", "per_tensor_ms")},
+        "big_buffer": kern["big_buffer"],
+        **reduction,
     }]
     ipp, err = int8_kern["path_pass"], int8_kern["err"]
     for name, key, line, launches, max_err in (

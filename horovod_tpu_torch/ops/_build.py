@@ -9,8 +9,9 @@ Libraries land in ``build/horovod_tpu_torch/`` beside the package, named
 by a hash of the source, the shared headers (``csrc/*.cuh``) and the
 flags, so an edit rebuilds and an unchanged
 tree reuses the last build.  ``build_all()`` starts one ``nvcc`` per
-source, all at once, and waits for them together.  Nothing is built at
-import time.
+source, all at once, and waits for them together; ``build_copies()``
+compiles patched copies of one source the same way, for the sweep
+scripts.  Nothing is built at import time.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "horovod_tpu_torch"
@@ -93,6 +94,48 @@ def build_all() -> Dict[str, Path]:
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return outs
+
+
+def build_copies(stem: str, variants: Dict[str, Dict[str, str]],
+                 out_dir: Path, extra_flags: Sequence[str] = ()
+                 ) -> Dict[str, Tuple[Path, str]]:
+    """Compile copies of ``csrc/<stem>.cu`` with parts of its text
+    replaced, all at once; for the sweep scripts, which time a kernel at
+    other constants than the shipped ones.
+
+    ``variants`` maps a name to ``{text: replacement}``; each text must
+    occur exactly once in the source.  Copy ``name`` lands, with the
+    headers beside it, in ``out_dir/name/``.  Returns ``{name: (library
+    path, nvcc's output)}``; raises with nvcc's output on failure."""
+    text = (CSRC / f"{stem}.cu").read_text()
+    procs = {}
+    for name, patches in variants.items():
+        copy = text
+        for old, new in patches.items():
+            if text.count(old) != 1:
+                raise RuntimeError(f"{stem}.cu does not hold '{old}' "
+                                   "exactly once")
+            copy = copy.replace(old, new)
+        d = out_dir / name
+        d.mkdir(parents=True, exist_ok=True)
+        for header in CSRC.glob("*.cuh"):
+            (d / header.name).write_bytes(header.read_bytes())
+        src = d / f"{stem}.cu"
+        src.write_text(copy)
+        out = d / f"lib{stem}.so"
+        procs[name] = (out, subprocess.Popen(
+            nvcc_command(src, out) + list(extra_flags),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    built, failed = {}, []
+    for name, (out, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{stem}.cu as {name}: nvcc exit "
+                          f"{proc.returncode}\n{log}")
+        built[name] = (out, log)
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return built
 
 
 def load(stem: str) -> ctypes.CDLL:

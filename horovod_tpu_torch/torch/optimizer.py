@@ -13,12 +13,18 @@ waits, and writes the reduced gradients back in place.
 One group's reduction follows the JAX engine's
 (``eager/controller.py`` ``_execute_allreduce``):
 
-* a group of several tensors takes the staged fused path: per-tensor
-  prescale through the ``fused_scale_cast`` kernel (only when it is not
-  1), wire compression, ``pack_flat``, one ``all_reduce(SUM)`` launched
-  with ``async_op=True``, then at finish ``unpack_flat``, decompression
-  and per-tensor postscale through the kernel.  The order holds in a
-  world of one too;
+* a group of several tensors takes the staged fused path: prescale (only
+  when it is not 1), wire compression, ``pack_flat``, one
+  ``all_reduce(SUM)`` launched with ``async_op=True``, then at finish
+  ``unpack_flat``, decompression and postscale (only when it is not 1).
+  The order holds in a world of one too.  Where every tensor of the
+  group is a contiguous float32/bfloat16/float16 and the codec is
+  ``none``, ``fp16`` or ``bf16``, each direction is one pass of kernel A1
+  over the group (``scale_cast_pack``, ``unpack_cast_scale``; at scale 1
+  the multiply is exact, so the pass is the cast and the pack alone),
+  and the postscale writes straight into the gradients; any other group
+  runs the reference's steps tensor by tensor, floats scaled through
+  ``fused_scale_cast``;
 * a group of one tensor goes through ``comm/eager.allreduce`` with the
   group's op, scales and codec, which in a world of one skips the wire
   compression and multiplies once by ``prescale * postscale``.
@@ -49,7 +55,12 @@ from ..comm.packing import pack_flat, unpack_flat
 from ..comm.reduce_ops import ReduceOp, normalize_op
 from ..core import state as core_state
 from ..core.process_set import ProcessSet, global_process_set
-from ..ops.scale_cast import fused_scale_cast
+from ..ops.scale_cast import (
+    casts_to_wire,
+    fused_scale_cast,
+    scale_cast_pack,
+    unpack_cast_scale,
+)
 from .compression import Compression
 
 
@@ -66,22 +77,24 @@ def engine_compression(compression):
 @dataclasses.dataclass
 class PendingGroup:
     """One group's allreduce in flight; a single-tensor group is
-    reduced at launch and carries its result in ``outs``."""
+    reduced at launch and carries its result in ``outs``.  ``grouped``:
+    the group takes the grouped A1 passes."""
 
     flat: Optional[torch.Tensor] = None
     specs: Optional[list] = None
     ctxs: Optional[list] = None
     work: object = None
     outs: Optional[List[torch.Tensor]] = None
+    grouped: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
 class GroupReduction:
     """The reduction of one group of gradients.
 
-    ``compression`` is an engine codec; ``scale`` is the pre/postscale
-    function of the fused path, the optimizer uses the
-    ``fused_scale_cast`` kernel wrapper.
+    ``compression`` is an engine codec; ``scale`` is the per-tensor
+    pre/postscale of the fused path, ``pack`` and ``unpack`` its grouped
+    passes; the optimizer uses the kernel wrappers.
     """
 
     op: ReduceOp
@@ -90,6 +103,8 @@ class GroupReduction:
     compression: type
     process_set: ProcessSet
     scale: Callable = fused_scale_cast
+    pack: Callable = scale_cast_pack
+    unpack: Callable = unpack_cast_scale
 
     def _apply_scale(self, t: torch.Tensor, factor: float) -> torch.Tensor:
         # controller._apply_scale parity: floats through the one-pass
@@ -98,6 +113,15 @@ class GroupReduction:
             return self.scale(t.reshape(-1), factor).reshape(t.shape)
         return t * torch.tensor(factor, dtype=t.dtype, device=t.device)
 
+    def grouped(self, tensors: Sequence[torch.Tensor]) -> bool:
+        """Whether a group of several tensors takes the grouped A1
+        passes: every tensor contiguous, of a dtype the kernel reads, and
+        cast by the codec to a wire it writes.  Decided before any
+        launch."""
+        return all(t.is_contiguous() and casts_to_wire(self.compression,
+                                                       t.dtype)
+                   for t in tensors)
+
     def launch(self, tensors: Sequence[torch.Tensor]) -> PendingGroup:
         if len(tensors) == 1:
             return PendingGroup(outs=[eager.allreduce(
@@ -105,36 +129,58 @@ class GroupReduction:
                 postscale_factor=self.postscale,
                 compression=self.compression,
                 process_set=self.process_set)])
-        wires, ctxs = [], []
-        for t in tensors:
-            if self.prescale != 1.0:
-                t = self._apply_scale(t, self.prescale)
-            t, ctx = self.compression.compress(t)
-            wires.append(t)
-            ctxs.append(ctx)
-        flat, specs = pack_flat(wires)
+        grouped = self.grouped(tensors)
+        if grouped:
+            flat, specs = self.pack(tensors, self.prescale, self.compression)
+            # each piece back to its gradient's dtype (under the none
+            # codec that is the piece's own)
+            ctxs = [t.dtype for t in tensors]
+        else:
+            wires, ctxs = [], []
+            for t in tensors:
+                if self.prescale != 1.0:
+                    t = self._apply_scale(t, self.prescale)
+                t, ctx = self.compression.compress(t)
+                wires.append(t)
+                ctxs.append(ctx)
+            flat, specs = pack_flat(wires)
         work = dist.all_reduce(flat, op=dist.ReduceOp.SUM,
                                group=self.process_set.group, async_op=True)
-        return PendingGroup(flat, specs, ctxs, work)
+        return PendingGroup(flat, specs, ctxs, work, grouped=grouped)
 
-    def finish(self, pending: PendingGroup) -> List[torch.Tensor]:
+    def finish(self, pending: PendingGroup,
+               outs: Optional[Sequence[torch.Tensor]] = None
+               ) -> List[torch.Tensor]:
+        """The group's reduced tensors, written into ``outs`` (the
+        launched tensors' shapes and dtypes) when given."""
         if pending.outs is not None:
-            return pending.outs
+            return _into(outs, pending.outs)
         pending.work.wait()
         flat = pending.flat
         if self.op == ReduceOp.AVERAGE:
             eager.average_(flat, self.process_set.size)
-        outs = []
+        if pending.grouped:
+            return self.unpack(flat, pending.specs, pending.ctxs,
+                               self.postscale, outs)
+        results = []
         for piece, ctx in zip(unpack_flat(flat, pending.specs),
                               pending.ctxs):
             out = self.compression.decompress(piece, ctx)
             if self.postscale != 1.0:
                 out = self._apply_scale(out, self.postscale)
-            outs.append(out)
-        return outs
+            results.append(out)
+        return _into(outs, results)
 
     def reduce(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         return self.finish(self.launch(tensors))
+
+
+def _into(outs, results: List[torch.Tensor]) -> List[torch.Tensor]:
+    if outs is None:
+        return results
+    for o, r in zip(outs, results):
+        o.copy_(r)
+    return list(outs)
 
 
 class _DistributedOptimizer(torch.optim.Optimizer):
@@ -227,7 +273,8 @@ class _DistributedOptimizer(torch.optim.Optimizer):
 
     # -- public contract --------------------------------------------------
     def synchronize(self):
-        """Reduce every registered gradient; grads are updated in place.
+        """Reduce every registered gradient; grads are updated in place
+        (the grouped postscale writes into them directly).
 
         A parameter whose hook never fired (unused this step, or a
         partial accumulation) is reduced too, with zeros when it has no
@@ -240,9 +287,8 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         self._launch_ready()
         with torch.no_grad():
             for k, pending in self._pending:
-                outs = self.reduction.finish(pending)
-                for p, out in zip(self.buckets[k], outs):
-                    p.grad.copy_(out)
+                self.reduction.finish(pending,
+                                      [p.grad for p in self.buckets[k]])
         self._pending.clear()
         self._ready.clear()
         self._ready_count = [0] * len(self.buckets)

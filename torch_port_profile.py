@@ -27,7 +27,7 @@ from pathlib import Path
 import chip_smoke
 
 GROUPS = [
-    ("fused_scale_cast", re.compile(r"scale_cast_kernel")),
+    ("fused_scale_cast", re.compile(r"scale_cast_table_kernel")),
     ("nccl", re.compile(r"nccl", re.I)),
     ("conv", re.compile(r"conv|cudnn|xmma|implicit_gemm|dgrad|wgrad|"
                         r"sm90_", re.I)),

@@ -34,7 +34,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import subprocess
 import sys
 
 import chip_smoke
@@ -50,32 +49,16 @@ def build_copies(ptxas: bool) -> dict:
     at each thread count, compiled in parallel."""
     from horovod_tpu_torch.ops import _build
 
-    text = (_build.CSRC / "ring_cluster.cu").read_text()
-    check(text.count(KTHREADS) == 1,
-          f"ring_cluster.cu no longer holds one '{KTHREADS}'")
-    procs = {}
-    for t in THREADS:
-        d = _build.BUILD_DIR.parent / "ring_sweep" / str(t)
-        d.mkdir(parents=True, exist_ok=True)
-        for header in _build.CSRC.glob("*.cuh"):
-            (d / header.name).write_bytes(header.read_bytes())
-        src = d / "ring_cluster.cu"
-        src.write_text(text.replace(KTHREADS, f"constexpr int kThreads = {t};"))
-        out = d / "libring_cluster.so"
-        cmd = _build.nvcc_command(src, out) + (["-Xptxas", "-v"] if ptxas
-                                                else [])
-        procs[t] = (out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                          stderr=subprocess.STDOUT,
-                                          text=True))
-    built = {}
-    for t, (out, proc) in procs.items():
-        text_out, _ = proc.communicate(timeout=600)
-        check(proc.returncode == 0,
-              f"nvcc of ring_cluster.cu at {t} threads failed:\n{text_out}")
-        built[t] = (out, [ln.strip() for ln in text_out.splitlines()
-                          if "ptxas info" in ln
-                          and ("Used" in ln or "Compiling" in ln)])
-    return built
+    built = _build.build_copies(
+        "ring_cluster",
+        {str(t): {KTHREADS: f"constexpr int kThreads = {t};"}
+         for t in THREADS},
+        _build.BUILD_DIR.parent / "ring_sweep",
+        ["-Xptxas", "-v"] if ptxas else [])
+    return {t: (path, [ln.strip() for ln in out.splitlines()
+                       if "ptxas info" in ln
+                       and ("Used" in ln or "Compiling" in ln)])
+            for t, (path, out) in ((int(k), v) for k, v in built.items())}
 
 
 def small_checks(ring_mod, device) -> int:
