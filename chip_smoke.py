@@ -31,8 +31,10 @@ Builds the port's CUDA kernels from ``horovod_tpu_torch/csrc`` and then:
 5. holds kernels A2/A3, ``quantize_int8_blocks`` (both rounding modes)
    and ``dequantize_int8_blocks``, bitwise against their plain versions
    (any NaN equal to any NaN) over float32/bfloat16/float16 in and out,
-   lengths 1..2^20+3, aligned and offset views, the NaN/inf/zero/
-   subnormal blocks and every ResNet-50 gradient shape, and times them;
+   lengths 1..2^20+3 (at the edges of the kernels' words and blocks),
+   aligned and offset views, codes at an odd address, the NaN/inf/zero/
+   subnormal blocks, every ResNet-50 gradient shape and one 25.56 M
+   buffer, and times them;
 6. drives the int8 path at full width: one backward of the ResNet-50 of
    phase 3, its 161 gradients and their packed buffer through the
    engine's ``Compression.int8`` and ``int8_stochastic`` (161 + 1 A2 and
@@ -40,7 +42,9 @@ Builds the port's CUDA kernels from ``horovod_tpu_torch/csrc`` and then:
    unbiased and moving the expected share of codes off ``rint``, the
    world-of-one ``allreduce(compression=int8)`` rule, and
    ``quantized_allreduce`` over the one-rank NCCL group bitwise equal to
-   the same call on the CPU;
+   the same call on the CPU, then times it and its two codec phases on
+   the bucket beside A2 and A3; then the torch surface's allreduce and
+   allgather on card tensors that require grad carry their gradient;
 7. runs the ring collectives at full width: phase 3's batch as 8 virtual
    ranks of 8 images, each rank's 161 gradients packed (25.56 M float32),
    reduced on the card by ``ring_allreduce`` (A5 Sum and Average on the
@@ -59,8 +63,9 @@ Builds the port's CUDA kernels from ``horovod_tpu_torch/csrc`` and then:
 8. checks a narrow float32 ResNet trained 2 steps on the card against the
    same steps computed on the CPU with plain PyTorch.
 
-Prints one ``ring_path {...}`` line, one ``{"kernels": [...]}`` line of 9
-entries and, last, ``{"ok": true,
+Prints one ``int8_quantized_allreduce {...}`` line, one ``ring_path
+{...}`` line, one ``{"kernels": [...]}`` line of 9 entries and, last,
+``{"ok": true,
 "device": {...}}``.  Exits non-zero, printing no result, when CUDA is
 absent, when the package is not beside this script, or when any phase
 fails.  Imports nothing of JAX.
@@ -71,6 +76,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -91,7 +97,10 @@ TIMED_STEPS = 5
 PREDIVIDE = 2.0
 RESNET50_GRADS = 161
 LENGTHS = [1, 127, 1024, 1025, 2 ** 20 + 3]
-INT8_LENGTHS = [1, 1023, 1024, 1025, 2 ** 20 + 3]
+# the int8 kernels' layout: a warp a 1024-element block, 16-byte words
+# of 4 float32 or 8 16-bit elements, word w on lane w % 32
+INT8_LENGTHS = [1, 8, 9, 128, 511, 512, 1023, 1024, 1025, 1032, 2047,
+                2 ** 20 + 3]
 FLT_MIN = 2.0 ** -126
 # stochastic rounding over the 25.56 M buffer: |mean((x_hat - x) /
 # scale)|, and the share of codes moved off rint against its expectation;
@@ -709,11 +718,17 @@ def int8_kernel_phase(device, grad_shapes, big_n: int, reps: int):
             check(same_bits(s, ps), f"A2 scales {tag}")
             err["q"] = max(err["q"], max_abs_diff(q.float(), pq.float()))
             err["s"] = max(err["s"], max_abs_diff(s, ps))
+            # the codes at an odd address too: A3's byte-by-byte loads
+            odd = torch.empty(q.numel() + 1, dtype=torch.int8,
+                              device=device)[1:]
+            odd.copy_(q.reshape(-1))
             for out_dt in dtypes:
-                d = dequantize_int8_blocks(q, s, n, out_dt)
                 dp = dequantize_int8_blocks_plain(q, s, n, out_dt)
-                check(same_bits(d, dp), f"A3 -> {out_dt} {tag}")
-                err["d"] = max(err["d"], max_abs_diff(d, dp))
+                for codes in (q, odd.view(q.shape)):
+                    d = dequantize_int8_blocks(codes, s, n, out_dt)
+                    check(same_bits(d, dp), f"A3 -> {out_dt} {tag} codes "
+                          f"at {codes.data_ptr() % 16} mod 16")
+                    err["d"] = max(err["d"], max_abs_diff(d, dp))
             compared += 1
 
     for in_dt in dtypes:
@@ -728,11 +743,16 @@ def int8_kernel_phase(device, grad_shapes, big_n: int, reps: int):
     for shape in grad_shapes:
         compare(wide_values(math.prod(shape), torch.float32, device, gen),
                 f"gradient {shape}")
+    # the main path's buffer: 24,958 blocks, more CTAs than an SM wave
+    compare(wide_values(big_n, torch.float32, device, gen),
+            f"buffer of {big_n}")
     torch.cuda.synchronize()
-    log(f"int8 kernels: A2 (both modes) and A3 (3 output dtypes) bitwise "
-        f"equal to the plain versions in {compared} x 2 comparisons "
-        f"(inputs f32/bf16/f16, lengths {INT8_LENGTHS} aligned and offset, "
-        f"the special blocks, {len(grad_shapes)} ResNet-50 gradient shapes)")
+    log(f"int8 kernels: A2 (both modes) and A3 (3 output dtypes, codes "
+        f"aligned and at an odd address) bitwise equal to the plain versions "
+        f"in {compared} x 2 comparisons (inputs f32/bf16/f16, lengths "
+        f"{INT8_LENGTHS} aligned and offset, the special blocks, "
+        f"{len(grad_shapes)} ResNet-50 gradient shapes, one {big_n}-element "
+        "buffer)")
 
     # Timing 1: one pass over the main path's shapes, as the int8 codec
     # issues it: 161 float32 gradients (ResNet-50's parameters are
@@ -760,8 +780,7 @@ def int8_kernel_phase(device, grad_shapes, big_n: int, reps: int):
     q_bytes = sum(_int8_bytes(g.numel(), 4, 0, True) for g in grads)
     d_bytes = sum(_int8_bytes(g.numel(), 0, 4, False) for g in grads)
     total = sum(g.numel() for g in grads)
-    path = {}
-    for name, fn, plain, library, nbytes, flops in (
+    cases = (
         ("quantize_deterministic",
          pass_of(quantize_int8_blocks),
          pass_of(quantize_int8_blocks_plain), None, q_bytes, 4 * total),
@@ -774,13 +793,27 @@ def int8_kernel_phase(device, grad_shapes, big_n: int, reps: int):
         ("dequantize", deq_pass(dequantize_int8_blocks),
          deq_pass(dequantize_int8_blocks_plain), library_deq_pass,
          d_bytes, total),
-    ):
+    )
+    # the passes are host-bound, and the host's speed drifts: the kernels'
+    # passes and the library's are timed in 4 turns, forwards and
+    # backwards, and each reports the median
+    timed = [(name, fn) for name, fn, *_ in cases] + [
+        ("library", library_deq_pass)]
+    turns = {}
+    for order in (timed, timed[::-1]) * 2:
+        for key, fn in order:
+            turns.setdefault(key, []).append(time_cuda(fn, reps))
+    path = {}
+    for name, fn, plain, library, nbytes, flops in cases:
         b_ms, b_by = _bound_ms(nbytes, flops)
+        lib = turns["library"] if library else None
         path[name] = dict(
-            tensors=len(grads), elements=total, ms=time_cuda(fn, reps),
+            tensors=len(grads), elements=total,
+            ms=statistics.median(turns[name]), ms_turns=turns[name],
             plain_ms=time_cuda(plain, max(2, reps // 4)),
             bound_ms=b_ms, bound_by=b_by,
-            library_ms=time_cuda(library, reps) if library else None)
+            library_ms=statistics.median(lib) if lib else None,
+            library_ms_turns=lib)
         log(f"int8_path_pass {name} " + json.dumps(path[name]))
 
     # Timing 2: one buffer of every ResNet-50 gradient (25.56 M
@@ -953,7 +986,71 @@ def int8_path_phase(model, x, y):
                   a2_launches=launches, a3_launches=a3,
                   worst_error_in_scales=worst)
     log("int8_path " + json.dumps(result))
+    quantized_allreduce_timing(bucket, reps=5)
     return result
+
+
+def quantized_allreduce_timing(bucket, reps: int):
+    """The two-phase ``quantized_allreduce`` (plain torch ops, as the
+    reference is XLA) on the packed bucket at one rank, and its two codec
+    phases apart: ``_quantize`` of the bucket and ``_dequantize_sum`` of
+    one rank's codes; beside A2 and A3 on the same buffer."""
+    import torch
+
+    from horovod_tpu_torch.comm import quantized
+    from horovod_tpu_torch.ops import (
+        dequantize_int8_blocks,
+        quantize_int8_blocks,
+    )
+
+    before = (quantize_int8_blocks.launches, dequantize_int8_blocks.launches)
+    n = bucket.numel()
+    rows = bucket.reshape(1, n)
+    q, s = quantized._quantize(rows)
+    coded = quantize_int8_blocks(bucket)
+    b_ms, b_by = _bound_ms(_int8_bytes(n, 4, 0, True)
+                           + _int8_bytes(n, 0, 4, False), 5 * n)
+    row = dict(
+        elements=n, ranks=1,
+        ms=time_cuda(lambda: quantized.quantized_allreduce(bucket), reps),
+        stochastic_ms=time_cuda(lambda: quantized.quantized_allreduce(
+            bucket, stochastic=True), reps),
+        quantize_ms=time_cuda(lambda: quantized._quantize(rows), reps),
+        dequantize_sum_ms=time_cuda(lambda: quantized._dequantize_sum(q, s),
+                                    reps),
+        a2_ms=time_cuda(lambda: quantize_int8_blocks(bucket), reps),
+        a3_ms=time_cuda(lambda: dequantize_int8_blocks(*coded), reps),
+        codec_bound_ms=b_ms, codec_bound_by=b_by)
+    quantize_int8_blocks.launches, dequantize_int8_blocks.launches = before
+    log("int8_quantized_allreduce " + json.dumps(row))
+
+
+def surface_autograd_phase(hvd, device):
+    """The torch surface's collectives on card tensors that require grad,
+    in the one-rank world: the gradient of ``sum(y * w)`` is ``w``."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    cases = [
+        ("allreduce Sum", torch.float32, (1000,),
+         lambda x: hvd.allreduce(x, op=hvd.Sum)),
+        ("allreduce Average, fp16 codec", torch.bfloat16, (1000,),
+         lambda x: hvd.allreduce(x, None, "g", hvd.Compression.fp16)),
+        ("allgather", torch.float32, (33, 4), hvd.allgather),
+    ]
+    for what, dtype, shape, fn in cases:
+        x = torch.randn(shape, generator=gen, device=device).to(dtype)
+        w = torch.randn(shape, generator=gen, device=device).to(dtype)
+        x.requires_grad_()
+        y = fn(x)
+        check(y.requires_grad and y.device == x.device
+              and same_bits(y.detach(), x.detach()),
+              f"surface {what}: forward")
+        (y * w).sum().backward()
+        check(x.grad is not None and same_bits(x.grad, w),
+              f"surface {what}: gradient")
+    log(f"surface_autograd: {len(cases)} collectives on {device} carry "
+        "their gradient (world of one: x.grad == w)")
 
 
 # -- phase 7: the ring collectives A4/A5/A6 over 8 virtual ranks -----------
@@ -1427,6 +1524,7 @@ def main() -> int:
         check(train["grads"] == RESNET50_GRADS, "ResNet-50 gradients")
         reduction = parity_phase(model, opt, x, y, reps=20)
         int8_path = int8_path_phase(model, x, y)
+        surface_autograd_phase(hvd, device)
         ring = ring_phase(ring_buckets(model, x, y, RING_RANKS), reps=10)
         del model, opt, x, y
         reference_phase(hvd, device)
@@ -1460,17 +1558,23 @@ def main() -> int:
         **reduction,
     }]
     ipp, err = int8_kern["path_pass"], int8_kern["err"]
-    for name, key, line, launches, max_err in (
+    big = int8_kern["big_buffer"]
+    for name, key, line, launches, max_err, buffers in (
             ("quantize_int8_blocks (deterministic)", "quantize_deterministic",
              185, int8_path["a2_launches"]["deterministic"],
-             max(err["q"], err["s"])),
+             max(err["q"], err["s"]),
+             ("quantize_deterministic_float32",
+              "quantize_deterministic_bfloat16")),
             ("quantize_int8_blocks (stochastic)", "quantize_stochastic", 185,
              int8_path["a2_launches"]["stochastic"],
-             max(err["q"], err["s"])),
+             max(err["q"], err["s"]), ("quantize_stochastic_float32",)),
             ("dequantize_int8_blocks", "dequantize", 214,
-             int8_path["a3_launches"], err["d"])):
-        # A3's library call is one torch.mul of the codes by the scales;
-        # A2 has none
+             int8_path["a3_launches"], err["d"],
+             ("dequantize_to_float32_float32",
+              "dequantize_to_bfloat16_float32"))):
+        # ms: the pass over the 161 gradients, host included; A3's
+        # library call is one torch.mul of the codes by the scales, A2
+        # has none; big_buffer: the 25.56 M buffer
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -1483,6 +1587,7 @@ def main() -> int:
             "bound_ms": ipp[key]["bound_ms"],
             "bound_by": ipp[key]["bound_by"],
             "library_ms": ipp[key]["library_ms"],
+            "big_buffer": {b: big[b] for b in buffers},
         })
     for key, name, line, source, path in (
             ("A4_cluster", "ring_allgather_2d (cluster, n <= 8)", 94,

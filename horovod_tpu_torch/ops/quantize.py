@@ -8,7 +8,11 @@ launches its hand-written kernel of ``csrc/quantize_int8.cu`` on the
 current stream and counts the launch (``quantize_int8_blocks.launches``,
 ``dequantize_int8_blocks.launches``); on a CPU tensor it computes the
 plain version beside it.  There is no other path: a CUDA tensor the
-kernel cannot take raises.
+kernel cannot take raises.  The codec's callers launch one tensor at a
+time, so a call's host cost counts as much as its kernel: the
+prototypes are set once, the stream is the raw current one, and a
+device context is entered only for a tensor off the current device.
+``csrc/quantize_int8.cu`` notes the kernels' design and bound.
 
 Both versions compute what the TPU kernel computes, including the TPU's
 float32 semantics that PyTorch does not share:
@@ -30,6 +34,7 @@ tensor: computing it never syncs the host.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -179,23 +184,28 @@ def dequantize_int8_blocks_plain(q: torch.Tensor, scale: torch.Tensor,
 
 # -- the kernels ------------------------------------------------------------
 
-def _kernels():
+@functools.lru_cache(maxsize=None)
+def _library():
     lib = _build.load("quantize_int8")
     q, d = lib.hvtpu_quantize_int8, lib.hvtpu_dequantize_int8
-    if q.argtypes is None:
-        q.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
-                      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                      ctypes.c_int, ctypes.c_void_p]
-        q.restype = ctypes.c_int
-        d.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                      ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-        d.restype = ctypes.c_int
+    q.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                  ctypes.c_int, ctypes.c_void_p]
+    q.restype = ctypes.c_int
+    d.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                  ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    d.restype = ctypes.c_int
     return q, d
 
 
-def _check_cuda(t: torch.Tensor, what: str) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{what}: unsupported device {t.device}")
+def _call(fn, index: int, *args) -> int:
+    """``fn(*args, stream)`` on the current stream of device ``index``,
+    entering a device context only when ``index`` is not the current
+    device (the usual case costs no context)."""
+    if index == torch._C._cuda_getDevice():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
 
 
 def quantize_int8_blocks(flat: torch.Tensor, *, stochastic: bool = False,
@@ -207,33 +217,34 @@ def quantize_int8_blocks(flat: torch.Tensor, *, stochastic: bool = False,
     1024-element block, and the element count ``n``.  ``seed`` (a device
     int32 tensor, or an int) keys the stochastic rounding.
     """
-    if flat.device.type == "cpu":
-        return quantize_int8_blocks_plain(flat, stochastic=stochastic,
-                                          seed=seed)
-    _check_cuda(flat, "quantize_int8_blocks")
+    if not flat.is_cuda:
+        if flat.device.type == "cpu":
+            return quantize_int8_blocks_plain(flat, stochastic=stochastic,
+                                              seed=seed)
+        raise ValueError(
+            f"quantize_int8_blocks: unsupported device {flat.device}")
     if flat.dim() != 1 or not flat.is_contiguous():
         raise ValueError(
             "quantize_int8_blocks: expects a contiguous 1-D tensor, got "
             f"shape {tuple(flat.shape)} strides {flat.stride()}")
-    if not flat.is_floating_point():
-        raise TypeError(f"quantize_int8_blocks: {flat.dtype} is not a "
-                        "floating dtype")
-    if flat.dtype not in _DTYPE_CODE:
+    code = _DTYPE_CODE.get(flat.dtype)
+    if code is None:
+        if not flat.is_floating_point():
+            raise TypeError(f"quantize_int8_blocks: {flat.dtype} is not a "
+                            "floating dtype")
         flat = flat.to(torch.float32)    # as the reference pre-casts f64
+        code = 0
     n = flat.numel()
     g = num_blocks(n)
-    codes = torch.empty((g * QROWS, LANES), dtype=torch.int8,
-                        device=flat.device)
-    scales = torch.empty((g, 1), dtype=torch.float32, device=flat.device)
+    codes = flat.new_empty((g * QROWS, LANES), dtype=torch.int8)
+    scales = flat.new_empty((g, 1), dtype=torch.float32)
     if n == 0:
         return codes, scales, n
     seed_t = _seed_tensor(seed, flat.device) if stochastic else None
-    stream = torch.cuda.current_stream(flat.device).cuda_stream
-    with torch.cuda.device(flat.device):
-        err = _kernels()[0](
-            flat.data_ptr(), _DTYPE_CODE[flat.dtype], n, codes.data_ptr(),
-            scales.data_ptr(), None if seed_t is None else seed_t.data_ptr(),
-            int(stochastic), stream)
+    err = _call(_library()[0], flat.get_device(), flat.data_ptr(), code, n,
+                codes.data_ptr(), scales.data_ptr(),
+                None if seed_t is None else seed_t.data_ptr(),
+                int(stochastic))
     if err != 0:
         raise RuntimeError(
             f"quantize_int8_blocks: kernel launch failed with cudaError {err}")
@@ -245,18 +256,26 @@ def dequantize_int8_blocks(q: torch.Tensor, scale: torch.Tensor, n: int,
                            dtype=torch.float32) -> torch.Tensor:
     """Inverse of :func:`quantize_int8_blocks`: a 1-D tensor of ``n``
     elements of ``dtype`` (float32, bfloat16 or float16 on the card)."""
-    if q.dim() != 2 or q.shape[1] != LANES or q.shape[0] % QROWS:
+    shape = q.shape
+    if len(shape) != 2 or shape[1] != LANES or shape[0] % QROWS:
         raise ValueError(
             f"dequantize_int8_blocks: codes must be (rows, {LANES}) with "
-            f"rows a multiple of {QROWS}, got {tuple(q.shape)}")
+            f"rows a multiple of {QROWS}, got {tuple(shape)}")
     if not 0 <= n <= q.numel():
         raise ValueError(f"dequantize_int8_blocks: n={n} out of range")
-    if q.device.type == "cpu":
-        return dequantize_int8_blocks_plain(q, scale, n, dtype)
-    _check_cuda(q, "dequantize_int8_blocks")
-    g = q.shape[0] // QROWS
+    if not q.is_cuda:
+        if q.device.type == "cpu":
+            return dequantize_int8_blocks_plain(q, scale, n, dtype)
+        raise ValueError(
+            f"dequantize_int8_blocks: unsupported device {q.device}")
+    code = _DTYPE_CODE.get(dtype)
+    if code is None:
+        raise TypeError(f"dequantize_int8_blocks: output {dtype} is not "
+                        "supported (float32, bfloat16, float16)")
+    index = q.get_device()
     if (q.dtype != torch.int8 or scale.dtype != torch.float32
-            or scale.numel() != g or scale.device != q.device):
+            or scale.numel() != shape[0] // QROWS
+            or scale.get_device() != index):
         raise TypeError(
             "dequantize_int8_blocks: expects int8 codes and one float32 "
             f"scale a block on {q.device}, got {q.dtype} codes and "
@@ -264,16 +283,11 @@ def dequantize_int8_blocks(q: torch.Tensor, scale: torch.Tensor, n: int,
     if not (q.is_contiguous() and scale.is_contiguous()):
         raise ValueError("dequantize_int8_blocks: codes and scales must "
                          "be contiguous")
-    if dtype not in _DTYPE_CODE:
-        raise TypeError(f"dequantize_int8_blocks: output {dtype} is not "
-                        "supported (float32, bfloat16, float16)")
-    out = torch.empty(n, dtype=dtype, device=q.device)
+    out = q.new_empty(n, dtype=dtype)
     if n == 0:
         return out
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        err = _kernels()[1](q.data_ptr(), scale.data_ptr(), n,
-                            out.data_ptr(), _DTYPE_CODE[dtype], stream)
+    err = _call(_library()[1], index, q.data_ptr(), scale.data_ptr(), n,
+                out.data_ptr(), code)
     if err != 0:
         raise RuntimeError(
             "dequantize_int8_blocks: kernel launch failed with cudaError "

@@ -12,25 +12,19 @@ Usage (the reference's shape)::
         gradient_predivide_factor=2.0)
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
 
-The sync collectives take the engine's wire codecs
-(``horovod_tpu_torch.comm.compression.Compression``, int8 included)::
+The collectives (``mpi_ops.py``) take the reference's positional
+signatures, are differentiable, and map ``hvd.Compression.fp16`` /
+``bf16`` onto the engine's cast codecs and anything else onto ``none``,
+as the reference does.  The engine's int8 wire is reached through the
+engine's own allreduce::
 
+    from horovod_tpu_torch.comm import eager
     from horovod_tpu_torch.comm.compression import Compression
-    hvd.allreduce(t, compression=Compression.int8)
+    eager.allreduce(t, compression=Compression.int8)
 """
 
 from __future__ import annotations
 
-from ..comm.eager import (
-    allgather,
-    allreduce,
-    alltoall,
-    barrier,
-    broadcast,
-    broadcast_,
-    grouped_allreduce,
-    reducescatter,
-)
 from ..comm.reduce_ops import Average, Max, Min, Product, Sum
 from ..core.exceptions import NotInitializedError
 from ..core.process_set import ProcessSet, global_process_set
@@ -49,13 +43,26 @@ from .functions import (
     broadcast_optimizer_state,
     broadcast_parameters,
 )
+from .mpi_ops import (
+    allgather,
+    allreduce,
+    allreduce_,
+    alltoall,
+    barrier,
+    broadcast,
+    broadcast_,
+    grouped_allreduce,
+    grouped_allreduce_,
+    reducescatter,
+)
 from .optimizer import DistributedOptimizer
 
 __all__ = [
     "init", "shutdown", "is_initialized", "rank", "size", "local_rank",
     "device", "ProcessSet", "global_process_set", "NotInitializedError",
     "Compression", "Sum", "Average", "Min", "Max", "Product",
-    "allreduce", "grouped_allreduce", "allgather", "alltoall",
+    "allreduce", "allreduce_", "grouped_allreduce", "grouped_allreduce_",
+    "allgather", "alltoall",
     "reducescatter", "broadcast", "broadcast_", "barrier",
     "broadcast_parameters", "broadcast_optimizer_state",
     "broadcast_object", "DistributedOptimizer",

@@ -31,7 +31,8 @@ One group's reduction follows the JAX engine's
 
 The wire codec is the engine's (``comm/compression.py``): the torch
 surface's ``Compression.fp16`` / ``bf16`` map onto it and anything else
-onto ``none``, as ``horovod_tpu/torch/mpi_ops.py`` maps them, so the
+onto ``none`` (``mpi_ops.engine_compression``, as
+``horovod_tpu/torch/mpi_ops.py`` maps them), so the
 fp16 wire casts every floating gradient, bfloat16 ones included.
 
 ``gradient_predivide_factor=f`` (requires ``op=Average``) reduces with
@@ -49,7 +50,6 @@ import torch
 import torch.distributed as dist
 
 from ..comm import eager
-from ..comm.compression import Compression as EngineCompression
 from ..comm.fusion import plan_buckets
 from ..comm.packing import pack_flat, unpack_flat
 from ..comm.reduce_ops import ReduceOp, normalize_op
@@ -62,16 +62,7 @@ from ..ops.scale_cast import (
     unpack_cast_scale,
 )
 from .compression import Compression
-
-
-def engine_compression(compression):
-    """The engine codec of a torch-surface ``Compression`` (parity:
-    ``horovod_tpu/torch/mpi_ops.py`` ``_engine_compression``)."""
-    if compression is Compression.fp16:
-        return EngineCompression.fp16
-    if compression is Compression.bf16:
-        return EngineCompression.bf16
-    return EngineCompression.none
+from .mpi_ops import engine_compression
 
 
 @dataclasses.dataclass

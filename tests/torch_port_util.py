@@ -115,6 +115,7 @@ def collectives_worker(rank: int, world: int, store_path: str,
                        out_dir: str) -> None:
     torch.set_num_threads(1)
     import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.comm import eager
     from horovod_tpu_torch.comm.compression import Compression
 
     dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
@@ -123,18 +124,20 @@ def collectives_worker(rank: int, world: int, store_path: str,
         hvd.init(device="cpu")
         x = {k: torch.from_numpy(v) for k, v in collective_inputs(rank).items()}
         res = {}
+        # the engine's codecs ride the engine's allreduce: the torch
+        # surface maps them to none, as the reference does
         for name, op in (("sum", hvd.Sum), ("avg", hvd.Average)):
-            res[f"int8_{name}"] = hvd.allreduce(
+            res[f"int8_{name}"] = eager.allreduce(
                 x["int8"], op=op, compression=Compression.int8)
-        res["int8_scaled"] = hvd.allreduce(
+        res["int8_scaled"] = eager.allreduce(
             x["int8"], op=hvd.Sum, compression=Compression.int8,
             prescale_factor=0.5, postscale_factor=3.0)
-        res["int8_bf16"] = hvd.allreduce(
+        res["int8_bf16"] = eager.allreduce(
             x["int8_bf16"].to(torch.bfloat16), op=hvd.Average,
             compression=Compression.int8).float()
-        res["int8_stoch"] = hvd.allreduce(
+        res["int8_stoch"] = eager.allreduce(
             x["int8"], op=hvd.Sum, compression=Compression.int8_stochastic)
-        res["fp16_avg"] = hvd.allreduce(
+        res["fp16_avg"] = eager.allreduce(
             x["int8"], op=hvd.Average, compression=Compression.fp16)
         outs = hvd.grouped_allreduce(
             [x["group_a"], x["group_b"], x["group_c"]], op=hvd.Sum)
@@ -185,6 +188,7 @@ def average_worker(rank: int, world: int, store_path: str,
                    out_dir: str) -> None:
     torch.set_num_threads(1)
     import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.comm import eager
     from horovod_tpu_torch.comm.compression import Compression
     from horovod_tpu_torch.comm.quantized import quantized_allreduce
 
@@ -199,11 +203,87 @@ def average_worker(rank: int, world: int, store_path: str,
             res[f"avg_{name}"] = hvd.allreduce(x["exact"].to(dt),
                                                op=hvd.Average).float()
         res["avg_int"] = hvd.allreduce(x["ints"], op=hvd.Average)
-        res["avg_int8"] = hvd.allreduce(x["int8"], op=hvd.Average,
-                                        compression=Compression.int8)
+        res["avg_int8"] = eager.allreduce(x["int8"], op=hvd.Average,
+                                          compression=Compression.int8)
         res["quantized_avg"] = quantized_allreduce(x["int8"], average=True)
         res["rs_avg"] = hvd.reducescatter(x["rs"], op=hvd.Average)
         np.savez(os.path.join(out_dir, f"avg{rank}.npz"),
+                 **{k: v.numpy() for k, v in res.items()})
+        hvd.shutdown()
+    finally:
+        dist.destroy_process_group()
+
+
+# -- the torch surface's autograd and codec mapping, 2 ranks over gloo --------
+
+MPI_ROOT = 1           # broadcast's root: rank 0's gradient must be zeros
+
+
+def mpi_ops_inputs(rank: int) -> dict:
+    """Per-rank inputs of ``mpi_ops_worker``: each collective's input and
+    the weights ``w`` of the weighted sum whose backward it runs."""
+    rng = np.random.RandomState(80 + rank)
+    rs_rows = 3 - rank                  # 5 rows over 2 ranks: 3 and 2
+    a2a_rows = sum(A2A_SPLITS[s][rank] for s in range(2))
+    mag = 10.0 ** rng.uniform(-8, 4, size=600)
+    f32 = np.float32
+    return dict(
+        x=rng.randn(6, 5).astype(f32),
+        w_sum=rng.randn(6, 5).astype(f32),
+        w_avg=rng.randn(6, 5).astype(f32),
+        gather=rng.randn(3 + 2 * rank, 4).astype(f32),
+        w_gather=rng.randn(8, 4).astype(f32),
+        bcast=rng.randn(7).astype(f32),
+        w_bcast=rng.randn(7).astype(f32),
+        rs=rng.randn(5, 3).astype(f32),
+        w_rs_sum=rng.randn(rs_rows, 3).astype(f32),
+        w_rs_avg=rng.randn(rs_rows, 3).astype(f32),
+        a2a=rng.randn(6, 3).astype(f32),
+        w_a2a=rng.randn(a2a_rows, 3).astype(f32),
+        # over 12 decades: an fp16 wire flushes, rounds and overflows
+        # values that a bfloat16 wire keeps
+        wire=(rng.randn(600) * mag).astype(f32),
+    )
+
+
+def mpi_ops_worker(rank: int, world: int, store_path: str,
+                   out_dir: str) -> None:
+    torch.set_num_threads(1)
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.comm.compression import Compression as Engine
+
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    try:
+        hvd.init(device="cpu")
+        a = {k: torch.from_numpy(v) for k, v in mpi_ops_inputs(rank).items()}
+        res = {}
+
+        def run(name, fn, x, w):
+            """Forward and the input's grad after backward of sum(y * w)."""
+            x = x.clone().requires_grad_()
+            y = fn(x)
+            (y * w).sum().backward()
+            res[name], res[f"grad_{name}"] = y.detach(), x.grad
+
+        for name, op in (("sum", hvd.Sum), ("avg", hvd.Average)):
+            run(f"allreduce_{name}", lambda x: hvd.allreduce(x, op=op),
+                a["x"], a[f"w_{name}"])
+            run(f"rs_{name}", lambda x: hvd.reducescatter(x, op),
+                a["rs"], a[f"w_rs_{name}"])
+        run("allgather", hvd.allgather, a["gather"], a["w_gather"])
+        run("bcast", lambda x: hvd.broadcast(x, MPI_ROOT, "bcast"),
+            a["bcast"], a["w_bcast"])
+        run("a2a", lambda x: hvd.alltoall(x, A2A_SPLITS[rank])[0],
+            a["a2a"], a["w_a2a"])
+        bf16 = a["wire"].to(torch.bfloat16)
+        for name, op in (("sum", hvd.Sum), ("avg", hvd.Average)):
+            res[f"fp16_wire_{name}"] = hvd.allreduce(
+                bf16, op=op, compression=hvd.Compression.fp16).float()
+        res["bf16_wire_sum"] = hvd.allreduce(bf16, op=hvd.Sum).float()
+        res["engine_int8_sum"] = hvd.allreduce(a["x"], op=hvd.Sum,
+                                               compression=Engine.int8)
+        np.savez(os.path.join(out_dir, f"mpi{rank}.npz"),
                  **{k: v.numpy() for k, v in res.items()})
         hvd.shutdown()
     finally:
