@@ -47,24 +47,24 @@ Builds the port's CUDA kernels from ``horovod_tpu_torch/csrc`` and then:
    allgather on card tensors that require grad carry their gradient;
 7. runs the ring collectives at full width: phase 3's batch as 8 virtual
    ranks of 8 images, each rank's 161 gradients packed (25.56 M float32),
-   reduced on the card by ``ring_allreduce`` (A5 Sum and Average on the
-   cluster kernel, A6 quantized on the global-slot kernel) and gathered
-   by ``ring_allgather_2d`` (A4 on the cluster kernel, each rank's 1/8):
+   reduced on the card by ``ring_allreduce`` (A5 Sum and Average, A6
+   quantized, all on the cluster kernels) and gathered by
+   ``ring_allgather_2d`` (A4 on the cluster kernel, each rank's 1/8):
    one launch a call, outputs identical on every rank and bitwise the
    plain versions, A5 within ``n * 2^-23 * sum|x|`` of the float64 sum,
    A6 within ``2(n-1) * max sum|x| / 127``, A4 bitwise ``torch.cat``;
    then rings of 2 and 3 ranks, and of 3 ranks of NaN/inf/subnormal
    values, bitwise the plain versions; a ring of 12 ranks of 1,000,003
-   elements on the global-slot A4/A5 kernels, its own path; timing
-   against the plain versions and the library calls that fill one
-   output and every rank's (the 12-rank kernels at half a bucket a
-   rank, and a call's time at 1,000,003), and the last timed call
-   checked again;
+   elements on the global-slot A4/A5/A6 kernels, its own path, with the
+   same checks; timing against the plain versions and the library calls
+   that fill one output and every rank's (the 12-rank kernels at half a
+   bucket a rank, and a call's time at 1,000,003), and the last timed
+   call checked again;
 8. checks a narrow float32 ResNet trained 2 steps on the card against the
    same steps computed on the CPU with plain PyTorch.
 
 Prints one ``int8_quantized_allreduce {...}`` line, one ``ring_path
-{...}`` line, one ``{"kernels": [...]}`` line of 9 entries and, last,
+{...}`` line, one ``{"kernels": [...]}`` line of 10 entries and, last,
 ``{"ok": true,
 "device": {...}}``.  Exits non-zero, printing no result, when CUDA is
 absent, when the package is not beside this script, or when any phase
@@ -1078,7 +1078,8 @@ def ring_buckets(model, x, y, ranks: int):
     return buckets
 
 
-RING_KERNELS = ("A4_cluster", "A5_cluster", "A4_global", "A5_global", "A6")
+RING_KERNELS = ("A4_cluster", "A5_cluster", "A6_cluster", "A4_global",
+                "A5_global", "A6_global")
 
 
 def _ring_counts():
@@ -1086,9 +1087,10 @@ def _ring_counts():
 
     return {"A4_cluster": ring_allgather_2d.cluster_launches,
             "A5_cluster": ring_allreduce.cluster_launches,
+            "A6_cluster": ring_allreduce.quantized_cluster_launches,
             "A4_global": ring_allgather_2d.launches,
             "A5_global": ring_allreduce.launches,
-            "A6": ring_allreduce.quantized_launches}
+            "A6_global": ring_allreduce.quantized_launches}
 
 
 def _set_ring_counts(counts) -> None:
@@ -1096,9 +1098,10 @@ def _set_ring_counts(counts) -> None:
 
     ring_allgather_2d.cluster_launches = counts["A4_cluster"]
     ring_allreduce.cluster_launches = counts["A5_cluster"]
+    ring_allreduce.quantized_cluster_launches = counts["A6_cluster"]
     ring_allgather_2d.launches = counts["A4_global"]
     ring_allreduce.launches = counts["A5_global"]
-    ring_allreduce.quantized_launches = counts["A6"]
+    ring_allreduce.quantized_launches = counts["A6_global"]
 
 
 def _ring_key(kind: str, n: int) -> str:
@@ -1106,9 +1109,7 @@ def _ring_key(kind: str, n: int) -> str:
     ``n`` ranks: the wrapper's own dispatch."""
     from horovod_tpu_torch.ops.ring import kernel_route
 
-    if kind == "A6":
-        return "A6"
-    return f"{kind}_{kernel_route(n)}"
+    return f"{kind}_{kernel_route(n, kind == 'A6')}"
 
 
 def _one_launch(kernel: str, fn):
@@ -1152,10 +1153,30 @@ def _ring_path(buckets, blocks, quantized: bool):
     want[_ring_key("A5", n)] = 2
     want[_ring_key("A4", n)] = 1
     if quantized:
-        want["A6"] = 1
+        want[_ring_key("A6", n)] = 1
     check(launches == want, f"ring: {n}-rank path launched {launches}, "
           f"expected {want}")
     return sums, avgs, quant, gathered, launches
+
+
+def _quantized_checks(quant, buckets, what: str):
+    """A6 identical on every rank, bitwise the plain version and within
+    ``2(n-1) max sum|x| / 127`` of the float64 sum; returns the largest
+    difference to the plain version (0.0), the largest and mean error
+    and the bound."""
+    import torch
+
+    from horovod_tpu_torch.ops import ring_allreduce_plain
+
+    n = len(buckets)
+    held = _held(quant, ring_allreduce_plain(buckets, quantized=True),
+                 f"{what} A6")
+    stacked = torch.stack(buckets)
+    q_err = (quant[0].double() - stacked.double().sum(0)).abs()
+    q_bound = 2 * (n - 1) * float(stacked.abs().double().sum(0).max()) / 127
+    check(float(q_err.max()) <= q_bound,
+          f"ring: {what}: A6 error {float(q_err.max())} beyond {q_bound}")
+    return held, float(q_err.max()), float(q_err.mean()), q_bound
 
 
 def _sum_checks(sums, avgs, buckets, what: str) -> float:
@@ -1252,6 +1273,30 @@ def _time_ring(buckets, blocks, reps: int, plain_reps: int = 2):
     return a4, a5
 
 
+def _a6_bound(n: int, size: int):
+    """A6's least bytes (each rank's input read once, its output written
+    once) and its operations: a quantize (~6) and an FMA a hop and
+    element, the owner's quantize and every rank's dequantize."""
+    return dict(zip(("bound_ms", "bound_by"), _bound_ms(
+        2 * n * size * 4, size * (6 * (n - 1) + 4) + n * size)))
+
+
+def _time_a6(buckets, reps: int, plain_reps: int = 2):
+    """ms of A6 through the wrapper and its plain version; the last
+    timed call is checked again."""
+    from horovod_tpu_torch.ops import ring_allreduce, ring_allreduce_plain
+
+    last = {}
+    a6 = dict(ms=time_cuda(lambda: last.__setitem__(
+        "A6", ring_allreduce(buckets, quantized=True)), reps),
+              plain_ms=time_cuda(lambda: ring_allreduce_plain(
+                  buckets, quantized=True), plain_reps, 1),
+              library_ms=None, library_all_ranks_ms=None)
+    _held(last["A6"], ring_allreduce_plain(buckets, quantized=True),
+          f"A6 n={len(buckets)} after timing")
+    return dict(a6, **_a6_bound(len(buckets), buckets[0].numel()))
+
+
 def _ring_bounds(n: int, size: int, e: int):
     """The least bytes of A4 and A5 (each rank's input read once, its
     output written once) and A5's float32 additions."""
@@ -1275,11 +1320,11 @@ def _wide_ranks(buckets, m: int, elements: int):
 
 def ring_phase(buckets, reps: int):
     """The ring collectives at full width (8 ranks x 25.56 M float32
-    gradients, the main path: A4 and A5 on the cluster kernels, A6 on
-    the global-slot kernel), rings of 2 and 3 ranks, the 12-rank ring on
-    the global-slot A4/A5 kernels (a path of its own), timing (the
-    12-rank kernels at half a bucket a rank, where the kernel and not
-    the call around it takes the time), and calls back to back."""
+    gradients, the main path: A4, A5 and A6 on the cluster kernels),
+    rings of 2 and 3 ranks, the 12-rank ring on the global-slot A4/A5/A6
+    kernels (a path of its own), timing (the 12-rank kernels at half a
+    bucket a rank, where the kernel and not the call around it takes the
+    time), and calls back to back."""
     import torch
 
     from horovod_tpu_torch.ops import (
@@ -1296,26 +1341,19 @@ def ring_phase(buckets, reps: int):
 
     # the main path
     sums, avgs, quant, gathered, launches = _ring_path(buckets, blocks, True)
-    check(_ring_key("A5", n) == "A5_cluster",
+    check(all(_ring_key(k, n).endswith("_cluster")
+              for k in ("A4", "A5", "A6")),
           f"ring: {n} ranks not on the cluster kernels")
     err = dict.fromkeys(RING_KERNELS, 0.0)
     err["A5_cluster"] = _sum_checks(sums, avgs, buckets, f"n={n}")
-    stacked = torch.stack(buckets)
-    exact = stacked.double().sum(0)
-    magnitude = stacked.abs().double().sum(0)
-    err["A6"] = _held(quant, ring_allreduce_plain(buckets, quantized=True),
-                      "A6")
-    q_err = (quant[0].double() - exact).abs()
-    q_bound = 2 * (n - 1) * float(magnitude.max()) / 127
-    check(float(q_err.max()) <= q_bound,
-          f"ring: A6 error {float(q_err.max())} beyond {q_bound}")
-    a6_err = (float(q_err.max()), float(q_err.mean()))
+    err["A6_cluster"], a6_max, a6_mean, q_bound = _quantized_checks(
+        quant, buckets, f"n={n}")
     err["A4_cluster"] = _held(gathered, ring_allgather_2d_plain(blocks), "A4")
     check(same_bits(gathered[0], torch.cat(blocks)),
           "ring: A4 is not torch.cat")
-    del stacked, exact, magnitude, q_err, sums, avgs, quant, gathered
-    log(f"ring: {n} ranks x {size} elements, A5 Sum/Average (cluster) and "
-        "A6 (global slots) identical on every rank and bitwise the plain "
+    del sums, avgs, quant, gathered
+    log(f"ring: {n} ranks x {size} elements, A5 Sum/Average and A6 "
+        "(cluster) identical on every rank and bitwise the plain "
         "versions, A4 (cluster) bitwise torch.cat")
 
     # smaller rings: n = 2 and n = 3 (not a power of two: the reciprocal
@@ -1344,46 +1382,46 @@ def ring_phase(buckets, reps: int):
                                        f"A4 {what}"))
         check(same_bits(outs[0], torch.cat(bl)), f"ring: A4 {what} cat")
 
-    # the 12-rank ring: past a cluster's 8 CTAs, so A4 and A5 take the
-    # global-slot kernels; each rank a distinct RING_SMALL slice of the
-    # gradients
+    # the 12-rank ring: past a cluster's 8 CTAs, so A4, A5 and A6 take
+    # the global-slot kernels; each rank a distinct RING_SMALL slice of
+    # the gradients
     m = RING_WIDE
     wide = _wide_ranks(buckets, m, RING_SMALL)
     wide_blocks = _rank_blocks(wide)
-    wsums, wavgs, _, wgathered, wide_launches = _ring_path(
-        wide, wide_blocks, False)
-    check(_ring_key("A5", m) == "A5_global",
+    wsums, wavgs, wquant, wgathered, wide_launches = _ring_path(
+        wide, wide_blocks, True)
+    check(all(_ring_key(k, m).endswith("_global")
+              for k in ("A4", "A5", "A6")),
           f"ring: {m} ranks not on the global-slot kernels")
     err["A5_global"] = _sum_checks(wsums, wavgs, wide, f"n={m}")
+    err["A6_global"], wide_a6_max, _, wide_q_bound = _quantized_checks(
+        wquant, wide, f"n={m}")
     err["A4_global"] = _held(wgathered, ring_allgather_2d_plain(wide_blocks),
                              f"A4 n={m}")
     check(same_bits(wgathered[0], torch.cat(wide_blocks)),
           f"ring: A4 n={m} is not torch.cat")
-    del wsums, wavgs, wgathered
-    log(f"ring: {m} ranks x {RING_SMALL} elements on the global-slot A4/A5 "
-        "kernels, identical on every rank and bitwise the plain versions")
+    del wsums, wavgs, wquant, wgathered
+    log(f"ring: {m} ranks x {RING_SMALL} elements on the global-slot "
+        "A4/A5/A6 kernels, identical on every rank and bitwise the plain "
+        "versions")
 
     # timing; the last timed call of each is checked again
     saved = _ring_counts()
     a4c, a5c = _time_ring(buckets, blocks, reps)
-    last = {}
-    a6 = dict(ms=time_cuda(lambda: last.__setitem__(
-        "A6", ring_allreduce(buckets, quantized=True)), reps),
-              plain_ms=time_cuda(lambda: ring_allreduce_plain(
-                  buckets, quantized=True), 2, 1),
-              library_ms=None, library_all_ranks_ms=None)
-    _held(last["A6"], ring_allreduce_plain(buckets, quantized=True),
-          "A6 after timing")
+    a6c = _time_a6(buckets, reps)
     # the 12-rank kernels: per call at RING_SMALL (launch, flag memset,
     # slot allocation and 22 handshakes a slice outweigh the bytes), then
     # at half a bucket a rank, the size the kernel's rate is read at
     wide_small_ms = {
         "A5_global": time_cuda(lambda: ring_allreduce(wide), reps),
-        "A4_global": time_cuda(lambda: ring_allgather_2d(wide_blocks), reps)}
+        "A4_global": time_cuda(lambda: ring_allgather_2d(wide_blocks), reps),
+        "A6_global": time_cuda(
+            lambda: ring_allreduce(wide, quantized=True), reps)}
     wide_elements = size // 2 // 4 * 4
     big = _wide_ranks(buckets, m, wide_elements)
     big_blocks = _rank_blocks(big)
     a4g, a5g = _time_ring(big, big_blocks, reps)
+    a6g = _time_a6(big, reps)
     del big, big_blocks
     _set_ring_counts(saved)
 
@@ -1391,9 +1429,6 @@ def ring_phase(buckets, reps: int):
     b4, b5 = _ring_bounds(n, size, e)
     a4c.update(b4)
     a5c.update(b5)
-    a6.update(zip(("bound_ms", "bound_by"),
-                  _bound_ms(2 * n * size * 4,
-                            size * (6 * (n - 1) + 4) + n * size)))
     wb4, wb5 = _ring_bounds(m, wide_elements, we)
     a4g.update(wb4)
     a5g.update(wb5)
@@ -1402,28 +1437,29 @@ def ring_phase(buckets, reps: int):
     # through HBM (payload into the neighbour's slot and back out, the
     # local chunk again each reduce-scatter hop)
     dsmem_bytes = {"A5_cluster": n * 4 * e * (2 * n - 2),
-                   "A4_cluster": n * 4 * e * (n - 1)}
+                   "A4_cluster": n * 4 * e * (n - 1),
+                   "A6_cluster": n * (2 * n - 2) * (e + 4 * e // 1024)}
     hbm_ring_bytes = {
-        "A6": n * e * (8 + 2 * (n - 1) * (6 + 1 / 128)),
+        "A6_global": m * we * (8 + 2 * (m - 1) * (6 + 1 / 128)),
         "A5_global": m * 4 * we * (6 * m - 4),
         "A4_global": m * 4 * we * (2 + 3 * (m - 1))}
-    config = {name: cluster_info(allreduce, n)
-              for name, allreduce in (("A4_cluster", False),
-                                      ("A5_cluster", True))}
+    config = {f"{kind}_cluster": cluster_info(kind, n)
+              for kind in ("A4", "A5", "A6")}
     result = dict(ranks=n, elements=size, chunk=e, launches=launches,
                   wide_ranks=m, wide_elements=RING_SMALL,
                   wide_launches=wide_launches,
                   wide_small_ms=wide_small_ms,
                   wide_timed_elements=wide_elements, small_rings=[2, 3],
                   small_elements=RING_SMALL,
-                  a6_max_err=a6_err[0], a6_mean_err=a6_err[1],
-                  a6_bound=q_bound, max_abs_err=err,
+                  a6_max_err=a6_max, a6_mean_err=a6_mean,
+                  a6_bound=q_bound, wide_a6_max_err=wide_a6_max,
+                  wide_a6_bound=wide_q_bound, max_abs_err=err,
                   cluster_config=config, dsmem_bytes=dsmem_bytes,
                   hbm_ring_bytes=hbm_ring_bytes,
                   hbm_ring_ms={k: v / HBM_BYTES_PER_S * 1e3
                                for k, v in hbm_ring_bytes.items()},
-                  A4_cluster=a4c, A5_cluster=a5c, A4_global=a4g,
-                  A5_global=a5g, A6=a6)
+                  A4_cluster=a4c, A5_cluster=a5c, A6_cluster=a6c,
+                  A4_global=a4g, A5_global=a5g, A6_global=a6g)
     log("ring_path " + json.dumps(result))
     return result
 
@@ -1598,8 +1634,10 @@ def main() -> int:
              "ring.cu", "wide_launches"),
             ("A5_global", "ring_allreduce (global slots, n > 8)", 180,
              "ring.cu", "wide_launches"),
-            ("A6", "ring_allreduce (quantized)", 296, "ring.cu",
-             "launches")):
+            ("A6_cluster", "ring_allreduce (quantized, cluster, n <= 8)",
+             296, "ring_cluster.cu", "launches"),
+            ("A6_global", "ring_allreduce (quantized, global slots, n > 8)",
+             296, "ring.cu", "wide_launches")):
         # A5's library call is x.sum(0) on the stacked ranks, A4's
         # torch.cat, each filling one output; library_all_ranks_ms fills
         # every rank's; A6 has none

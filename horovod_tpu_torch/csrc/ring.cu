@@ -1,7 +1,7 @@
 // Ring collectives over the virtual ranks of one card, for Hopper (sm_90a).
-// A4 and A5 run here only past 8 ranks, where a thread block cluster no
-// longer holds a CTA a rank (ring_cluster.cu takes 2 to 8; ops/ring.py
-// kernel_route picks); A6 runs here at every n.
+// A4, A5 and A6 run here only past 8 ranks, where a thread block cluster
+// no longer holds a CTA a rank (ring_cluster.cu takes 2 to 8; ops/ring.py
+// kernel_route picks).
 //
 // Replaces horovod_tpu/ops/ring.py:_allgather_kernel (A4, called from
 // ring_allgather_2d), :_allreduce_kernel (A5) and
@@ -45,7 +45,8 @@
 //   A5: acc = flush(recv + flush(x_local)), __fadd_rn, so chunk c is
 //       ((x_c + x_{c+1}) + ...) + x_{c+n-1}, ranks mod n.
 //   A6: every hop carries int8 codes and one float32 scale per 1024
-//       elements (quant_common.cuh, A2's formula); a reduce-scatter hop
+//       elements (quant_common.cuh, A2's formula; the per-hop
+//       arithmetic is ring_common.cuh's); a reduce-scatter hop
 //       requantizes and accumulates acc = flush(fma(float(q), s,
 //       flush(x_local))) with __fmaf_rn, as XLA fuses the reference's
 //       dequantize-and-add; the owner quantizes its reduced chunk once and
@@ -302,38 +303,11 @@ allreduce_kernel(const Rank* __restrict__ table, int n, int64_t size,
 
 // A lane's share of one quantization block: 8 float4, element
 // lane*4 + k*128 of the block for k = 0..7 (a warp's k-th access is 512
-// contiguous bytes, its codes 128 contiguous bytes).
-struct Codes {
-  uint32_t word[kLaneVec];  // 4 int8 codes each
-  float scale;
-};
-
-__device__ __forceinline__ Codes quantize(const float4 (&v)[kLaneVec]) {
-  float m = 0.0f;
-#pragma unroll
-  for (int k = 0; k < kLaneVec; ++k) {
-    m = hvtpu::max_nan(m, fabsf(v[k].x));
-    m = hvtpu::max_nan(m, fabsf(v[k].y));
-    m = hvtpu::max_nan(m, fabsf(v[k].z));
-    m = hvtpu::max_nan(m, fabsf(v[k].w));
-  }
-  float inv;
-  Codes c;
-  c.scale = hvtpu::block_scale(hvtpu::warp_max_nan(m), &inv);
-#pragma unroll
-  for (int k = 0; k < kLaneVec; ++k) {
-    const uint32_t q0 = (uint8_t)hvtpu::round_code(v[k].x, inv);
-    const uint32_t q1 = (uint8_t)hvtpu::round_code(v[k].y, inv);
-    const uint32_t q2 = (uint8_t)hvtpu::round_code(v[k].z, inv);
-    const uint32_t q3 = (uint8_t)hvtpu::round_code(v[k].w, inv);
-    c.word[k] = q0 | (q1 << 8) | (q2 << 16) | (q3 << 24);
-  }
-  return c;
-}
-
-__device__ __forceinline__ float code(uint32_t word, int j) {
-  return (float)(int8_t)(word >> (8 * j));
-}
+// contiguous bytes, its codes 128 contiguous bytes); the arithmetic is
+// ring_common.cuh's, shared with ring_cluster.cu's A6.
+using Codes = hvtpu::Codes<kLaneVec>;
+using hvtpu::accumulate4;
+using hvtpu::store_dequantized;
 
 // block `blk` (index within a chunk's quantization blocks) of `slot`
 __device__ __forceinline__ void push_codes(const Rank& r, int slot,
@@ -359,19 +333,6 @@ __device__ __forceinline__ Codes slot_codes(const Rank& r, int slot,
         q + lane * 4 + k * 128));
   c.scale = __ldcg(r.scale_slots + slot * (chunk / kQBlock) + blk);
   return c;
-}
-
-__device__ __forceinline__ void store_dequantized(float* out, int64_t g,
-                                                  int64_t size,
-                                                  const Codes& c) {
-#pragma unroll
-  for (int k = 0; k < kLaneVec; ++k) {
-    const float4 v = make_float4(__fmul_rn(code(c.word[k], 0), c.scale),
-                                 __fmul_rn(code(c.word[k], 1), c.scale),
-                                 __fmul_rn(code(c.word[k], 2), c.scale),
-                                 __fmul_rn(code(c.word[k], 3), c.scale));
-    store4(out, g + (threadIdx.x & 31) * 4 + k * 128, size, v);
-  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -400,7 +361,7 @@ quantized_allreduce_kernel(const Rank* __restrict__ table, int n,
     for (int i = 0; i < n - 1; ++i) {
       const int recv = (i + 1) & 1;
       Codes c;
-      if (active) c = quantize(acc);
+      if (active) c = hvtpu::quantize_warp(acc);
       ring.wait_free(i, recv);
       if (active) push_codes(right, recv, chunk, blk, c);
       ring.sent(recv);
@@ -410,13 +371,9 @@ quantized_allreduce_kernel(const Rank* __restrict__ table, int n,
         const Codes in = slot_codes(self, recv, chunk, blk);
 #pragma unroll
         for (int k = 0; k < kLaneVec; ++k) {
-          const float4 x =
-              flush4(load4(self.x, ch * chunk + e0 + k * 128, size));
-          acc[k] = make_float4(
-              flush(__fmaf_rn(code(in.word[k], 0), in.scale, x.x)),
-              flush(__fmaf_rn(code(in.word[k], 1), in.scale, x.y)),
-              flush(__fmaf_rn(code(in.word[k], 2), in.scale, x.z)),
-              flush(__fmaf_rn(code(in.word[k], 3), in.scale, x.w)));
+          acc[k] = accumulate4(
+              in.word[k], in.scale,
+              load4(self.x, ch * chunk + e0 + k * 128, size));
         }
       }
       ring.free_slot(i, i & 1);
@@ -424,9 +381,8 @@ quantized_allreduce_kernel(const Rank* __restrict__ table, int n,
     // the owner quantizes its reduced chunk once and keeps q0*s0
     Codes c;
     if (active) {
-      c = quantize(acc);
-      store_dequantized(self.out, ((me + 1) % n) * chunk + blk * kQBlock,
-                        size, c);
+      c = hvtpu::quantize_warp(acc);
+      store_dequantized(self.out, ((me + 1) % n) * chunk + e0, size, c);
     }
     // phase 2: all-gather, relaying the codes verbatim, slots 2/3
     for (int i = 0; i < n - 1; ++i) {
@@ -437,8 +393,7 @@ quantized_allreduce_kernel(const Rank* __restrict__ table, int n,
       ring.wait_received(i, recv);
       if (active) {
         c = slot_codes(self, recv, chunk, blk);
-        store_dequantized(self.out,
-                          ((me - i + 2 * n) % n) * chunk + blk * kQBlock,
+        store_dequantized(self.out, ((me - i + 2 * n) % n) * chunk + e0,
                           size, c);
       }
       ring.free_slot(i, 2 + (i & 1));

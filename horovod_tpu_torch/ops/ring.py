@@ -12,19 +12,21 @@ walk the same ring hop by hop with the same arithmetic.  On CUDA tensors
 every rank's buffers sit in one card's memory and one launch runs every
 rank; :func:`kernel_route` picks the kernel from ``n`` alone:
 
-* ``"cluster"`` (A4 and A5 at ``2 <= n <= 8``): ``csrc/ring_cluster.cu``,
-  one thread block cluster of ``n`` CTAs a ring, the slots in shared
-  memory, each hop's payload stored into the neighbour's slot through
+* ``"cluster"`` (A4, A5 and A6 at ``2 <= n <= 8``):
+  ``csrc/ring_cluster.cu``, one thread block cluster of ``n`` CTAs a
+  ring, the slots in shared memory, each hop's payload (float32, or A6's
+  int8 codes and scales) stored into the neighbour's slot through
   distributed shared memory and one cluster barrier a hop.  HBM sees
   each input read once and each output written once, the bound; the
   wrapper allocates only the outputs.  Counted in
-  ``ring_allgather_2d.cluster_launches`` and
-  ``ring_allreduce.cluster_launches``.
-* ``"global"`` (A4 and A5 at ``n > 8``, A6 at every n):
-  ``csrc/ring.cu``, one cooperative launch through the reference's
-  protocol: double-buffered slots per phase in device memory, per-slot
-  receive flags and ACK backpressure.  Counted in
-  ``ring_allgather_2d.launches``, ``ring_allreduce.launches`` (A5) and
+  ``ring_allgather_2d.cluster_launches``,
+  ``ring_allreduce.cluster_launches`` (A5) and
+  ``ring_allreduce.quantized_cluster_launches`` (A6).
+* ``"global"`` (A4, A5 and A6 at ``n > 8``): ``csrc/ring.cu``, one
+  cooperative launch through the reference's protocol: double-buffered
+  slots per phase in device memory, per-slot receive flags and ACK
+  backpressure.  Counted in ``ring_allgather_2d.launches``,
+  ``ring_allreduce.launches`` (A5) and
   ``ring_allreduce.quantized_launches`` (A6).  These are the kernels to
   extend across cards.
 
@@ -64,18 +66,17 @@ LANES = 128
 ROW_QUANTUM = 8               # a rank's chunk is a multiple of 8 rows
 SLICE = 8 * QBLOCK            # elements a CUDA block carries a hop
 CLUSTER_MAX_RANKS = 8         # CTAs of a portable thread block cluster
+CLUSTER_KINDS = ("A4", "A5", "A6")   # ring_cluster.cu's kernels, by index
 
 
 def kernel_route(n: int, quantized: bool = False) -> str:
     """The CUDA kernel that serves a ring of ``n >= 2`` ranks on one
-    card: ``"cluster"`` (``csrc/ring_cluster.cu``) for A4 and A5 at
-    ``n <= 8``, ``"global"`` (``csrc/ring.cu``) for A4 and A5 at
-    ``n > 8`` and for A6 (``quantized``) at every n."""
+    card, A4, A5 and A6 (``quantized``) alike: ``"cluster"``
+    (``csrc/ring_cluster.cu``) at ``n <= 8``, ``"global"``
+    (``csrc/ring.cu``) past 8."""
     if n < 2:
         raise ValueError(f"a ring needs 2 or more ranks, got {n}")
-    if quantized or n > CLUSTER_MAX_RANKS:
-        return "global"
-    return "cluster"
+    return "cluster" if n <= CLUSTER_MAX_RANKS else "global"
 
 
 # -- shapes and checks --------------------------------------------------------
@@ -240,19 +241,22 @@ def _kernels():
 
 
 def bind_cluster(lib: ctypes.CDLL):
-    """The all-gather, allreduce and info functions of a loaded
-    ``ring_cluster`` library, their C signatures set."""
+    """The all-gather (A4), allreduce (A5), info and quantized allreduce
+    (A6) functions of a loaded ``ring_cluster`` library, their C
+    signatures set."""
     fns = (lib.hvtpu_ring_cluster_allgather, lib.hvtpu_ring_cluster_allreduce,
-           lib.hvtpu_ring_cluster_info)
+           lib.hvtpu_ring_cluster_info,
+           lib.hvtpu_ring_cluster_quantized_allreduce)
     if fns[0].argtypes is None:
         ptrs = ctypes.POINTER(ctypes.c_int64)
         # xs, outs, n, chunk, stream
         fns[0].argtypes = [ptrs, ptrs, ctypes.c_int, ctypes.c_int64,
                            ctypes.c_void_p]
         # xs, outs, n, size, chunk, stream
-        fns[1].argtypes = [ptrs, ptrs, ctypes.c_int, ctypes.c_int64,
-                           ctypes.c_int64, ctypes.c_void_p]
-        # allreduce, n, info[6]
+        fns[1].argtypes = fns[3].argtypes = [
+            ptrs, ptrs, ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_void_p]
+        # kind (index in CLUSTER_KINDS), n, info[6]
         fns[2].argtypes = [ctypes.c_int, ctypes.c_int,
                            ctypes.POINTER(ctypes.c_int)]
         for fn in fns:
@@ -304,18 +308,33 @@ def _cluster_call(what: str, fn, n: int, device, *args) -> None:
                            f"with cudaError {err}")
 
 
-def cluster_allreduce_sum(flats: Sequence[torch.Tensor]
-                          ) -> List[torch.Tensor]:
-    """A5's Sum by one cluster launch over 1-D float32 CUDA tensors, one
-    a rank."""
+def _cluster_allreduce(flats: Sequence[torch.Tensor], fn
+                       ) -> List[torch.Tensor]:
     n, size = len(flats), flats[0].numel()
     e = chunk_elems(size, n)
     outs = [torch.empty(size, dtype=torch.float32, device=f.device)
             for f in flats]
     xs, os_ = _cluster_table("ring_allreduce", flats, outs, size, size)
-    _cluster_call("ring_allreduce", _cluster_kernels()[1], n,
-                  flats[0].device, xs, os_, n, size, e)
+    _cluster_call("ring_allreduce", fn, n, flats[0].device, xs, os_, n,
+                  size, e)
+    return outs
+
+
+def cluster_allreduce_sum(flats: Sequence[torch.Tensor]
+                          ) -> List[torch.Tensor]:
+    """A5's Sum by one cluster launch over 1-D float32 CUDA tensors, one
+    a rank."""
+    outs = _cluster_allreduce(flats, _cluster_kernels()[1])
     ring_allreduce.cluster_launches += 1
+    return outs
+
+
+def cluster_quantized_allreduce(flats: Sequence[torch.Tensor]
+                                ) -> List[torch.Tensor]:
+    """A6's Sum by one cluster launch over 1-D float32 CUDA tensors, one
+    a rank."""
+    outs = _cluster_allreduce(flats, _cluster_kernels()[3])
+    ring_allreduce.quantized_cluster_launches += 1
     return outs
 
 
@@ -333,12 +352,13 @@ def cluster_allgather(blocks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     return outs
 
 
-def cluster_info(allreduce: bool, n: int) -> dict:
-    """What the current card gives a cluster kernel: registers and spill
-    bytes a thread, shared memory and CTAs an SM, clusters of ``n``
-    resident at once, and the kernel's slice in elements."""
+def cluster_info(kind: str, n: int) -> dict:
+    """What the current card gives the cluster kernel ``kind`` (one of
+    :data:`CLUSTER_KINDS`): registers and spill bytes a thread, shared
+    memory a CTA, CTAs an SM, clusters of ``n`` resident at once, and
+    the kernel's slice in elements."""
     info = (ctypes.c_int * 6)()
-    err = _cluster_kernels()[2](int(allreduce), n, info)
+    err = _cluster_kernels()[2](CLUSTER_KINDS.index(kind), n, info)
     if err != 0:
         raise RuntimeError(f"cluster_info: cudaError {err}")
     return dict(zip(("registers", "spill_bytes", "shared_bytes",
@@ -381,15 +401,16 @@ def _launch(fn, what: str, xs, outs, slot_bytes: int, scale_slot_bytes: int,
             "resident on the card)")
 
 
-def _ring_sum_kernel(flats: Sequence[torch.Tensor], quantized: bool
+def global_allreduce(xs: Sequence[torch.Tensor], quantized: bool
                      ) -> List[torch.Tensor]:
-    xs = [_aligned(f) for f in flats]
-    if kernel_route(len(xs), quantized) == "cluster":
-        return cluster_allreduce_sum(xs)
-    n, size = len(flats), flats[0].numel()
+    """A5's Sum (A6's when ``quantized``) by one cooperative launch of
+    the global-slot kernel over 1-D float32 CUDA tensors, one a rank, at
+    16-byte aligned addresses.  It takes any ``n >= 2``; the wrapper
+    sends it the rings past 8 ranks."""
+    n, size = len(xs), xs[0].numel()
     e = chunk_elems(size, n)
-    outs = [torch.empty(size, dtype=torch.float32, device=f.device)
-            for f in flats]
+    outs = [torch.empty(size, dtype=torch.float32, device=x.device)
+            for x in xs]
     slot = e if quantized else 4 * e             # int8 codes or float32
     scale_slot = 4 * (e // QBLOCK) if quantized else 0
     _launch(_kernels()[1], "ring_allreduce", xs, outs, slot, scale_slot,
@@ -399,6 +420,15 @@ def _ring_sum_kernel(flats: Sequence[torch.Tensor], quantized: bool
     else:
         ring_allreduce.launches += 1
     return outs
+
+
+def _ring_sum_kernel(flats: Sequence[torch.Tensor], quantized: bool
+                     ) -> List[torch.Tensor]:
+    xs = [_aligned(f) for f in flats]
+    if kernel_route(len(xs), quantized) == "cluster":
+        return (cluster_quantized_allreduce(xs) if quantized
+                else cluster_allreduce_sum(xs))
+    return global_allreduce(xs, quantized)
 
 
 def ring_allreduce(tensors: Sequence[torch.Tensor], *, average: bool = False,
@@ -442,4 +472,5 @@ ring_allgather_2d.launches = 0            # csrc/ring.cu, n > 8
 ring_allgather_2d.cluster_launches = 0    # csrc/ring_cluster.cu, n <= 8
 ring_allreduce.launches = 0               # A5, csrc/ring.cu, n > 8
 ring_allreduce.cluster_launches = 0       # A5, csrc/ring_cluster.cu
-ring_allreduce.quantized_launches = 0     # A6, csrc/ring.cu
+ring_allreduce.quantized_launches = 0     # A6, csrc/ring.cu, n > 8
+ring_allreduce.quantized_cluster_launches = 0   # A6, csrc/ring_cluster.cu

@@ -10,9 +10,11 @@ card by ``chip_smoke.py``).  Every comparison is bitwise and on every
 rank:
 
 * A5, Sum and Average, and A6 at (n, per-rank length) in {(8, 1024),
-  (8, 4000), (8, 5), (3, 4000), (2, 1024)}: ring-order sums, the
-  reciprocal Average at n = 3, the fused multiply-add of A6's hops,
-  float32 subnormals and a cancellation to a subnormal;
+  (8, 4000), (8, 5), (3, 4000), (2, 1024), (5, 3001)}: ring-order sums,
+  the reciprocal Average at n = 3, the fused multiply-add of A6's hops,
+  float32 subnormals and a cancellation to a subnormal; n = 5 is a
+  cluster ring size that is neither 2, 3 nor 8, and 3001 leaves a
+  ragged last quantization block (zero padding inside a block);
 * NaN, inf and -inf among values over 50 decades at n = 3 (any NaN equal
   to any NaN);
 * a bfloat16 ``(10, 33)`` input, int32 (exact, its own dtype), n = 1;
@@ -46,7 +48,7 @@ from horovod_tpu_torch.ops import (
 )
 
 AXIS = "x"
-CASES = [(8, 1024), (8, 4000), (8, 5), (3, 4000), (2, 1024)]
+CASES = [(8, 1024), (8, 4000), (8, 5), (3, 4000), (2, 1024), (5, 3001)]
 MODES = {"sum": {}, "average": {"average": True},
          "quantized": {"quantized": True}}
 
@@ -226,8 +228,10 @@ def test_allgather_matches_jax(n):
 
 
 def _launches():
-    return (ring_allgather_2d.launches, ring_allreduce.launches,
-            ring_allreduce.quantized_launches)
+    return (ring_allgather_2d.launches, ring_allgather_2d.cluster_launches,
+            ring_allreduce.launches, ring_allreduce.cluster_launches,
+            ring_allreduce.quantized_launches,
+            ring_allreduce.quantized_cluster_launches)
 
 
 def test_cpu_tensors_take_the_plain_versions():

@@ -1,10 +1,9 @@
 """The ring's kernel dispatch and the cluster wrapper's checks, on the
 CPU.
 
-A4 and A5 at 2 to 8 ranks run on ``csrc/ring_cluster.cu`` (one thread
-block cluster a ring), A4 and A5 past 8 ranks and A6 at every n on
-``csrc/ring.cu`` (the global-slot kernels).  The choice is a function of
-``n`` alone; it is tested here without a card by standing fake launch
+A4, A5 and A6 at 2 to 8 ranks run on ``csrc/ring_cluster.cu`` (one
+thread block cluster a ring), past 8 ranks on ``csrc/ring.cu`` (the
+global-slot kernels).  The choice is a function of ``n`` alone; it is tested here without a card by standing fake launch
 functions in for the compiled libraries, so each test sees which kernel
 a call reaches, with what arguments, and that a failed launch raises.
 The kernels' results are held bitwise against the plain versions on the
@@ -27,7 +26,7 @@ def test_route_is_a_function_of_n(n):
     want = "cluster" if n <= 8 else "global"
     assert ring_mod.kernel_route(n) == want
     assert ring_mod.kernel_route(n, quantized=False) == want
-    assert ring_mod.kernel_route(n, quantized=True) == "global"
+    assert ring_mod.kernel_route(n, quantized=True) == want
 
 
 @pytest.mark.parametrize("n", [0, 1])
@@ -56,7 +55,7 @@ def fake_card(monkeypatch):
     lib = FakeLib()
     monkeypatch.setattr(ring_mod, "_cluster_kernels", lambda: (
         lib.fn("cluster_allgather"), lib.fn("cluster_allreduce"),
-        lib.fn("cluster_info")))
+        lib.fn("cluster_info"), lib.fn("cluster_quantized_allreduce")))
     monkeypatch.setattr(ring_mod, "_kernels", lambda: (
         lib.fn("global_allgather"), lib.fn("global_allreduce")))
     monkeypatch.setattr(torch.cuda, "current_stream",
@@ -69,7 +68,8 @@ def fake_card(monkeypatch):
 def _counts():
     return (ring_allgather_2d.cluster_launches, ring_allgather_2d.launches,
             ring_allreduce.cluster_launches, ring_allreduce.launches,
-            ring_allreduce.quantized_launches)
+            ring_allreduce.quantized_launches,
+            ring_allreduce.quantized_cluster_launches)
 
 
 def _flats(n, size=3000, seed=0):
@@ -92,21 +92,34 @@ def test_allreduce_reaches_the_kernel_its_route_names(fake_card, n):
         # only the per-rank pointers: no slot or flag buffer
         assert list(xs) == [f.data_ptr() for f in flats]
         assert list(os_) == [o.data_ptr() for o in outs]
-        delta = (0, 0, 1, 0, 0)
+        delta = (0, 0, 1, 0, 0, 0)
     else:
         assert name == "global_allreduce"
         assert args[1:6] == (n, 3000, e, ring_mod.SLICE, 0)
-        delta = (0, 0, 0, 1, 0)
+        delta = (0, 0, 0, 1, 0, 0)
     assert tuple(a - b for a, b in zip(_counts(), before)) == delta
 
 
-@pytest.mark.parametrize("n", [2, 5, 8, 12])
-def test_quantized_always_takes_the_global_kernel(fake_card, n):
+@pytest.mark.parametrize("n", [2, 3, 5, 8, 9, 12])
+def test_quantized_reaches_the_kernel_its_route_names(fake_card, n):
+    flats = _flats(n)
     before = _counts()
-    ring_mod._ring_sum_kernel(_flats(n), True)
+    outs = ring_mod._ring_sum_kernel(flats, True)
     ((name, args),) = fake_card.calls
-    assert name == "global_allreduce" and args[5] == 1
-    assert tuple(a - b for a, b in zip(_counts(), before)) == (0, 0, 0, 0, 1)
+    e = ring_mod.chunk_elems(3000, n)
+    if n <= 8:
+        assert name == "cluster_quantized_allreduce"
+        xs, os_, n_arg, size, chunk, stream = args
+        assert (n_arg, size, chunk, stream) == (n, 3000, e, 7)
+        # only the per-rank pointers: no slot, scale slot or flag buffer
+        assert list(xs) == [f.data_ptr() for f in flats]
+        assert list(os_) == [o.data_ptr() for o in outs]
+        delta = (0, 0, 0, 0, 0, 1)
+    else:
+        assert name == "global_allreduce"
+        assert args[1:6] == (n, 3000, e, ring_mod.SLICE, 1)
+        delta = (0, 0, 0, 0, 1, 0)
+    assert tuple(a - b for a, b in zip(_counts(), before)) == delta
 
 
 @pytest.mark.parametrize("n", [2, 7, 8, 9])
@@ -121,16 +134,17 @@ def test_allgather_reaches_the_kernel_its_route_names(fake_card, n):
         assert args[2:] == (n, 24 * 128, 7)
         assert list(args[0]) == [b.data_ptr() for b in blocks]
         assert list(args[1]) == [o.data_ptr() for o in outs]
-        delta = (1, 0, 0, 0, 0)
+        delta = (1, 0, 0, 0, 0, 0)
     else:
         assert name == "global_allgather"
         assert args[1:6] == (n, 24 * 128, 24 * 128, ring_mod.SLICE, 0)
-        delta = (0, 1, 0, 0, 0)
+        delta = (0, 1, 0, 0, 0, 0)
     assert tuple(a - b for a, b in zip(_counts(), before)) == delta
 
 
 @pytest.mark.parametrize("fn,n", [
     (lambda xs: ring_mod._ring_sum_kernel(xs, False), 3),
+    (lambda xs: ring_mod._ring_sum_kernel(xs, True), 5),
     (lambda xs: ring_mod.cluster_allgather(
         [x[:2048].reshape(16, 128) for x in xs]), 4),
 ])
@@ -141,12 +155,15 @@ def test_a_failed_cluster_launch_raises(fake_card, fn, n):
                                            "cudaError 98"):
         fn(_flats(n))
     assert _counts() == before
+    # one launch: nothing gives way to the global-slot kernel
+    ((name, _),) = fake_card.calls
+    assert name.startswith("cluster_")
 
 
 def test_a_failed_cluster_query_raises(fake_card):
     fake_card.err = 1
     with pytest.raises(RuntimeError, match="cluster_info: cudaError 1"):
-        ring_mod.cluster_info(True, 8)
+        ring_mod.cluster_info("A5", 8)
 
 
 def _table(xs, outs, x_numel=64, out_numel=64):
@@ -187,32 +204,40 @@ def test_cluster_table_raises_on_what_the_kernel_cannot_take():
         _table(good, [torch.zeros(68)[3:67], good[1]])
 
 
-@pytest.mark.parametrize("allreduce,n", [(False, 2), (True, 3), (False, 8),
-                                         (True, 8)])
-def test_cluster_info_reads_what_the_library_reports(monkeypatch, allreduce,
-                                                     n):
-    def info_fn(kind, ranks, info):
-        assert (kind, ranks) == (int(allreduce), n)
+@pytest.mark.parametrize("kind,n", [("A4", 2), ("A5", 3), ("A4", 8),
+                                    ("A5", 8), ("A6", 2), ("A6", 8)])
+def test_cluster_info_reads_what_the_library_reports(monkeypatch, kind, n):
+    index = ring_mod.CLUSTER_KINDS.index(kind)
+
+    def info_fn(k, ranks, info):
+        assert (k, ranks) == (index, n)
         for i in range(6):
-            info[i] = 100 * kind + 10 * ranks + i
+            info[i] = 100 * k + 10 * ranks + i
         return 0
 
     monkeypatch.setattr(ring_mod, "_cluster_kernels",
-                        lambda: (None, None, info_fn))
-    base = 100 * allreduce + 10 * n
-    assert ring_mod.cluster_info(allreduce, n) == dict(
+                        lambda: (None, None, info_fn, None))
+    base = 100 * index + 10 * n
+    assert ring_mod.cluster_info(kind, n) == dict(
         registers=base, spill_bytes=base + 1, shared_bytes=base + 2,
         ctas_per_sm=base + 3, clusters=base + 4, slice=base + 5)
 
 
 def test_the_kernel_file_compiles_one_slice():
-    """ring_cluster.cu fixes its CTA at one thread count, the line the
-    slice sweep rewrites in its copies; a CTA's slice holds whole
-    quantization blocks, as A5's chunks do."""
+    """ring_cluster.cu fixes each CTA at one shape, the lines the slice
+    sweep rewrites in its copies: A4/A5 at one thread count, A6 at one
+    thread count and one count of warps a quantization block.  A CTA's
+    slice holds whole quantization blocks, as A5's chunks do, and an A6
+    CTA whole blocks of whole warps."""
     import torch_port_ring_sweep as sweep
 
     text = (ring_mod._build.CSRC / "ring_cluster.cu").read_text()
     assert text.count(sweep.KTHREADS) == 1
+    assert text.count(sweep.KQTHREADS) == 1
+    assert text.count(sweep.KQBLOCKWARPS) == 1
     assert "template" not in text
     assert all(t * 16 % ring_mod.QBLOCK == 0 for t in sweep.THREADS)
+    for warps, threads in sweep.A6_SHAPES:
+        assert warps in (1, 2) and threads % (32 * warps) == 0
+    assert (1, 128) in sweep.A6_SHAPES and (2, 128) in sweep.A6_SHAPES
     assert ring_mod.CLUSTER_MAX_RANKS == 8

@@ -1,32 +1,46 @@
 #!/usr/bin/env python3
-"""The cluster ring kernels (A4, A5) at each slice size, on one GPU.
+"""The cluster ring kernels (A4, A5, A6) at each CTA shape, on one GPU.
 
     python3 torch_port_ring_sweep.py [--elements 25557032] [--ranks 8]
                                      [--reps 20] [--ptxas]
+                                     [--kernels all|A4A5|A6]
 
-``horovod_tpu_torch/csrc/ring_cluster.cu`` is compiled at one slice,
-128 threads a CTA of 16 elements each.  This script copies it, with the
-headers beside it, under ``build/ring_sweep/<threads>/``, sets the copy's
-``kThreads`` to 128, 256, 512 and 1024 (slices of 2048 to 16384
-elements), compiles the copies in parallel (``--ptxas`` adds
-``-Xptxas -v`` and prints each kernel's registers, shared memory and
-spills) and runs each through the port's own wrappers.  For each slice:
+``horovod_tpu_torch/csrc/ring_cluster.cu`` is compiled at one CTA shape
+a kernel: A4/A5 at 128 threads of 16 elements each (a slice of 2048),
+A6 at 128 threads and one warp a 1024-element quantization block (a
+slice of 4096).  This script copies the source, with the headers beside
+it, under ``build/ring_sweep/<name>/`` with other shapes set, compiles
+the copies in parallel (``--ptxas`` adds ``-Xptxas -v`` and prints each
+kernel's registers, shared memory and spills) and runs each through the
+port's own wrappers:
 
-* what the card gives the kernel (``cluster_info``: registers, spill
-  bytes, shared memory and CTAs an SM, clusters resident at once);
-* A5 Sum and A4 bitwise against their plain versions at 2, 3, 5 and 8
-  ranks of a few thousand elements and, once, at full width;
-* the time of A5 Sum and of A4 at ``--ranks`` ranks of ``--elements``
-  float32 (the default is the ring phase of ``chip_smoke.py``: 8 ranks of
-  ResNet-50's 25,557,032 gradients), by CUDA events, the slices taken in
-  turns, forwards and then backwards, beside the bound (each input read
-  once, each output written once) and the library calls that fill one
-  output and every rank's.
+* A4/A5 (copies ``t<threads>``): ``kThreads`` 128, 256, 512 and 1024,
+  slices of 2048 to 16384 elements;
+* A6 (copies ``q<warps>w<threads>``): one warp a block (a lane 32
+  elements) or two (a lane 16, the block's absmax combined through
+  shared memory), at CTAs of 64 to 512 threads, so a CTA holds whole
+  blocks; and at the shipped shape two levers: a register cap of 6 or 8
+  CTAs an SM (``q1w128_cap6``, ``_cap8``) and evict-first input loads
+  (``q1w128_ldcs``).
 
-Prints the card's name and power limit, one ``sweep {...}`` line a slice
-and pass, and a ``best {...}`` line.  Inputs are random normal from a
-seed; the kernels' time does not depend on the values.  Needs one card;
-imports nothing of JAX.
+For each copy: what the card gives the kernel (``cluster_info``:
+registers, spill bytes, shared memory and CTAs an SM, clusters resident
+at once); the kernel bitwise against its plain version (A6 any NaN equal
+to any NaN) at 2, 3, 5 and 8 ranks of a few thousand elements, ragged
+slices included (A6 also at 3 ranks of NaN/inf/subnormal values) and,
+once, at full width.  Then the time at ``--ranks`` ranks of
+``--elements`` float32 (the default is the ring phase of
+``chip_smoke.py``: 8 ranks of ResNet-50's 25,557,032 gradients), by CUDA
+events, the copies taken in turns, forwards and then backwards, beside
+the bound (each input read once, each output written once), the library
+calls that fill one output and every rank's (A4/A5) and the global-slot
+A6 of ``ring.cu`` at the same ranks (A6).
+
+Prints the card's name and power limit, one ``variant {...}`` line a
+copy, one ``sweep {...}`` / ``sweep_a6 {...}`` line a copy and pass, and
+a ``best {...}`` / ``best_a6 {...}`` line.  Inputs are random normal
+from a seed; the kernels' time does not depend on the values.  Needs
+one card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -34,6 +48,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import math
 import sys
 
 import chip_smoke
@@ -41,79 +56,98 @@ from chip_smoke import check, log, same_bits, time_cuda
 
 THREADS = (128, 256, 512, 1024)
 KTHREADS = "constexpr int kThreads = 128;"
+# A6: (warps a quantization block, threads a CTA)
+A6_SHAPES = ((1, 64), (1, 128), (1, 256), (1, 512),
+             (2, 64), (2, 128), (2, 256), (2, 512))
+KQTHREADS = "constexpr int kQThreads = 128;"
+KQBLOCKWARPS = "constexpr int kQBlockWarps = 1;"
+# A6 levers at the shipped shape: a register cap that lets 6 or 8 CTAs
+# reside on an SM, and evict-first loads of the inputs (each read once)
+A6_LEVERS = {
+    "q1w128_cap6": {"__launch_bounds__(kQThreads)":
+                    "__launch_bounds__(kQThreads, 6)"},
+    "q1w128_cap8": {"__launch_bounds__(kQThreads)":
+                    "__launch_bounds__(kQThreads, 8)"},
+    "q1w128_ldcs": {"v[k] = __ldg(reinterpret_cast<const float4*>(x + block":
+                    "v[k] = __ldcs(reinterpret_cast<const float4*>(x + block"},
+}
 SMALL_RINGS = [(2, 5000), (3, 4000), (5, 3001), (8, 40000)]
 
 
-def build_copies(ptxas: bool) -> dict:
-    """{threads: (library path, ptxas lines)}: a copy of ring_cluster.cu
-    at each thread count, compiled in parallel."""
+def _a6_name(shape) -> str:
+    return "q{}w{}".format(*shape)
+
+
+def a6_copies() -> dict:
+    """{name: patches} of every A6 copy: the shapes, then the levers."""
+    copies = {_a6_name((w, t)): {
+        KQTHREADS: f"constexpr int kQThreads = {t};",
+        KQBLOCKWARPS: f"constexpr int kQBlockWarps = {w};"}
+        for w, t in A6_SHAPES}
+    copies.update(A6_LEVERS)
+    return copies
+
+
+def build_copies(ptxas: bool, kinds) -> dict:
+    """{name: (library path, ptxas lines)}: a copy of ring_cluster.cu at
+    each A4/A5 thread count and each A6 shape, compiled in parallel."""
     from horovod_tpu_torch.ops import _build
 
+    variants = {}
+    if "A4A5" in kinds:
+        variants.update({f"t{t}": {KTHREADS: f"constexpr int kThreads = {t};"}
+                         for t in THREADS})
+    if "A6" in kinds:
+        variants.update(a6_copies())
     built = _build.build_copies(
-        "ring_cluster",
-        {str(t): {KTHREADS: f"constexpr int kThreads = {t};"}
-         for t in THREADS},
-        _build.BUILD_DIR.parent / "ring_sweep",
+        "ring_cluster", variants, _build.BUILD_DIR.parent / "ring_sweep",
         ["-Xptxas", "-v"] if ptxas else [])
-    return {t: (path, [ln.strip() for ln in out.splitlines()
-                       if "ptxas info" in ln
-                       and ("Used" in ln or "Compiling" in ln)])
-            for t, (path, out) in ((int(k), v) for k, v in built.items())}
+    return {name: (path, [ln.strip() for ln in out.splitlines()
+                          if "ptxas info" in ln
+                          and ("Used" in ln or "Compiling" in ln)])
+            for name, (path, out) in built.items()}
 
 
-def small_checks(ring_mod, device) -> int:
-    """A5 and A4 bitwise their plain versions on small rings, ragged
-    slices included; returns the rings checked."""
+def small_checks(ring_mod, device, kinds) -> int:
+    """The kernels of ``kinds`` bitwise their plain versions on small
+    rings, ragged slices included; returns the rings checked."""
     import torch
 
     gen = torch.Generator(device=device).manual_seed(11)
-    for n, size in SMALL_RINGS:
-        xs = [torch.randn(size, generator=gen, device=device)
-              for _ in range(n)]
-        got = ring_mod.cluster_allreduce_sum(xs)
-        want = ring_mod.ring_allreduce_plain(xs)
-        for r in range(n):
-            check(same_bits(got[r], want[0]), f"A5 n={n} rank {r}")
-        rows = size // 128 + 1
-        bl = [torch.randn(rows, 128, generator=gen, device=device)
-              for _ in range(n)]
-        got = ring_mod.cluster_allgather(bl)
-        for r in range(n):
-            check(same_bits(got[r], torch.cat(bl)), f"A4 n={n} rank {r}")
-    return len(SMALL_RINGS)
+    rings = [(f"n={n}", [torch.randn(size, generator=gen, device=device)
+                         for _ in range(n)]) for n, size in SMALL_RINGS]
+    if "A6" in kinds:
+        special = [chip_smoke.wide_values(3001, torch.float32, device, gen)
+                   for _ in range(3)]
+        special[0][5], special[1][1030], special[2][2100] = (
+            math.nan, math.inf, -math.inf)
+        rings.append(("special n=3", special))
+    for what, xs in rings:
+        n = len(xs)
+        if "A6" in kinds:
+            got = ring_mod.cluster_quantized_allreduce(xs)
+            want = ring_mod.ring_allreduce_plain(xs, quantized=True)
+            for r in range(n):
+                check(same_bits(got[r], want[0]), f"A6 {what} rank {r}")
+        if "A4A5" in kinds and not what.startswith("special"):
+            got = ring_mod.cluster_allreduce_sum(xs)
+            want = ring_mod.ring_allreduce_plain(xs)
+            for r in range(n):
+                check(same_bits(got[r], want[0]), f"A5 {what} rank {r}")
+            rows = xs[0].numel() // 128 + 1
+            bl = [torch.randn(rows, 128, generator=gen, device=device)
+                  for _ in range(n)]
+            got = ring_mod.cluster_allgather(bl)
+            for r in range(n):
+                check(same_bits(got[r], torch.cat(bl)),
+                      f"A4 {what} rank {r}")
+    return len(rings)
 
 
-def main() -> int:
+def sweep_a4a5(ring_mod, use, xs, reps, device) -> None:
     import torch
 
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--elements", type=int, default=25_557_032)
-    ap.add_argument("--ranks", type=int, default=8)
-    ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--ptxas", action="store_true")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("torch_port_ring_sweep: CUDA is not available",
-              file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(chip_smoke.REPO))
-    from horovod_tpu_torch.ops import ring as ring_mod
-
-    built = build_copies(args.ptxas)
-    log(chip_smoke.nvidia_smi_line())
-    kernels = {}
-    for t, (path, lines) in built.items():
-        kernels[t] = ring_mod.bind_cluster(ctypes.CDLL(str(path)))
-        for line in lines:
-            log(f"ptxas threads={t} {line}")
-
-    def use(t):
-        ring_mod._cluster_kernels = lambda: kernels[t]
-
-    device = torch.device("cuda", 0)
-    n, size = args.ranks, args.elements
-    gen = torch.Generator(device=device).manual_seed(chip_smoke.SEED)
-    xs = [torch.randn(size, generator=gen, device=device) for _ in range(n)]
+    n, size = len(xs), xs[0].numel()
     blocks = chip_smoke._rank_blocks(xs)
     e = ring_mod.chunk_elems(size, n)
     want5 = ring_mod.ring_allreduce_plain(xs)[0]
@@ -134,21 +168,20 @@ def main() -> int:
 
     b4, b5 = chip_smoke._ring_bounds(n, size, e)
     library = dict(
-        A5=dict(library_ms=time_cuda(lambda: stacked.sum(0), args.reps),
-                library_all_ranks_ms=time_cuda(sum_all_ranks, args.reps),
-                **b5),
-        A4=dict(library_ms=time_cuda(lambda: torch.cat(blocks), args.reps),
-                library_all_ranks_ms=time_cuda(cat_all_ranks, args.reps),
-                **b4))
+        A5=dict(library_ms=time_cuda(lambda: stacked.sum(0), reps),
+                library_all_ranks_ms=time_cuda(sum_all_ranks, reps), **b5),
+        A4=dict(library_ms=time_cuda(lambda: torch.cat(blocks), reps),
+                library_all_ranks_ms=time_cuda(cat_all_ranks, reps), **b4))
     log("library " + json.dumps(library))
+    del stacked, total, cat_outs, sum_outs
 
+    names = [f"t{t}" for t in THREADS]
     slices = {}
-    for t in THREADS:
-        use(t)
-        info = {kind: ring_mod.cluster_info(kind == "A5", n)
-                for kind in ("A4", "A5")}
+    for t, name in zip(THREADS, names):
+        use(name)
+        info = {kind: ring_mod.cluster_info(kind, n) for kind in ("A4", "A5")}
         slices[t] = info["A5"]["slice"]
-        rings = small_checks(ring_mod, device)
+        rings = small_checks(ring_mod, device, ("A4A5",))
         got5 = ring_mod.cluster_allreduce_sum(xs)
         got4 = ring_mod.cluster_allgather(blocks)
         for r in range(n):
@@ -160,11 +193,11 @@ def main() -> int:
     times = {t: {"A5": [], "A4": []} for t in THREADS}
     for order in (THREADS, THREADS[::-1]):
         for t in order:
-            use(t)
+            use(f"t{t}")
             times[t]["A5"].append(time_cuda(
-                lambda: ring_mod.cluster_allreduce_sum(xs), args.reps))
+                lambda: ring_mod.cluster_allreduce_sum(xs), reps))
             times[t]["A4"].append(time_cuda(
-                lambda: ring_mod.cluster_allgather(blocks), args.reps))
+                lambda: ring_mod.cluster_allgather(blocks), reps))
             log("sweep " + json.dumps(dict(
                 slice=slices[t], threads=t, ranks=n, elements=size,
                 A5_ms=times[t]["A5"][-1], A4_ms=times[t]["A4"][-1])))
@@ -176,6 +209,89 @@ def main() -> int:
         A5_ms=min(times[best["A5"]]["A5"]),
         A4_ms=min(times[best["A4"]]["A4"]), bound=dict(
             A5=b5["bound_ms"], A4=b4["bound_ms"]))))
+
+
+def sweep_a6(ring_mod, use, xs, reps, device) -> None:
+    """Each A6 shape checked and timed, the global-slot A6 of ring.cu at
+    the same ranks beside it in every turn."""
+    import torch
+
+    n, size = len(xs), xs[0].numel()
+    want = ring_mod.ring_allreduce_plain(xs, quantized=True)[0]
+    bound = chip_smoke._a6_bound(n, size)
+    got = ring_mod.global_allreduce(xs, True)
+    for r in range(n):
+        check(same_bits(got[r], want), f"A6 global slots n={n} rank {r}")
+    del got
+    infos = {}
+    for name in a6_copies():
+        use(name)
+        infos[name] = ring_mod.cluster_info("A6", n)
+        rings = small_checks(ring_mod, device, ("A6",))
+        got = ring_mod.cluster_quantized_allreduce(xs)
+        for r in range(n):
+            check(same_bits(got[r], want), f"A6 {name} full width rank {r}")
+        del got
+        log("variant " + json.dumps(dict(kernel="A6", copy=name,
+                                         small_rings=rings, **infos[name])))
+    names = list(a6_copies()) + ["global"]
+    times = {name: [] for name in names}
+    for order in (names, names[::-1]):
+        for name in order:
+            if name != "global":
+                use(name)
+            times[name].append(time_cuda(
+                (lambda: ring_mod.global_allreduce(xs, True))
+                if name == "global"
+                else (lambda: ring_mod.cluster_quantized_allreduce(xs)), reps))
+            log("sweep_a6 " + json.dumps(dict(
+                copy=name, ranks=n, elements=size, ms=times[name][-1],
+                slice=infos[name]["slice"] if name in infos else None)))
+    torch.cuda.synchronize()
+    best = min(names[:-1], key=lambda name: min(times[name]))
+    log("best_a6 " + json.dumps(dict(
+        copy=best, ms=min(times[best]), global_ms=min(times["global"]),
+        **bound, config=infos[best])))
+
+
+def main() -> int:
+    import torch
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--elements", type=int, default=25_557_032)
+    ap.add_argument("--ranks", type=int, default=8)
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--ptxas", action="store_true")
+    ap.add_argument("--kernels", choices=("all", "A4A5", "A6"),
+                    default="all")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_port_ring_sweep: CUDA is not available",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(chip_smoke.REPO))
+    from horovod_tpu_torch.ops import ring as ring_mod
+
+    kinds = ("A4A5", "A6") if args.kernels == "all" else (args.kernels,)
+    built = build_copies(args.ptxas, kinds)
+    log(chip_smoke.nvidia_smi_line())
+    kernels = {}
+    for name, (path, lines) in built.items():
+        kernels[name] = ring_mod.bind_cluster(ctypes.CDLL(str(path)))
+        for line in lines:
+            log(f"ptxas {name} {line}")
+
+    def use(name):
+        ring_mod._cluster_kernels = lambda: kernels[name]
+
+    device = torch.device("cuda", 0)
+    gen = torch.Generator(device=device).manual_seed(chip_smoke.SEED)
+    xs = [torch.randn(args.elements, generator=gen, device=device)
+          for _ in range(args.ranks)]
+    if "A4A5" in kinds:
+        sweep_a4a5(ring_mod, use, xs, args.reps, device)
+    if "A6" in kinds:
+        sweep_a6(ring_mod, use, xs, args.reps, device)
     return 0
 
 
