@@ -45,6 +45,18 @@ Builds the port's CUDA kernels from ``horovod_tpu_torch/csrc`` and then:
    the same call on the CPU, then times it and its two codec phases on
    the bucket beside A2 and A3; then the torch surface's allreduce and
    allgather on card tensors that require grad carry their gradient;
+   then the async controller: phase 3's 161 gradients (float32, in hook
+   order) as a burst of ``allreduce_async_`` with the optimizer's
+   arguments (Sum, prescale 1/2, postscale 2/1, fp16) and as one
+   ``grouped_allreduce_async``, both again under ``none``: every result
+   bitwise the plain composition of the group the controller's responses
+   name (and ``GroupReduction``'s under ``none``), two A1 launches a
+   fused group of several tensors and none a tensor, the host ms and
+   controller cycles of each burst beside ``GroupReduction.reduce``'s ms
+   on the same gradients; a
+   process set {0} with its own NCCL groups; the BERT-base word
+   embedding's sparse gradient through ``sparse_allreduce_async`` and a
+   ``sparse_as_dense`` step; the other async ops against the sync ones;
 7. runs the ring collectives at full width: phase 3's batch as 8 virtual
    ranks of 8 images, each rank's 161 gradients packed (25.56 M float32),
    reduced on the card by ``ring_allreduce`` (A5 Sum and Average, A6
@@ -63,8 +75,8 @@ Builds the port's CUDA kernels from ``horovod_tpu_torch/csrc`` and then:
 8. checks a narrow float32 ResNet trained 2 steps on the card against the
    same steps computed on the CPU with plain PyTorch.
 
-Prints one ``int8_quantized_allreduce {...}`` line, one ``ring_path
-{...}`` line, one ``{"kernels": [...]}`` line of 10 entries and, last,
+Prints one ``int8_quantized_allreduce {...}`` line, one ``async_path
+{...}`` line, one ``ring_path {...}`` line, one ``{"kernels": [...]}`` line of 10 entries and, last,
 ``{"ok": true,
 "device": {...}}``.  Exits non-zero, printing no result, when CUDA is
 absent, when the package is not beside this script, or when any phase
@@ -1053,6 +1065,302 @@ def surface_autograd_phase(hvd, device):
         "their gradient (world of one: x.grad == w)")
 
 
+# -- phase 6b: the async controller ------------------------------------------
+
+BERT_VOCAB, BERT_HIDDEN = 30522, 768     # BERT-Base, Uncased bert_config.json
+SPARSE_BATCH, SPARSE_SEQ = 64, 128
+ASYNC_REPS = 5
+
+
+def hook_order_grads(model, opt, x, y):
+    """The model's float32 gradients in the order its hooks fire in one
+    backward, with their parameter names; the optimizer's own reduction
+    of that backward is flushed and its gradients zeroed."""
+    import torch
+    import torch.nn.functional as F
+
+    name_of = {p: n for n, p in model.named_parameters()}
+    order = []
+    handles = [p.register_post_accumulate_grad_hook(
+        lambda p: order.append((name_of[p], p.grad.float().clone())))
+        for p in model.parameters() if p.requires_grad]
+    try:
+        opt.zero_grad()
+        F.cross_entropy(model(x), y).backward()
+    finally:
+        for h in handles:
+            h.remove()
+    opt.synchronize()
+    opt.zero_grad()
+    torch.cuda.synchronize()
+    return order
+
+
+def _record_responses(ctrl):
+    """Record the tensor names of every allreduce response the
+    controller executes (a wrapper on the instance, not on the class)."""
+    groups = []
+    orig = ctrl._execute_allreduce
+
+    def recorded(rs, payloads):
+        groups.append(list(rs.tensor_names))
+        return orig(rs, payloads)
+
+    ctrl._execute_allreduce = recorded
+    return groups
+
+
+def _time_controller(ctrl):
+    """Host seconds the controller spends negotiating (its core's drain,
+    the transport's exchange, the core's apply; idle cycles included)
+    and executing (the inputs' stream waits and each response's work,
+    both done before its futures resolve), summed into the returned dict
+    (wrappers on the instances)."""
+    spent = {"negotiate": 0.0, "execute": 0.0}
+
+    def timed(obj, attr, key):
+        orig = getattr(obj, attr)
+
+        def run(*args):
+            t0 = time.perf_counter()
+            try:
+                return orig(*args)
+            finally:
+                spent[key] += time.perf_counter() - t0
+        setattr(obj, attr, run)
+
+    timed(ctrl._ctrl, "drain_requests", "negotiate")
+    timed(ctrl._transport, "exchange", "negotiate")
+    timed(ctrl._ctrl, "apply_responses", "negotiate")
+    timed(ctrl, "_await_inputs", "execute")
+    timed(ctrl, "_execute_one", "execute")
+    return spent
+
+
+def _plain_group(tensors, codec, pre: float, post: float):
+    """The plain composition of one agreed group at one rank: a group of
+    several tensors is prescale, compress and pack, the (identity) wire,
+    unpack, decompress and postscale; a group of one is
+    ``comm/eager.allreduce``'s rule, one multiply by ``pre * post``."""
+    import torch
+
+    from horovod_tpu_torch.ops import (
+        scale_cast_pack_plain,
+        unpack_cast_scale_plain,
+    )
+
+    if len(tensors) == 1:
+        t = tensors[0]
+        return [t * torch.tensor(pre * post, dtype=t.dtype, device=t.device)]
+    flat, specs = scale_cast_pack_plain(tensors, pre, codec)
+    return unpack_cast_scale_plain(flat, specs, [t.dtype for t in tensors],
+                                   post)
+
+
+def async_phase(hvd, device, model, opt, x, y, smi: str):
+    """The async plane at full width in the one-rank NCCL world: the
+    optimizer's 161 ResNet-50 gradients (float32) as a burst of
+    ``allreduce_async_`` calls in hook order and as one
+    ``grouped_allreduce_async``, under fp16 and none with the predivide
+    scales; a process set {0}; the BERT-base word embedding's sparse
+    gradient; the other async ops once each."""
+    import torch
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.comm.compression import Compression as Engine
+    from horovod_tpu_torch.eager import get_controller
+    from horovod_tpu_torch.ops import fused_scale_cast
+
+    model_names = {p: n for n, p in model.named_parameters()}
+    grads = hook_order_grads(model, opt, x, y)
+    check(len(grads) == RESNET50_GRADS, "async: hook order")
+    n_elems = sum(g.numel() for _, g in grads)
+    pre, post = 1.0 / PREDIVIDE, PREDIVIDE / hvd.size()
+    ctrl = get_controller()
+    groups = _record_responses(ctrl)
+    spent = _time_controller(ctrl)
+    by_name = {f"allreduce.{n}": g for n, g in grads}
+    result = {"card": smi, "grads": len(grads), "elements": n_elems}
+
+    def burst(codec, grouped: bool):
+        """One pass of the traffic; returns {name: result} and its host
+        ms: from the first enqueue to the last synchronize, to the last
+        enqueue, and the controller's negotiation and execution; with
+        the controller cycles and the allreduce responses of the pass."""
+        tensors = {n: g.clone() for n, g in by_name.items()}
+        torch.cuda.synchronize()
+        spent.update(negotiate=0.0, execute=0.0)
+        cycles0, groups0 = ctrl._cycle, len(groups)
+        t0 = time.perf_counter()
+        if grouped:
+            names = list(tensors)
+            handles = dict(zip(names, hvd.grouped_allreduce_async(
+                [tensors[n] for n in names], names=names, op=hvd.Sum,
+                compression=codec, prescale_factor=pre,
+                postscale_factor=post)))
+        else:
+            # the reference optimizer's hint and per-hook calls
+            ctrl.hint_burst(len(tensors))
+            handles = {n: hvd.allreduce_async_(
+                t, name=n, op=hvd.Sum, compression=codec,
+                prescale_factor=pre, postscale_factor=post)
+                for n, t in tensors.items()}
+        t_enq = time.perf_counter()
+        outs = {n: hvd.synchronize(h) for n, h in handles.items()}
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        return outs, {"ms": (t1 - t0) * 1e3, "enqueue_ms": (t_enq - t0) * 1e3,
+                      "negotiate_ms": spent["negotiate"] * 1e3,
+                      "execute_ms": spent["execute"] * 1e3,
+                      "cycles": ctrl._cycle - cycles0,
+                      "groups": len(groups) - groups0}
+
+    surface = {"fp16": hvd.Compression.fp16, "none": hvd.Compression.none}
+    engine = {"fp16": Engine.fp16, "none": Engine.none}
+    none_red = dataclasses.replace(opt.reduction, compression=Engine.none)
+    runs = {}
+    for codec in ("fp16", "none"):
+        for grouped in (False, True):
+            key = f"{codec}_{'grouped' if grouped else 'burst'}"
+            groups.clear()
+            fused_scale_cast.launches = 0     # the async path starts here
+            outs, first_ms = burst(surface[codec], grouped)
+            launches = fused_scale_cast.launches   # read just after it
+            first = list(groups)
+            check(sorted(n for g in first for n in g) == sorted(by_name),
+                  f"async {key}: the responses do not cover the burst")
+            multi = sum(len(g) > 1 for g in first)
+            check(launches == 2 * multi,
+                  f"async {key}: {launches} A1 launches for {multi} fused "
+                  "groups of several tensors (want two a group)")
+            n = 0
+            for g in first:
+                want = _plain_group([by_name[t] for t in g], engine[codec],
+                                    pre, post)
+                for t, w in zip(g, want):
+                    check(same_bits(outs[t], w), f"async {key}: {t} is not "
+                          "the plain composition of its group")
+                    n += 1
+            if codec == "none":
+                # the optimizer's GroupReduction over its bucket plan
+                for bucket in opt.buckets:
+                    bn = [f"allreduce.{model_names[p]}" for p in bucket]
+                    got = none_red.reduce([by_name[t] for t in bn])
+                    for t, w in zip(bn, got):
+                        check(same_bits(outs[t], w), f"async {key}: {t} "
+                              "is not GroupReduction's result")
+            timed = [burst(surface[codec], grouped)[1]
+                     for _ in range(ASYNC_REPS)]
+            runs[key] = {
+                **first_ms, "timed": timed,
+                "median_ms": statistics.median(t["ms"] for t in timed),
+                "median_cycles": statistics.median(t["cycles"]
+                                                   for t in timed),
+                "fused_groups": len(first), "multi_tensor_groups": multi,
+                "group_sizes": [len(g) for g in first],
+                "a1_launches": launches, "checked": n}
+    result["runs"] = runs
+    result["a1_launches"] = runs["fp16_burst"]["a1_launches"]
+
+    # GroupReduction.reduce over the same gradients, its bucket plan,
+    # in the same call (host clock, synchronized)
+    bucket_grads = [[by_name[f"allreduce.{model_names[p]}"] for p in b]
+                    for b in opt.buckets]
+    saved = fused_scale_cast.launches
+
+    def group_reduce_ms(red):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in bucket_grads:
+            red.reduce(b)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    for red, key in ((opt.reduction, "fp16"), (none_red, "none")):
+        group_reduce_ms(red)
+        times = [group_reduce_ms(red) for _ in range(ASYNC_REPS)]
+        result[f"group_reduce_{key}_ms"] = times
+        result[f"group_reduce_{key}_median_ms"] = statistics.median(times)
+    fused_scale_cast.launches = saved
+
+    # a process set {0}: its own groups; its allreduce is the global one's
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+    t = torch.randn(4097, generator=gen, device=device)
+    ps = hvd.add_process_set([0])
+    psid = ps.process_set_id
+    got = hvd.synchronize(hvd.allreduce_async(t, op=hvd.Sum, name="ps0",
+                                              process_set=ps))
+    want = hvd.synchronize(hvd.allreduce_async(t, op=hvd.Sum, name="glob"))
+    check(same_bits(got, want), "async: process set {0} differs from the "
+          "global set")
+    hvd.barrier(process_set=ps)       # the set's own NCCL group
+    check(hvd.remove_process_set(ps) and not hvd.remove_process_set(ps),
+          "async: remove_process_set")
+    result["process_set"] = {"id": psid, "bitwise": True}
+
+    # the BERT-base word embedding's sparse gradient
+    egen = torch.Generator().manual_seed(SEED + 7)
+    emb = torch.nn.Embedding(BERT_VOCAB, BERT_HIDDEN, sparse=True,
+                             device=device)
+    with torch.no_grad():
+        emb.weight.copy_(torch.randn(BERT_VOCAB, BERT_HIDDEN,
+                                     generator=egen).to(device))
+    ids = torch.randint(0, BERT_VOCAB, (SPARSE_BATCH, SPARSE_SEQ),
+                        generator=egen).to(device)
+    v = torch.randn(SPARSE_BATCH, SPARSE_SEQ, BERT_HIDDEN,
+                    generator=egen).to(device)
+    (emb(ids) * v).sum().backward()
+    g = emb.weight.grad
+    check(g.is_sparse, "async: the embedding's gradient is not sparse")
+    out = hvd.synchronize(hvd.sparse_allreduce_async(g, name="emb",
+                                                     op=hvd.Sum))
+    want = g.coalesce()
+    check(out.is_coalesced() and torch.equal(out.indices(), want.indices())
+          and same_bits(out.values(), want.values()),
+          "async: sparse_allreduce_async is not the coalesced gradient")
+    # sparse_as_dense: the optimizer's step is the dense route's
+    w0 = emb.weight.detach().clone()
+    sparse_opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(emb.parameters(), lr=0.1),
+        named_parameters=emb.named_parameters(), sparse_as_dense=True)
+    dense_w = torch.nn.Parameter(w0.clone())
+    dense_opt = hvd.DistributedOptimizer(
+        torch.optim.SGD([dense_w], lr=0.1),
+        named_parameters=[("weight", dense_w)])
+    sparse_opt.zero_grad()
+    (emb(ids) * v).sum().backward()
+    check(not emb.weight.grad.is_sparse, "async: sparse_as_dense left the "
+          "gradient sparse")
+    dense_w.grad = emb.weight.grad.clone()
+    sparse_opt.step()
+    dense_opt.step()
+    check(same_bits(emb.weight.detach(), dense_w.detach())
+          and not torch.equal(emb.weight.detach(), w0),
+          "async: sparse_as_dense differs from the dense route")
+    result["sparse"] = {"vocab": BERT_VOCAB, "hidden": BERT_HIDDEN,
+                        "ids": SPARSE_BATCH * SPARSE_SEQ,
+                        "nnz_coalesced": int(out.values().shape[0])}
+    del emb, v, sparse_opt, dense_opt, dense_w
+
+    # the other async ops once each, against the sync ops
+    a = torch.randn(64, 33, generator=gen, device=device)
+    h = hvd.allgather_async(a, name="ag")
+    polled_before = hvd.poll(h)
+    check(same_bits(hvd.synchronize(h), hvd.allgather(a)), "allgather_async")
+    check(hvd.poll(h), "poll after synchronize")
+    check(same_bits(hvd.synchronize(hvd.broadcast_async(a, 0, "bc")),
+                    hvd.broadcast(a, 0)), "broadcast_async")
+    check(same_bits(hvd.synchronize(hvd.alltoall_async(a, name="a2a")),
+                    hvd.alltoall(a)), "alltoall_async")
+    check(same_bits(hvd.synchronize(hvd.reducescatter_async(
+        a, hvd.Sum, "rs")), hvd.reducescatter(a, hvd.Sum)),
+        "reducescatter_async")
+    check(hvd.join() == 0, "join")
+    result["others"] = {"polled_before": bool(polled_before), "join": 0}
+    log("async_path " + json.dumps(result))
+    return result
+
+
 # -- phase 7: the ring collectives A4/A5/A6 over 8 virtual ranks -----------
 
 def ring_buckets(model, x, y, ranks: int):
@@ -1561,6 +1869,7 @@ def main() -> int:
         reduction = parity_phase(model, opt, x, y, reps=20)
         int8_path = int8_path_phase(model, x, y)
         surface_autograd_phase(hvd, device)
+        async_path = async_phase(hvd, device, model, opt, x, y, smi)
         ring = ring_phase(ring_buckets(model, x, y, RING_RANKS), reps=10)
         del model, opt, x, y
         reference_phase(hvd, device)
@@ -1581,6 +1890,7 @@ def main() -> int:
         "source": "horovod_tpu_torch/csrc/scale_cast.cu",
         "replaces": "horovod_tpu/ops/pallas_ops.py:101",
         "launches": train["launches"],
+        "async_launches": async_path["a1_launches"],
         "max_abs_err": kern["max_abs_err"],
         "ms": pre["ms"],
         "plain_ms": pre["plain_ms"],

@@ -16,11 +16,19 @@ semantics of ``horovod_tpu/comm/spmd.py`` ``allreduce``:
   and Max reduce; Product gathers and multiplies; the postscale
   multiplies in the output's dtype.
 
-Every op returns a new tensor.  Only the global process set exists.
+Every op returns a new tensor.  Every op takes a process set (a
+``ProcessSet``, its id, or None for the global set) and runs over the
+set's group: Average divides by the set's size, a broadcast root is a
+global rank that must be a member, and a rank outside the set raises the
+reference's ``RuntimeError``.  Inside :func:`controller_execution` (the
+async controller's executor) the ops run over each set's controller
+group instead.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import List, Optional, Sequence
 
 import torch
@@ -34,12 +42,38 @@ from .quantized import quantized_allreduce
 from .reduce_ops import ReduceOp, normalize_op
 
 
-def _resolve_process_set(process_set: Optional[ProcessSet], name: str):
-    core_state.require_init(name)
-    ps = global_process_set if process_set is None else process_set
-    if ps is not global_process_set:
-        raise NotImplementedError(
-            "only the global process set is supported so far")
+_exec = threading.local()
+
+
+@contextlib.contextmanager
+def controller_execution():
+    """The ops called inside run over each process set's controller
+    group (``ProcessSet.controller_group``): the async controller's
+    executor never shares a communicator with the caller's thread."""
+    _exec.active = True
+    try:
+        yield
+    finally:
+        _exec.active = False
+
+
+def _group(ps: ProcessSet):
+    return ps.controller_group if getattr(_exec, "active", False) \
+        else ps.group
+
+
+def _resolve_process_set(process_set, name: str) -> ProcessSet:
+    """The set of ``process_set`` (None: the global set; an int: its id);
+    raises the reference's error when this rank is not a member
+    (``horovod_tpu/comm/eager.py:167``)."""
+    st = core_state.require_init(name)
+    if process_set is None:
+        return global_process_set
+    ps = (st.process_set_table.get(process_set)
+          if isinstance(process_set, int) else process_set)
+    if ps.rank_in_set(st.rank) < 0:
+        raise RuntimeError(
+            "calling process is not a member of this process set")
     return ps
 
 
@@ -91,7 +125,7 @@ def _gather(x: torch.Tensor, ps: ProcessSet) -> torch.Tensor:
     """``(size,) + x.shape``: every rank's ``x``, in rank order."""
     x = x.contiguous().reshape((1,) + tuple(x.shape))
     out = x.new_empty((ps.size,) + tuple(x.shape[1:]))
-    dist.all_gather_into_tensor(out, x, group=ps.group)
+    dist.all_gather_into_tensor(out, x, group=_group(ps))
     return out
 
 
@@ -104,17 +138,17 @@ def _reduce(x: torch.Tensor, rop: ReduceOp, compression,
             # int8 codes cannot be summed (per-rank scales, overflow):
             # the two-phase quantized allreduce
             return quantized_allreduce(
-                x, group=ps.group, average=rop == ReduceOp.AVERAGE,
+                x, group=_group(ps), average=rop == ReduceOp.AVERAGE,
                 stochastic=_is_stochastic_int8(compression)).to(x.dtype)
         wire, ctx = compression.compress(x)
-        dist.all_reduce(wire, op=dist.ReduceOp.SUM, group=ps.group)
+        dist.all_reduce(wire, op=dist.ReduceOp.SUM, group=_group(ps))
         out = compression.decompress(wire, ctx)
         if rop == ReduceOp.AVERAGE:
             out = average_(out, ps.size)
         return out
     if rop in (ReduceOp.MIN, ReduceOp.MAX):
         dist.all_reduce(x, op=dist.ReduceOp.MIN if rop == ReduceOp.MIN
-                        else dist.ReduceOp.MAX, group=ps.group)
+                        else dist.ReduceOp.MAX, group=_group(ps))
         return x
     if rop == ReduceOp.PRODUCT:
         return torch.prod(_gather(x, ps), dim=0, dtype=x.dtype)
@@ -230,11 +264,11 @@ def alltoall(tensor: torch.Tensor, splits=None, *,
     # row r of the split matrix: what rank r sends to each rank
     mine = torch.tensor(splits, dtype=torch.int64, device=x.device)
     matrix = _gather(mine, ps).tolist()
-    rank = core_state.global_state().rank
-    recv = [row[rank] for row in matrix]
+    me = ps.rank_in_set(core_state.global_state().rank)
+    recv = [row[me] for row in matrix]
     out = x.new_empty((sum(recv),) + tuple(x.shape[1:]))
     dist.all_to_all_single(out, x.contiguous(), output_split_sizes=recv,
-                           input_split_sizes=splits, group=ps.group)
+                           input_split_sizes=splits, group=_group(ps))
     return (out, torch.tensor(recv, dtype=torch.int32)) \
         if return_splits else out
 
@@ -254,12 +288,12 @@ def reducescatter(tensor: torch.Tensor, *, op: Optional[ReduceOp] = None,
             raise ValueError("reducescatter supports Sum and Average")
         out = x.new_empty((x.shape[0] // p,) + tuple(x.shape[1:]))
         dist.reduce_scatter_tensor(out, x.contiguous(),
-                                   op=dist.ReduceOp.SUM, group=ps.group)
+                                   op=dist.ReduceOp.SUM, group=_group(ps))
         if rop == ReduceOp.AVERAGE:
             average_(out, p)
         return out
     reduced = allreduce(x, op=rop, process_set=ps)
-    r = core_state.global_state().rank
+    r = ps.rank_in_set(core_state.global_state().rank)
     base, extra = divmod(x.shape[0], p)
     start = r * base + min(r, extra)
     return reduced[start:start + base + (1 if r < extra else 0)]
@@ -267,10 +301,17 @@ def reducescatter(tensor: torch.Tensor, *, op: Optional[ReduceOp] = None,
 
 def broadcast(tensor: torch.Tensor, root_rank: int = 0,
               process_set: Optional[ProcessSet] = None) -> torch.Tensor:
-    """Return a new tensor holding ``root_rank``'s value."""
+    """Return a new tensor holding ``root_rank``'s value (a global rank,
+    a member of the set)."""
     ps = _resolve_process_set(process_set, "broadcast")
     out = tensor.detach().clone(memory_format=torch.contiguous_format)
-    dist.broadcast(out, src=root_rank, group=ps.group)
+    if ps.size == 1:
+        return out
+    if ps.rank_in_set(root_rank) < 0:
+        raise ValueError(
+            f"root_rank {root_rank} is not a member of process set "
+            f"{ps.process_set_id} (ranks {ps.ranks})")
+    dist.broadcast(out, src=root_rank, group=_group(ps))
     return out
 
 
@@ -284,4 +325,4 @@ def broadcast_(tensor: torch.Tensor, root_rank: int = 0,
 
 def barrier(process_set: Optional[ProcessSet] = None) -> None:
     ps = _resolve_process_set(process_set, "barrier")
-    dist.barrier(group=ps.group)
+    dist.barrier(group=_group(ps))

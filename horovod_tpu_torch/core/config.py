@@ -3,7 +3,8 @@
 Counterpart of ``horovod_tpu/core/config.py``: the same env names, read
 the same way (``HVTPU_<NAME>`` first, then the reference's
 ``HOROVOD_<NAME>``), for the fields this part of the port uses — the
-fusion threshold and the rank, size and local rank the launcher sets.
+fusion threshold, the controller's cycle time and response-cache
+capacity, and the rank, size and local rank the launcher sets.
 """
 
 from __future__ import annotations
@@ -27,6 +28,11 @@ def _env_int(name: str, default: int) -> int:
     return int(v) if v not in (None, "") else default
 
 
+def _env_float(name: str, default: float) -> float:
+    v = _env(name)
+    return float(v) if v not in (None, "") else default
+
+
 def _env_str(name: str, default: Optional[str] = None) -> Optional[str]:
     v = _env(name)
     return v if v not in (None, "") else default
@@ -37,6 +43,8 @@ class Config:
     """Runtime configuration snapshot, read once at ``init()``."""
 
     fusion_threshold_bytes: int = 64 * 1024 * 1024
+    cycle_time_ms: float = 1.0
+    cache_capacity: int = 1024
     rank: int = 0
     size: int = 1
     local_rank: int = 0
@@ -50,6 +58,8 @@ class Config:
             fusion_bytes = _env_int("FUSION_THRESHOLD", 64 * 1024 * 1024)
         return Config(
             fusion_threshold_bytes=fusion_bytes,
+            cycle_time_ms=_env_float("CYCLE_TIME", 1.0),
+            cache_capacity=_env_int("CACHE_CAPACITY", 1024),
             rank=_env_int("RANK", 0),
             size=_env_int("SIZE", 1),
             local_rank=_env_int("LOCAL_RANK", 0),

@@ -13,6 +13,11 @@ the rank/size queries) over ``torch.distributed``:
   (``env://``).
 * A process that already called ``torch.distributed.init_process_group``
   keeps its group; ``init()`` adopts its rank and size.
+* ``init()`` makes the process-set table (the global set, id 0) and one
+  group over the world for the async controller;
+  ``add_process_set`` / ``remove_process_set`` add and remove sets.  The
+  controller itself (``horovod_tpu_torch.eager``) starts at the first
+  async op, and ``shutdown()`` stops it before it destroys any group.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ import torch.distributed as dist
 
 from .config import Config
 from .exceptions import NotInitializedError
-from .process_set import global_process_set
+from .process_set import ProcessSet, ProcessSetTable, global_process_set
 
 
 @dataclasses.dataclass
@@ -42,6 +47,9 @@ class GlobalState:
     # True when init() created the default group (shutdown destroys it)
     owns_group: bool = False
     store: Any = None
+    process_set_table: Optional[ProcessSetTable] = None
+    # the async controller (horovod_tpu_torch.eager), started lazily
+    controller: Any = None
 
 
 _state = GlobalState()
@@ -115,19 +123,76 @@ def init(device=None) -> GlobalState:
         _state.local_rank = cfg.local_rank
         _state.device, _state.backend = dev, backend
         _state.owns_group, _state.store = owns, store
-        global_process_set._bind(0, size)
+        _state.process_set_table = ProcessSetTable(size, global_process_set)
+        _make_groups(global_process_set)
         _state.initialized = True
         return _state
 
 
+def _make_groups(ps: ProcessSet) -> None:
+    """The set's groups: the sync ops' (the default group for the global
+    set) and the controller's.  ``new_group`` is collective: every rank
+    calls it, members or not, in the same order."""
+    if ps.process_set_id != 0:
+        ps.group = dist.new_group(ps.ranks)
+    ps.controller_group = dist.new_group(ps.ranks)
+
+
+def _destroy_groups(ps: ProcessSet) -> None:
+    for group in (ps.group, ps.controller_group):
+        if group not in (None, dist.GroupMember.NON_GROUP_MEMBER):
+            dist.destroy_process_group(group)
+
+
+def add_process_set(ps) -> ProcessSet:
+    """Add a process set (a ``ProcessSet`` or a list of ranks) and make
+    its groups.  Collective, as Horovod's is: every rank calls it, members
+    or not, with the same sets in the same order, so that every rank
+    gives the set the same id and ``new_group`` pairs up.  A live async
+    controller learns the set at once (``horovod_tpu/core/state.py:659``).
+    """
+    st = require_init("add_process_set")
+    if not isinstance(ps, ProcessSet):
+        ps = ProcessSet(ps)
+    st.process_set_table.add(ps)
+    _make_groups(ps)
+    if st.controller is not None:
+        st.controller.register_process_set(ps.process_set_id, ps.ranks)
+    return ps
+
+
+def remove_process_set(ps) -> bool:
+    """Remove a process set and destroy its groups; False when it is not
+    in the table (the global set cannot be removed).  Collective: every
+    rank removes the same sets, with no op of the set in flight."""
+    st = require_init("remove_process_set")
+    psid = ps.process_set_id if isinstance(ps, ProcessSet) else int(ps)
+    try:
+        removed = st.process_set_table.remove(psid)
+    except ValueError:
+        return False
+    _destroy_groups(removed)
+    removed._unbind()
+    return True
+
+
 def shutdown():
-    """Tear down; destroys the default group if ``init()`` created it."""
+    """Tear down: stop the async controller (every pending op fails),
+    then destroy the groups, and the default group if ``init()`` created
+    it."""
     with _lock:
         if not _state.initialized:
             return
+        if _state.controller is not None:
+            _state.controller.request_shutdown()
+            _state.controller.stop()
+            _state.controller = None
+        for psid, ps in _state.process_set_table.items().items():
+            if dist.is_initialized():
+                _destroy_groups(ps)
+            ps._unbind(global_set=psid == 0)
         if _state.owns_group and dist.is_initialized():
             dist.destroy_process_group()
-        global_process_set._unbind()
         _state.__init__()
 
 

@@ -1,7 +1,8 @@
 """State fan-out helpers for torch models (parity:
 horovod/torch/functions.py ``broadcast_parameters`` /
-``broadcast_optimizer_state`` / ``broadcast_object``; counterpart of
-``horovod_tpu/torch/functions.py``).
+``broadcast_optimizer_state`` / ``broadcast_object`` /
+``allgather_object``; counterpart of ``horovod_tpu/torch/functions.py``).
+Each takes a process set; a root is a global rank.
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ from typing import Any, Optional
 import torch
 import torch.distributed as dist
 
-from ..comm.eager import _resolve_process_set, broadcast_
+from ..comm.eager import _group, _resolve_process_set, broadcast_
 from ..core import state as core_state
 from ..core.process_set import ProcessSet
 
@@ -31,8 +32,21 @@ def broadcast_object(obj: Any, root_rank: int = 0,
     """Pickle-broadcast an arbitrary object from ``root_rank``."""
     ps = _resolve_process_set(process_set, "broadcast_object")
     box = [obj]
-    dist.broadcast_object_list(box, src=root_rank, group=ps.group)
+    dist.broadcast_object_list(box, src=root_rank, group=_group(ps))
     return box[0]
+
+
+def allgather_object(obj: Any, process_set=None) -> list:
+    """Gather a picklable object from every rank of the set; returns a
+    list ordered by rank (parity: hvd.allgather_object; in a world of
+    one, ``[obj]``)."""
+    st = core_state.require_init("allgather_object")
+    if st.size == 1:
+        return [obj]
+    ps = _resolve_process_set(process_set, "allgather_object")
+    out = [None] * ps.size
+    dist.all_gather_object(out, obj, group=_group(ps))
+    return out
 
 
 def broadcast_optimizer_state(optimizer: torch.optim.Optimizer,

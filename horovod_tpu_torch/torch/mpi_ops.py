@@ -14,7 +14,14 @@ A tensor that requires grad (with grad enabled) goes through a
 allreduce's is an allreduce with the same attributes, allgather's sums
 and slices this rank's rows, broadcast's sums to the root (zeros
 elsewhere), alltoall's replays the exchange with the received splits,
-reducescatter's allgathers (divided by n for Average).
+reducescatter's allgathers (divided by n for Average).  Every op takes a
+process set.
+
+The async ops (``*_async``) enqueue on the async controller
+(``api/async_ops.py``) and return an integer handle, or a
+``SparseAllreduceHandle``; ``synchronize`` returns the result, writes it
+into the tensor for the in-place forms (``*_async_``), and ``poll`` says
+whether it finished.
 """
 
 from __future__ import annotations
@@ -23,11 +30,12 @@ from typing import List, Optional
 
 import torch
 
+from ..api import async_ops as _async
 from ..comm import eager
 from ..comm.compression import Compression as EngineCompression
-from ..comm.reduce_ops import ReduceOp, Sum, normalize_op
+from ..comm.reduce_ops import Average, ReduceOp, Sum, normalize_op
 from ..core import state as core_state
-from ..core.process_set import global_process_set
+from ..core.process_set import participant_count, participant_rank
 from .compression import Compression
 
 
@@ -42,7 +50,7 @@ def engine_compression(compression):
 
 
 def _set_size(process_set) -> int:
-    return (global_process_set if process_set is None else process_set).size
+    return participant_count(process_set)
 
 
 def _check_grad_op(op, average):
@@ -192,7 +200,7 @@ class _AllgatherFunction(torch.autograd.Function):
         summed = allreduce(grad, op=Sum, process_set=process_set)
         sizes = allgather(torch.tensor([rows], device=grad.device),
                           process_set=process_set)
-        offset = int(sizes[:core_state.rank()].sum())
+        offset = int(sizes[:participant_rank(process_set)].sum())
         return summed[offset:offset + rows], None
 
 
@@ -305,3 +313,213 @@ def reducescatter(tensor: torch.Tensor, op=None, name=None,
 
 def barrier(process_set=None) -> None:
     eager.barrier(process_set)
+
+
+# -- grouped allgather and reducescatter --------------------------------------
+
+def grouped_allgather(tensors: List[torch.Tensor], name=None,
+                      process_set=None) -> List[torch.Tensor]:
+    """Allgather a list of tensors (parity: hvd.grouped_allgather)."""
+    return _async.grouped_allgather(tensors, process_set=process_set)
+
+
+def grouped_reducescatter(tensors: List[torch.Tensor], op=None,
+                          process_set=None) -> List[torch.Tensor]:
+    """Reducescatter a list of tensors (parity:
+    hvd.grouped_reducescatter)."""
+    return _async.grouped_reducescatter(tensors, op=op,
+                                        process_set=process_set)
+
+
+# -- async ops and their handles ----------------------------------------------
+
+# handle -> (mode, the caller's tensor): "new" reshapes the result like
+# the tensor, "inplace" writes it into the tensor, "gather" keeps its
+# shape; each casts to the tensor's dtype
+_TORCH_HANDLES = {}
+
+
+def _register(handles, mode: str, tensors):
+    for h, t in zip(handles, tensors):
+        _TORCH_HANDLES[h] = (mode, t)
+    return handles
+
+
+def allreduce_async(tensor: torch.Tensor, average=None, name=None, op=None,
+                    compression=Compression.none,
+                    prescale_factor: float = 1.0,
+                    postscale_factor: float = 1.0,
+                    process_set=None) -> int:
+    handle = _async.allreduce_async(
+        tensor, op=op, average=average, name=name,
+        compression=engine_compression(compression),
+        prescale_factor=prescale_factor, postscale_factor=postscale_factor,
+        process_set=process_set)
+    return _register([handle], "new", [tensor])[0]
+
+
+def allreduce_async_(tensor: torch.Tensor, average=None, name=None, op=None,
+                     compression=Compression.none,
+                     prescale_factor: float = 1.0,
+                     postscale_factor: float = 1.0,
+                     process_set=None) -> int:
+    """Async in-place allreduce: the result lands in ``tensor`` at
+    ``synchronize`` (parity: hvd.allreduce_async_)."""
+    handle = _async.allreduce_async(
+        tensor, op=op, average=average, name=name,
+        compression=engine_compression(compression),
+        prescale_factor=prescale_factor, postscale_factor=postscale_factor,
+        process_set=process_set)
+    return _register([handle], "inplace", [tensor])[0]
+
+
+def grouped_allreduce_async(tensors: List[torch.Tensor], average=None,
+                            names=None, op=None,
+                            compression=Compression.none,
+                            process_set=None, *,
+                            prescale_factor: float = 1.0,
+                            postscale_factor: float = 1.0) -> List[int]:
+    """Async grouped allreduce: one handle a tensor; the group executes
+    together, as one fused group while it fits the fusion threshold."""
+    tensors = list(tensors)
+    handles = _async.grouped_allreduce_async(
+        tensors, op=op, average=average, names=names,
+        compression=engine_compression(compression),
+        process_set=process_set, prescale_factor=prescale_factor,
+        postscale_factor=postscale_factor)
+    return _register(handles, "new", tensors)
+
+
+def grouped_allgather_async(tensors: List[torch.Tensor], names=None,
+                            process_set=None) -> List[int]:
+    tensors = list(tensors)
+    handles = _async.grouped_allgather_async(tensors, names=names,
+                                             process_set=process_set)
+    return _register(handles, "gather", tensors)
+
+
+def grouped_reducescatter_async(tensors: List[torch.Tensor], op=None,
+                                names=None, process_set=None) -> List[int]:
+    tensors = list(tensors)
+    handles = _async.grouped_reducescatter_async(
+        tensors, op=op, names=names, process_set=process_set)
+    return _register(handles, "gather", tensors)
+
+
+def allgather_async(tensor: torch.Tensor, name=None,
+                    process_set=None) -> int:
+    handle = _async.allgather_async(tensor, name=name,
+                                    process_set=process_set)
+    return _register([handle], "gather", [tensor])[0]
+
+
+def broadcast_async(tensor: torch.Tensor, root_rank: int = 0, name=None,
+                    process_set=None) -> int:
+    handle = _async.broadcast_async(tensor, root_rank=root_rank, name=name,
+                                    process_set=process_set)
+    return _register([handle], "new", [tensor])[0]
+
+
+def broadcast_async_(tensor: torch.Tensor, root_rank: int = 0, name=None,
+                     process_set=None) -> int:
+    handle = _async.broadcast_async(tensor, root_rank=root_rank, name=name,
+                                    process_set=process_set)
+    return _register([handle], "inplace", [tensor])[0]
+
+
+def alltoall_async(tensor: torch.Tensor, splits=None, name=None,
+                   process_set=None) -> int:
+    handle = _async.alltoall_async(tensor, splits, name=name,
+                                   process_set=process_set)
+    return _register([handle], "gather", [tensor])[0]
+
+
+def reducescatter_async(tensor: torch.Tensor, op=None, name=None,
+                        process_set=None) -> int:
+    handle = _async.reducescatter_async(tensor, op=op, name=name,
+                                        process_set=process_set)
+    return _register([handle], "gather", [tensor])[0]
+
+
+class SparseAllreduceHandle:
+    """Handle of a sparse allreduce: two allgathers in flight, the
+    indices and the values, reassembled at ``synchronize`` (parity:
+    horovod/torch/mpi_ops.py sparse_allreduce_async's handle tuple)."""
+
+    def __init__(self, h_indices: int, h_values: int, shape, op, like,
+                 divisor: int):
+        self.h_indices = h_indices
+        self.h_values = h_values
+        self.shape = tuple(shape)
+        self.op = op
+        self.like = like
+        self.divisor = divisor
+
+
+_sparse_noname = iter(range(1 << 62))
+
+
+def sparse_allreduce_async(tensor: torch.Tensor, name=None, op=None,
+                           process_set=None) -> SparseAllreduceHandle:
+    """Allreduce a ``torch.sparse_coo`` tensor (embedding gradients):
+    every rank's (indices, values) are allgathered; ``synchronize``
+    reassembles and coalesces them (duplicate indices sum), dividing by
+    the set's rank count for Average."""
+    if not tensor.is_sparse:
+        raise ValueError("sparse_allreduce_async expects a sparse tensor")
+    rop = op if op is not None else Average
+    if rop not in (Sum, Average):
+        raise ValueError("sparse_allreduce_async supports op=Sum or Average")
+    t = tensor.detach().coalesce()
+    name = name or f"sparse_allreduce.noname.{next(_sparse_noname)}"
+    # indices: (sparse_dim, nnz) -> rows = nnz for the ragged allgather
+    idx_rows = t.indices().t().contiguous()
+    h_i = _async.allgather_async(idx_rows, name=f"{name}.indices",
+                                 process_set=process_set)
+    h_v = _async.allgather_async(t.values().contiguous(),
+                                 name=f"{name}.values",
+                                 process_set=process_set)
+    return SparseAllreduceHandle(h_i, h_v, t.shape, rop, t.values(),
+                                 divisor=participant_count(process_set))
+
+
+def _synchronize_sparse(handle: SparseAllreduceHandle) -> torch.Tensor:
+    idx = _async.synchronize(handle.h_indices)
+    vals = _async.synchronize(handle.h_values).to(handle.like.dtype)
+    if handle.op == Average:
+        vals = vals / float(handle.divisor)
+    out = torch.sparse_coo_tensor(idx.t().to(torch.int64), vals,
+                                  size=handle.shape)
+    return out.coalesce()
+
+
+def synchronize(handle):
+    """Wait for an async op and return its torch result (written into
+    the tensor for the in-place forms)."""
+    if isinstance(handle, SparseAllreduceHandle):
+        return _synchronize_sparse(handle)
+    mode, ref = _TORCH_HANDLES.pop(handle, ("new", None))
+    out = _async.synchronize(handle)
+    if isinstance(out, tuple):  # alltoall with splits
+        data, received = out
+        return data.to(ref.dtype) if ref is not None else data, received
+    if out is None:
+        return None
+    if ref is not None and out.dtype != ref.dtype:
+        out = out.to(ref.dtype)
+    if mode == "inplace" and ref is not None:
+        ref.data.copy_(out.reshape(ref.shape))
+        return ref
+    if mode == "new" and ref is not None:
+        return out.reshape(ref.shape)
+    return out
+
+
+def poll(handle) -> bool:
+    if isinstance(handle, SparseAllreduceHandle):
+        return _async.poll(handle.h_indices) and _async.poll(handle.h_values)
+    return _async.poll(handle)
+
+
+def join(device=None) -> int:
+    return _async.join(device)

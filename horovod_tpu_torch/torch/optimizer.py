@@ -36,7 +36,17 @@ onto ``none`` (``mpi_ops.engine_compression``, as
 fp16 wire casts every floating gradient, bfloat16 ones included.
 
 ``gradient_predivide_factor=f`` (requires ``op=Average``) reduces with
-``op=Sum``, prescale ``1/f`` and postscale ``f/n``.
+``op=Sum``, prescale ``1/f`` and postscale ``f/n``, ``n`` the size of
+the optimizer's process set (the world's by default).
+
+Sparse gradients (``nn.Embedding(sparse=True)``) follow the reference
+(``horovod_tpu/torch/optimizer.py:127-142``): with
+``sparse_as_dense=True`` a sparse gradient becomes dense in its hook and
+rides its bucket; otherwise it goes through ``sparse_allreduce_async``
+(the async controller) and ``synchronize()`` replaces the gradient with
+the coalesced result, which ``gradient_predivide_factor`` refuses.  The
+dense gradients keep the bucket plan; they do not go through the async
+controller, as the reference's do.
 """
 
 from __future__ import annotations
@@ -61,6 +71,7 @@ from ..ops.scale_cast import (
     scale_cast_pack,
     unpack_cast_scale,
 )
+from . import mpi_ops
 from .compression import Compression
 from .mpi_ops import engine_compression
 
@@ -79,13 +90,27 @@ class PendingGroup:
     grouped: bool = False
 
 
+def apply_scale(t: torch.Tensor, factor: float,
+                scale: Callable = fused_scale_cast) -> torch.Tensor:
+    """Pre/postscale of one tensor on the fused path (the reference
+    controller's ``_apply_scale``): floats through the one-pass scale
+    kernel ``scale``, integers keep the truncating-scale semantics
+    (``t * factor`` in their dtype)."""
+    if t.is_floating_point():
+        return scale(t.reshape(-1), factor).reshape(t.shape)
+    return t * torch.tensor(factor, dtype=t.dtype, device=t.device)
+
+
 @dataclasses.dataclass(frozen=True)
 class GroupReduction:
-    """The reduction of one group of gradients.
+    """The reduction of one group of gradients, Sum or Average; the
+    async controller reduces its fused groups through it too.
 
     ``compression`` is an engine codec; ``scale`` is the per-tensor
     pre/postscale of the fused path, ``pack`` and ``unpack`` its grouped
-    passes; the optimizer uses the kernel wrappers.
+    passes; the optimizer uses the kernel wrappers.  The collective runs
+    over the process set's group for the calling thread
+    (``comm/eager._group``: the controller's group on its executor).
     """
 
     op: ReduceOp
@@ -97,20 +122,13 @@ class GroupReduction:
     pack: Callable = scale_cast_pack
     unpack: Callable = unpack_cast_scale
 
-    def _apply_scale(self, t: torch.Tensor, factor: float) -> torch.Tensor:
-        # controller._apply_scale parity: floats through the one-pass
-        # scale kernel, integers keep the truncating-scale semantics
-        if t.is_floating_point():
-            return self.scale(t.reshape(-1), factor).reshape(t.shape)
-        return t * torch.tensor(factor, dtype=t.dtype, device=t.device)
-
     def grouped(self, tensors: Sequence[torch.Tensor]) -> bool:
         """Whether a group of several tensors takes the grouped A1
-        passes: every tensor contiguous, of a dtype the kernel reads, and
-        cast by the codec to a wire it writes.  Decided before any
-        launch."""
-        return all(t.is_contiguous() and casts_to_wire(self.compression,
-                                                       t.dtype)
+        passes: every tensor contiguous, on one device, of a dtype the
+        kernel reads, and cast by the codec to a wire it writes.  Decided
+        before any launch."""
+        return all(t.is_contiguous() and t.device == tensors[0].device
+                   and casts_to_wire(self.compression, t.dtype)
                    for t in tensors)
 
     def launch(self, tensors: Sequence[torch.Tensor]) -> PendingGroup:
@@ -130,13 +148,14 @@ class GroupReduction:
             wires, ctxs = [], []
             for t in tensors:
                 if self.prescale != 1.0:
-                    t = self._apply_scale(t, self.prescale)
+                    t = apply_scale(t, self.prescale, self.scale)
                 t, ctx = self.compression.compress(t)
                 wires.append(t)
                 ctxs.append(ctx)
             flat, specs = pack_flat(wires)
         work = dist.all_reduce(flat, op=dist.ReduceOp.SUM,
-                               group=self.process_set.group, async_op=True)
+                               group=eager._group(self.process_set),
+                               async_op=True)
         return PendingGroup(flat, specs, ctxs, work, grouped=grouped)
 
     def finish(self, pending: PendingGroup,
@@ -158,7 +177,7 @@ class GroupReduction:
                               pending.ctxs):
             out = self.compression.decompress(piece, ctx)
             if self.postscale != 1.0:
-                out = self._apply_scale(out, self.postscale)
+                out = apply_scale(out, self.postscale, self.scale)
             results.append(out)
         return _into(outs, results)
 
@@ -179,7 +198,8 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                  compression=Compression.none,
                  backward_passes_per_step: int = 1,
                  op=None, gradient_predivide_factor: float = 1.0,
-                 process_set: Optional[ProcessSet] = None):
+                 process_set: Optional[ProcessSet] = None,
+                 sparse_as_dense: bool = False):
         super(self.__class__, self).__init__(params)
         st = core_state.require_init("DistributedOptimizer")
         op = normalize_op(op)
@@ -190,10 +210,11 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         if op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
             raise NotImplementedError(
                 f"op={op.name} is not ported yet (Sum, Average)")
+        self._process_set = process_set
         process_set = process_set or global_process_set
-        if process_set is not global_process_set:
-            raise NotImplementedError(
-                "only the global process set is supported so far")
+        self._op = op
+        self._predivide = gradient_predivide_factor
+        self._sparse_as_dense = sparse_as_dense
         self.backward_passes_per_step = backward_passes_per_step
 
         wire = engine_compression(compression)
@@ -223,6 +244,9 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                         for b in plan.buckets]
         self._bucket_of = {p: k for k, b in enumerate(self.buckets)
                            for p in b}
+        self._name_of = dict(zip(self._params, names))
+        # sparse gradients in flight through sparse_allreduce_async
+        self._sparse: dict = {}
 
         self._passes = {p: 0 for p in self._params}
         self._ready = set()
@@ -244,8 +268,24 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             )
         self._passes[p] += 1
         if self._passes[p] == self.backward_passes_per_step:
+            if p.grad.is_sparse:
+                self._sparse_grad(p)
             self._mark_ready(p)
             self._launch_ready()
+
+    def _sparse_grad(self, p):
+        """A sparse gradient becomes dense (``sparse_as_dense``) and rides
+        its bucket, or goes through ``sparse_allreduce_async``."""
+        if self._sparse_as_dense:
+            p.grad = p.grad.to_dense()
+            return
+        if self._predivide != 1.0:
+            raise ValueError(
+                "gradient_predivide_factor is not supported with sparse "
+                "gradients (use sparse_as_dense)")
+        self._sparse[p] = mpi_ops.sparse_allreduce_async(
+            p.grad, name=f"allreduce.{self._name_of[p]}", op=self._op,
+            process_set=self._process_set)
 
     def _mark_ready(self, p):
         self._ready.add(p)
@@ -257,12 +297,19 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         while (self._next_bucket < len(self.buckets)
                and self._ready_count[self._next_bucket]
                == len(self.buckets[self._next_bucket])):
-            k = self._next_bucket
-            grads = [p.grad for p in self.buckets[k]]
-            self._pending.append((k, self.reduction.launch(grads)))
+            dense = [p for p in self.buckets[self._next_bucket]
+                     if p not in self._sparse]
+            if dense:
+                self._pending.append(
+                    (dense, self.reduction.launch([p.grad for p in dense])))
             self._next_bucket += 1
 
     # -- public contract --------------------------------------------------
+    def set_backward_passes_per_step(self, passes: int):
+        self.backward_passes_per_step = passes
+        for p in self._passes:
+            self._passes[p] = 0
+
     def synchronize(self):
         """Reduce every registered gradient; grads are updated in place
         (the grouped postscale writes into them directly).
@@ -274,12 +321,18 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             if p not in self._ready:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+                elif p.grad.is_sparse:
+                    self._sparse_grad(p)
                 self._mark_ready(p)
         self._launch_ready()
         with torch.no_grad():
-            for k, pending in self._pending:
-                self.reduction.finish(pending,
-                                      [p.grad for p in self.buckets[k]])
+            for dense, pending in self._pending:
+                self.reduction.finish(pending, [p.grad for p in dense])
+        for p, handle in self._sparse.items():
+            # sparse results cannot land in place: the gradient is
+            # replaced (parity: p.grad = synchronize(handle))
+            p.grad = mpi_ops.synchronize(handle)
+        self._sparse.clear()
         self._pending.clear()
         self._ready.clear()
         self._ready_count = [0] * len(self.buckets)
@@ -310,7 +363,7 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         return super(self.__class__, self).step(closure)
 
     def zero_grad(self, set_to_none: bool = True):
-        if self._ready or self._pending:
+        if self._ready or self._pending or self._sparse:
             raise AssertionError(
                 "optimizer.zero_grad() was called after loss.backward() "
                 "but before optimizer.step() or optimizer.synchronize(). "
@@ -325,7 +378,8 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                          backward_passes_per_step: int = 1,
                          op=None,
                          gradient_predivide_factor: float = 1.0,
-                         process_set: Optional[ProcessSet] = None
+                         process_set: Optional[ProcessSet] = None,
+                         sparse_as_dense: bool = False
                          ) -> torch.optim.Optimizer:
     """Wrap ``optimizer`` for data-parallel training (parity:
     hvd.DistributedOptimizer for torch).
@@ -338,4 +392,4 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                dict(_DistributedOptimizer.__dict__))
     return cls(optimizer.param_groups, named_parameters, compression,
                backward_passes_per_step, op, gradient_predivide_factor,
-               process_set)
+               process_set, sparse_as_dense)

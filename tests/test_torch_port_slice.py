@@ -216,13 +216,18 @@ def _forbidden(mod: str) -> bool:
 def test_import_leaves_no_jax_or_reference_module():
     code = ("import sys; import horovod_tpu_torch, horovod_tpu_torch.models,"
             " horovod_tpu_torch.weights, horovod_tpu_torch.ops,"
-            " horovod_tpu_torch.ops.ring;"
+            " horovod_tpu_torch.ops.ring, horovod_tpu_torch.native,"
+            " horovod_tpu_torch.eager, horovod_tpu_torch.api.handles,"
+            " horovod_tpu_torch.api.async_ops;"
             " print('\\n'.join(sorted(sys.modules)))")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout.split()
-    assert {"horovod_tpu_torch", "horovod_tpu_torch.ops.ring"} <= set(out)
+    assert {"horovod_tpu_torch", "horovod_tpu_torch.ops.ring",
+            "horovod_tpu_torch.native.fallback",
+            "horovod_tpu_torch.eager.controller",
+            "horovod_tpu_torch.api.handles"} <= set(out)
     assert [m for m in out if _forbidden(m)] == []
 
 
@@ -239,7 +244,9 @@ def _imports(path: Path):
 def test_ast_scan_finds_no_jax_or_reference_import():
     files = sorted((REPO / "horovod_tpu_torch").rglob("*.py"))
     files += [REPO / "chip_smoke.py", REPO / "torch_port_profile.py"]
-    assert REPO / "horovod_tpu_torch" / "ops" / "ring.py" in files
+    for sub in ("ops/ring.py", "native/wire.py", "native/fallback.py",
+                "eager/controller.py", "api/handles.py"):
+        assert REPO / "horovod_tpu_torch" / sub in files
     assert len(files) > 15
     bad = [(f.name, m) for f in files for m in _imports(f) if _forbidden(m)]
     assert bad == []

@@ -288,3 +288,180 @@ def mpi_ops_worker(rank: int, world: int, store_path: str,
         hvd.shutdown()
     finally:
         dist.destroy_process_group()
+
+
+# -- the async controller, 2 and 3 ranks over gloo -----------------------------
+
+ASYNC_NAMES = ["a", "b", "c", "d"]
+
+
+def async_inputs(rank: int, world: int) -> dict:
+    """Per-rank inputs of ``async_worker``: small integers and halves, so
+    every sum over 2 or 3 ranks is exact in any order."""
+    rng = np.random.RandomState(90 + rank)
+    ints = lambda *s: rng.randint(-40, 41, size=s)  # noqa: E731
+    f32 = np.float32
+    return dict(
+        **{n: (ints(3 + i, 2) * 0.5).astype(f32)
+           for i, n in enumerate(ASYNC_NAMES)},
+        ps=(ints(6) * 0.25).astype(f32),
+        grouped=(ints(10) * 0.5).astype(f32),
+        grouped_b=(ints(4) * 0.5).astype(f32),
+        gather=ints(2 + rank, 3).astype(np.int32),
+        bcast=ints(5).astype(f32),
+        rs=(ints(2 * world, 3) * 0.5).astype(f32),
+        a2a=ints(2 * world, 2).astype(f32),
+        sparse_rows=rng.choice(8, size=3 + rank).astype(np.int64),
+        sparse_vals=(ints(3 + rank, 4) * 0.5).astype(f32),
+    )
+
+
+def async_weights(shape) -> torch.Tensor:
+    """The weights of the process-set allgather's backward, the same on
+    every rank."""
+    n = int(np.prod(shape))
+    return torch.arange(n, dtype=torch.float32).reshape(shape) * 0.5
+
+
+def async_process_set(world: int):
+    return [0, 2] if world == 3 else [1]
+
+
+def async_worker(rank: int, world: int, store_path: str,
+                 out_dir: str) -> None:
+    """The async plane at ``world`` ranks: out-of-order enqueue, a
+    partial submission, the grouped fused path, the other async ops, a
+    process set (members and a non-member), its removal, and shutdown
+    with an op in flight.  Rank 0 records every call its negotiation
+    core's coordinator side takes, for a replay through the JAX
+    package's core."""
+    import pickle
+    import time
+
+    torch.set_num_threads(1)
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.native import fallback
+
+    log = []
+    if rank == 0:
+        for method in ("ingest", "compute_responses", "apply_responses",
+                       "declare_group", "register_process_set"):
+            orig = getattr(fallback.PyController, method)
+
+            def wrapped(self, *args, _orig=orig, _m=method):
+                out = _orig(self, *args)
+                log.append((_m, args, out))
+                return out
+            setattr(fallback.PyController, method, wrapped)
+
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    x = {k: torch.from_numpy(v) for k, v in async_inputs(rank, world).items()}
+    res, errors = {}, {}
+    try:
+        hvd.init(device="cpu")
+        # every rank enqueues the named ops in its own order
+        order = list(np.random.RandomState(rank).permutation(ASYNC_NAMES))
+        handles = {n: hvd.allreduce_async(x[n], name=n, op=hvd.Sum)
+                   for n in order}
+        for n in ASYNC_NAMES:
+            res[f"ooo_{n}"] = hvd.synchronize(handles[n])
+        # a partial submission waits for the last rank, which enqueues
+        # only once rank 0 has polled its handle after some cycles
+        store = dist.PrefixStore(
+            "test", dist.distributed_c10d._get_default_store())
+        if rank == world - 1:
+            store.wait(["polled"])
+        h = hvd.allreduce_async(x["a"], name="partial", op=hvd.Average)
+        if rank == 0:
+            time.sleep(0.2)
+            res["partial_polled"] = np.asarray(hvd.poll(h))
+            store.set("polled", b"1")
+        res["partial"] = hvd.synchronize(h)
+        res["partial_polled_after"] = np.asarray(hvd.poll(h))
+        # the fused path: fp16 wire, the predivide scales
+        hs = hvd.grouped_allreduce_async(
+            [x["grouped"], x["grouped_b"].to(torch.bfloat16)], op=hvd.Sum,
+            names=["g0", "g1"], compression=hvd.Compression.fp16,
+            prescale_factor=0.5, postscale_factor=2.0)
+        res["grouped0"], g1 = [hvd.synchronize(h) for h in hs]
+        res["grouped1"] = g1.float()
+        res["gather"] = hvd.synchronize(hvd.allgather_async(x["gather"]))
+        res["bcast"] = hvd.synchronize(
+            hvd.broadcast_async(x["bcast"], world - 1, "bc"))
+        res["rs"] = hvd.synchronize(hvd.reducescatter_async(x["rs"],
+                                                            op=hvd.Sum))
+        res["a2a"] = hvd.synchronize(hvd.alltoall_async(x["a2a"]))
+        res["ggather"], = [hvd.synchronize(h) for h in
+                           hvd.grouped_allgather_async([x["gather"]])]
+        sp = torch.sparse_coo_tensor(x["sparse_rows"][None], x["sparse_vals"],
+                                     (8, 4))
+        res["sparse"] = hvd.synchronize(
+            hvd.sparse_allreduce_async(sp, op=hvd.Sum)).to_dense()
+        # a process set: members reduce over it, a non-member is refused
+        ps = hvd.add_process_set(async_process_set(world))
+        res["ps_id"] = np.asarray(ps.process_set_id)
+        if ps.included():
+            res["ps_sum"] = hvd.synchronize(hvd.allreduce_async(
+                x["ps"], name="ps_sum", op=hvd.Sum, process_set=ps))
+            res["ps_avg"] = hvd.synchronize(hvd.allreduce_async(
+                x["ps"], name="ps_avg", op=hvd.Average, process_set=ps))
+            res["ps_sync_avg"] = hvd.allreduce(x["ps"], op=hvd.Average,
+                                               process_set=ps)
+            # allgather's adjoint slices this rank's rows of the set
+            xg = x["gather"].float().requires_grad_()
+            y = hvd.allgather(xg, process_set=ps)
+            (y * async_weights(y.shape)).sum().backward()
+            res["ps_gather"], res["ps_gather_grad"] = y.detach(), xg.grad
+            # the optimizer over the set: predivide 2, postscale 2 / 2
+            w = torch.nn.Parameter(torch.zeros(6))
+            opt = hvd.DistributedOptimizer(
+                torch.optim.SGD([w], lr=1.0), named_parameters=[("w", w)],
+                gradient_predivide_factor=2.0, process_set=ps)
+            w.grad = x["ps"].clone()
+            opt.synchronize()
+            res["ps_opt_grad"] = w.grad.detach().clone()
+        else:
+            for what, fn in (
+                    ("sync", lambda: hvd.allreduce(x["ps"], process_set=ps)),
+                    ("async", lambda: hvd.allreduce_async(
+                        x["ps"], name="ps_sum", process_set=ps))):
+                try:
+                    fn()
+                except RuntimeError as e:
+                    errors[f"ps_{what}"] = str(e)
+        res["ps_removed"] = np.asarray([hvd.remove_process_set(ps),
+                                        hvd.remove_process_set(ps)])
+        ps2 = hvd.add_process_set([world - 1])
+        res["ps2_id"] = np.asarray(ps2.process_set_id)
+        if ps2.included():
+            res["ps2"] = hvd.synchronize(hvd.allreduce_async(
+                x["ps"], name="ps2", op=hvd.Sum, process_set=ps2))
+        hvd.remove_process_set(ps2)
+        res["after_ps"] = hvd.synchronize(hvd.allreduce_async(
+            x["b"], name="after", op=hvd.Sum))
+        # a shape that differs on one rank: every rank gets the
+        # coordinator's mismatch error, naming that rank
+        try:
+            hvd.synchronize(hvd.allreduce_async(
+                torch.zeros(3 + (rank == 1)), name="mismatch", op=hvd.Sum))
+        except hvd.HvtpuMismatchError as e:
+            errors["mismatch"] = str(e)
+        # shutdown with an op in flight: the last rank never enqueues it
+        if rank != world - 1:
+            h = hvd.allreduce_async(x["a"], name="never", op=hvd.Sum)
+        t0 = time.time()
+        if rank == world - 1:
+            hvd.shutdown()
+        else:
+            try:
+                hvd.synchronize(h)
+            except hvd.HorovodInternalError as e:
+                errors["in_flight"] = str(e)
+            hvd.shutdown()
+        res["shutdown_s"] = np.asarray(time.time() - t0)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"async{rank}.pkl"), "wb") as f:
+        pickle.dump({"res": {k: np.asarray(v) for k, v in res.items()},
+                     "errors": errors, "log": log}, f)
