@@ -57,6 +57,17 @@ Builds the port's CUDA kernels from ``horovod_tpu_torch/csrc`` and then:
    process set {0} with its own NCCL groups; the BERT-base word
    embedding's sparse gradient through ``sparse_allreduce_async`` and a
    ``sparse_as_dense`` step; the other async ops against the sync ones;
+   then the controller's zero-copy route: the 161 gradients as
+   ``allreduce_async_`` with the optimizer's default arguments (Average,
+   no codec, scales 1), values changed from burst to burst, 3 untimed
+   bursts that learn the pack plan, then 10 timed bursts with the route
+   on and off in turns: every result bitwise the staged route's and in
+   the caller's tensor, 161 zero-copy ops and one A1 launch a fused group
+   with the route on, 161 staged copies and two with it off, the plane
+   (lockstep at one rank) and the predicted bursts (none);
+   Adasum: ``pairwise_adasum`` over two batches' 161 gradients (float32,
+   a segment a tensor) against the float64 reference, and a ResNet-50
+   step with ``op=Adasum`` bitwise the ``op=Sum`` step;
 7. runs the ring collectives at full width: phase 3's batch as 8 virtual
    ranks of 8 images, each rank's 161 gradients packed (25.56 M float32),
    reduced on the card by ``ring_allreduce`` (A5 Sum and Average, A6
@@ -76,6 +87,7 @@ Builds the port's CUDA kernels from ``horovod_tpu_torch/csrc`` and then:
    same steps computed on the CPU with plain PyTorch.
 
 Prints one ``int8_quantized_allreduce {...}`` line, one ``async_path
+{...}`` line (its ``zero_copy`` part the route's bursts), one ``adasum
 {...}`` line, one ``ring_path {...}`` line, one ``{"kernels": [...]}`` line of 10 entries and, last,
 ``{"ok": true,
 "device": {...}}``.  Exits non-zero, printing no result, when CUDA is
@@ -1157,6 +1169,152 @@ def _plain_group(tensors, codec, pre: float, post: float):
                                    post)
 
 
+ZC_LEARN = 3       # untimed bursts that learn the pack plan
+# the timed bursts, zero-copy on (True) and off in turns
+ZC_ORDER = (True, False, False, True, True, False, False, True, True, False)
+ZC_WHY_LOCKSTEP = ("a world of one takes the lockstep plane: the streamed "
+                   "plane and prediction start only past one rank, and "
+                   "NCCL refuses two ranks of one communicator on one "
+                   "device")
+
+
+def _set_zero_copy(ctrl, on: bool, saved: dict) -> None:
+    """Turn the controller's zero-copy route on or off between bursts:
+    off sets the learned pack plan aside (and stops learning), on puts
+    it back, so an on burst needs no new learning."""
+    with ctrl._lock:
+        if on and "plan" in saved:
+            ctrl._pack_plan, specs = saved.pop("plan")
+            ctrl._pack_group_specs.update(specs)
+        elif not on and ctrl._pack_plan is not None:
+            saved["plan"] = (ctrl._pack_plan, dict(ctrl._pack_group_specs))
+            ctrl._release_open_packs()
+            ctrl._pack_plan = None
+            ctrl._pack_group_specs.clear()
+        ctrl._zero_copy_on = on
+
+
+def zero_copy_phase(hvd, ctrl, by_name, groups, spent, staged):
+    """The controller's zero-copy route on the optimizer's default
+    traffic: the 161 gradients as ``allreduce_async_`` (Average, no
+    codec, scales 1) under names of their own, their values changed from
+    burst to burst (an exchange buffer reused while a collective or an
+    unpack still reads it would show).  ``ZC_LEARN`` untimed bursts learn
+    the pack plan, then ``ZC_ORDER``'s timed bursts run with the route on
+    and off in turns.  In every burst each result is bitwise the staged
+    route's (``staged``, the controller's ``GroupReduction``, on the
+    burst's inputs) and lands in the caller's tensor; with the route on
+    every op of a fused group is a zero-copy op (all 161 at full width,
+    two groups) and each fused group one A1 launch (its unpack), with it
+    off they are staged copies and two launches a group."""
+    import torch
+
+    from horovod_tpu_torch.ops import fused_scale_cast
+
+    names = {f"zc.{n}": g for n, g in by_name.items()}
+    saved = {}
+
+    def burst(k: int):
+        inputs = {n: g * (1.0 + 0.125 * k) for n, g in names.items()}
+        tensors = {n: t.clone() for n, t in inputs.items()}
+        torch.cuda.synchronize()
+        spent.update(negotiate=0.0, execute=0.0)
+        zc0, st0 = ctrl.zero_copy_ops, ctrl.staged_copies
+        pr0, cy0 = ctrl.predicted_bursts, ctrl._cycle
+        groups.clear()
+        fused_scale_cast.launches = 0       # the burst starts here
+        t0 = time.perf_counter()
+        ctrl.hint_burst(len(tensors))
+        handles = {n: hvd.allreduce_async_(t, name=n)
+                   for n, t in tensors.items()}
+        t_enq = time.perf_counter()
+        outs = {n: hvd.synchronize(h) for n, h in handles.items()}
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        launches = fused_scale_cast.launches   # read just after it
+        agreed = list(groups)
+        check(sorted(n for g in agreed for n in g) == sorted(names),
+              f"zero-copy burst {k}: the responses do not cover it")
+        for g in agreed:
+            for n, w in zip(g, staged.reduce([inputs[n] for n in g])):
+                check(outs[n] is tensors[n] and same_bits(outs[n], w),
+                      f"zero-copy burst {k}: {n} is not the staged "
+                      "route's result, in the caller's tensor")
+        return {"ms": (t1 - t0) * 1e3, "enqueue_ms": (t_enq - t0) * 1e3,
+                "negotiate_ms": spent["negotiate"] * 1e3,
+                "execute_ms": spent["execute"] * 1e3,
+                "zero_copy_ops": ctrl.zero_copy_ops - zc0,
+                "staged_copies": ctrl.staged_copies - st0,
+                "predicted": ctrl.predicted_bursts - pr0,
+                "cycles": ctrl._cycle - cy0,
+                "group_sizes": [len(g) for g in agreed],
+                "a1_launches": launches}
+
+    def fused(r):
+        # ops in fused groups (a group of one tensor takes neither route)
+        return sum(n for n in r["group_sizes"] if n > 1)
+
+    learn = [burst(k) for k in range(ZC_LEARN)]
+    check(learn[-1]["zero_copy_ops"] == fused(learn[-1]) > 0,
+          f"zero-copy: no plan learned in {ZC_LEARN} bursts ({learn})")
+    timed = {True: [], False: []}
+    for k, on in enumerate(ZC_ORDER, start=ZC_LEARN):
+        _set_zero_copy(ctrl, on, saved)
+        r = burst(k)
+        multi = sum(n > 1 for n in r["group_sizes"])
+        check(r["zero_copy_ops"] == (fused(r) if on else 0)
+              and r["staged_copies"] == (0 if on else fused(r))
+              and r["a1_launches"] == (1 if on else 2) * multi,
+              f"zero-copy {'on' if on else 'off'}, burst {k}: {r}")
+        timed[on].append(r)
+    _set_zero_copy(ctrl, True, saved)
+
+    # what the route adds to the enqueue, apart: the 161 copy_ calls
+    # alone into one exchange buffer's slots, and ExchangeBuffer.write
+    # (host clock, 5 turns each)
+    from horovod_tpu_torch.comm.packing import ExchangeBuffer
+
+    grads = list(names.values())
+    xb = ExchangeBuffer([(tuple(g.shape), g.dtype,
+                          g.numel() * g.element_size()) for g in grads],
+                        grads[0].device)
+
+    def host_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        xb.reset()
+        return (t1 - t0) * 1e3
+
+    def copies():
+        for v, g in zip(xb.views(), grads):
+            v.copy_(g)
+
+    def writes():
+        for i, g in enumerate(grads):
+            xb.write(i, g)
+
+    copy_ms = [host_ms(copies) for _ in range(5)]
+    write_ms = [host_ms(writes) for _ in range(5)]
+    state = ctrl.debug_state()
+    predicted = sum(r["predicted"] for r in learn + timed[True]
+                    + timed[False])
+    check(state["plane"] == "lockstep" and predicted == 0,
+          "zero-copy: a world of one on another plane or predicting")
+    return {
+        "grads": len(names), "learn": learn,
+        "timed_on": timed[True], "timed_off": timed[False],
+        "median_ms_on": statistics.median(r["ms"] for r in timed[True]),
+        "median_ms_off": statistics.median(r["ms"] for r in timed[False]),
+        "a1_launches_on": timed[True][0]["a1_launches"],
+        "a1_launches_off": timed[False][0]["a1_launches"],
+        "copy_ms": copy_ms, "write_ms": write_ms,
+        "plane": state["plane"], "predicted": predicted,
+        "why": ZC_WHY_LOCKSTEP, "fusion_pool": state["fusion_pool"]}
+
+
 def async_phase(hvd, device, model, opt, x, y, smi: str):
     """The async plane at full width in the one-rank NCCL world: the
     optimizer's 161 ResNet-50 gradients (float32) as a burst of
@@ -1261,6 +1419,10 @@ def async_phase(hvd, device, model, opt, x, y, smi: str):
                 "a1_launches": launches, "checked": n}
     result["runs"] = runs
     result["a1_launches"] = runs["fp16_burst"]["a1_launches"]
+    result["zero_copy"] = zero_copy_phase(
+        hvd, ctrl, by_name, groups, spent,
+        dataclasses.replace(none_red, op=hvd.Average, prescale=1.0,
+                            postscale=1.0))
 
     # GroupReduction.reduce over the same gradients, its bucket plan,
     # in the same call (host clock, synchronized)
@@ -1358,6 +1520,99 @@ def async_phase(hvd, device, model, opt, x, y, smi: str):
     check(hvd.join() == 0, "join")
     result["others"] = {"polled_before": bool(polled_before), "join": 0}
     log("async_path " + json.dumps(result))
+    return result
+
+
+# -- Adasum -------------------------------------------------------------------
+
+# pairwise_adasum in float32 against float64, per segment: |got - ref| at
+# most ADASUM_RTOL times the segment's largest |ref|.  The coefficients'
+# dot products sum up to 2.36 M float32 products in cuBLAS's order (an
+# error of some log2(n) float32 roundings of sum |a_i b_i|), and each
+# output rounds once more.
+ADASUM_RTOL = 1e-4
+
+
+def adasum_phase(hvd, device, model, x, y):
+    """Adasum on the card: ``pairwise_adasum`` over two backward passes'
+    161 ResNet-50 gradients (phase 3's batch and a second one, float32,
+    a segment a tensor) against the float64 reference on the CPU, with
+    its time; then a full-width ResNet-50 step with ``op=Adasum`` at a
+    world of one, bitwise the ``op=Sum`` step on the same gradients (at
+    one rank Adasum returns the tensor itself)."""
+    import itertools
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.comm.adasum import (
+        adasum_reduce_reference,
+        pairwise_adasum,
+    )
+    from horovod_tpu_torch.models import ResNet
+    from horovod_tpu_torch.ops import fused_scale_cast
+
+    params = [p for p in model.parameters() if p.requires_grad]
+    dgen = torch.Generator(device=device).manual_seed(SEED + 8)
+    x2 = torch.randn(x.shape, generator=dgen, device=device)
+    y2 = y.flip(0)
+    a, b = (torch.cat([g.float().reshape(-1) for g in torch.autograd.grad(
+        F.cross_entropy(model(xb), yb), params)]) for xb, yb in
+        ((x, y), (x2, y2)))
+    sizes = [p.numel() for p in params]
+    segs = list(zip(itertools.accumulate([0] + sizes[:-1]), sizes))
+    got = pairwise_adasum(a, b, segs)
+    ms = time_cuda(lambda: pairwise_adasum(a, b, segs), reps=5)
+    a64, b64 = a.double().cpu().numpy(), b.double().cpu().numpy()
+    out = got.double().cpu().numpy()
+    worst = 0.0
+    for off, n in segs:
+        ref = adasum_reduce_reference([a64[off:off + n], b64[off:off + n]])
+        err = float(np.abs(out[off:off + n] - ref).max())
+        top = float(np.abs(ref).max())
+        worst = max(worst, err / top if top > 0
+                    else (0.0 if err == 0 else math.inf))
+    check(got.dtype == torch.float32 and torch.isfinite(got).all()
+          and worst <= ADASUM_RTOL,
+          f"adasum: pairwise_adasum off the float64 reference ({worst})")
+
+    # one step with op=Adasum and one with op=Sum from the same weights
+    # on the same gradients: bitwise the same weights and momenta
+    models = [ResNet([3, 4, 6, 3], dtype=torch.bfloat16, device=device,
+                     generator=torch.Generator().manual_seed(SEED))
+              for _ in range(2)]
+    opts = [hvd.DistributedOptimizer(
+        torch.optim.SGD(m.parameters(), lr=0.1, momentum=0.9),
+        named_parameters=m.named_parameters(), op=op)
+        for m, op in zip(models, (hvd.Sum, hvd.Adasum))]
+    saved = fused_scale_cast.launches
+    w0 = [p.detach().clone() for p in models[0].parameters()]
+    F.cross_entropy(models[0](x), y).backward()
+    for p, q in zip(models[0].parameters(), models[1].parameters()):
+        q.grad = p.grad.detach().clone()
+    for opt in opts:
+        opt.step()
+    torch.cuda.synchronize()
+    fused_scale_cast.launches = saved
+    moved = 0
+    for (name, p), q, w in zip(models[0].named_parameters(),
+                               models[1].parameters(), w0):
+        check(same_bits(p, q) and same_bits(
+            opts[0].state[p]["momentum_buffer"],
+            opts[1].state[q]["momentum_buffer"]),
+            f"adasum: the op=Adasum step differs from op=Sum at {name}")
+        moved += not torch.equal(p, w)
+    check(moved > 0, "adasum: the step moved no weight")
+    n = a.numel()
+    result = {"elements": n, "segments": len(segs), "ms": ms,
+              # a and b read once, the result written once; 3 dot
+              # products and the combination, 10 operations an element
+              "bound_ms": _bound_ms(3 * 4 * n, 10 * n)[0],
+              "max_rel_err": worst, "rtol": ADASUM_RTOL,
+              "step_bitwise_sum": True, "params_moved": moved}
+    log("adasum " + json.dumps(result))
+    del models, opts
     return result
 
 
@@ -1870,6 +2125,7 @@ def main() -> int:
         int8_path = int8_path_phase(model, x, y)
         surface_autograd_phase(hvd, device)
         async_path = async_phase(hvd, device, model, opt, x, y, smi)
+        adasum_phase(hvd, device, model, x, y)
         ring = ring_phase(ring_buckets(model, x, y, RING_RANKS), reps=10)
         del model, opt, x, y
         reference_phase(hvd, device)
@@ -1891,6 +2147,7 @@ def main() -> int:
         "replaces": "horovod_tpu/ops/pallas_ops.py:101",
         "launches": train["launches"],
         "async_launches": async_path["a1_launches"],
+        "zero_copy_launches": async_path["zero_copy"]["a1_launches_on"],
         "max_abs_err": kern["max_abs_err"],
         "ms": pre["ms"],
         "plain_ms": pre["plain_ms"],

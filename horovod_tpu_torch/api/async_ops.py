@@ -40,12 +40,16 @@ def _allocate(fut) -> int:
 def allreduce_async(tensor, *, op=None, average=None, name=None,
                     compression=Compression.none, process_set=None,
                     prescale_factor: float = 1.0,
-                    postscale_factor: float = 1.0) -> int:
+                    postscale_factor: float = 1.0, out=None) -> int:
+    """``out``: a tensor the controller may write the result into (the
+    torch surface's in-place ``allreduce_async_`` passes its own; the
+    zero-copy route's unpack takes it, and ``synchronize`` returns it)."""
     _state.require_init("allreduce_async")
     fut = _controller().enqueue(
         "allreduce", tensor, name=name, op=normalize_op(op, average),
         compression=compression, process_set=process_set,
-        prescale_factor=prescale_factor, postscale_factor=postscale_factor)
+        prescale_factor=prescale_factor, postscale_factor=postscale_factor,
+        out=out)
     return _allocate(fut)
 
 

@@ -12,9 +12,10 @@ semantics of ``horovod_tpu/comm/spmd.py`` ``allreduce``:
   Average with an int8 codec on a floating tensor take the two-phase
   ``quantized_allreduce``, other codecs compress, sum and decompress;
   Average multiplies by the reciprocal of the rank count (floor division
-  for integers); Min
-  and Max reduce; Product gathers and multiplies; the postscale
-  multiplies in the output's dtype.
+  for integers); Adasum compresses, combines by recursive distance
+  doubling (``comm/adasum.py``, a power-of-two set size) and
+  decompresses; Min and Max reduce; Product gathers and multiplies; the
+  postscale multiplies in the output's dtype.
 
 Every op returns a new tensor.  Every op takes a process set (a
 ``ProcessSet``, its id, or None for the global set) and runs over the
@@ -36,6 +37,7 @@ import torch.distributed as dist
 
 from ..core import state as core_state
 from ..core.process_set import ProcessSet, global_process_set
+from .adasum import adasum_reduce
 from .compression import Int8Compressor, NoneCompressor
 from .packing import pack_flat, unpack_flat
 from .quantized import quantized_allreduce
@@ -146,6 +148,9 @@ def _reduce(x: torch.Tensor, rop: ReduceOp, compression,
         if rop == ReduceOp.AVERAGE:
             out = average_(out, ps.size)
         return out
+    if rop == ReduceOp.ADASUM:
+        wire, ctx = compression.compress(x)
+        return compression.decompress(adasum_reduce(wire, ps), ctx)
     if rop in (ReduceOp.MIN, ReduceOp.MAX):
         dist.all_reduce(x, op=dist.ReduceOp.MIN if rop == ReduceOp.MIN
                         else dist.ReduceOp.MAX, group=_group(ps))
@@ -170,14 +175,12 @@ def allreduce(
     codec of ``comm/compression.py``; ``name`` is accepted for parity and
     unused until the port has a timeline)."""
     rop = normalize_op(op, average)
-    if rop == ReduceOp.ADASUM:
-        if _is_int8(compression):
-            # size-independent, as in the reference: dot products over
-            # per-rank block-scaled codes are meaningless
-            raise ValueError(
-                "int8 compression cannot ride Adasum (per-rank scales "
-                "would corrupt the dot products); use fp16/bf16/none")
-        raise NotImplementedError("Adasum is not ported yet")
+    if rop == ReduceOp.ADASUM and _is_int8(compression):
+        # size-independent, as in the reference: dot products over
+        # per-rank block-scaled codes are meaningless
+        raise ValueError(
+            "int8 compression cannot ride Adasum (per-rank scales "
+            "would corrupt the dot products); use fp16/bf16/none")
     ps = _resolve_process_set(process_set, "allreduce")
     x = tensor.detach()
     if ps.size == 1:

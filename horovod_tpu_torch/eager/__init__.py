@@ -2,9 +2,10 @@
 ``horovod_tpu/eager``).
 
 Ranks may submit async collectives in any order; the controller
-negotiates a globally agreed, deterministically fused schedule each
-cycle (parity: BackgroundThreadLoop + Controller::ComputeResponseList)
-and executes it over ``torch.distributed``.
+negotiates a globally agreed, deterministically fused schedule (parity:
+BackgroundThreadLoop + Controller::ComputeResponseList) — in lockstep
+cycles at one rank, over the streamed plane with schedule prediction
+past one — and executes it over ``torch.distributed``.
 """
 
 from __future__ import annotations

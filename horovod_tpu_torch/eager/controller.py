@@ -1,26 +1,34 @@
-"""The async controller: negotiation cycles and the executor.
+"""The async controller: negotiation, the streamed plane and the executor.
 
-Counterpart of ``horovod_tpu/eager/controller.py``, its lockstep plane
-(parity surface: ``horovod/common/operations.cc`` ``BackgroundThreadLoop``
-/ ``RunLoopOnce`` / ``PerformOperation`` and the coordination cycle of
+Counterpart of ``horovod_tpu/eager/controller.py`` (parity surface:
+``horovod/common/operations.cc`` ``BackgroundThreadLoop`` /
+``RunLoopOnce`` / ``PerformOperation`` and the coordination of
 ``horovod/common/controller.cc`` ``ComputeResponseList``).  Ranks
-enqueue async collectives in any order; every cycle their controllers
-agree on one fused schedule and every rank executes it in the same
-order.
+enqueue async collectives in any order; their controllers agree on one
+fused schedule and every rank executes it in the same order.
 
 Division of labor, as in the reference:
 
 - decisions (queueing, readiness, fusion, the response cache, burst
-  units) live in the negotiation core, ``horovod_tpu_torch.native``
-  (``PyController``);
-- this module owns the cycle thread, the transport of the wire-v5 blobs
-  between ranks, and the executor thread that runs the agreed responses
-  through ``comm/eager.py`` and resolves each op's ``OpFuture``.
+  units, schedule prediction) live in the negotiation core,
+  ``horovod_tpu_torch.native`` (``PyController``);
+- this module owns the threads, the transport of the wire-v5 blobs
+  between ranks, and the executor that runs the agreed responses through
+  ``comm/eager.py`` and resolves each op's ``OpFuture``.
 
-Transport: a world of one short-circuits it (``LocalTransport``);
-otherwise the blobs ride the ``torch.distributed`` store under per-cycle
-keys (``KVTransport``): every rank posts its request blob, rank 0
-gathers them, computes the responses and posts them back.
+Two control planes.  A world of one, or ``HVTPU_EAGER_STREAM=0``, takes
+the lockstep plane: one cycle thread, every cycle every rank posts its
+request blob and rank 0 answers (``LocalTransport`` at one rank,
+``KVTransport.exchange`` otherwise).  A larger world takes the streamed
+plane by default: a drainer posts this rank's request blobs when it has
+work (rank 0 also ingests every rank's stream and appends the agreed
+ResponseLists to a response stream), and a fetcher applies that stream
+in order on every rank; idle ranks post nothing.  On the streamed plane
+a steady burst whose schedule the replicated response cache determines
+is predicted and executed at once, and confirmed after the fact
+(``_try_predict``, ``HVTPU_EAGER_PREDICT``); a confirmation that does not
+come forces a full negotiation (``_on_mispredict``).  Both planes ride
+the ``torch.distributed`` store (``KVTransport``).
 
 CUDA streams: ``enqueue`` records an event on the caller's current
 stream; the executor runs on a stream of its own that waits on it before
@@ -31,43 +39,55 @@ run over the process sets' controller groups
 (``eager.controller_execution``), never over a communicator the caller's
 thread uses.
 
-The staged fused path (``_execute_allreduce``) reduces a group with one
-prescale, one postscale and one codec through the optimizer's
-``GroupReduction``, which runs kernel A1's grouped passes
-(``ops/scale_cast.py``) where the group allows it: one
-``scale_cast_pack`` launch in place of the per-tensor prescale,
-compress and pack, and one ``unpack_cast_scale`` launch in place of the
-per-tensor unpack, decompress and postscale.
+The fused path (``_execute_allreduce``) has two routes.  The staged one
+reduces a group with one prescale, one postscale and one codec through
+the optimizer's ``GroupReduction``, which runs kernel A1's grouped
+passes (``ops/scale_cast.py``): one ``scale_cast_pack`` launch in place
+of the per-tensor prescale, compress and pack, and one
+``unpack_cast_scale`` launch in place of the per-tensor unpack,
+decompress and postscale.  The zero-copy one (``HVTPU_FUSION_ZERO_COPY``)
+serves a group whose grouping a steady schedule has shown: every op was
+copied at enqueue into its slot of a pooled exchange buffer on the
+device (``comm/packing.py``), the collective reduces that buffer in
+place, and the futures resolve with lazy pieces whose first consumer
+unpacks the whole group in one ``unpack_cast_scale`` launch, straight
+into the tensors of the in-place ops.  It takes plain groups only (no
+codec, prescale 1, one dtype of float32, bfloat16 or float16: the
+dtypes A1 reads); everything else stays staged.
 
-Only the lockstep plane is ported.  Not yet ported, and left out where
-the reference calls them: the streamed plane (the reference's
-``HVTPU_EAGER_STREAM``, which the port does not read: every world size
-takes the lockstep plane), schedule prediction, the zero-copy
-fusion-buffer plane, Adasum, stall inspection, the tracing, flight,
-metrics and timeline hooks, the autotuner, and faults, retry and
-preemption.
+Not yet ported, and left out where the reference calls them: stall
+inspection (``_inspect_stalls`` and the drain loop's stall cadence),
+preemption (``preempt.pending()`` in ``_try_predict`` and
+``_gate_burst``), the tracing, flight, metrics and timeline hooks and
+the autotuner (so ``_try_predict``'s autotuner gate is always open and
+the counters below are plain integers), faults and retry, and the C++
+negotiation core.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import itertools
 import logging
+import os
 import queue
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from .. import native
 from ..comm import eager as eager_comm
+from ..comm import packing as comm_packing
 from ..comm.compression import NoneCompressor
 from ..comm.eager import _is_int8
 from ..comm.packing import pack_flat, unpack_flat
 from ..comm.reduce_ops import ReduceOp
 from ..core.exceptions import HorovodInternalError, HvtpuMismatchError
 from ..native import wire
+from ..ops.scale_cast import casts_to_wire, unpack_cast_scale
 from ..torch.optimizer import GroupReduction, apply_scale
 
 logger = logging.getLogger("horovod_tpu_torch.eager")
@@ -114,6 +134,86 @@ def _tensors(value):
             yield from _tensors(v)
 
 
+class _GroupUnpack:
+    """The deferred unpack of one zero-copy fused group (the reference's
+    deferred MemcpyOutFusionBuffer): the first consumer unpacks EVERY
+    piece in one launch of kernel A1's ``unpack_cast_scale``, on its own
+    stream after the collective's done event, into the in-place ops'
+    tensors where they can take it and into new tensors elsewhere.  The
+    group's postscale is folded into the launch when every piece shares
+    it; otherwise the launch runs at scale 1 and each piece's postscale
+    follows through ``fused_scale_cast``.  The exchange buffer goes back
+    to the pool with an event after the launch, which every later write
+    into it waits for."""
+
+    __slots__ = ("_lock", "_red", "_specs", "_pack", "_pool", "_psid",
+                 "_posts", "_outs", "_pieces", "_event")
+
+    def __init__(self, red, specs, pack, pool, psid, posts, outs):
+        self._lock = threading.Lock()
+        self._red = red
+        self._specs = specs
+        self._pack = pack
+        self._pool = pool
+        self._psid = psid
+        self._posts = posts
+        self._outs = outs
+        self._pieces = None
+        self._event = None
+
+    def piece(self, i: int, done):
+        """Piece ``i`` and the event after which it is ready (None off
+        the card); ``done`` is the collective's done event."""
+        with self._lock:
+            if self._pieces is None:
+                self._unpack(done)
+            return self._pieces[i], self._event
+
+    def _unpack(self, done):
+        red = self._red
+        stream = None
+        if red.is_cuda:
+            stream = torch.cuda.current_stream(red.device)
+            if done is not None:
+                stream.wait_event(done)
+            self._pack.buf.record_stream(stream)
+        shared = all(s == self._posts[0] for s in self._posts)
+        outs = [o if (o is not None and o.dtype == dtype
+                      and tuple(o.shape) == shape and o.is_contiguous()
+                      and o.device == red.device)
+                else torch.empty(shape, dtype=dtype, device=red.device)
+                for o, (shape, dtype, _n) in zip(self._outs, self._specs)]
+        pieces = unpack_cast_scale(red, self._specs, [None] * len(outs),
+                                   self._posts[0] if shared else 1.0, outs)
+        if not shared:
+            pieces = [apply_scale(t, s) if s != 1.0 else t
+                      for t, s in zip(pieces, self._posts)]
+        after = None
+        if stream is not None:
+            self._event = torch.cuda.Event()
+            self._event.record(stream)
+            after = [self._event]
+        self._pool.release(self._psid, self._pack, after)
+        self._pieces = pieces
+        self._red = self._pack = self._outs = None
+
+
+class _LazyPiece:
+    """What a zero-copy fused op's future resolves with:
+    :meth:`OpFuture.result` materializes (and caches) the real tensor on
+    first access, so the group's unpack runs on the consumer's stream
+    instead of the executor's."""
+
+    __slots__ = ("_group", "_index")
+
+    def __init__(self, group: _GroupUnpack, index: int):
+        self._group = group
+        self._index = index
+
+    def materialize(self, done):
+        return self._group.piece(self._index, done)
+
+
 class OpFuture:
     """Completion future for one enqueued op (parity: the handle slots of
     horovod/torch/handle_manager.cc — done flag + result/exception).
@@ -148,6 +248,9 @@ class OpFuture:
         if self._error is not None:
             raise self._error
         r = self._result
+        if type(r) is _LazyPiece:
+            r, self._done_event = r.materialize(self._done_event)
+            self._result = r
         if self._done_event is not None:
             for t in _tensors(r):
                 if t.is_cuda:
@@ -169,6 +272,9 @@ class TransportClosed(Exception):
 class LocalTransport:
     """Single-process world: coordinator == the only member."""
 
+    #: what ``EagerController.start`` consults to pick the plane
+    supports_streaming = False
+
     def exchange(self, ctrl, cycle: int, request_blob: bytes) -> bytes:
         ctrl.ingest(request_blob)
         return ctrl.compute_responses()
@@ -178,25 +284,35 @@ class LocalTransport:
 
 
 class KVTransport:
-    """Coordination blobs over the ``torch.distributed`` store (replaces
+    """Coordination blobs over a ``torch.distributed`` store (replaces
     MPI_Gatherv/MPI_Bcast of mpi_controller.cc), under a ``PrefixStore``
-    of the default group's store.
+    of ``client``: by default the default group's store, in a namespace
+    of its own a controller; a store the caller passes (the tests' one
+    ``HashStore`` for several in-process controllers) under
+    ``hvt_eager``.
 
     The store has no directory get, so the coordinator reads one key a
-    rank (the reference's per-key path).  A blocking get polls
-    ``check`` with a backoff from 0.2 ms up to ``poll_s`` until its
-    deadline: ``close()`` ends it at the next poll, and the store's
-    client is never held inside a long ``wait`` (a ``FileStore`` waits a
-    whole second whatever the timeout asked, and a ``TCPStore`` logs
-    every ``wait`` that times out)."""
+    rank (the reference's per-key path) and probes with the non-blocking
+    ``check``.  A blocking get polls ``check`` with a backoff from 0.2 ms
+    up to ``poll_s`` until its deadline: ``close()`` ends it at the next
+    poll, and the store's client is never held inside a long ``wait`` (a
+    ``FileStore`` waits a whole second whatever the timeout asked, and a
+    ``TCPStore`` logs every ``wait`` that times out).  Deleted keys are
+    the garbage collection of both planes; a ``FileStore`` cannot delete,
+    so there they stay."""
 
-    def __init__(self, rank: int, size: int, timeout_s: float = 600.0,
-                 poll_s: float = 0.05):
+    supports_streaming = True
+
+    def __init__(self, rank: int, size: int, client=None,
+                 timeout_s: float = 600.0, poll_s: float = 0.05):
         import torch.distributed as dist
 
-        self.ns = f"hvt_eager/g{next(_GENERATION)}"
-        self._kv = dist.PrefixStore(
-            self.ns, dist.distributed_c10d._get_default_store())
+        if client is None:
+            client = dist.distributed_c10d._get_default_store()
+            self.ns = f"hvt_eager/g{next(_GENERATION)}"
+        else:
+            self.ns = "hvt_eager"   # the caller's store: its namespace
+        self._kv = dist.PrefixStore(self.ns, client)
         self.rank = rank
         self.size = size
         self.timeout_ms = int(timeout_s * 1000)
@@ -206,8 +322,8 @@ class KVTransport:
     def _set(self, key: str, blob: bytes):
         self._kv.set(key, blob)
 
-    def _get(self, key: str) -> bytes:
-        wait = self.timeout_ms / 1000.0
+    def _get(self, key: str, deadline_s: Optional[float] = None) -> bytes:
+        wait = self.timeout_ms / 1000.0 if deadline_s is None else deadline_s
         deadline = time.monotonic() + wait
         sleep = 0.0
         while True:
@@ -225,7 +341,7 @@ class KVTransport:
     def _delete(self, key: str):
         try:
             self._kv.delete_key(key)
-        except Exception:  # noqa: BLE001 — GC only
+        except Exception:  # noqa: BLE001 — GC only (a FileStore cannot)
             pass
 
     def _gather_requests(self, ctrl, cycle: int):
@@ -253,6 +369,76 @@ class KVTransport:
             return resp
         return self._get(resp_key)
 
+    # ---- the streamed plane ------------------------------------------
+    # Workers post request blobs to a per-rank stream whenever they
+    # drain work, the coordinator ingests them at its own cadence and
+    # appends agreed ResponseLists to a response stream, and every rank
+    # applies that stream in order (which keeps response caches and
+    # fusion state identical).  Idle ranks post nothing.
+
+    def post_request(self, idx: int, blob: bytes):
+        self._set(f"q/{self.rank}/{idx}", blob)
+
+    def post_response(self, idx: int, blob: bytes):
+        self._set(f"resp/{idx}", blob)
+
+    def fetch_response(self, idx: int) -> Optional[bytes]:
+        """Next ResponseList of the stream; polls for up to ``poll_s``
+        and returns None when none came, so the caller can check its
+        stop conditions.  TransportClosed on close()."""
+        try:
+            return self._get(f"resp/{idx}", deadline_s=self.poll_s)
+        except TimeoutError:
+            return None
+
+    def post_ack(self, idx: int):
+        """Advertise the highest applied response index (GC input)."""
+        self._set(f"ack/{self.rank}", str(idx).encode())
+
+    def poll_requests(self, next_idx: Dict[int, int]
+                      ) -> List[Tuple[int, int, bytes]]:
+        """Coordinator-side: the request blobs posted since the last poll,
+        in (rank, stream index) order, each consumed (deleted).
+        ``next_idx`` is every rank's read cursor, updated in place.  One
+        non-blocking ``check`` a rank and blob: an idle poll waits on
+        nothing."""
+        out: List[Tuple[int, int, bytes]] = []
+        for r in range(self.size):
+            if r == self.rank:
+                continue
+            i = next_idx.get(r, 0)
+            while True:
+                key = f"q/{r}/{i}"
+                if not self._kv.check([key]):
+                    break
+                out.append((r, i, bytes(self._kv.get(key))))
+                self._delete(key)
+                i += 1
+            next_idx[r] = i
+        return out
+
+    def gc_responses(self, last_gc: int) -> int:
+        """Delete the response-stream entries every other rank has
+        acknowledged; returns the new GC floor.  The coordinator reads
+        the ``size - 1`` ack keys one by one: their count is known."""
+        acks = []
+        for r in range(self.size):
+            if r == self.rank:
+                continue
+            key = f"ack/{r}"
+            if not self._kv.check([key]):
+                return last_gc  # some rank has never acked yet
+            try:
+                acks.append(int(bytes(self._kv.get(key)).decode()))
+            except (ValueError, UnicodeDecodeError):
+                return last_gc
+        if not acks:
+            return last_gc
+        floor = min(acks)
+        for i in range(last_gc, floor):
+            self._delete(f"resp/{i}")
+        return max(last_gc, floor)
+
     def close(self):
         self._closed.set()
 
@@ -261,24 +447,49 @@ class KVTransport:
 # controller
 # --------------------------------------------------------------------------
 
+class _PackSlot:
+    """One op's learned place in a fused group: pack the bytes of
+    ``name`` at index ``index`` of the exchange buffer for ``gkey`` =
+    (psid, agreed tensor-name order).  Learned by
+    ``_maybe_learn_pack_plan`` from an executed fused group, consulted by
+    ``_maybe_prepack`` on the enqueue path."""
+
+    __slots__ = ("gkey", "index", "spec", "rop", "psid")
+
+    def __init__(self, gkey, index, spec, rop, psid):
+        self.gkey = gkey
+        self.index = index
+        self.spec = spec
+        self.rop = rop
+        self.psid = psid
+
+
 class _Payload:
     __slots__ = ("seq", "name", "future", "tensor", "rop", "prescale",
                  "postscale", "compressor", "splits", "kind",
-                 "process_set", "psid", "root_rank", "t_enqueue", "ready")
+                 "process_set", "psid", "root_rank", "t_enqueue", "ready",
+                 "prepacked", "out")
 
     def __init__(self, **kw):
-        self.ready = None   # the caller's CUDA event at enqueue
+        self.ready = None      # the caller's CUDA event at enqueue
+        self.prepacked = None  # the gkey of the exchange buffer it is in
+        self.out = None        # where an in-place op's result may land
         for k, v in kw.items():
             setattr(self, k, v)
 
 
 class EagerController:
-    """The cycle loop and the executor around the negotiation core.
+    """The control planes and the executor around the negotiation core.
 
     One instance per process; started lazily on first async enqueue
     (parity: InitializeHorovodOnce starting BackgroundThreadLoop).
-    ``device`` is where zero contributions of a joined rank are made
-    and, on the card, where the executor's stream lives.
+    ``device`` is where zero contributions of a joined rank are made,
+    where the exchange buffers live and, on the card, where the
+    executor's stream lives.
+
+    ``zero_copy_ops``, ``staged_copies``, ``mispredicts`` and
+    ``predicted_bursts`` count what the reference's metrics of those
+    names count (``debug_state`` reports them).
     """
 
     def __init__(self, rank: int, size: int, *,
@@ -342,6 +553,68 @@ class EagerController:
         self._exec_queue: Optional["queue.Queue"] = None
         self._exec_thread: Optional[threading.Thread] = None
         self._exec_stream = None
+        # The streamed plane (see KVTransport's streamed section): a
+        # drainer and a fetcher thread in place of the cycle loop.
+        self._stream = False
+        self._fetch_thread: Optional[threading.Thread] = None
+        self._req_idx = 0
+        self._next_resp = 0
+        self._post_needed = False     # join/shutdown/resync announcements
+        self._next_req_idx: Dict[int, int] = {}   # rank 0's read cursors
+        self._resp_idx = 0            # rank 0's response stream head
+        self._resp_gc = 0
+        self._svc_dirty = False
+        self._local_resp: "collections.deque" = collections.deque()
+        self._local_resp_ev = threading.Event()
+        # Schedule prediction (see _try_predict): names enqueued since
+        # the last drain, names drained but not yet scheduled onto the
+        # executor, and the FIFO of predicted-and-executed bursts
+        # awaiting the coordinator's confirmation — each record
+        # {"hash", "responses", "names"}: the FNV-1a 64 of the predicted
+        # ResponseList blob (what a fully predicted burst confirms as),
+        # the predicted Responses (what a partially predicted burst
+        # streams back as), and the tensor names.
+        self._cache_capacity = cache_capacity
+        self._pending_buf: List[str] = []
+        self._unsched: set = set()
+        self._predicted: "collections.deque" = collections.deque()
+        # Names whose predicted execution already resolved their futures
+        # when a reset or mispredict abandoned the confirmation: late
+        # real responses for them are bookkeeping, not corruption.
+        self._mispredict_names: set = set()
+        # bit-sets whose predicted schedule the real response stream has
+        # verified once, and the FIFO of first occurrences awaiting that
+        self._verified_bits: set = set()
+        self._observe: "collections.deque" = collections.deque()
+        # on unless "0" (the reference's "auto")
+        self._predict_on = (
+            os.environ.get("HVTPU_EAGER_PREDICT", "auto") != "0")
+        # Atomic-burst drain cap: once the steady burst size is
+        # established, drain exactly one burst per wire unit ("0"
+        # restores uncapped drains).
+        self._burst_cap_on = (
+            os.environ.get("HVTPU_EAGER_BURST_CAP", "1") != "0")
+        # The zero-copy plane: once a steady schedule has shown the
+        # fused groupings, _maybe_learn_pack_plan records each op's slot
+        # so enqueue packs its bytes straight into a pooled exchange
+        # buffer ("0": no enqueue-time packing; the staged route is the
+        # always-correct fallback).
+        self._zero_copy_on = (
+            os.environ.get("HVTPU_FUSION_ZERO_COPY", "1") != "0")
+        self._fusion_pool = comm_packing.FusionBufferPool()
+        # name -> _PackSlot learned from executed fused groups
+        self._pack_plan: Optional[Dict[str, _PackSlot]] = None
+        # gkey -> byte-spec list for pool acquisition
+        self._pack_group_specs: Dict[tuple, list] = {}
+        # gkey -> partially or fully filled ExchangeBuffer awaiting drain
+        self._open_packs: Dict[tuple, comm_packing.ExchangeBuffer] = {}
+        self.zero_copy_ops = 0
+        self.staged_copies = 0
+        self.mispredicts = 0
+        self.predicted_bursts = 0
+        # (name, skew_s, last_rank) of the latest released ops (rank 0)
+        self._arrival_skew: "collections.deque" = collections.deque(
+            maxlen=64)
 
     # ---- lifecycle ----
     def start(self):
@@ -350,46 +623,91 @@ class EagerController:
         with self._lock:
             if self._thread is not None:
                 return
+            self._stream = (
+                self.size > 1
+                and getattr(self._transport, "supports_streaming", False)
+                and os.environ.get("HVTPU_EAGER_STREAM", "1") != "0")
             self._exec_queue = queue.Queue(maxsize=4)
             self._exec_thread = threading.Thread(
                 target=self._exec_loop, name="hvt-eager-executor",
                 daemon=True)
             self._exec_thread.start()
-            self._thread = threading.Thread(
-                target=self._loop, name="hvt-eager-controller", daemon=True)
+            if self._stream:
+                self._fetch_thread = threading.Thread(
+                    target=self._fetch_loop, name="hvt-eager-fetcher",
+                    daemon=True)
+                self._fetch_thread.start()
+                self._thread = threading.Thread(
+                    target=self._drain_loop, name="hvt-eager-controller",
+                    daemon=True)
+            else:
+                self._thread = threading.Thread(
+                    target=self._loop, name="hvt-eager-controller",
+                    daemon=True)
             self._thread.start()
 
     def quiesce(self, timeout: float = 5.0) -> bool:
         """Wait until this rank has no queued or in-flight ops; True when
-        the controller went idle within ``timeout``."""
+        the controller went idle within ``timeout``.  A predicted burst
+        still awaiting the coordinator's confirmation also blocks
+        idleness; if the confirmation does not come within ``timeout``
+        while everything else is idle, the predictor rolls back to full
+        negotiation (the outstanding confirmations abandoned, a resync
+        forced) and the quiesce succeeds.  Idle, it returns the open
+        exchange buffers to the pool (the pack plan stays)."""
         deadline = time.monotonic() + timeout
         while True:
             with self._lock:
                 busy = bool(self._payloads) or self._undrained != 0
-            if not busy:
+                unconfirmed = bool(self._predicted)
+                if not busy and not unconfirmed:
+                    self._release_open_packs()
+            if not busy and not unconfirmed:
                 return True
             if time.monotonic() >= deadline:
+                rolled_back = 0
+                with self._lock:
+                    if (not self._payloads and self._undrained == 0
+                            and self._predicted):
+                        rolled_back = len(self._predicted)
+                        self._reset_predict_state()
+                        self._ctrl.force_resync()
+                        self._post_needed = True
+                if rolled_back:
+                    logger.warning(
+                        "quiesce: %d predicted burst(s) unconfirmed at "
+                        "deadline; rolled back to full negotiation",
+                        rolled_back)
+                    self._wake.set()
+                    return True
                 return False
             self._wake.set()
             time.sleep(0.01)
 
     def request_shutdown(self):
-        """Announce this rank's shutdown in subsequent cycles WITHOUT
-        stopping the cycle loop (the non-blocking half of the
-        coordinated shutdown: several controllers of one process call
-        this on all of them before ``stop()`` so none lingers)."""
+        """Announce this rank's shutdown WITHOUT stopping the threads
+        (the non-blocking half of the coordinated shutdown: several
+        controllers of one process call this on all of them before
+        ``stop()`` so none lingers)."""
         self._ctrl.set_shutdown()
+        # the streamed plane posts nothing while idle: the announcement
+        # rides an otherwise empty request blob
+        self._post_needed = True
         self._wake.set()
 
     def stop(self):
         # Coordinated shutdown (parity: horovod_shutdown negotiating
-        # DONE via the controller): announce, then KEEP CYCLING —
-        # serving peers' coordination — until every rank announced.
+        # DONE via the controller): announce, then KEEP SERVING peers'
+        # coordination until every rank announced.
         if (self.size > 1 and not self.manual
                 and self._thread is not None and self._thread.is_alive()
                 and self._thread_error is None):
             self._ctrl.set_shutdown()
+            self._post_needed = True
             self._wake.set()
+            # the streamed fetcher polls patiently forever: bound the
+            # linger by the transport's budget, as the lockstep plane's
+            # blocking get is
             linger = self.shutdown_linger_s
             t_ms = getattr(self._transport, "timeout_ms", None)
             if t_ms:
@@ -403,15 +721,18 @@ class EagerController:
                     break
         self._stop.set()
         self._wake.set()
-        # Close the transport so a cycle thread blocked in a store get
+        # Close the transport so a thread blocked in a store get
         # unblocks promptly (TransportClosed).
         self._transport.close()
         thread_exited = True
-        if self._thread is not None:
-            self._thread.join(timeout=30)
-            thread_exited = not self._thread.is_alive()
-            self._thread = None
-        # Drain the executor AFTER the cycle thread stopped producing:
+        for attr in ("_thread", "_fetch_thread"):
+            t = getattr(self, attr)
+            if t is not None:
+                self._local_resp_ev.set()
+                t.join(timeout=30)
+                thread_exited = thread_exited and not t.is_alive()
+                setattr(self, attr, None)
+        # Drain the executor AFTER the other threads stopped producing:
         # queued responses still execute (their futures resolve), then
         # the sentinel ends the thread.
         if self._exec_thread is not None:
@@ -457,10 +778,14 @@ class EagerController:
                 op: ReduceOp = ReduceOp.SUM, process_set=None,
                 prescale_factor: float = 1.0, postscale_factor: float = 1.0,
                 compression=NoneCompressor, root_rank: int = -1,
-                splits=None, group_id: int = -1) -> OpFuture:
+                splits=None, group_id: int = -1,
+                out: Optional[torch.Tensor] = None) -> OpFuture:
         """Queue one collective; ``compression`` is an engine codec.  A
         rank outside ``process_set`` raises the reference's error here
-        (the sync ops raise it too): it would never be answered."""
+        (the sync ops raise it too): it would never be answered.
+        ``out``: a tensor the result may be written into (the in-place
+        ops pass their own tensor; only the zero-copy route's unpack
+        takes it)."""
         if self._thread_error is not None:
             raise HorovodInternalError(
                 f"controller thread died: {self._thread_error!r}")
@@ -485,10 +810,8 @@ class EagerController:
             compressor=compression, splits=splits, kind=kind,
             process_set=process_set, psid=psid, root_rank=root_rank,
             t_enqueue=time.monotonic(),
+            out=None if out is None else out.detach(),
         )
-        if x.is_cuda:
-            payload.ready = torch.cuda.Event()
-            payload.ready.record(torch.cuda.current_stream(x.device))
         with self._lock:
             seq = next(self._seq)
             payload.seq = seq
@@ -504,7 +827,16 @@ class EagerController:
             self._payloads[seq] = payload
             self._by_name[name] = seq
             self._undrained += 1
+            self._pending_buf.append(name)
             self._last_enqueue_t = time.monotonic()
+            # the zero-copy plane: when a learned pack plan covers this
+            # op, its bytes go into the pooled exchange buffer now
+            self._maybe_prepack(payload)
+            if x.is_cuda:
+                # after the pack's copy, and before any drain can hand
+                # the payload to the executor, which waits on it
+                payload.ready = torch.cuda.Event()
+                payload.ready.record(torch.cuda.current_stream(x.device))
         self._wake.set()
         self.start()
         return fut
@@ -560,11 +892,13 @@ class EagerController:
             self._join_futures.append(fut)
             self._joined_local = True
         self._ctrl.set_joined()
+        # the join announcement must go out even with an empty queue
+        self._post_needed = True
         self._wake.set()
         self.start()
         return fut
 
-    # ---- cycle loop ----
+    # ---- the lockstep plane ----
     def _loop(self):
         # Parity: BackgroundThreadLoop — run RunLoopOnce every
         # cycle_time, stretching the cadence up to 4x while idle (each
@@ -594,9 +928,9 @@ class EagerController:
             self._wake.clear()
 
     def _exec_loop(self):
-        """Pipelined execution: dequeue agreed ResponseLists in cycle
-        order and run them; errors fail every pending future and stop
-        the controller, as the cycle loop's do."""
+        """Pipelined execution: dequeue agreed ResponseLists in order
+        and run them; errors fail every pending future and stop the
+        controller, as the other threads' do."""
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
         while True:
@@ -611,17 +945,426 @@ class EagerController:
 
     def _fail_all(self, e: BaseException, what: str):
         """Control-plane death: record the error, fail every pending
-        future, and unwedge the other threads."""
+        future, forget what the predictor learned, and unwedge the other
+        threads."""
         self._thread_error = e
         logger.exception(what)
         with self._lock:
             payloads = list(self._payloads.values())
             self._payloads.clear()
             self._by_name.clear()
+            self._pending_buf = []
+            self._unsched.clear()
+            self._predicted.clear()
+            self._observe.clear()
+            self._verified_bits.clear()
+            self._mispredict_names.clear()
+            self._release_open_packs()
+            self._pack_plan = None
+            self._pack_group_specs.clear()
         for p in payloads:
             p.future.set_error(HorovodInternalError(str(e)))
         self._stop.set()
         self._wake.set()
+        self._local_resp_ev.set()
+
+    # ---- prediction state and the zero-copy plane ----
+    def _reset_predict_state(self):
+        """Forget everything the schedule predictor learned (callers
+        hold ``_lock``): on membership change, error responses, a
+        coordinator-forced resync, a mispredict and a quiesce rollback.
+        Resets the burst gate's steady size itself, not just its
+        stability.  Outstanding predicted bursts are abandoned; their
+        names move to the tolerate set so late real responses for them
+        do not read as protocol corruption.  The pack plan was learned
+        from the schedule being forgotten: it goes too, and the open
+        exchange buffers go back to the pool (already packed payloads
+        then miss their pack at drain and take the staged route)."""
+        self._expected_burst = 0
+        self._burst_stable = 0
+        self._verified_bits.clear()
+        self._observe.clear()
+        for rec in self._predicted:
+            self._mispredict_names.update(rec["names"])
+        self._predicted.clear()
+        self._release_open_packs()
+        self._pack_plan = None
+        self._pack_group_specs.clear()
+
+    def _release_open_packs(self):
+        """Return every open (partially filled) exchange buffer to the
+        pool (callers hold ``_lock``)."""
+        for (psid, _names), xb in self._open_packs.items():
+            self._fusion_pool.release(psid, xb)
+        self._open_packs.clear()
+
+    def _maybe_prepack(self, p: _Payload):
+        """Enqueue-time MemcpyInFusionBuffer (callers hold ``_lock``):
+        when the learned pack plan has a slot for this op, copy its bytes
+        into the group's pooled exchange buffer.  Every check that fails
+        is a silent no-op: the staged route stays the source of truth.
+        Without a plan (the non-steady state) the first line is the whole
+        cost."""
+        plan = self._pack_plan
+        if plan is None:
+            return
+        slot = plan.get(p.name)
+        if slot is None:
+            return
+        if (p.kind != "allreduce" or p.compressor is not NoneCompressor
+                or p.prescale != 1.0 or p.rop != slot.rop
+                or p.psid != slot.psid):
+            return
+        pack = self._open_packs.get(slot.gkey)
+        if pack is None:
+            specs = self._pack_group_specs.get(slot.gkey)
+            if specs is None:
+                return
+            pack = self._fusion_pool.acquire(slot.psid, specs, self.device)
+            self._open_packs[slot.gkey] = pack
+        if pack.write(slot.index, p.tensor):
+            p.prepacked = slot.gkey
+
+    def _maybe_learn_pack_plan(self, rs: wire.Response,
+                               payloads: List[_Payload]):
+        """Record the fused grouping an executed staged group proves, so
+        the NEXT burst's enqueues can pack at enqueue time.  Only steady
+        schedules qualify (``_burst_stable``, the bar ``_try_predict``
+        uses too) and only plain groups: no codec, no prescale, one dtype
+        A1's unpack reads, on the controller's device."""
+        if not self._zero_copy_on or self._burst_stable < 2:
+            return
+        t0 = payloads[0].tensor
+        if not casts_to_wire(NoneCompressor, t0.dtype) or any(
+                p.compressor is not NoneCompressor or p.prescale != 1.0
+                or p.seq == -1 or p.tensor.dtype != t0.dtype
+                or p.tensor.device != self.device for p in payloads):
+            return
+        psid = payloads[0].psid
+        gkey = (psid, tuple(rs.tensor_names))
+        specs = [(tuple(p.tensor.shape), p.tensor.dtype,
+                  p.tensor.numel() * p.tensor.element_size())
+                 for p in payloads]
+        with self._lock:
+            if self._pack_plan is None:
+                self._pack_plan = {}
+            for i, p in enumerate(payloads):
+                self._pack_plan[p.name] = _PackSlot(
+                    gkey=gkey, index=i, spec=specs[i], rop=p.rop,
+                    psid=psid)
+            self._pack_group_specs[gkey] = specs
+
+    def _on_mispredict(self, why: str):
+        """A predicted-and-executed schedule the coordinator did NOT
+        confirm (callers hold ``_lock``): fail back to correct, never to
+        fast.  Forces the next drain to be a full-entry resync and
+        resets the predictor, so the pattern must verify again from
+        scratch."""
+        self.mispredicts += 1
+        logger.error(
+            "schedule mispredict (%s): forcing full negotiation + "
+            "cache-resync re-anchor", why)
+        self._reset_predict_state()
+        self._ctrl.force_resync()
+        self._post_needed = True
+        self._wake.set()
+
+    # ---- the streamed plane ----
+    # Three threads instead of one lockstep cycle: the DRAINER gates and
+    # posts this rank's request blobs (and, on rank 0, ingests every
+    # rank's stream and appends agreed ResponseLists to the response
+    # stream); the FETCHER applies the response stream in order (the
+    # same order on every rank keeps caches and fusion state identical)
+    # and hands executions to the EXECUTOR.  No step is an all-rank
+    # barrier.
+
+    def _drain_loop(self):
+        idle = 0
+        while not self._stop.is_set():
+            active = False
+            try:
+                if self._undrained or self._post_needed:
+                    active = self._drain_once()
+                if self.rank == 0:
+                    active = self._service_once() or active
+            except TransportClosed:
+                break
+            except BaseException as e:  # noqa: BLE001 — must fail futures
+                self._fail_all(e, "eager controller drain loop failed")
+                return
+            if self._shutdown_seen.is_set():
+                return
+            idle = 0 if active else min(idle + 1, 6)
+            if not active:
+                # rank 0 keeps a polling cadence (remote ranks' blobs
+                # arrive unannounced); workers park on _wake, their
+                # responses arrive through the fetcher
+                self._wake.wait(self.cycle_time_s * (1 + idle)
+                                if self.rank == 0 else 0.25)
+                self._wake.clear()
+
+    def _drain_once(self) -> bool:
+        """Gate, drain and post ONE request blob (rank 0 ingests its own
+        blob directly); in steady state the agreed schedule is predicted
+        and executed before the blob leaves this host, and the blob goes
+        out flagged as a confirmation."""
+        self._gate_burst()
+        # Atomic-burst drain cap: with an established steady burst,
+        # drain exactly one burst per wire unit — enqueues of the NEXT
+        # step that raced in during the gate stay for their own unit.
+        limit = (self._expected_burst
+                 if self._burst_cap_on and self._burst_stable >= 2
+                 else 0)
+        with self._lock:
+            drained = self._undrained
+            post_needed = self._post_needed
+            if drained == 0 and not post_needed:
+                return False
+            take = min(drained, limit) if limit else drained
+            self._undrained -= take
+            self._post_needed = False
+            names = self._pending_buf[:take]
+            del self._pending_buf[:take]
+            req = self._ctrl.drain_requests(limit)
+        self._cycle += 1
+        parsed = None
+        if take:
+            parsed = self._note_drained(take, req)
+        if parsed is not None and self._try_predict(parsed, names):
+            # executed locally already: the blob becomes a post-hoc
+            # confirmation, which the coordinator matches against its
+            # own release and answers with a confirm hash
+            req = wire.mark_predicted(req)
+            names = []
+        if names:
+            with self._lock:
+                self._unsched.update(names)
+        if self.rank == 0:
+            self._ctrl.ingest(req)
+            self._svc_dirty = True
+        else:
+            self._transport.post_request(self._req_idx, req)
+            self._req_idx += 1
+        if take < drained:
+            self._wake.set()  # the capped remainder drains next pass
+        return True
+
+    def _try_predict(self, parsed: wire.RequestList,
+                     names: List[str]) -> bool:
+        """Steady-state fast path: a pure bypass drain whose agreed
+        ResponseList is a function of state replicated on every rank —
+        the response cache and the fusion threshold — executes NOW; the
+        real response is verified and skipped when it streams in.  The
+        gates (the reference's, without its autotuner and preemption
+        gates, whose planes are not ported):
+
+        - a bypass blob only (all cache hits, no join/shutdown flags);
+        - the burst size steady for >= 2 drains;
+        - the cache below capacity (no eviction ever, so bit ids cannot
+          have been reused while this rank's stream lags);
+        - every predicted response an additive allreduce (Sum/Average,
+          not int8), so joins we have not seen yet cannot change it;
+        - nothing drained earlier still awaiting its response;
+        - and this bit-set's exact schedule verified against the real
+          response stream once before (a first occurrence is observed,
+          not predicted).
+
+        A peer that deviates from a pattern it just established without
+        a cache miss is the only way to mispredict, and the
+        coordinator's refusal to confirm then forces a full negotiation
+        and a resync (``_apply_response_blob``)."""
+        if not (self._stream and self._predict_on
+                and parsed.cache_bypass):
+            return False
+        if self._burst_stable < 2:
+            return False
+        if self._ctrl.cache_size >= self._cache_capacity:
+            return False
+        bits = wire.words_to_bits(parsed.cache_bits)
+        blob = self._ctrl.predict_responses(bits)
+        if blob is None:
+            return False
+        rl = wire.parse_response_list(blob)
+        int8 = wire.DTYPE_IDS["int8"]
+        for rs in rl.responses:
+            if (rs.type != wire.ALLREDUCE
+                    or rs.red_op not in (wire.RED_SUM, wire.RED_AVERAGE)
+                    or rs.dtype == int8 or rs.error):
+                return False
+        got = [n for rs in rl.responses for n in rs.tensor_names]
+        if sorted(got) != sorted(names):
+            logger.debug("predict abort: schedule covers %r, drain holds "
+                         "%r", sorted(got), sorted(names))
+            return False
+        key = frozenset(bits)
+        with self._lock:
+            if self._unsched:
+                return False
+            if key not in self._verified_bits:
+                # first occurrence: observe the real stream instead
+                # (bounded FIFO: stale observations age out)
+                self._observe.append([key, list(rl.responses), 0])
+                while len(self._observe) > 8:
+                    self._observe.popleft()
+                return False
+            self._predicted.append({
+                "hash": wire.fnv1a64(blob),
+                "responses": list(rl.responses),
+                "names": list(got),
+            })
+        # retire in-flight NOW: the futures resolve on execution, and the
+        # next step re-enqueues the same names before the real response
+        # streams in
+        self._ctrl.finish(got)
+        self._dispatch_execution(rl)
+        self.predicted_bursts += 1
+        return True
+
+    def _drain_arrival_skew(self):
+        """Coordinator only: keep the latest per-op arrival spreads the
+        core recorded (the reference's straggler metrics read them;
+        ``debug_state`` reports them here)."""
+        if self.rank == 0:
+            self._arrival_skew.extend(self._ctrl.take_arrival_skew())
+
+    def _service_once(self) -> bool:
+        """Rank 0's coordination service: ingest newly streamed request
+        blobs, compute responses, append non-trivial ResponseLists to
+        the response stream (and feed our own fetcher in-process)."""
+        got = self._transport.poll_requests(self._next_req_idx)
+        for _r, _i, blob in got:
+            self._ctrl.ingest(blob)
+        if not got and not self._svc_dirty:
+            return False
+        self._svc_dirty = False
+        resp = self._ctrl.compute_responses()
+        self._drain_arrival_skew()
+        rl = wire.parse_response_list(resp)
+        # confirm hashes are not trivial: every predictor's FIFO waits
+        # on them
+        trivial = (not rl.responses and not rl.confirm_hashes
+                   and rl.join_last_rank < 0
+                   and not rl.shutdown and not rl.cache_resync_needed)
+        if not trivial:
+            self._transport.post_response(self._resp_idx, resp)
+            self._resp_idx += 1
+            self._local_resp.append(resp)
+            self._local_resp_ev.set()
+            if self._resp_idx % 64 == 0:
+                self._resp_gc = self._transport.gc_responses(self._resp_gc)
+            # a compute releases only the front occurrence of each key: a
+            # later burst already complete in the table (rank 0 drained
+            # it before the earlier one released) waits for the next
+            # compute, so compute again until one releases nothing.  The
+            # reference computes only on new blobs, so such a burst waits
+            # for the next one's enqueue.
+            self._svc_dirty = True
+        return bool(got) or not trivial
+
+    def _fetch_loop(self):
+        """Apply the response stream in order."""
+        while not self._stop.is_set():
+            try:
+                if not self._fetch_once():
+                    continue
+            except TransportClosed:
+                break
+            except BaseException as e:  # noqa: BLE001 — must fail futures
+                self._fail_all(e, "eager controller fetch loop failed")
+                return
+            if self._shutdown_seen.is_set():
+                return
+
+    def _fetch_once(self, wait_s: float = 0.25) -> bool:
+        """Take the next response blob (rank 0 from its in-process feed,
+        other ranks from the store's response stream) and apply it; True
+        when one was applied, False when none came within ``wait_s``."""
+        if self.rank == 0:
+            if not self._local_resp:
+                self._local_resp_ev.wait(wait_s)
+                self._local_resp_ev.clear()
+                if not self._local_resp:
+                    return False
+            blob = self._local_resp.popleft()
+        else:
+            blob = self._transport.fetch_response(self._next_resp)
+            if blob is None:
+                return False
+        self._apply_response_blob(blob)
+        return True
+
+    def _apply_response_blob(self, blob: bytes) -> None:
+        self._ctrl.apply_responses(blob)
+        rl = wire.parse_response_list(blob)
+        if rl.cache_resync_needed:
+            # re-announce in-flight ops next drain
+            self._post_needed = True
+            self._wake.set()
+        with self._lock:
+            # Confirmations first: the coordinator emits burst components
+            # in every rank's drain order, so each hash must retire the
+            # OLDEST outstanding prediction.  A hash matching nothing
+            # belongs to a component this rank is not a member of (or is
+            # stale after a reset): ignored; one matching a LATER record
+            # means the head burst was released differently: mispredict.
+            for h in rl.confirm_hashes:
+                if self._predicted and h == self._predicted[0]["hash"]:
+                    self._predicted.popleft()
+                elif any(h == rec["hash"] for rec in self._predicted):
+                    self._on_mispredict(
+                        "confirmation skipped the oldest outstanding "
+                        f"prediction (hash {h:#018x} matched a later "
+                        "burst)")
+            # verify-and-skip responses already executed from a
+            # predicted schedule (the response stream and the
+            # predictions are both in drain order); every other response
+            # marks its tensors as scheduled
+            keep = []
+            for rs in rl.responses:
+                rec = self._predicted[0] if self._predicted else None
+                if (rec is not None and rec["responses"]
+                        and rs == rec["responses"][0]):
+                    # a partially predicted burst (some member observed
+                    # instead) streams real responses: byte-verified
+                    # against the prediction, not executed again
+                    rec["responses"].pop(0)
+                    if not rec["responses"]:
+                        self._predicted.popleft()
+                    continue
+                if rec is not None and set(
+                        rs.tensor_names) & set(rec["names"]):
+                    # shares tensors with the oldest predicted burst but
+                    # differs from its schedule
+                    self._on_mispredict(
+                        "released schedule diverged from the predicted "
+                        f"one for {rs.tensor_names}")
+                for n in rs.tensor_names:
+                    self._unsched.discard(n)
+                if self._observe:
+                    # first-occurrence verification: the real stream
+                    # must emit EXACTLY the predicted schedule before a
+                    # bit-set may predict
+                    ob = self._observe[0]
+                    if rs in ob[1]:
+                        ob[2] += 1
+                        if ob[2] == len(ob[1]):
+                            self._verified_bits.add(ob[0])
+                            self._observe.popleft()
+                    else:
+                        ob_names = {n for pr in ob[1]
+                                    for n in pr.tensor_names}
+                        if ob_names.intersection(rs.tensor_names):
+                            # shares tensors but differs: never verify
+                            self._observe.popleft()
+                keep.append(rs)
+            rl.responses = keep
+        self._dispatch_execution(rl)
+        self._next_resp += 1
+        if self.rank != 0 and self._next_resp % 64 == 0:
+            try:
+                self._transport.post_ack(self._next_resp - 1)
+            except RuntimeError:
+                pass  # GC input only: a lost ack delays the next GC pass
 
     # ---- shared negotiation plumbing ----
     def hint_burst(self, n: int):
@@ -643,6 +1386,12 @@ class EagerController:
         latency of a genuinely continuous stream."""
         quiesce = self.cycle_time_s
         span = 8 * self.cycle_time_s
+        if self._stream:
+            # the lockstep plane's exchange paces the drain for free; the
+            # streamed drainer would split a burst whose enqueues come
+            # slower than one cycle: widen the quiet gap and the deadline
+            quiesce = max(quiesce, 0.004)
+            span = max(span, 0.024)
         with self._lock:
             hint = self._burst_hint
         expected = (self._expected_burst
@@ -665,8 +1414,9 @@ class EagerController:
                 break
             time.sleep(min(quiesce / 2, max(deadline - now, 1e-4)))
 
-    def _note_drained(self, drained: int):
-        """Burst-stability bookkeeping for one drain."""
+    def _note_drained(self, drained: int, req: bytes) -> wire.RequestList:
+        """Burst-stability bookkeeping for one drained request blob;
+        returns the parsed blob for the prediction fast path."""
         if drained == self._expected_burst:
             self._burst_stable = min(self._burst_stable + 1, 8)
         else:
@@ -675,6 +1425,7 @@ class EagerController:
         with self._lock:
             if self._burst_hint and drained >= self._burst_hint:
                 self._burst_hint = 0  # consumed; hooks re-arm per step
+        return wire.parse_request_list(req)
 
     def _dispatch_execution(self, rl: wire.ResponseList):
         """Hand one applied ResponseList to the pipelined executor (or
@@ -683,9 +1434,10 @@ class EagerController:
         if (rl.cache_resync_needed or rl.join_last_rank >= 0
                 or any(rs.error for rs in rl.responses)):
             # membership changes, forced resyncs and error responses
-            # invalidate the burst gate's steady size
-            self._expected_burst = 0
-            self._burst_stable = 0
+            # invalidate everything the predictor learned, the burst
+            # gate's steady size included
+            with self._lock:
+                self._reset_predict_state()
         if rl.responses or rl.join_last_rank >= 0:
             if self._exec_queue is not None:
                 # bounded queue: if the executor falls behind,
@@ -714,14 +1466,55 @@ class EagerController:
             # enqueue between them would be drained yet still counted
             drained = self._undrained
             self._undrained = 0
+            self._pending_buf = []
             req = self._ctrl.drain_requests()
         if drained:
-            self._note_drained(drained)
+            self._note_drained(drained, req)
         resp_blob = self._transport.exchange(self._ctrl, cycle, req)
+        self._drain_arrival_skew()
         self._ctrl.apply_responses(resp_blob)
         rl = wire.parse_response_list(resp_blob)
         self._dispatch_execution(rl)
         return bool(rl.responses) or drained > 0
+
+    # ---- live introspection ----
+    def debug_state(self) -> dict:
+        """A JSON-serializable snapshot of the controller (the reference
+        serves it at its metrics server's /debug, which the port does not
+        have yet)."""
+        with self._lock:
+            out: Dict[str, Any] = {
+                "rank": self.rank,
+                "size": self.size,
+                "plane": "streamed" if self._stream else "lockstep",
+                "cycle": self._cycle,
+                "stream_req_idx": self._req_idx,
+                "stream_next_resp": self._next_resp,
+                "queue_depth": len(self._payloads),
+                "undrained": self._undrained,
+                "unscheduled": len(self._unsched),
+                "predicted_in_flight": len(self._predicted),
+                "in_flight_ops": sorted(self._by_name)[:64],
+                "pack_plan_ops": len(self._pack_plan or ()),
+                "open_packs": len(self._open_packs),
+            }
+        out.update(
+            thread_error=(repr(self._thread_error)
+                          if self._thread_error else None),
+            cache={"capacity": self._cache_capacity,
+                   "size": self._ctrl.cache_size},
+            pending_count=self._ctrl.pending_count,
+            pending_bytes=self._ctrl.pending_bytes,
+            zero_copy_ops=self.zero_copy_ops,
+            staged_copies=self.staged_copies,
+            mispredicts=self.mispredicts,
+            predicted_bursts=self.predicted_bursts,
+            fusion_pool=self._fusion_pool.stats(),
+        )
+        if self.rank == 0:
+            out["pending_coordination"] = self._ctrl.pending_summary()
+            out["arrival_skew"] = [list(s) for s in self._arrival_skew]
+        return out
 
     # ---- execution (parity: PerformOperation dispatching to ops/*) ----
     def _stream_context(self):
@@ -767,10 +1560,11 @@ class EagerController:
     def _take_payloads(self, rs: wire.Response,
                        strict: bool = True) -> List[_Payload]:
         """Pop this rank's payloads for a response (name + matching
-        process-set id).  ``strict=True``: a missing payload means a
-        joined rank zero-substitutes, anything else is protocol
-        corruption.  ``strict=False`` (error responses): missing
-        payloads are skipped."""
+        process-set id).  ``strict=True``: a missing payload is a name
+        a predicted execution already resolved, or a joined rank's zero
+        contribution; anything else is protocol corruption.
+        ``strict=False`` (error responses): missing payloads are
+        skipped."""
         out = []
         with self._lock:
             for i, n in enumerate(rs.tensor_names):
@@ -780,6 +1574,12 @@ class EagerController:
                     del self._by_name[n]
                     out.append(self._payloads.pop(seq))
                 elif not strict:
+                    continue
+                elif n in self._mispredict_names:
+                    # executed (and resolved) from a predicted schedule
+                    # whose confirmation was later abandoned: the late
+                    # real response is bookkeeping only
+                    self._mispredict_names.discard(n)
                     continue
                 elif self._joined_local:
                     out.append(self._zero_payload(rs, i))
@@ -815,6 +1615,8 @@ class EagerController:
                 self._fail_error_response(rs)
                 continue
             payloads = self._take_payloads(rs)
+            if not payloads:
+                continue  # every name resolved by a predicted execution
             try:
                 self._await_inputs(payloads)
                 self._resolve(payloads, self._execute_one(rs, payloads))
@@ -885,29 +1687,50 @@ class EagerController:
             # (subclass-aware: int8_stochastic too)
             or any(_is_int8(p.compressor) for p in payloads))
         if unfusable or len(payloads) == 1:
+            # Adasum stays per tensor (its coefficients are per tensor);
             # single-tensor responses skip the pack entirely
             return [eager_comm.allreduce(
                 p.tensor, op=p.rop, prescale_factor=p.prescale,
                 postscale_factor=p.postscale, compression=p.compressor,
                 name=p.name, process_set=p.process_set) for p in payloads]
-        # Staged fused path: per-tensor prescale and wire compression
-        # commute with elementwise reduction, so they run per tensor
-        # around ONE flat collective (parity: MemcpyInFusionBuffer ->
-        # single ncclAllReduce -> MemcpyOutFusionBuffer).  The fuser
-        # merges only responses of one process set, so the group's set
-        # is payloads[0]'s.
+        # The fuser merges only responses of one process set, so the
+        # group's set is payloads[0]'s.
         p0 = payloads[0]
         ps = eager_comm._resolve_process_set(p0.process_set, "allreduce")
+        # The zero-copy route first: every payload of the group packed at
+        # enqueue time into one complete exchange buffer (the learned
+        # plan matched the agreed grouping).
+        gkey = (p0.psid, tuple(rs.tensor_names))
+        with self._lock:
+            pack = self._open_packs.pop(gkey, None)
+        if pack is not None:
+            if (pack.complete() and len(payloads) == len(pack.specs)
+                    and all(p.prepacked == gkey for p in payloads)):
+                return self._execute_allreduce_zero_copy(payloads, pack,
+                                                         rop, ps)
+            # a stale or partial pack (another grouping, a payload that
+            # failed its slot checks): return it and stage
+            self._fusion_pool.release(p0.psid, pack)
+        self.staged_copies += len(payloads)
         if rop in (ReduceOp.SUM, ReduceOp.AVERAGE) and all(
                 p.prescale == p0.prescale and p.postscale == p0.postscale
                 and p.compressor is p0.compressor for p in payloads):
             # one scale a direction and one codec: the optimizer's group
             # reduction, which takes A1's grouped passes where it can
-            return GroupReduction(rop, p0.prescale, p0.postscale,
+            outs = GroupReduction(rop, p0.prescale, p0.postscale,
                                   p0.compressor, ps).reduce(
                 [p.tensor for p in payloads])
-        # scales or codecs that differ by payload, or Min/Max/Product:
-        # the reference's steps, payload by payload
+        else:
+            outs = self._staged_by_payload(payloads, rop, ps)
+        self._maybe_learn_pack_plan(rs, payloads)
+        return outs
+
+    @staticmethod
+    def _staged_by_payload(payloads: List[_Payload], rop: ReduceOp, ps):
+        """Scales or codecs that differ by payload, or Min/Max/Product:
+        the reference's staged steps, payload by payload, around one flat
+        collective (parity: MemcpyInFusionBuffer -> one allreduce ->
+        MemcpyOutFusionBuffer)."""
         wires, ctxs = [], []
         for p in payloads:
             t = p.tensor
@@ -925,3 +1748,19 @@ class EagerController:
                 out = apply_scale(out, p.postscale)
             outs.append(out)
         return outs
+
+    def _execute_allreduce_zero_copy(self, payloads: List[_Payload], pack,
+                                     rop: ReduceOp, ps) -> list:
+        """A fused allreduce over an enqueue-time packed exchange buffer:
+        the collective reduces the buffer in place (no pack, no
+        concatenate), and the futures resolve with lazy pieces whose
+        first consumer unpacks the group (:class:`_GroupUnpack`)."""
+        if self._exec_stream is not None:
+            pack.buf.record_stream(self._exec_stream)
+        red = eager_comm._reduce(pack.typed_view(), rop, NoneCompressor, ps)
+        group = _GroupUnpack(red, pack.element_specs(), pack,
+                             self._fusion_pool, payloads[0].psid,
+                             [p.postscale for p in payloads],
+                             [p.out for p in payloads])
+        self.zero_copy_ops += len(payloads)
+        return [_LazyPiece(group, i) for i in range(len(payloads))]

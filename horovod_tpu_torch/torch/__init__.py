@@ -33,7 +33,7 @@ allreduce::
 
 from __future__ import annotations
 
-from ..comm.reduce_ops import Average, Max, Min, Product, Sum
+from ..comm.reduce_ops import Adasum, Average, Max, Min, Product, Sum
 from ..core.exceptions import (
     HorovodInternalError,
     HvtpuMismatchError,
@@ -94,7 +94,7 @@ __all__ = [
     "device", "ProcessSet", "global_process_set", "add_process_set",
     "remove_process_set", "NotInitializedError", "HorovodInternalError",
     "HvtpuMismatchError",
-    "Compression", "Sum", "Average", "Min", "Max", "Product",
+    "Compression", "Sum", "Average", "Adasum", "Min", "Max", "Product",
     "allreduce", "allreduce_", "grouped_allreduce", "grouped_allreduce_",
     "allgather", "grouped_allgather", "alltoall",
     "reducescatter", "grouped_reducescatter", "broadcast", "broadcast_",

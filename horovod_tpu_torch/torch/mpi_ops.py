@@ -364,12 +364,13 @@ def allreduce_async_(tensor: torch.Tensor, average=None, name=None, op=None,
                      postscale_factor: float = 1.0,
                      process_set=None) -> int:
     """Async in-place allreduce: the result lands in ``tensor`` at
-    ``synchronize`` (parity: hvd.allreduce_async_)."""
+    ``synchronize`` (parity: hvd.allreduce_async_); the controller's
+    zero-copy route writes it there directly."""
     handle = _async.allreduce_async(
         tensor, op=op, average=average, name=name,
         compression=engine_compression(compression),
         prescale_factor=prescale_factor, postscale_factor=postscale_factor,
-        process_set=process_set)
+        process_set=process_set, out=tensor)
     return _register([handle], "inplace", [tensor])[0]
 
 
@@ -493,6 +494,13 @@ def _synchronize_sparse(handle: SparseAllreduceHandle) -> torch.Tensor:
     return out.coalesce()
 
 
+def _same_storage(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether ``a`` is ``b``'s memory in ``b``'s layout (a result the
+    controller already wrote into the in-place op's tensor)."""
+    return (a.data_ptr() == b.data_ptr() and a.dtype == b.dtype
+            and a.shape == b.shape and a.stride() == b.stride())
+
+
 def synchronize(handle):
     """Wait for an async op and return its torch result (written into
     the tensor for the in-place forms)."""
@@ -508,7 +516,8 @@ def synchronize(handle):
     if ref is not None and out.dtype != ref.dtype:
         out = out.to(ref.dtype)
     if mode == "inplace" and ref is not None:
-        ref.data.copy_(out.reshape(ref.shape))
+        if not _same_storage(out, ref):
+            ref.data.copy_(out.reshape(ref.shape))
         return ref
     if mode == "new" and ref is not None:
         return out.reshape(ref.shape)

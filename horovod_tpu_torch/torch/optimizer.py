@@ -29,6 +29,12 @@ One group's reduction follows the JAX engine's
   group's op, scales and codec, which in a world of one skips the wire
   compression and multiplies once by ``prescale * postscale``.
 
+``op=Adasum`` reduces each gradient as its own Adasum
+(``comm/adasum.py`` through ``comm/eager.allreduce``), tensor by tensor:
+its coefficients are per tensor, as the reference's per-gradient
+``allreduce_async_`` keeps them (its controller takes Adasum off the
+fused path).
+
 The wire codec is the engine's (``comm/compression.py``): the torch
 surface's ``Compression.fp16`` / ``bf16`` map onto it and anything else
 onto ``none`` (``mpi_ops.engine_compression``, as
@@ -103,8 +109,9 @@ def apply_scale(t: torch.Tensor, factor: float,
 
 @dataclasses.dataclass(frozen=True)
 class GroupReduction:
-    """The reduction of one group of gradients, Sum or Average; the
-    async controller reduces its fused groups through it too.
+    """The reduction of one group of gradients, Sum, Average or Adasum
+    (tensor by tensor); the async controller reduces its fused groups
+    through it too.
 
     ``compression`` is an engine codec; ``scale`` is the per-tensor
     pre/postscale of the fused path, ``pack`` and ``unpack`` its grouped
@@ -132,12 +139,12 @@ class GroupReduction:
                    for t in tensors)
 
     def launch(self, tensors: Sequence[torch.Tensor]) -> PendingGroup:
-        if len(tensors) == 1:
+        if len(tensors) == 1 or self.op == ReduceOp.ADASUM:
             return PendingGroup(outs=[eager.allreduce(
-                tensors[0], op=self.op, prescale_factor=self.prescale,
+                t, op=self.op, prescale_factor=self.prescale,
                 postscale_factor=self.postscale,
                 compression=self.compression,
-                process_set=self.process_set)])
+                process_set=self.process_set) for t in tensors])
         grouped = self.grouped(tensors)
         if grouped:
             flat, specs = self.pack(tensors, self.prescale, self.compression)
@@ -207,9 +214,9 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             raise ValueError(
                 "gradient_predivide_factor requires op=Average"
             )
-        if op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
+        if op not in (ReduceOp.SUM, ReduceOp.AVERAGE, ReduceOp.ADASUM):
             raise NotImplementedError(
-                f"op={op.name} is not ported yet (Sum, Average)")
+                f"op={op.name} is not ported yet (Sum, Average, Adasum)")
         self._process_set = process_set
         process_set = process_set or global_process_set
         self._op = op

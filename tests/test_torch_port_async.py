@@ -13,7 +13,8 @@ process sets, on the CPU.
   arguments), the handle errors, and ``DistributedOptimizer`` with
   ``sparse_as_dense``, with sparse gradients and after
   ``set_backward_passes_per_step(2)``.
-* 2 and 3 ranks over gloo (one spawn each, ``async_worker``): enqueue
+* 2 and 3 ranks over gloo (one spawn each, ``async_worker``; the
+  default plane there is the streamed one): enqueue
   orders that differ across ranks resolve; a partial submission waits;
   the fused path, allgather, broadcast, reducescatter, alltoall, the
   grouped allgather and the sparse allreduce give the numpy results,

@@ -190,7 +190,8 @@ def test_lifecycle_single_rank(port_cpu):
     hvd.barrier()
 
 
-@pytest.mark.parametrize("op", [reduce_ops.Sum, reduce_ops.Average])
+@pytest.mark.parametrize("op", [reduce_ops.Sum, reduce_ops.Average,
+                                reduce_ops.Adasum])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_eager_allreduce_single_rank_matches_jax(port_cpu, hvt_jax, op,
                                                  dtype):
@@ -215,10 +216,10 @@ def test_eager_allreduce_integer_average_floors(port_cpu):
 
 
 def test_eager_allreduce_rejects_unported_op(port_cpu):
-    # Min/Max/Product are ported now; Adasum is not yet
-    with pytest.raises(NotImplementedError):
-        eager.allreduce(torch.ones(3), op=reduce_ops.Adasum)
-    for op in (reduce_ops.Min, reduce_ops.Max, reduce_ops.Product):
+    # every op is ported, Adasum too: none is refused, and at a world of
+    # one each returns its input
+    for op in (reduce_ops.Min, reduce_ops.Max, reduce_ops.Product,
+               reduce_ops.Adasum):
         out = eager.allreduce(torch.arange(3.0), op=op)
         assert torch.equal(out, torch.arange(3.0))   # world of one
 

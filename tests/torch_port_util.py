@@ -290,7 +290,7 @@ def mpi_ops_worker(rank: int, world: int, store_path: str,
         dist.destroy_process_group()
 
 
-# -- the async controller, 2 and 3 ranks over gloo -----------------------------
+# -- the async controller, 2 and 3 ranks over gloo ----------------------------
 
 ASYNC_NAMES = ["a", "b", "c", "d"]
 
@@ -336,6 +336,7 @@ def async_worker(rank: int, world: int, store_path: str,
     core's coordinator side takes, for a replay through the JAX
     package's core."""
     import pickle
+    import threading
     import time
 
     torch.set_num_threads(1)
@@ -344,13 +345,17 @@ def async_worker(rank: int, world: int, store_path: str,
 
     log = []
     if rank == 0:
+        # the streamed plane calls the core from two threads: a call and
+        # its log entry are one step, so the log keeps the core's order
+        log_lock = threading.Lock()
         for method in ("ingest", "compute_responses", "apply_responses",
                        "declare_group", "register_process_set"):
             orig = getattr(fallback.PyController, method)
 
             def wrapped(self, *args, _orig=orig, _m=method):
-                out = _orig(self, *args)
-                log.append((_m, args, out))
+                with log_lock:
+                    out = _orig(self, *args)
+                    log.append((_m, args, out))
                 return out
             setattr(fallback.PyController, method, wrapped)
 
@@ -447,11 +452,16 @@ def async_worker(rank: int, world: int, store_path: str,
                 torch.zeros(3 + (rank == 1)), name="mismatch", op=hvd.Sum))
         except hvd.HvtpuMismatchError as e:
             errors["mismatch"] = str(e)
-        # shutdown with an op in flight: the last rank never enqueues it
+        # shutdown with an op in flight: the last rank never enqueues it,
+        # and shuts down once the others have (else a late rank's op
+        # could meet another rank's shutdown first, on the streamed
+        # plane, and fail naming that rank)
         if rank != world - 1:
             h = hvd.allreduce_async(x["a"], name="never", op=hvd.Sum)
+            store.set(f"never{rank}", b"1")
         t0 = time.time()
         if rank == world - 1:
+            store.wait([f"never{r}" for r in range(world - 1)])
             hvd.shutdown()
         else:
             try:
@@ -465,3 +475,170 @@ def async_worker(rank: int, world: int, store_path: str,
     with open(os.path.join(out_dir, f"async{rank}.pkl"), "wb") as f:
         pickle.dump({"res": {k: np.asarray(v) for k, v in res.items()},
                      "errors": errors, "log": log}, f)
+
+
+# -- the streamed plane, 2 ranks over gloo ------------------------------------
+
+STREAM_STEPS = 16
+STREAM_SHAPES = [(5, 3), (17,), (2, 2, 2)]
+
+
+def stream_inputs(rank: int, step: int) -> list:
+    """One burst of ``stream_worker``: small integers and halves, so the
+    sum of 2 ranks and its half are exact."""
+    rng = np.random.RandomState(1000 * step + rank)
+    return [(rng.randint(-40, 41, size=s) * 0.5).astype(np.float32)
+            for s in STREAM_SHAPES]
+
+
+def _stream_run(hvd, rank: int) -> dict:
+    """``STREAM_STEPS`` bursts of ``allreduce_async_`` (the optimizer's
+    default: Average, no codec, scales 1), then one fp16 grouped burst
+    with the predivide scales; the controller's plane and counters."""
+    res = {}
+    for step in range(STREAM_STEPS):
+        ts = [torch.from_numpy(x) for x in stream_inputs(rank, step)]
+        hs = [hvd.allreduce_async_(t, name=f"s/{i}")
+              for i, t in enumerate(ts)]
+        for i, h in enumerate(hs):
+            out = hvd.synchronize(h)
+            assert out is ts[i]
+            res[f"s{step}/{i}"] = out.clone()
+    g = [torch.from_numpy(x) for x in stream_inputs(rank, 99)]
+    hs = hvd.grouped_allreduce_async(g, names=["g/0", "g/1", "g/2"],
+                                     op=hvd.Sum,
+                                     compression=hvd.Compression.fp16,
+                                     prescale_factor=0.5,
+                                     postscale_factor=2.0)
+    for i, h in enumerate(hs):
+        res[f"g/{i}"] = hvd.synchronize(h)
+    from horovod_tpu_torch.eager import get_controller
+
+    state = get_controller().debug_state()
+    res["state"] = {k: state[k] for k in (
+        "plane", "predicted_bursts", "mispredicts", "zero_copy_ops",
+        "staged_copies")}
+    return res
+
+
+def stream_worker(rank: int, world: int, store_path: str,
+                  out_dir: str) -> None:
+    """The same traffic on the default plane (streamed, at 2 ranks) and,
+    after a shutdown and an init, on the lockstep plane
+    (``HVTPU_EAGER_STREAM=0``)."""
+    import pickle
+
+    torch.set_num_threads(1)
+    import horovod_tpu_torch as hvd
+
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    out = {}
+    try:
+        for plane, env in (("default", None), ("lockstep", "0")):
+            if env is not None:
+                os.environ["HVTPU_EAGER_STREAM"] = env
+            hvd.init(device="cpu")
+            try:
+                out[plane] = _stream_run(hvd, rank)
+            finally:
+                hvd.shutdown()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"stream{rank}.pkl"), "wb") as f:
+        pickle.dump({p: {k: (v if k == "state" else v.numpy())
+                         for k, v in r.items()} for p, r in out.items()}, f)
+
+
+# -- Adasum, 4 ranks over gloo ------------------------------------------------
+
+ADASUM_SHAPES = [(33,), (4, 5), (7, 3, 2)]
+ADASUM_SETS = {"world": None, "pair": [1, 3], "three": [0, 1, 2]}
+
+
+def adasum_inputs(rank: int) -> list:
+    rng = np.random.RandomState(500 + rank)
+    return [rng.randn(*s).astype(np.float32) for s in ADASUM_SHAPES]
+
+
+def adasum_worker(rank: int, world: int, store_path: str,
+                  out_dir: str) -> None:
+    """``adasum_reduce`` and ``allreduce(op=Adasum)`` (sync, async and
+    the optimizer) over the world of 4, over a set of 2 ({1, 3}), and the
+    refusal over a set of 3 ({0, 1, 2})."""
+    import pickle
+
+    torch.set_num_threads(1)
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.comm.adasum import adasum_reduce
+
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    res, errors = {}, {}
+    try:
+        hvd.init(device="cpu")
+        xs = [torch.from_numpy(x) for x in adasum_inputs(rank)]
+        sets = {k: (v if v is None else hvd.add_process_set(v))
+                for k, v in ADASUM_SETS.items()}
+        for key, ps in sets.items():
+            if ps is not None and not ps.included():
+                continue
+            if key == "three":
+                for what, fn in (
+                        ("sync", lambda: hvd.allreduce(
+                            xs[0], op=hvd.Adasum, process_set=ps)),
+                        ("async", lambda: hvd.synchronize(
+                            hvd.allreduce_async(xs[0], op=hvd.Adasum,
+                                                name="three",
+                                                process_set=ps)))):
+                    try:
+                        fn()
+                    except Exception as e:  # noqa: BLE001 — recorded
+                        errors[f"three_{what}"] = (type(e).__name__, str(e))
+                continue
+            the_set = ps if ps is not None else hvd.global_process_set
+            flat = torch.cat([x.reshape(-1) for x in xs])
+            sizes = [x.numel() for x in xs]
+            offs = [sum(sizes[:i]) for i in range(len(sizes))]
+            res[f"{key}/reduce"] = adasum_reduce(flat, the_set)
+            res[f"{key}/segments"] = adasum_reduce(
+                flat, the_set, list(zip(offs, sizes)))
+            for i, x in enumerate(xs):
+                res[f"{key}/sync{i}"] = hvd.allreduce(x, op=hvd.Adasum,
+                                                      process_set=ps)
+            hs = [hvd.allreduce_async(x, op=hvd.Adasum, name=f"{key}.a{i}",
+                                      process_set=ps)
+                  for i, x in enumerate(xs)]
+            for i, h in enumerate(hs):
+                res[f"{key}/async{i}"] = hvd.synchronize(h)
+            # the optimizer: each gradient its own Adasum, SGD lr 1 from 0
+            ws = [torch.nn.Parameter(torch.zeros_like(x)) for x in xs]
+            opt = hvd.DistributedOptimizer(
+                torch.optim.SGD(ws, lr=1.0),
+                named_parameters=[(f"w{i}", w) for i, w in enumerate(ws)],
+                op=hvd.Adasum, process_set=ps)
+            for w, x in zip(ws, xs):
+                w.grad = x.clone()
+            opt.step()
+            for i, w in enumerate(ws):
+                res[f"{key}/opt{i}"] = -w.detach()
+            # fp16 wire: compressed before the combine
+            res[f"{key}/fp16"] = hvd.allreduce(
+                xs[0], op=hvd.Adasum, compression=hvd.Compression.fp16,
+                process_set=ps)
+        # identical inputs combine to the input, inputs with disjoint
+        # supports (orthogonal) to their sum
+        same = torch.from_numpy(adasum_inputs(0)[0])
+        res["world/ident"] = hvd.allreduce(same, op=hvd.Adasum)
+        orth = torch.zeros(4 * 8)
+        orth[8 * rank:8 * rank + 8] = same[:8]
+        res["world/orth"] = hvd.allreduce(orth, op=hvd.Adasum)
+        for ps in sets.values():
+            if ps is not None:
+                hvd.remove_process_set(ps)
+        hvd.shutdown()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"adasum{rank}.pkl"), "wb") as f:
+        pickle.dump({"res": {k: v.numpy() for k, v in res.items()},
+                     "errors": errors}, f)
