@@ -68,6 +68,26 @@ Builds the port's CUDA kernels from ``horovod_tpu_torch/csrc`` and then:
    Adasum: ``pairwise_adasum`` over two batches' 161 gradients (float32,
    a segment a tensor) against the float64 reference, and a ResNet-50
    step with ``op=Adasum`` bitwise the ``op=Sum`` step;
+   the stall watchdog: two of the port's amortized inspectors over one
+   ``HashStore`` (ranks 0 and 1 of a set {0, 1}; heartbeat 0.05 s, warn
+   0.3 s, abort 1.0 s), rank 0 running the optimizer's group reduction
+   over phase 3's 161 gradients (A1's grouped passes and the one-rank NCCL
+   allreduce) through ``dispatch`` / ``wait_ready``: 20 healthy ops with
+   rank 1 mirroring each descriptor (no warning, bitwise the unguarded
+   reduction, 2 A1 launches a multi-tensor bucket, the host µs
+   ``pre_op`` adds and ``wait_ready``'s overshoot past the event's
+   completion), a diverged op (the error names both ops; its detection
+   latency), and a dead peer mid-op (the card sleeps 3 s before the
+   reduction, rank 1's beats stop: the abort names rank 1 while the
+   op's CUDA event is still pending; then one more reduction is bitwise
+   the healthy one); which stores have ``list_keys`` and delete, and
+   ``core.state.abort_group`` on a one-rank NCCL group;
+   fault injection: phase 6b's fp16 burst clean, then under
+   ``collective.pre:corrupt(nan)@count=K,times=1`` and
+   ``corrupt(bitflip)``: one result differs from the clean composition,
+   every result is the plain composition of its group over the
+   poisoned input, 2 A1 launches a fused group, and the poisoning runs
+   on the card under CUDA's sync-debug mode "error";
 7. runs the ring collectives at full width: phase 3's batch as 8 virtual
    ranks of 8 images, each rank's 161 gradients packed (25.56 M float32),
    reduced on the card by ``ring_allreduce`` (A5 Sum and Average, A6
@@ -88,7 +108,9 @@ Builds the port's CUDA kernels from ``horovod_tpu_torch/csrc`` and then:
 
 Prints one ``int8_quantized_allreduce {...}`` line, one ``async_path
 {...}`` line (its ``zero_copy`` part the route's bursts), one ``adasum
-{...}`` line, one ``ring_path {...}`` line, one ``{"kernels": [...]}`` line of 10 entries and, last,
+{...}`` line, one ``stall {...}`` line, one ``faults {...}`` line, one
+``ring_path {...}`` line, one ``{"kernels": [...]}`` line of 10 entries
+(A1's with ``stall_launches``) and, last,
 ``{"ok": true,
 "device": {...}}``.  Exits non-zero, printing no result, when CUDA is
 absent, when the package is not beside this script, or when any phase
@@ -1616,6 +1638,390 @@ def adasum_phase(hvd, device, model, x, y):
     return result
 
 
+# -- the stall watchdog and fault injection on the card -----------------------
+
+STALL_HB_S, STALL_WARN_S, STALL_ABORT_S = 0.05, 0.3, 1.0
+# a peer whose beats stop is stale after 10 heartbeats, so the dead-peer
+# run's abort comes at the abort time, within the card's sleep
+STALL_STALE_S = 0.5
+STALL_OPS = 20
+STALL_SLEEP_S = 3.0
+
+
+def _store_features():
+    """Which stores of this torch have ``list_keys``, and whether a
+    ``FileStore`` deletes: what ``KVTransport``'s docstring states."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    tmp = tempfile.mkdtemp(prefix="hvt_smoke_store_")
+    tcp = dist.TCPStore("127.0.0.1", 0, 1, True,
+                        timeout=datetime.timedelta(seconds=30))
+    stores = {"HashStore": dist.HashStore(), "TCPStore": tcp,
+              "FileStore": dist.FileStore(f"{tmp}/f", 1)}
+    stores["PrefixStore"] = dist.PrefixStore("p", stores["HashStore"])
+    features = {}
+    for name, store in stores.items():
+        store.set("probe", "1")
+        try:
+            keys = store.list_keys()
+            features[f"{name}.list_keys"] = "probe" in keys
+        except Exception as e:  # noqa: BLE001 — a feature probe
+            features[f"{name}.list_keys"] = f"{type(e).__name__}: {e}"[:120]
+        try:
+            features[f"{name}.delete_key"] = bool(
+                store.delete_key("probe")) and not store.check(["probe"])
+        except Exception as e:  # noqa: BLE001 — a feature probe
+            features[f"{name}.delete_key"] = f"{type(e).__name__}: {e}"[:120]
+    del tcp
+    return features
+
+
+def _sleep_cycles(seconds: float) -> int:
+    """``torch.cuda._sleep`` cycles that keep the card busy ``seconds``,
+    from a short calibration run."""
+    import torch
+
+    cycles = 50_000_000
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    end.synchronize()
+    return int(cycles * seconds * 1e3 / start.elapsed_time(end))
+
+
+def stall_phase(hvd, device, model, opt, x, y, smi: str):
+    """The watchdog on the card, two of the port's inspectors over one
+    ``HashStore`` (ranks 0 and 1 of a set {0, 1}; neither installed, so
+    no poison latch): rank 0 runs the optimizer's ``GroupReduction``
+    over phase 3's 161 gradients (A1's grouped passes and the one-rank
+    NCCL allreduce) through ``dispatch`` / ``wait_ready``.  Healthy: 20
+    ops, rank 1 mirroring each descriptor; diverged: rank 1 posts
+    another descriptor; dead peer mid-op: the card sleeps before the
+    reduction and rank 1 stops beating."""
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.comm import stall
+    from horovod_tpu_torch.core import state as core_state
+    from horovod_tpu_torch.core.exceptions import HorovodInternalError
+    from horovod_tpu_torch.core.kv import StoreKV
+    from horovod_tpu_torch.core.retry import fenced_kv
+    from horovod_tpu_torch.ops import fused_scale_cast
+
+    params = [p for p in model.parameters() if p.requires_grad]
+    grads = {p: g.contiguous() for p, g in zip(params, torch.autograd.grad(
+        F.cross_entropy(model(x), y), params))}
+    buckets = [[grads[p] for p in b] for b in opt.buckets]
+    multi = sum(len(b) > 1 for b in buckets)
+    red = opt.reduction
+    want = [o for b in buckets for o in red.reduce(b)]     # unguarded
+    outs = [[torch.empty_like(g) for g in b] for b in buckets]
+
+    def launch(pre_sleep: int = 0, events=None):
+        """The reduction of every bucket into ``outs``, then a timing
+        event behind it: the event is what rank 0 waits on."""
+        def run():
+            if pre_sleep:
+                torch.cuda._sleep(pre_sleep)
+            for b, o in zip(buckets, outs):
+                red.finish(red.launch(b), o)
+            done = torch.cuda.Event(enable_timing=True)
+            done.record()
+            if events is not None:
+                events.append(done)
+            return done
+        return run
+
+    def got():
+        return [o for b in outs for o in b]
+
+    store = dist.HashStore()
+
+    def pair(generation: int):
+        return [stall.AmortizedStallInspector(
+            fenced_kv(StoreKV(store, 2), rank=r), r, warn_s=STALL_WARN_S,
+            abort_s=STALL_ABORT_S, heartbeat_s=STALL_HB_S,
+            generation=generation, stale_s=STALL_STALE_S) for r in (0, 1)]
+
+    members = [0, 1]
+    result = {"card": smi, "heartbeat_s": STALL_HB_S, "warn_s": STALL_WARN_S,
+              "abort_s": STALL_ABORT_S, "stale_s": STALL_STALE_S,
+              "grads": len(params), "buckets": len(buckets),
+              "multi_tensor_buckets": multi,
+              "mode": core_state.global_state().config.stall_check_mode}
+
+    # 1. healthy: 20 ops, rank 1 mirroring each descriptor
+    r0, r1 = pair(1)
+    warnings0 = stall.COUNTERS["stall_warnings"]
+    pre_us, overshoot_us, wait_us, done_to_return_us = [], [], [], []
+    try:
+        fused_scale_cast.launches = 0   # the guarded reduction starts here
+        for i in range(STALL_OPS):
+            desc = f"bucket_reduce:{i}:{len(buckets)}"
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r0.pre_op(0, members, desc)
+            pre_us.append((time.perf_counter() - t0) * 1e6)
+            r1.pre_op(0, members, desc)
+            r1.wait_ready(0, None, desc)
+            start = torch.cuda.Event(enable_timing=True)
+            t_start = time.perf_counter()
+            start.record()
+            done, _pending = r0.dispatch(0, launch(), (), desc)
+            t_w0 = time.perf_counter()
+            r0.wait_ready(0, done, desc)
+            t_w1 = time.perf_counter()
+            check(done.query(), "stall: wait_ready returned before the "
+                  "event completed")
+            # the event completed at about t_start + its device time:
+            # wait_ready's overshoot past that (or past its own call, when
+            # the event was done before), and dispatch's handoff with it
+            t_done = t_start + start.elapsed_time(done) / 1e3
+            overshoot_us.append((t_w1 - max(t_w0, t_done)) * 1e6)
+            done_to_return_us.append((t_w1 - t_done) * 1e6)
+            wait_us.append((t_w1 - t_w0) * 1e6)
+            check(all(same_bits(g, w) for g, w in zip(got(), want)),
+                  f"stall: guarded op {i} is not the unguarded reduction")
+        stall_launches = fused_scale_cast.launches   # read just after it
+        check(stall_launches == 2 * multi * STALL_OPS,
+              f"stall: {stall_launches} A1 launches in {STALL_OPS} guarded "
+              f"reductions (want {2 * multi} an op)")
+        time.sleep(3 * STALL_HB_S)
+        check(r0.failure is None and r1.failure is None
+              and stall.COUNTERS["stall_warnings"] == warnings0,
+              f"stall: the healthy run warned or failed ({r0.failure})")
+    finally:
+        r0.stop()
+        r1.stop()
+    result.update(
+        ops=STALL_OPS, stall_launches=stall_launches,
+        pre_op_us=pre_us, pre_op_median_us=statistics.median(pre_us),
+        wait_ready_us=wait_us,
+        wait_overshoot_us=overshoot_us,
+        wait_overshoot_median_us=statistics.median(overshoot_us),
+        done_to_return_us=done_to_return_us,
+        done_to_return_median_us=statistics.median(done_to_return_us),
+        healthy_bitwise=True, healthy_warnings=0)
+
+    # 2. diverged: rank 1 posts another descriptor at the same seq
+    r0, r1 = pair(2)
+    try:
+        mine, theirs = "bucket_reduce:grads", "broadcast:weights"
+        t0 = time.perf_counter()
+        r0.pre_op(0, members, mine)
+        r1.pre_op(0, members, theirs)
+        done, _pending = r0.dispatch(0, launch(), (), mine)
+        try:
+            r0.wait_ready(0, done, mine)
+        except HorovodInternalError:
+            pass            # the latch may already have landed
+        while r0.failure is None and time.perf_counter() - t0 < 10.0:
+            time.sleep(0.001)
+        detect_s = time.perf_counter() - t0
+        try:
+            r0.pre_op(0, members, "next")
+            raise SmokeFailure("stall: the diverged op was not diagnosed")
+        except HorovodInternalError as e:
+            msg = str(e)
+        check("diverged" in msg and mine in msg and theirs in msg,
+              f"stall: the divergence diagnosis does not name both ops: "
+              f"{msg}")
+    finally:
+        r0.stop()
+        r1.stop()
+    result.update(diverged_detect_s=detect_s, diverged_message=msg[:240])
+
+    # 3. dead peer mid-op: both ranks enter the op, rank 1's beats stop,
+    # rank 0's card sleeps STALL_SLEEP_S before the reduction
+    cycles = _sleep_cycles(STALL_SLEEP_S)
+    r0, r1 = pair(3)
+    try:
+        desc = "bucket_reduce:dead_peer"
+        r0.pre_op(0, members, desc)
+        r1.pre_op(0, members, desc)
+        time.sleep(2 * STALL_HB_S)     # both post caught-up beats
+        r1._stopped.set()              # then rank 1 dies: no tombstone
+        torch.cuda.synchronize()
+        events = []
+        raised_in = "dispatch"
+        t0 = time.perf_counter()
+        try:
+            done, _pending = r0.dispatch(0, launch(cycles, events), (), desc)
+            raised_in = "wait_ready"
+            r0.wait_ready(0, done, desc)
+            raise SmokeFailure("stall: the dead peer was not diagnosed")
+        except HorovodInternalError as e:
+            raised_s = time.perf_counter() - t0
+            # the launch may still be on the executor thread when the
+            # abort comes from dispatch: no event recorded yet
+            event_done = bool(events) and events[0].query()
+            msg = str(e)
+        check(not event_done, "stall: the abort came after the card's event "
+              "completed")
+        check("stalled collective" in msg and "[1]" in msg,
+              f"stall: the abort does not name rank 1: {msg}")
+        check(not stall.poisoned(), "stall: a standalone inspector latched "
+              "the process-wide poison")
+        torch.cuda.synchronize()
+        after_sleep_s = time.perf_counter() - t0
+        for b, o in zip(buckets, outs):
+            red.finish(red.launch(b), o)
+        torch.cuda.synchronize()
+        check(all(same_bits(g, w) for g, w in zip(got(), want)),
+              "stall: the reduction after the abort is not the healthy one")
+    finally:
+        r0.stop()
+        r1.stop()
+    fused_scale_cast.launches = 0
+    result.update(dead_peer_abort_s=raised_s, dead_peer_event_done=event_done,
+                  dead_peer_raised_in=raised_in,
+                  dead_peer_sleep_s=after_sleep_s,
+                  dead_peer_message=msg[:240], after_abort_bitwise=True)
+
+    # the features the store adapter and the teardown rely on
+    result["store"] = _store_features()
+    group = dist.new_group([0])
+    probe = torch.ones(8, device=device)
+    dist.all_reduce(probe, group=group)
+    torch.cuda.synchronize()
+    core_state.abort_group(group)
+    result["abort_group"] = "torch.distributed.distributed_c10d." \
+        "_abort_process_group"
+    result["counters"] = dict(stall.COUNTERS)
+    log("stall " + json.dumps(result))
+    return result
+
+
+FAULT_MODES = ("nan", "bitflip")
+
+
+def faults_phase(hvd, device, model, opt, x, y, smi: str):
+    """Fault injection on device tensors: phase 6b's async burst (the 161
+    gradients as ``allreduce_async_`` with the optimizer's arguments:
+    Sum, prescale 1/2, postscale 2/1, fp16) clean, then under
+    ``collective.pre:corrupt(nan)@count=K,times=1`` and
+    ``corrupt(bitflip)``: one result differs from the clean burst, it
+    and its group are bitwise the plain composition over the poisoned
+    input, 2 A1 launches a fused group, and the poisoning made no host
+    round trip (it runs under CUDA's sync-debug mode "error")."""
+    import torch
+
+    from horovod_tpu_torch.comm.compression import Compression as Engine
+    from horovod_tpu_torch.core import faults
+    from horovod_tpu_torch.eager import get_controller
+    from horovod_tpu_torch.ops import fused_scale_cast
+
+    grads = hook_order_grads(model, opt, x, y)
+    by_name = {f"allreduce.{n}": g for n, g in grads}
+    order = list(by_name)
+    pre, post = 1.0 / PREDIVIDE, PREDIVIDE / hvd.size()
+    ctrl = get_controller()
+    groups = _record_responses(ctrl)
+
+    def burst():
+        groups.clear()
+        tensors = {n: g.clone() for n, g in by_name.items()}
+        torch.cuda.synchronize()
+        fused_scale_cast.launches = 0
+        ctrl.hint_burst(len(tensors))
+        handles = {n: hvd.allreduce_async_(
+            t, name=n, op=hvd.Sum, compression=hvd.Compression.fp16,
+            prescale_factor=pre, postscale_factor=post)
+            for n, t in tensors.items()}
+        outs = {n: hvd.synchronize(h) for n, h in handles.items()}
+        torch.cuda.synchronize()
+        return outs, [list(g) for g in groups], fused_scale_cast.launches
+
+    clean, clean_groups, _ = burst()
+    # K: the middle gradient of the largest fused group (1-based: the
+    # Kth enqueue of the burst fires the clause)
+    biggest = max(clean_groups, key=len)
+    target = biggest[len(biggest) // 2]
+    k = order.index(target) + 1
+
+    seen = []
+    orig_poison = faults._poison
+
+    def watched(tensor, mode):
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = orig_poison(tensor, mode)
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+        seen.append((tensor.device.type, out.device.type, out.clone()))
+        return out
+
+    result = {"card": smi, "grads": len(order), "k": k, "target": target,
+              "target_group_size": len(biggest), "runs": {}}
+    faults._poison = watched
+    try:
+        for mode in FAULT_MODES:
+            seen.clear()
+            faults.install(f"collective.pre:corrupt({mode})@count={k},"
+                           "times=1", rank=hvd.rank())
+            try:
+                outs, fgroups, launches = burst()
+            finally:
+                faults.uninstall()
+            check(len(seen) == 1
+                  and seen[0][:2] == (device.type, device.type),
+                  f"faults {mode}: the poison did not run once on the card "
+                  f"({[s[:2] for s in seen]})")
+            poisoned = seen[0][2]
+            # the controller fuses by arrival, so a burst's groups may
+            # differ from the clean burst's: each burst is held against
+            # the plain composition of its own groups, over the poisoned
+            # input and over the clean one
+            want_poisoned, want_clean = {}, {}
+            for g in fgroups:
+                clean_in = [by_name[t] for t in g]
+                poisoned_in = [poisoned if t == target else by_name[t]
+                               for t in g]
+                want_clean.update(zip(g, _plain_group(
+                    clean_in, Engine.fp16, pre, post)))
+                want_poisoned.update(zip(g, _plain_group(
+                    poisoned_in, Engine.fp16, pre, post)))
+            check(all(same_bits(outs[t], want_poisoned[t]) for t in order),
+                  f"faults {mode}: the burst is not the plain composition "
+                  "of its groups over the poisoned input")
+            differ = [n for n in order
+                      if not same_bits(outs[n], want_clean[n])]
+            check(differ == [target], f"faults {mode}: results differing "
+                  f"from the clean composition: {differ[:5]} (want "
+                  f"[{target}])")
+            same_groups = fgroups == clean_groups
+            if same_groups:
+                check([n for n in order if not same_bits(outs[n], clean[n])]
+                      == [target], f"faults {mode}: results differing from "
+                      "the clean burst")
+            multi = sum(len(g) > 1 for g in fgroups)
+            check(launches == 2 * multi, f"faults {mode}: {launches} A1 "
+                  f"launches for {multi} fused groups of several tensors")
+            group = next(g for g in fgroups if target in g)
+            result["runs"][mode] = {
+                "differing": differ, "group_size": len(group),
+                "groups_as_clean_burst": same_groups,
+                "a1_launches": launches, "fused_groups": len(fgroups),
+                "multi_tensor_groups": multi,
+                "poisoned_on": seen[0][1], "sync_debug": "error",
+                "poisoned_finite": bool(torch.isfinite(poisoned).all()),
+                "result_finite": bool(torch.isfinite(outs[target]).all())}
+    finally:
+        faults._poison = orig_poison
+        faults.uninstall()
+    check(not faults.ACTIVE, "faults: the registry is still armed")
+    log("faults " + json.dumps(result))
+    return result
+
+
 # -- phase 7: the ring collectives A4/A5/A6 over 8 virtual ranks -----------
 
 def ring_buckets(model, x, y, ranks: int):
@@ -2126,6 +2532,8 @@ def main() -> int:
         surface_autograd_phase(hvd, device)
         async_path = async_phase(hvd, device, model, opt, x, y, smi)
         adasum_phase(hvd, device, model, x, y)
+        stall_line = stall_phase(hvd, device, model, opt, x, y, smi)
+        faults_phase(hvd, device, model, opt, x, y, smi)
         ring = ring_phase(ring_buckets(model, x, y, RING_RANKS), reps=10)
         del model, opt, x, y
         reference_phase(hvd, device)
@@ -2148,6 +2556,7 @@ def main() -> int:
         "launches": train["launches"],
         "async_launches": async_path["a1_launches"],
         "zero_copy_launches": async_path["zero_copy"]["a1_launches_on"],
+        "stall_launches": stall_line["stall_launches"],
         "max_abs_err": kern["max_abs_err"],
         "ms": pre["ms"],
         "plain_ms": pre["plain_ms"],

@@ -24,6 +24,18 @@ global rank that must be a member, and a rank outside the set raises the
 reference's ``RuntimeError``.  Inside :func:`controller_execution` (the
 async controller's executor) the ops run over each set's controller
 group instead.
+
+Past one member every op runs under the stall watchdog
+(``comm/stall.py``), with the reference's descriptors: ``check`` records
+the op before its collective, ``dispatch`` launches the collective (on
+the watchdog's executor thread until its launches have proven
+asynchronous), and ``finish`` polls its completion before anything on
+the host reads the result (the sizes and splits an allgather or
+alltoall exchanges first included).  Each op is also the
+``collective.pre`` fault site for its input and the ``collective.post``
+site for its result (``core/faults.py``); both are skipped inside
+:func:`controller_execution`, whose ops fired ``collective.pre`` at
+enqueue.
 """
 
 from __future__ import annotations
@@ -35,8 +47,10 @@ from typing import List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from ..core import faults
 from ..core import state as core_state
 from ..core.process_set import ProcessSet, global_process_set
+from . import stall
 from .adasum import adasum_reduce
 from .compression import Int8Compressor, NoneCompressor
 from .packing import pack_flat, unpack_flat
@@ -62,6 +76,35 @@ def controller_execution():
 def _group(ps: ProcessSet):
     return ps.controller_group if getattr(_exec, "active", False) \
         else ps.group
+
+
+def _record_collective(kind: str, x: torch.Tensor, ps: ProcessSet
+                       ) -> torch.Tensor:
+    """The ``collective.pre`` fault site: an armed clause can delay,
+    error or kill this rank at the dispatch boundary, or ``corrupt`` its
+    input.  Returns the (possibly poisoned) tensor."""
+    if faults.ACTIVE and not getattr(_exec, "active", False):
+        x = faults.inject_tensor("collective.pre", x,
+                                 pset=ps.process_set_id, detail=kind)
+    return x
+
+
+def _post_collective(kind: str, out: torch.Tensor, ps: ProcessSet
+                     ) -> torch.Tensor:
+    """The ``collective.post`` fault site: a ``corrupt`` clause poisons
+    this rank's result only."""
+    if faults.ACTIVE and not getattr(_exec, "active", False):
+        return faults.inject_tensor("collective.post", out,
+                                    pset=ps.process_set_id, detail=kind)
+    return out
+
+
+def _guarded(st, ps: ProcessSet, sdesc, owner, launch):
+    """Run ``launch()`` (which enqueues a collective and returns what
+    ``stall.finish`` waits on) under the watchdog, or directly when it
+    does not engage; returns that value once complete."""
+    out = stall.dispatch(st, ps, launch, (), owner=owner, desc=sdesc)
+    return stall.finish(st, ps, out, sdesc)
 
 
 def _resolve_process_set(process_set, name: str) -> ProcessSet:
@@ -182,19 +225,27 @@ def allreduce(
             "int8 compression cannot ride Adasum (per-rank scales "
             "would corrupt the dot products); use fp16/bf16/none")
     ps = _resolve_process_set(process_set, "allreduce")
-    x = tensor.detach()
+    st = core_state.global_state()
+    x = _record_collective("allreduce", tensor.detach(), ps)
     if ps.size == 1:
         factor = prescale_factor * postscale_factor
         if factor != 1.0:
-            return _scale(x, factor)
-        return x.clone(memory_format=torch.contiguous_format)
+            return _post_collective("allreduce", _scale(x, factor), ps)
+        return _post_collective(
+            "allreduce", x.clone(memory_format=torch.contiguous_format), ps)
+    # the descriptor carries the tensor NAME: two ranks entering
+    # different same-shaped collectives are still diagnosed as diverged
+    tname = name or f"allreduce.{tuple(x.shape)}.{x.dtype}"
+    sdesc = stall.check(
+        st, ps, f"allreduce:{tname}:{tuple(x.shape)}:{x.dtype}:{rop.name}")
     x = x.clone(memory_format=torch.contiguous_format)
     if prescale_factor != 1.0:
         x = _scale_f32(x, prescale_factor)
-    out = _reduce(x, rop, compression, ps)
+    out = _guarded(st, ps, sdesc, ("allreduce", rop, _is_int8(compression)),
+                   lambda: _reduce(x, rop, compression, ps))
     if postscale_factor != 1.0:
         out = _scale_f32(out, postscale_factor)
-    return out
+    return _post_collective("allreduce", out, ps)
 
 
 def grouped_allreduce(
@@ -228,18 +279,30 @@ def allgather(tensor: torch.Tensor, *,
     """Concatenate every rank's tensor along dim 0; dim 0 may differ per
     rank (the sizes are exchanged first)."""
     ps = _resolve_process_set(process_set, "allgather")
-    x = tensor.detach()
+    st = core_state.global_state()
+    x = _record_collective("allgather", tensor.detach(), ps)
     if ps.size == 1:
         return x.clone(memory_format=torch.contiguous_format)
+    # dim0 left out of the descriptor: per-rank sizes are legitimate
+    # for allgather and exchanged right below
+    tname = f"allgather.{tuple(x.shape[1:])}.{x.dtype}"
+    sdesc = stall.check(
+        st, ps, f"allgather:{tname}:{tuple(x.shape[1:])}:{x.dtype}")
     dim0 = torch.tensor([x.shape[0]], dtype=torch.int64, device=x.device)
-    sizes = _gather(dim0, ps).reshape(-1).tolist()
+    # the size exchange completes under the watchdog before the host
+    # reads it (.tolist() would park in a CUDA wait)
+    sizes = _guarded(st, ps, None, "allgather.sizes",
+                     lambda: _gather(dim0, ps)).reshape(-1).tolist()
     maxd = max(sizes)
     if x.shape[0] != maxd:
         x = torch.cat([x, x.new_zeros((maxd - x.shape[0],) + x.shape[1:])])
-    gathered = _gather(x, ps)                       # (size, maxd, ...)
+    gathered = _guarded(st, ps, sdesc, "allgather",
+                        lambda: _gather(x, ps))     # (size, maxd, ...)
     if all(s == maxd for s in sizes):
-        return gathered.reshape((-1,) + tuple(x.shape[1:]))
-    return torch.cat([gathered[r, :s] for r, s in enumerate(sizes)])
+        out = gathered.reshape((-1,) + tuple(x.shape[1:]))
+    else:
+        out = torch.cat([gathered[r, :s] for r, s in enumerate(sizes)])
+    return _post_collective("allgather", out, ps)
 
 
 def alltoall(tensor: torch.Tensor, splits=None, *,
@@ -248,7 +311,8 @@ def alltoall(tensor: torch.Tensor, splits=None, *,
     ``splits`` is None).  Returns the received tensor, or ``(received,
     received_splits)`` when ``splits`` is given."""
     ps = _resolve_process_set(process_set, "alltoall")
-    x = tensor.detach()
+    st = core_state.global_state()
+    x = _record_collective("alltoall", tensor.detach(), ps)
     p = ps.size
     return_splits = splits is not None
     if splits is None:
@@ -264,14 +328,24 @@ def alltoall(tensor: torch.Tensor, splits=None, *,
         out = x.clone(memory_format=torch.contiguous_format)
         return (out, torch.tensor(splits, dtype=torch.int32)) \
             if return_splits else out
+    tname = f"alltoall.{tuple(x.shape[1:])}.{x.dtype}"
+    sdesc = stall.check(
+        st, ps, f"alltoall:{tname}:{tuple(x.shape[1:])}:{x.dtype}")
     # row r of the split matrix: what rank r sends to each rank
     mine = torch.tensor(splits, dtype=torch.int64, device=x.device)
-    matrix = _gather(mine, ps).tolist()
-    me = ps.rank_in_set(core_state.global_state().rank)
+    matrix = _guarded(st, ps, None, "alltoall.splits",
+                      lambda: _gather(mine, ps)).tolist()
+    me = ps.rank_in_set(st.rank)
     recv = [row[me] for row in matrix]
     out = x.new_empty((sum(recv),) + tuple(x.shape[1:]))
-    dist.all_to_all_single(out, x.contiguous(), output_split_sizes=recv,
-                           input_split_sizes=splits, group=_group(ps))
+    send = x.contiguous()
+
+    def launch():
+        dist.all_to_all_single(out, send, output_split_sizes=recv,
+                               input_split_sizes=splits, group=_group(ps))
+        return out
+
+    out = _guarded(st, ps, sdesc, "alltoall", launch)
     return (out, torch.tensor(recv, dtype=torch.int32)) \
         if return_splits else out
 
@@ -282,21 +356,32 @@ def reducescatter(tensor: torch.Tensor, *, op: Optional[ReduceOp] = None,
     uneven dim 0 gives the first ``dim0 % size`` ranks one extra row."""
     rop = normalize_op(op, None)
     ps = _resolve_process_set(process_set, "reducescatter")
-    x = tensor.detach()
+    st = core_state.global_state()
+    x = _record_collective("reducescatter", tensor.detach(), ps)
     p = ps.size
     if p == 1:
         return x.clone(memory_format=torch.contiguous_format)
     if x.shape[0] % p == 0:
         if rop not in (ReduceOp.SUM, ReduceOp.AVERAGE):
             raise ValueError("reducescatter supports Sum and Average")
+        tname = f"reducescatter.{tuple(x.shape)}.{x.dtype}"
+        sdesc = stall.check(
+            st, ps, f"reducescatter:{tname}:{tuple(x.shape)}:{x.dtype}:"
+            f"{rop.name}")
         out = x.new_empty((x.shape[0] // p,) + tuple(x.shape[1:]))
-        dist.reduce_scatter_tensor(out, x.contiguous(),
-                                   op=dist.ReduceOp.SUM, group=_group(ps))
+        send = x.contiguous()
+
+        def launch():
+            dist.reduce_scatter_tensor(out, send, op=dist.ReduceOp.SUM,
+                                       group=_group(ps))
+            return out
+
+        out = _guarded(st, ps, sdesc, "reducescatter", launch)
         if rop == ReduceOp.AVERAGE:
             average_(out, p)
-        return out
+        return _post_collective("reducescatter", out, ps)
     reduced = allreduce(x, op=rop, process_set=ps)
-    r = ps.rank_in_set(core_state.global_state().rank)
+    r = ps.rank_in_set(st.rank)
     base, extra = divmod(x.shape[0], p)
     start = r * base + min(r, extra)
     return reduced[start:start + base + (1 if r < extra else 0)]
@@ -307,15 +392,26 @@ def broadcast(tensor: torch.Tensor, root_rank: int = 0,
     """Return a new tensor holding ``root_rank``'s value (a global rank,
     a member of the set)."""
     ps = _resolve_process_set(process_set, "broadcast")
-    out = tensor.detach().clone(memory_format=torch.contiguous_format)
+    st = core_state.global_state()
+    x = _record_collective("broadcast", tensor.detach(), ps)
+    out = x.clone(memory_format=torch.contiguous_format)
     if ps.size == 1:
         return out
     if ps.rank_in_set(root_rank) < 0:
         raise ValueError(
             f"root_rank {root_rank} is not a member of process set "
             f"{ps.process_set_id} (ranks {ps.ranks})")
-    dist.broadcast(out, src=root_rank, group=_group(ps))
-    return out
+    tname = f"broadcast.{tuple(x.shape)}.{x.dtype}"
+    sdesc = stall.check(
+        st, ps,
+        f"broadcast:{tname}:{tuple(x.shape)}:{x.dtype}:root{root_rank}")
+
+    def launch():
+        dist.broadcast(out, src=root_rank, group=_group(ps))
+        return out
+
+    return _post_collective(
+        "broadcast", _guarded(st, ps, sdesc, "broadcast", launch), ps)
 
 
 def broadcast_(tensor: torch.Tensor, root_rank: int = 0,
@@ -327,5 +423,14 @@ def broadcast_(tensor: torch.Tensor, root_rank: int = 0,
 
 
 def barrier(process_set: Optional[ProcessSet] = None) -> None:
+    """Block until every member reaches the barrier.  Under the watchdog
+    the barrier is launched asynchronously and its ``Work`` polled (a
+    NCCL barrier's own wait synchronizes the card)."""
     ps = _resolve_process_set(process_set, "barrier")
-    dist.barrier(group=_group(ps))
+    st = core_state.global_state()
+    sdesc = stall.check(st, ps, "barrier")
+    if not stall.engaged(st, ps):
+        dist.barrier(group=_group(ps))
+        return
+    _guarded(st, ps, sdesc, "barrier",
+             lambda: dist.barrier(group=_group(ps), async_op=True))

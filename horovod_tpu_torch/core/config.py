@@ -4,7 +4,8 @@ Counterpart of ``horovod_tpu/core/config.py``: the same env names, read
 the same way (``HVTPU_<NAME>`` first, then the reference's
 ``HOROVOD_<NAME>``), for the fields this part of the port uses — the
 fusion threshold, the controller's cycle time and response-cache
-capacity, and the rank, size and local rank the launcher sets.
+capacity, the stall watchdog's settings, the fault-injection spec and
+seed, and the rank, size and local rank the launcher sets.
 """
 
 from __future__ import annotations
@@ -33,6 +34,13 @@ def _env_float(name: str, default: float) -> float:
     return float(v) if v not in (None, "") else default
 
 
+def _env_bool(name: str, default: bool = False) -> bool:
+    v = _env(name)
+    if v in (None, ""):
+        return default
+    return str(v).strip().lower() in ("1", "true", "yes", "on")
+
+
 def _env_str(name: str, default: Optional[str] = None) -> Optional[str]:
     v = _env(name)
     return v if v not in (None, "") else default
@@ -45,6 +53,22 @@ class Config:
     fusion_threshold_bytes: int = 64 * 1024 * 1024
     cycle_time_ms: float = 1.0
     cache_capacity: int = 1024
+
+    # --- stall inspector (comm/stall.py) ---
+    stall_check_disable: bool = False
+    stall_check_time_seconds: float = 60.0
+    stall_shutdown_time_seconds: float = 0.0  # 0 = never abort
+    # "amortized" (default: local bookkeeping + background heartbeat,
+    # ~zero per-op cost, detection within one heartbeat) | "strict"
+    # (pre-dispatch store rendezvous per op: nothing dispatches until all
+    # members confirm the same descriptor, at one round trip per op)
+    stall_check_mode: str = "amortized"
+    stall_heartbeat_seconds: float = 0.5
+
+    # --- fault injection (core/faults.py) ---
+    fault_spec: Optional[str] = None
+    fault_seed: int = 0
+
     rank: int = 0
     size: int = 1
     local_rank: int = 0
@@ -60,6 +84,16 @@ class Config:
             fusion_threshold_bytes=fusion_bytes,
             cycle_time_ms=_env_float("CYCLE_TIME", 1.0),
             cache_capacity=_env_int("CACHE_CAPACITY", 1024),
+            stall_check_disable=_env_bool("STALL_CHECK_DISABLE", False),
+            stall_check_time_seconds=_env_float(
+                "STALL_CHECK_TIME_SECONDS", 60.0),
+            stall_shutdown_time_seconds=_env_float(
+                "STALL_SHUTDOWN_TIME_SECONDS", 0.0),
+            stall_check_mode=_env_str("STALL_CHECK_MODE", "amortized"),
+            stall_heartbeat_seconds=_env_float(
+                "STALL_HEARTBEAT_SECONDS", 0.5),
+            fault_spec=_env_str("FAULT_SPEC"),
+            fault_seed=_env_int("FAULT_SEED", 0),
             rank=_env_int("RANK", 0),
             size=_env_int("SIZE", 1),
             local_rank=_env_int("LOCAL_RANK", 0),

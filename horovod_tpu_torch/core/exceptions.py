@@ -20,6 +20,10 @@ class NotInitializedError(HorovodTpuError):
         )
 
 
+class StallError(HorovodTpuError):
+    """The stall inspector declared a rank permanently missing."""
+
+
 class HorovodInternalError(HorovodTpuError):
     """A collective operation failed (comm failure, desync, a peer that
     shut down, a controller that stopped with the op in flight)."""

@@ -18,11 +18,27 @@ the rank/size queries) over ``torch.distributed``:
   ``add_process_set`` / ``remove_process_set`` add and remove sets.  The
   controller itself (``horovod_tpu_torch.eager``) starts at the first
   async op, and ``shutdown()`` stops it before it destroys any group.
+* ``init()`` builds the coordination client (``core/kv.py``) on the
+  default group's store, arms the fault harness from
+  ``HVTPU_FAULT_SPEC`` (``core/faults.py``) and counts the init
+  generation that namespaces the stall watchdog's keys; the watchdog
+  itself (``comm/stall.py``) starts at the first guarded collective.
+  ``shutdown()`` stops it (its goodbye rides the store) before any group
+  goes away.  When the watchdog abandoned a wedged collective, the
+  teardown is bounded: the NCCL communicators are aborted
+  (:func:`abort_group`), a gloo group's destruction gets 15 s, and an
+  exit hook hard-exits past what is still stuck.
+
+Not yet ported: the journal replay at ``init()`` (``core/journal.py``)
+comes with the elastic plane.
 """
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
+import datetime
+import logging
 import os
 import threading
 from typing import Any, Optional
@@ -30,8 +46,11 @@ from typing import Any, Optional
 import torch
 import torch.distributed as dist
 
+from ..comm import stall
+from . import faults
 from .config import Config
 from .exceptions import NotInitializedError
+from .kv import StoreKV
 from .process_set import ProcessSet, ProcessSetTable, global_process_set
 
 
@@ -50,10 +69,22 @@ class GlobalState:
     process_set_table: Optional[ProcessSetTable] = None
     # the async controller (horovod_tpu_torch.eager), started lazily
     controller: Any = None
+    # the coordination client over the default group's store (core/kv.py)
+    kv: Any = None
+    # the sync-path stall inspector (comm/stall.py), made at the first
+    # guarded collective; False = probed, no store
+    sync_stall: Any = None
+    # per-process init counter: namespaces the watchdog's store keys so
+    # a shutdown -> init cycle never reads the previous init's marks
+    init_generation: int = 0
+    # the timeout of the groups init() creates (None: the backend's)
+    group_timeout: Optional[datetime.timedelta] = None
 
 
 _state = GlobalState()
 _lock = threading.Lock()
+_atexit_registered = False
+logger = logging.getLogger("horovod_tpu_torch")
 
 
 def global_state() -> GlobalState:
@@ -87,6 +118,24 @@ def _resolve_device(device, cfg: Config) -> torch.device:
     raise ValueError(f"unsupported device {dev!r}: use 'cuda' or 'cpu'")
 
 
+def _group_timeout(cfg: Config, backend: str):
+    """The timeout of the groups ``init()`` creates: the backend's own
+    (NCCL's collective timeout, 10 min by default; gloo's 30 min), raised
+    when a stall abort time is set so that the watchdog's abort, which
+    names the ranks, comes at least 60 s before the backend's watchdog
+    ends the process.  None when it needs no raising."""
+    abort = cfg.stall_shutdown_time_seconds
+    if cfg.stall_check_disable or abort <= 0:
+        return None
+    from torch.distributed import constants
+
+    default = constants.default_pg_timeout
+    if backend == "nccl":
+        default = getattr(constants, "default_pg_nccl_timeout", default)
+    want = datetime.timedelta(seconds=abort + 60)
+    return want if want > default else None
+
+
 def init(device=None) -> GlobalState:
     """Initialize the port (idempotent)."""
     with _lock:
@@ -98,6 +147,7 @@ def init(device=None) -> GlobalState:
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
         store = None
+        timeout = _group_timeout(cfg, backend)
         if dist.is_initialized():
             owns = False
             rank, size = dist.get_rank(), dist.get_world_size()
@@ -106,7 +156,7 @@ def init(device=None) -> GlobalState:
             if size == 1:
                 store = dist.TCPStore("127.0.0.1", 0, 1, True)
                 dist.init_process_group(backend, store=store, rank=0,
-                                        world_size=1)
+                                        world_size=1, timeout=timeout)
             else:
                 missing = [k for k in ("MASTER_ADDR", "MASTER_PORT")
                            if k not in os.environ]
@@ -116,15 +166,28 @@ def init(device=None) -> GlobalState:
                         f"ranks needs {' and '.join(missing)} in the env "
                         "(or an initialized torch.distributed group)")
                 dist.init_process_group(backend, init_method="env://",
-                                        rank=rank, world_size=size)
+                                        rank=rank, world_size=size,
+                                        timeout=timeout)
             owns = True
         _state.config = cfg
         _state.rank, _state.size = rank, size
         _state.local_rank = cfg.local_rank
         _state.device, _state.backend = dev, backend
         _state.owns_group, _state.store = owns, store
+        _state.group_timeout = timeout if owns else None
         _state.process_set_table = ProcessSetTable(size, global_process_set)
         _make_groups(global_process_set)
+        _state.kv = StoreKV(dist.PrefixStore(
+            "hvt_kv", dist.distributed_c10d._get_default_store()), size)
+        _state.init_generation += 1
+        # armed once the true rank is known, so rank-selected clauses
+        # bind correctly; a malformed spec fails init loudly
+        if cfg.fault_spec:
+            faults.install_from_config(cfg, rank)
+        global _atexit_registered
+        if not _atexit_registered:
+            atexit.register(_shutdown_at_exit)
+            _atexit_registered = True
         _state.initialized = True
         return _state
 
@@ -133,9 +196,10 @@ def _make_groups(ps: ProcessSet) -> None:
     """The set's groups: the sync ops' (the default group for the global
     set) and the controller's.  ``new_group`` is collective: every rank
     calls it, members or not, in the same order."""
+    timeout = _state.group_timeout
     if ps.process_set_id != 0:
-        ps.group = dist.new_group(ps.ranks)
-    ps.controller_group = dist.new_group(ps.ranks)
+        ps.group = dist.new_group(ps.ranks, timeout=timeout)
+    ps.controller_group = dist.new_group(ps.ranks, timeout=timeout)
 
 
 def _destroy_groups(ps: ProcessSet) -> None:
@@ -176,10 +240,44 @@ def remove_process_set(ps) -> bool:
     return True
 
 
+def abort_group(group=None) -> None:
+    """Abort a NCCL group's communicators (None: every group, the
+    default one included), so that teardown does not wait on a
+    collective the watchdog abandoned.  torch's
+    ``distributed_c10d._abort_process_group``."""
+    dist.distributed_c10d._abort_process_group(group)
+
+
+def _teardown_groups() -> None:
+    for psid, ps in _state.process_set_table.items().items():
+        if dist.is_initialized():
+            _destroy_groups(ps)
+        ps._unbind(global_set=psid == 0)
+    if _state.owns_group and dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _abandon_groups() -> None:
+    """Teardown past a wedged collective: abort the NCCL communicators
+    first; a gloo group's destruction runs on a daemon thread that gets
+    15 s, as the reference bounds its distributed shutdown."""
+    if _state.backend == "nccl" and dist.is_initialized():
+        try:
+            abort_group()
+        except Exception:  # noqa: BLE001 — teardown goes on
+            logger.warning("aborting the NCCL groups failed",
+                           exc_info=True)
+    t = threading.Thread(target=_teardown_groups, daemon=True)
+    t.start()
+    t.join(timeout=15.0)
+    for psid, ps in _state.process_set_table.items().items():
+        ps._unbind(global_set=psid == 0)
+
+
 def shutdown():
     """Tear down: stop the async controller (every pending op fails),
-    then destroy the groups, and the default group if ``init()`` created
-    it."""
+    stop the stall watchdog (its goodbye rides the store), then destroy
+    the groups, and the default group if ``init()`` created it."""
     with _lock:
         if not _state.initialized:
             return
@@ -187,13 +285,37 @@ def shutdown():
             _state.controller.request_shutdown()
             _state.controller.stop()
             _state.controller = None
-        for psid, ps in _state.process_set_table.items().items():
-            if dist.is_initialized():
-                _destroy_groups(ps)
-            ps._unbind(global_set=psid == 0)
-        if _state.owns_group and dist.is_initialized():
-            dist.destroy_process_group()
+        try:
+            stall.stop(_state)
+        except Exception:  # noqa: BLE001 — teardown goes on
+            _state.sync_stall = None
+        if stall.poisoned():
+            _abandon_groups()
+        else:
+            _teardown_groups()
+        generation = _state.init_generation
         _state.__init__()
+        _state.init_generation = generation
+
+
+def _shutdown_at_exit():
+    try:
+        shutdown()
+    except Exception:  # noqa: BLE001
+        pass
+    if stall.poisoned():
+        # Interpreter teardown would park on the stuck collective:
+        # hard-exit like the reference's stall shutdown does.  Handlers
+        # registered before this one (atexit runs LIFO) do not run.
+        logger.critical(
+            "hard-exiting past a wedged collective abandoned by the stall "
+            "watchdog; atexit handlers registered before "
+            "horovod_tpu_torch will not run")
+        import sys
+
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(stall.poison_exit_status())
 
 
 def is_initialized() -> bool:

@@ -41,6 +41,9 @@ def get_controller() -> EagerController:
                 cycle_time_ms=cfg.cycle_time_ms,
                 fusion_threshold=cfg.fusion_threshold_bytes,
                 cache_capacity=cfg.cache_capacity,
+                stall_warn_s=(float("inf") if cfg.stall_check_disable
+                              else cfg.stall_check_time_seconds),
+                stall_abort_s=cfg.stall_shutdown_time_seconds,
                 process_sets=process_sets,
                 device=st.device,
             )

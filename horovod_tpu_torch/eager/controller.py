@@ -55,13 +55,25 @@ into the tensors of the in-place ops.  It takes plain groups only (no
 codec, prescale 1, one dtype of float32, bfloat16 or float16: the
 dtypes A1 reads); everything else stays staged.
 
-Not yet ported, and left out where the reference calls them: stall
-inspection (``_inspect_stalls`` and the drain loop's stall cadence),
-preemption (``preempt.pending()`` in ``_try_predict`` and
-``_gate_burst``), the tracing, flight, metrics and timeline hooks and
-the autotuner (so ``_try_predict``'s autotuner gate is always open and
-the counters below are plain integers), faults and retry, and the C++
-negotiation core.
+Stall inspection (parity: ``stall_inspector.cc``): rank 0 names every
+op some rank announced that others have not, from the negotiation
+core's message table (``PyController.check_stalls``), warns once per op
+past ``stall_warn_s`` and fails the controller past ``stall_abort_s``;
+the other ranks watch the age of their own pending ops.  The lockstep
+plane inspects every 256 cycles, the streamed plane on a time cadence
+(at most every 2 s, at half the tighter limit when it is shorter).  The
+controller's threads call ``comm/stall.bypass_thread()``: their ops were
+negotiated and are inspected here, so the sync watchdog skips them.
+Faults and retry: an async op is the ``collective.pre`` fault site at
+its enqueue (``core/faults.py``), the transport's store writes are the
+``kv.put`` site under ``core/retry.py``'s KV policy, and its reads the
+``kv.get`` site, polled again on a transient error.
+
+Not yet ported, and left out where the reference calls them: preemption
+(``preempt.pending()`` in ``_try_predict`` and ``_gate_burst``), the
+tracing, flight, metrics and timeline hooks and the autotuner (so
+``_try_predict``'s autotuner gate is always open and the counters below
+are plain integers), and the C++ negotiation core.
 """
 
 from __future__ import annotations
@@ -84,7 +96,10 @@ from ..comm import packing as comm_packing
 from ..comm.compression import NoneCompressor
 from ..comm.eager import _is_int8
 from ..comm.packing import pack_flat, unpack_flat
+from ..comm import stall as sync_stall
 from ..comm.reduce_ops import ReduceOp
+from ..core import faults
+from ..core import retry as core_retry
 from ..core.exceptions import HorovodInternalError, HvtpuMismatchError
 from ..native import wire
 from ..ops.scale_cast import casts_to_wire, unpack_cast_scale
@@ -291,15 +306,19 @@ class KVTransport:
     ``HashStore`` for several in-process controllers) under
     ``hvt_eager``.
 
-    The store has no directory get, so the coordinator reads one key a
-    rank (the reference's per-key path) and probes with the non-blocking
-    ``check``.  A blocking get polls ``check`` with a backoff from 0.2 ms
+    The coordinator reads one key a rank (the reference's per-key path)
+    and probes with the non-blocking ``check``: the ranks are known, so
+    no directory listing is needed.  The stores do list their keys
+    (``list_keys`` on ``HashStore``, ``TCPStore``, ``FileStore`` and
+    ``PrefixStore``, in torch 2.11 on the card and 2.13 on the CPU; a
+    ``PrefixStore`` lists them without its prefix); the transport does
+    not use it.  A blocking get polls ``check`` with a backoff from 0.2 ms
     up to ``poll_s`` until its deadline: ``close()`` ends it at the next
     poll, and the store's client is never held inside a long ``wait`` (a
     ``FileStore`` waits a whole second whatever the timeout asked, and a
     ``TCPStore`` logs every ``wait`` that times out).  Deleted keys are
-    the garbage collection of both planes; a ``FileStore`` cannot delete,
-    so there they stay."""
+    the garbage collection of both planes; every one of those stores
+    deletes, a ``FileStore`` included."""
 
     supports_streaming = True
 
@@ -318,9 +337,20 @@ class KVTransport:
         self.timeout_ms = int(timeout_s * 1000)
         self.poll_s = poll_s
         self._closed = threading.Event()
+        # Transient store blips (and injected kv.put faults) retry with
+        # backoff instead of killing the control thread
+        # (core/retry.py); the retries count in its COUNTERS.
+        self._put_policy = core_retry.kv_policy()
 
     def _set(self, key: str, blob: bytes):
-        self._kv.set(key, blob)
+        def _put():
+            if faults.ACTIVE and faults.inject("kv.put", detail=key):
+                return  # dropped writes stay dropped (peer times out)
+            self._kv.set(key, blob)
+
+        core_retry.call(
+            self._put_policy, _put,
+            on_retry=lambda a, e: core_retry._count("kv_retries"))
 
     def _get(self, key: str, deadline_s: Optional[float] = None) -> bytes:
         wait = self.timeout_ms / 1000.0 if deadline_s is None else deadline_s
@@ -329,8 +359,17 @@ class KVTransport:
         while True:
             if self._closed.is_set():
                 raise TransportClosed(key)
-            if self._kv.check([key]):
-                return bytes(self._kv.get(key))
+            try:
+                # a dropped read is "not posted yet" this poll
+                if (not (faults.ACTIVE
+                         and faults.inject("kv.get", detail=key))
+                        and self._kv.check([key])):
+                    return bytes(self._kv.get(key))
+            except Exception as e:
+                # transient channel blips (injected UNAVAILABLE faults
+                # included) poll again under the same deadline
+                if not core_retry.kv_retryable(e):
+                    raise
             if time.monotonic() > deadline:
                 raise TimeoutError(
                     f"coordination key {key!r} not posted within "
@@ -341,7 +380,7 @@ class KVTransport:
     def _delete(self, key: str):
         try:
             self._kv.delete_key(key)
-        except Exception:  # noqa: BLE001 — GC only (a FileStore cannot)
+        except Exception:  # noqa: BLE001 — GC only, best effort
             pass
 
     def _gather_requests(self, ctrl, cycle: int):
@@ -403,6 +442,8 @@ class KVTransport:
         non-blocking ``check`` a rank and blob: an idle poll waits on
         nothing."""
         out: List[Tuple[int, int, bytes]] = []
+        if faults.ACTIVE and faults.inject("kv.get", detail="q/"):
+            return out  # a dropped poll finds nothing this time
         for r in range(self.size):
             if r == self.rank:
                 continue
@@ -496,6 +537,8 @@ class EagerController:
                  cycle_time_ms: float = 1.0,
                  fusion_threshold: int = 64 << 20,
                  cache_capacity: int = 1024,
+                 stall_warn_s: float = 60.0,
+                 stall_abort_s: float = 0.0,
                  transport=None,
                  process_sets: Optional[Dict[int, List[int]]] = None,
                  device: Optional[torch.device] = None,
@@ -505,8 +548,11 @@ class EagerController:
         self.manual = manual
         self.device = torch.device("cpu") if device is None else device
         self.cycle_time_s = cycle_time_ms / 1000.0
+        self.stall_warn_s = stall_warn_s
+        self.stall_abort_s = stall_abort_s
         self._ctrl = native.make_controller(
-            rank, size, fusion_threshold, cache_capacity)
+            rank, size, fusion_threshold, cache_capacity,
+            stall_warn_s, stall_abort_s)
         # Local mirror of process-set membership so the executor can
         # skip responses scoped to sets this rank is not part of.
         self._ps_ranks: Dict[int, List[int]] = {0: list(range(size))}
@@ -538,6 +584,7 @@ class EagerController:
         self._join_futures: List[OpFuture] = []
         self._joined_local = False
         self._cycle = 0
+        self._stall_logged: set = set()
         self._stop = threading.Event()
         # Wakes the cycle loop the moment work arrives.
         self._wake = threading.Event()
@@ -795,6 +842,12 @@ class EagerController:
             raise RuntimeError(
                 "calling process is not a member of this process set")
         x = tensor.detach()
+        if faults.ACTIVE:
+            # the ``collective.pre`` site fires HERE for async ops, at
+            # the issuance boundary; the executor's dispatch skips it
+            # (comm/eager.controller_execution)
+            x = faults.inject_tensor("collective.pre", x, pset=psid,
+                                     detail=kind)
         name = name or self._auto_name(kind)
         op_type = _KIND_TO_TYPE[kind]
         # The wire dtype — what the collective actually moves — is the
@@ -903,7 +956,10 @@ class EagerController:
         # Parity: BackgroundThreadLoop — run RunLoopOnce every
         # cycle_time, stretching the cadence up to 4x while idle (each
         # cycle at P>1 is a store round trip on every rank); a local
-        # enqueue snaps the loop awake via _wake.
+        # enqueue snaps the loop awake via _wake.  This thread executes
+        # an already negotiated, stall-inspected schedule: exempt from
+        # the sync watchdog (comm/stall.py).
+        sync_stall.bypass_thread()
         idle_cycles = 0
         while not self._stop.is_set():
             t0 = time.monotonic()
@@ -931,6 +987,7 @@ class EagerController:
         """Pipelined execution: dequeue agreed ResponseLists in order
         and run them; errors fail every pending future and stop the
         controller, as the other threads' do."""
+        sync_stall.bypass_thread()
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
         while True:
@@ -1079,6 +1136,13 @@ class EagerController:
     # barrier.
 
     def _drain_loop(self):
+        sync_stall.bypass_thread()
+        # stall inspection is time-based here (the lockstep plane keys
+        # it to cycle counts); tight stall configs tighten the cadence
+        limits = [s for s in (self.stall_warn_s, self.stall_abort_s)
+                  if s and s > 0 and s != float("inf")]
+        stall_every = min([2.0] + [max(0.05, s / 2) for s in limits])
+        next_stall = time.monotonic() + stall_every
         idle = 0
         while not self._stop.is_set():
             active = False
@@ -1087,6 +1151,9 @@ class EagerController:
                     active = self._drain_once()
                 if self.rank == 0:
                     active = self._service_once() or active
+                if time.monotonic() >= next_stall:
+                    next_stall = time.monotonic() + stall_every
+                    self._inspect_stalls()
             except TransportClosed:
                 break
             except BaseException as e:  # noqa: BLE001 — must fail futures
@@ -1099,8 +1166,9 @@ class EagerController:
                 # rank 0 keeps a polling cadence (remote ranks' blobs
                 # arrive unannounced); workers park on _wake, their
                 # responses arrive through the fetcher
-                self._wake.wait(self.cycle_time_s * (1 + idle)
-                                if self.rank == 0 else 0.25)
+                cap = (self.cycle_time_s * (1 + idle) if self.rank == 0
+                       else 0.25)
+                self._wake.wait(min(cap, stall_every))
                 self._wake.clear()
 
     def _drain_once(self) -> bool:
@@ -1263,6 +1331,7 @@ class EagerController:
 
     def _fetch_loop(self):
         """Apply the response stream in order."""
+        sync_stall.bypass_thread()
         while not self._stop.is_set():
             try:
                 if not self._fetch_once():
@@ -1475,7 +1544,64 @@ class EagerController:
         self._ctrl.apply_responses(resp_blob)
         rl = wire.parse_response_list(resp_blob)
         self._dispatch_execution(rl)
+        if cycle % 256 == 0:
+            self._inspect_stalls()
         return bool(rl.responses) or drained > 0
+
+    def _inspect_stalls(self):
+        """Parity: stall_inspector.cc — name the ops and the missing
+        ranks; warn once per op, abort past the shutdown deadline (the
+        raise fails the controller and every pending op).  Rank 0 (the
+        coordinator) sees per-rank presence in its message table; every
+        OTHER rank watches its own pending ops by age, so a stalled
+        collective surfaces everywhere."""
+        if self.rank != 0:
+            self._inspect_local_stalls()
+            return
+        for s in self._ctrl.check_stalls():
+            key = s["name"]
+            if key not in self._stall_logged:
+                self._stall_logged.add(key)
+                sync_stall._count("stall_warnings")
+                logger.warning(
+                    "stalled collective %r: waited %.1fs; ranks ready %s, "
+                    "ranks missing %s",
+                    s["name"], s["waiting_s"], s["present"], s["missing"],
+                )
+            if (self.stall_abort_s > 0
+                    and s["waiting_s"] > self.stall_abort_s):
+                sync_stall._count("stall_aborts")
+                raise HorovodInternalError(
+                    f"collective {s['name']!r} stalled for "
+                    f"{s['waiting_s']:.0f}s; missing ranks {s['missing']}"
+                )
+
+    def _inspect_local_stalls(self):
+        """Age-based watchdog for non-coordinator ranks: they cannot see
+        which ranks are missing (only rank 0's message table can), but
+        they can tell their own op has waited too long."""
+        now = time.monotonic()
+        with self._lock:
+            pending = [(p.name, now - p.t_enqueue)
+                       for p in self._payloads.values()]
+        for name, waited in pending:
+            if waited < self.stall_warn_s:
+                continue
+            key = f"local:{name}"
+            if key not in self._stall_logged:
+                self._stall_logged.add(key)
+                sync_stall._count("stall_warnings")
+                logger.warning(
+                    "stalled collective %r: waited %.1fs on rank %d "
+                    "(coordinator rank 0 logs which ranks are missing)",
+                    name, waited, self.rank,
+                )
+            if self.stall_abort_s > 0 and waited > self.stall_abort_s:
+                sync_stall._count("stall_aborts")
+                raise HorovodInternalError(
+                    f"collective {name!r} stalled for {waited:.0f}s on "
+                    f"rank {self.rank}"
+                )
 
     # ---- live introspection ----
     def debug_state(self) -> dict:

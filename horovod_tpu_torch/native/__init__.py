@@ -17,7 +17,8 @@ from . import fallback, wire
 
 
 def make_controller(rank: int, size: int, fusion_threshold: int,
-                    cache_capacity: int = 1024, resync_every: int = None):
+                    cache_capacity: int = 1024, stall_warn_s: float = 60.0,
+                    stall_abort_s: float = 0.0, resync_every: int = None):
     """The negotiation core of one rank.  ``resync_every`` is the
     steady-state bypass cadence (every Nth all-cache-hit cycle sends a
     full resync blob; 0 disables bypass); it defaults to
@@ -27,7 +28,7 @@ def make_controller(rank: int, size: int, fusion_threshold: int,
         resync_every = int(os.environ.get("HVTPU_CACHE_RESYNC_EVERY", "64"))
     return fallback.PyController(
         rank, size, fusion_threshold, cache_capacity,
-        resync_every=resync_every,
+        stall_warn_s, stall_abort_s, resync_every=resync_every,
     )
 
 

@@ -23,6 +23,13 @@ go through the async controller and return handles for
     h = hvd.allreduce_async(t, op=hvd.Sum, process_set=ps)
     out = hvd.synchronize(h)
 
+Past one rank the sync collectives and the optimizer's buckets run
+under the stall watchdog (``HVTPU_STALL_CHECK_TIME_SECONDS``,
+``HVTPU_STALL_SHUTDOWN_TIME_SECONDS``); ``stall_guard`` covers a
+training step's boundary::
+
+    step = hvd.stall_guard(train_step, name="train")
+
 The engine's int8 wire is reached through the engine's own
 allreduce::
 
@@ -34,10 +41,12 @@ allreduce::
 from __future__ import annotations
 
 from ..comm.reduce_ops import Adasum, Average, Max, Min, Product, Sum
+from ..comm.stall import stall_guard
 from ..core.exceptions import (
     HorovodInternalError,
     HvtpuMismatchError,
     NotInitializedError,
+    StallError,
 )
 from ..core.process_set import ProcessSet, global_process_set
 from ..core.state import (
@@ -93,7 +102,7 @@ __all__ = [
     "init", "shutdown", "is_initialized", "rank", "size", "local_rank",
     "device", "ProcessSet", "global_process_set", "add_process_set",
     "remove_process_set", "NotInitializedError", "HorovodInternalError",
-    "HvtpuMismatchError",
+    "HvtpuMismatchError", "StallError", "stall_guard",
     "Compression", "Sum", "Average", "Adasum", "Min", "Max", "Product",
     "allreduce", "allreduce_", "grouped_allreduce", "grouped_allreduce_",
     "allgather", "grouped_allgather", "alltoall",

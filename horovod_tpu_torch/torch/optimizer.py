@@ -45,6 +45,16 @@ fp16 wire casts every floating gradient, bfloat16 ones included.
 ``op=Sum``, prescale ``1/f`` and postscale ``f/n``, ``n`` the size of
 the optimizer's process set (the world's by default).
 
+Past one member the buckets run under the stall watchdog
+(``comm/stall.py``), as the reference's gradients do on its controller:
+``launch`` records the bucket's op (a descriptor of its index in the
+plan, byte count and wire dtype, the same on every rank under the
+deterministic plan) and launches its ``all_reduce`` through the
+watchdog's ``dispatch``; ``finish`` polls the collective's completion
+(its ``Work``, which on the card is its CUDA event) before it waits on
+it.  A rank that stops stepping is then named by the others instead of
+leaving them parked in the collective.
+
 Sparse gradients (``nn.Embedding(sparse=True)``) follow the reference
 (``horovod_tpu/torch/optimizer.py:127-142``): with
 ``sparse_as_dense=True`` a sparse gradient becomes dense in its hook and
@@ -65,7 +75,7 @@ from typing import Callable, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from ..comm import eager
+from ..comm import eager, stall
 from ..comm.fusion import plan_buckets
 from ..comm.packing import pack_flat, unpack_flat
 from ..comm.reduce_ops import ReduceOp, normalize_op
@@ -94,6 +104,8 @@ class PendingGroup:
     work: object = None
     outs: Optional[List[torch.Tensor]] = None
     grouped: bool = False
+    # the watchdog's descriptor of the op (None: not guarded)
+    sdesc: Optional[str] = None
 
 
 def apply_scale(t: torch.Tensor, factor: float,
@@ -138,7 +150,10 @@ class GroupReduction:
                    and casts_to_wire(self.compression, t.dtype)
                    for t in tensors)
 
-    def launch(self, tensors: Sequence[torch.Tensor]) -> PendingGroup:
+    def launch(self, tensors: Sequence[torch.Tensor],
+               index: Optional[int] = None) -> PendingGroup:
+        """Launch the group's reduction; ``index`` is its bucket's place
+        in the plan (the watchdog's descriptor names it)."""
         if len(tensors) == 1 or self.op == ReduceOp.ADASUM:
             return PendingGroup(outs=[eager.allreduce(
                 t, op=self.op, prescale_factor=self.prescale,
@@ -160,10 +175,17 @@ class GroupReduction:
                 wires.append(t)
                 ctxs.append(ctx)
             flat, specs = pack_flat(wires)
-        work = dist.all_reduce(flat, op=dist.ReduceOp.SUM,
-                               group=eager._group(self.process_set),
-                               async_op=True)
-        return PendingGroup(flat, specs, ctxs, work, grouped=grouped)
+        ps = self.process_set
+        st = core_state.global_state()
+        sdesc = stall.check(
+            st, ps, f"bucket:{'-' if index is None else index}:"
+            f"{flat.numel() * flat.element_size()}:{flat.dtype}")
+        work = stall.dispatch(
+            st, ps, dist.all_reduce, (flat, dist.ReduceOp.SUM,
+                                      eager._group(ps), True),
+            owner="bucket", desc=sdesc)
+        return PendingGroup(flat, specs, ctxs, work, grouped=grouped,
+                            sdesc=sdesc)
 
     def finish(self, pending: PendingGroup,
                outs: Optional[Sequence[torch.Tensor]] = None
@@ -172,6 +194,8 @@ class GroupReduction:
         launched tensors' shapes and dtypes) when given."""
         if pending.outs is not None:
             return _into(outs, pending.outs)
+        stall.finish(core_state.global_state(), self.process_set,
+                     pending.work, pending.sdesc)
         pending.work.wait()
         flat = pending.flat
         if self.op == ReduceOp.AVERAGE:
@@ -308,7 +332,8 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                      if p not in self._sparse]
             if dense:
                 self._pending.append(
-                    (dense, self.reduction.launch([p.grad for p in dense])))
+                    (dense, self.reduction.launch(
+                        [p.grad for p in dense], self._next_bucket)))
             self._next_bucket += 1
 
     # -- public contract --------------------------------------------------

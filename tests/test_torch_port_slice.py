@@ -218,7 +218,8 @@ def test_import_leaves_no_jax_or_reference_module():
             " horovod_tpu_torch.weights, horovod_tpu_torch.ops,"
             " horovod_tpu_torch.ops.ring, horovod_tpu_torch.native,"
             " horovod_tpu_torch.eager, horovod_tpu_torch.api.handles,"
-            " horovod_tpu_torch.api.async_ops;"
+            " horovod_tpu_torch.api.async_ops, horovod_tpu_torch.comm.stall,"
+            " horovod_tpu_torch.core.retry, horovod_tpu_torch.core.journal;"
             " print('\\n'.join(sorted(sys.modules)))")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -227,7 +228,11 @@ def test_import_leaves_no_jax_or_reference_module():
     assert {"horovod_tpu_torch", "horovod_tpu_torch.ops.ring",
             "horovod_tpu_torch.native.fallback",
             "horovod_tpu_torch.eager.controller",
-            "horovod_tpu_torch.api.handles"} <= set(out)
+            "horovod_tpu_torch.api.handles",
+            "horovod_tpu_torch.comm.stall", "horovod_tpu_torch.comm.wirefault",
+            "horovod_tpu_torch.core.faults", "horovod_tpu_torch.core.retry",
+            "horovod_tpu_torch.core.clock", "horovod_tpu_torch.core.kv",
+            "horovod_tpu_torch.core.journal"} <= set(out)
     assert [m for m in out if _forbidden(m)] == []
 
 
@@ -243,10 +248,13 @@ def _imports(path: Path):
 
 def test_ast_scan_finds_no_jax_or_reference_import():
     files = sorted((REPO / "horovod_tpu_torch").rglob("*.py"))
-    files += [REPO / "chip_smoke.py", REPO / "torch_port_profile.py"]
+    files += [REPO / "chip_smoke.py", REPO / "torch_port_profile.py",
+              REPO / "torch_port_watchdog_ab.py"]
     for sub in ("ops/ring.py", "native/wire.py", "native/fallback.py",
                 "eager/controller.py", "api/handles.py", "comm/adasum.py",
-                "comm/packing.py"):
+                "comm/packing.py", "core/clock.py", "core/faults.py",
+                "core/retry.py", "core/journal.py", "core/kv.py",
+                "comm/stall.py", "comm/wirefault.py"):
         assert REPO / "horovod_tpu_torch" / sub in files
     assert len(files) > 15
     bad = [(f.name, m) for f in files for m in _imports(f) if _forbidden(m)]

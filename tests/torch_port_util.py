@@ -642,3 +642,259 @@ def adasum_worker(rank: int, world: int, store_path: str,
     with open(os.path.join(out_dir, f"adasum{rank}.pkl"), "wb") as f:
         pickle.dump({"res": {k: v.numpy() for k, v in res.items()},
                      "errors": errors}, f)
+
+
+# -- the stall watchdog, faults and retry, 2 ranks over gloo ------------------
+
+def spawn_world(target, world: int, tmp_path, *args, timeout: float = 60.0):
+    """Run ``target(rank, world, store_path, out_dir, *args)`` in ``world``
+    spawned processes, join them under ``timeout`` (killing any still
+    alive) and return ``(exit codes, [rank r's JSON result or None])``."""
+    import json
+    import multiprocessing
+    import time
+
+    ctx = multiprocessing.get_context("spawn")
+    store = str(tmp_path / "store")
+    procs = [ctx.Process(target=target,
+                         args=(r, world, store, str(tmp_path)) + args)
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        p.join(timeout=max(0.0, deadline - time.monotonic()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    results = []
+    for r in range(world):
+        path = tmp_path / f"rank{r}.json"
+        results.append(json.loads(path.read_text()) if path.exists()
+                       else None)
+    return [p.exitcode for p in procs], results
+
+
+def _write_result(out_dir: str, rank: int, result: dict) -> None:
+    import json
+
+    tmp = os.path.join(out_dir, f".rank{rank}.json")
+    with open(tmp, "w") as f:
+        json.dump(result, f)
+    os.replace(tmp, os.path.join(out_dir, f"rank{rank}.json"))
+
+
+def _await_results(out_dir: str, world: int, timeout: float = 20.0) -> None:
+    import time
+
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if all(os.path.exists(os.path.join(out_dir, f"rank{r}.json"))
+               for r in range(world)):
+            return
+        time.sleep(0.02)
+
+
+def _stall_healthy(hvd, rank: int, out_dir: str) -> dict:
+    """The sync op matrix with the watchdog on and off (bitwise), two
+    guarded optimizer steps, and one allreduce whose wire send is dropped
+    on rank 0 (``HVTPU_WIRE_RETRIES=1``) against the clean one."""
+    from horovod_tpu_torch.comm import eager, wirefault
+    from horovod_tpu_torch.comm.compression import Compression
+    from horovod_tpu_torch.core import faults
+    from horovod_tpu_torch.core import state as core_state
+
+    st = core_state.global_state()
+    rng = np.random.RandomState(40 + rank)
+    x = torch.from_numpy(rng.randn(37).astype(np.float32))
+    ragged = torch.from_numpy(rng.randn(rank + 2, 3).astype(np.float32))
+
+    def matrix():
+        out = {
+            "allreduce": hvd.allreduce(x, op=hvd.Sum),
+            "average": hvd.allreduce(x, op=hvd.Average),
+            "max": hvd.allreduce(x, op=hvd.Max),
+            "int8": eager.allreduce(x, op=hvd.Sum,
+                                    compression=Compression.int8),
+            "adasum": hvd.allreduce(x, op=hvd.Adasum),
+            "grouped": torch.cat(hvd.grouped_allreduce(
+                [x, x[:5] * 2], op=hvd.Sum)),
+            "allgather": hvd.allgather(ragged).reshape(-1),
+            "broadcast": hvd.broadcast(x, root_rank=1),
+            "alltoall": hvd.alltoall(x[:36]),
+            "reducescatter": hvd.reducescatter(x[:36], op=hvd.Sum),
+        }
+        hvd.barrier()
+        return {k: v.numpy().tolist() for k, v in out.items()}
+
+    guarded = matrix()
+    guarded_seq = dict(st.sync_stall.debug_state()["counters"])
+    mode = st.sync_stall.debug_state()["mode"]
+    st.config.stall_check_disable = True
+    plain = matrix()
+    st.config.stall_check_disable = False
+
+    model = narrow_resnet(seed=3)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.1),
+        named_parameters=model.named_parameters())
+    step = hvd.stall_guard(
+        lambda xb, yb: train_steps(model, opt, [(xb, yb)]), name="train")
+    losses = [step(*b)[0] for b in synthetic_batches(2, batch=4,
+                                                     seed=9 + rank)]
+    params = torch.cat([p.detach().reshape(-1)
+                        for p in model.parameters()]).numpy().tolist()
+
+    y = torch.arange(8, dtype=torch.float32) * (rank + 1) + 0.125
+    clean = hvd.allreduce(y, op=hvd.Sum, name="retry").numpy().tolist()
+    before = wirefault.COUNTERS["collective_retries"]
+    faults.install("wire.send:drop@rank=0,times=1", rank=rank)
+    try:
+        faulted = hvd.allreduce(y, op=hvd.Sum, name="retry").numpy().tolist()
+    finally:
+        faults.uninstall()
+    retries = wirefault.COUNTERS["collective_retries"] - before
+    ok = float(hvd.allreduce(torch.ones(()), op=hvd.Sum))
+    return {"guarded": guarded, "plain": plain, "mode": mode,
+            "counters": guarded_seq, "losses": losses, "params": params,
+            "clean": clean, "faulted": faulted, "retries": retries,
+            "ok": ok}
+
+
+def _stall_skipped(hvd, rank: int, out_dir: str) -> dict:
+    """Rank 1 skips a collective rank 0 enters."""
+    import time
+
+    from horovod_tpu_torch.core import state as core_state
+
+    assert float(hvd.allreduce(torch.ones(()), op=hvd.Sum)) == 2.0
+    if rank == 1:
+        return {"status": "skipped"}
+    insp = core_state.global_state().sync_stall
+    try:
+        hvd.allreduce(torch.ones(4), op=hvd.Sum)
+    except hvd.HorovodInternalError as e:
+        return {"status": "aborted", "msg": str(e),
+                "age": time.monotonic() - insp._tracks["0"].t0}
+    return {"status": "completed"}
+
+
+def _stall_diverged(hvd, rank: int, out_dir: str) -> dict:
+    """Rank 0 enters an allreduce where rank 1 enters a broadcast; both
+    then keep stepping until the watchdog stops them."""
+    import time
+
+    t0 = time.monotonic()
+    try:
+        if rank == 0:
+            hvd.allreduce(torch.ones(2), op=hvd.Sum, name="grads")
+        else:
+            hvd.broadcast(torch.ones(2), root_rank=0)
+        deadline = time.monotonic() + 8.0
+        while time.monotonic() < deadline:
+            hvd.allreduce(torch.ones(()), op=hvd.Sum)
+            time.sleep(0.05)
+    except hvd.HorovodInternalError as e:
+        return {"status": "mismatch", "msg": str(e),
+                "waited": time.monotonic() - t0}
+    return {"status": "no-error"}
+
+
+def _stall_optimizer(hvd, rank: int, out_dir: str) -> dict:
+    """Rank 1 stops stepping after 2 steps of ``DistributedOptimizer``;
+    rank 0's bucket reduction must name it."""
+    import time
+
+    from horovod_tpu_torch.core import state as core_state
+
+    model = narrow_resnet(seed=5)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.1),
+        named_parameters=model.named_parameters())
+    batches = synthetic_batches(4, batch=4, seed=20 + rank)
+    train_steps(model, opt, batches[:2])
+    if rank == 1:
+        return {"status": "stopped", "buckets": len(opt.buckets)}
+    insp = core_state.global_state().sync_stall
+    try:
+        train_steps(model, opt, batches[2:])
+    except hvd.HorovodInternalError as e:
+        return {"status": "aborted", "msg": str(e),
+                "age": time.monotonic() - insp._tracks["0"].t0,
+                "buckets": len(opt.buckets)}
+    return {"status": "completed"}
+
+
+def _stall_controller(hvd, rank: int, out_dir: str) -> dict:
+    """Rank 0 enqueues an async op rank 1 never enqueues; the
+    controller's stall inspection warns, then aborts naming rank 1."""
+    import logging
+    import time
+
+    warnings = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            warnings.append((time.monotonic(), record.getMessage()))
+
+    logging.getLogger("horovod_tpu_torch.eager").addHandler(Keep())
+    warm = hvd.synchronize(hvd.allreduce_async(torch.ones(3), op=hvd.Sum,
+                                               name="warm"))
+    assert warm.tolist() == [2.0, 2.0, 2.0]
+    from horovod_tpu_torch.core import state as core_state
+
+    plane = core_state.global_state().controller.debug_state()["plane"]
+    if rank == 1:
+        return {"status": "skipped", "plane": plane}
+    t0 = time.monotonic()
+    handle = hvd.allreduce_async(torch.ones(3), op=hvd.Sum, name="lonely")
+    try:
+        hvd.synchronize(handle)
+    except hvd.HorovodInternalError as e:
+        t1 = time.monotonic()
+        return {"status": "aborted", "msg": str(e), "waited": t1 - t0,
+                "plane": plane,
+                "warnings": [(t - t0, m) for t, m in warnings
+                             if "lonely" in m]}
+    return {"status": "completed", "plane": plane}
+
+
+STALL_SCENARIOS = {
+    "healthy": _stall_healthy,
+    "skipped": _stall_skipped,
+    "diverged": _stall_diverged,
+    "optimizer": _stall_optimizer,
+    "controller": _stall_controller,
+}
+
+
+def stall_worker(rank: int, world: int, store_path: str, out_dir: str,
+                 scenario: str, env: dict) -> None:
+    """One rank of a watchdog scenario: the env first, then gloo and
+    ``init(device="cpu")``, the scenario, its result as JSON.  The
+    healthy scenario shuts down; the others leave a collective wedged on
+    purpose, so every rank waits for the others' results and then
+    rank 0 exits through ``shutdown()`` and the exit hook (a poisoned
+    rank hard-exits with status 1) and the others with ``os._exit(0)``."""
+    os.environ.update(env)
+    torch.set_num_threads(1)
+    import horovod_tpu_torch as hvd
+
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    hvd.init(device="cpu")
+    result = STALL_SCENARIOS[scenario](hvd, rank, out_dir)
+    if scenario == "healthy":
+        hvd.shutdown()
+        dist.destroy_process_group()
+        _write_result(out_dir, rank, result)
+        return
+    from horovod_tpu_torch.comm import stall
+
+    result["poisoned"] = stall.poisoned()
+    _write_result(out_dir, rank, result)
+    _await_results(out_dir, world)
+    if rank != 0 or not stall.poisoned():
+        os._exit(0)
+    hvd.shutdown()      # bounded; the exit hook then hard-exits
