@@ -87,7 +87,24 @@ Builds the port's CUDA kernels from ``horovod_tpu_torch/csrc`` and then:
    ``corrupt(bitflip)``: one result differs from the clean composition,
    every result is the plain composition of its group over the
    poisoned input, 2 A1 launches a fused group, and the poisoning runs
-   on the card under CUDA's sync-debug mode "error";
+   on the card under CUDA's sync-debug mode "error"; the dead-peer abort
+   leaves a postmortem naming the op (the flight recorder writes into
+   this run's temporary directory) and counts in the abort family;
+   the observability planes: phase 3's training step in three modes in
+   turns (every plane off; the reference's defaults: flight, stepprof,
+   anomaly; defaults plus timeline and trace), each mode twice: the
+   optimizer's reduction of one fixed backward bitwise across modes, 4
+   A1 launches a step in each, the timeline's 161 gradient and 2 bucket
+   spans a step, the trace merged by ``tools/hvtputrace``, images/s and
+   the host µs of a hooked ``hvd.allreduce`` a mode, the host µs of one
+   timeline event; ``GET /metrics`` and ``/debug`` on localhost (the op
+   counters; the job, stall, flight, anomaly, stepprof and controller
+   providers); stepprof's profile window over 3 steps (idle share within
+   0.05 of the same trace read as ``torch_port_profile.py`` reads it,
+   exposed comm, MFU from ``FlopCounterMode`` against the card's peak),
+   its clock alignment held to a 20 ms sleep kernel within 2 ms; the
+   async fp16 burst of 161 ``allreduce_async_`` with tracing on and off
+   in turns, bitwise, every op's trace chain complete;
 7. runs the ring collectives at full width: phase 3's batch as 8 virtual
    ranks of 8 images, each rank's 161 gradients packed (25.56 M float32),
    reduced on the card by ``ring_allreduce`` (A5 Sum and Average, A6
@@ -109,8 +126,9 @@ Builds the port's CUDA kernels from ``horovod_tpu_torch/csrc`` and then:
 Prints one ``int8_quantized_allreduce {...}`` line, one ``async_path
 {...}`` line (its ``zero_copy`` part the route's bursts), one ``adasum
 {...}`` line, one ``stall {...}`` line, one ``faults {...}`` line, one
-``ring_path {...}`` line, one ``{"kernels": [...]}`` line of 10 entries
-(A1's with ``stall_launches``) and, last,
+``obs {...}`` line, one ``ring_path {...}`` line, one ``{"kernels": [...]}`` line of 10 entries
+(A1's with ``stall_launches`` and ``obs_launches_per_step``) and,
+last,
 ``{"ok": true,
 "device": {...}}``.  Exits non-zero, printing no result, when CUDA is
 absent, when the package is not beside this script, or when any phase
@@ -122,9 +140,12 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1679,6 +1700,26 @@ def _store_features():
     return features
 
 
+def _dead_peer_postmortem(tmp: Path, desc: str) -> dict:
+    """The postmortem the dead-peer abort wrote (the inspector's
+    heartbeat thread writes it as it latches the failure): its reason and
+    the abort event naming ``desc``."""
+    path = tmp / "postmortem-0-0.json"
+    deadline = time.monotonic() + 5.0
+    while time.monotonic() < deadline:
+        if path.exists():
+            with open(path) as f:
+                doc = json.load(f)
+            events = [e for e in doc["events"] if e["kind"] == "stall_abort"
+                      and desc in e.get("detail", "")]
+            if events:
+                return {"file": path.name, "reason": doc["reason"],
+                        "reasons": doc["reasons"],
+                        "event": events[-1]["detail"][:200]}
+        time.sleep(0.05)
+    raise SmokeFailure(f"stall: no postmortem naming {desc!r} in {tmp}")
+
+
 def _sleep_cycles(seconds: float) -> int:
     """``torch.cuda._sleep`` cycles that keep the card busy ``seconds``,
     from a short calibration run."""
@@ -1695,7 +1736,7 @@ def _sleep_cycles(seconds: float) -> int:
     return int(cycles * seconds * 1e3 / start.elapsed_time(end))
 
 
-def stall_phase(hvd, device, model, opt, x, y, smi: str):
+def stall_phase(hvd, device, model, opt, x, y, smi: str, tmp: Path):
     """The watchdog on the card, two of the port's inspectors over one
     ``HashStore`` (ranks 0 and 1 of a set {0, 1}; neither installed, so
     no poison latch): rank 0 runs the optimizer's ``GroupReduction``
@@ -1703,7 +1744,9 @@ def stall_phase(hvd, device, model, opt, x, y, smi: str):
     NCCL allreduce) through ``dispatch`` / ``wait_ready``.  Healthy: 20
     ops, rank 1 mirroring each descriptor; diverged: rank 1 posts
     another descriptor; dead peer mid-op: the card sleeps before the
-    reduction and rank 1 stops beating."""
+    reduction and rank 1 stops beating; the flight recorder (installed by
+    ``init()``, into ``tmp``) then holds a postmortem naming the op, and
+    the abort family counted it."""
     import torch
     import torch.distributed as dist
     import torch.nn.functional as F
@@ -1759,7 +1802,7 @@ def stall_phase(hvd, device, model, opt, x, y, smi: str):
 
     # 1. healthy: 20 ops, rank 1 mirroring each descriptor
     r0, r1 = pair(1)
-    warnings0 = stall.COUNTERS["stall_warnings"]
+    warnings0 = stall.counters()["stall_warnings"]
     pre_us, overshoot_us, wait_us, done_to_return_us = [], [], [], []
     try:
         fused_scale_cast.launches = 0   # the guarded reduction starts here
@@ -1795,7 +1838,7 @@ def stall_phase(hvd, device, model, opt, x, y, smi: str):
               f"reductions (want {2 * multi} an op)")
         time.sleep(3 * STALL_HB_S)
         check(r0.failure is None and r1.failure is None
-              and stall.COUNTERS["stall_warnings"] == warnings0,
+              and stall.counters()["stall_warnings"] == warnings0,
               f"stall: the healthy run warned or failed ({r0.failure})")
     finally:
         r0.stop()
@@ -1851,6 +1894,7 @@ def stall_phase(hvd, device, model, opt, x, y, smi: str):
         torch.cuda.synchronize()
         events = []
         raised_in = "dispatch"
+        aborts = stall.counters()["stall_aborts"]
         t0 = time.perf_counter()
         try:
             done, _pending = r0.dispatch(0, launch(cycles, events), (), desc)
@@ -1869,6 +1913,9 @@ def stall_phase(hvd, device, model, opt, x, y, smi: str):
               f"stall: the abort does not name rank 1: {msg}")
         check(not stall.poisoned(), "stall: a standalone inspector latched "
               "the process-wide poison")
+        postmortem = _dead_peer_postmortem(tmp, desc)
+        check(stall.counters()["stall_aborts"] > aborts,
+              "stall: the abort family did not count the dead peer")
         torch.cuda.synchronize()
         after_sleep_s = time.perf_counter() - t0
         for b, o in zip(buckets, outs):
@@ -1883,7 +1930,8 @@ def stall_phase(hvd, device, model, opt, x, y, smi: str):
     result.update(dead_peer_abort_s=raised_s, dead_peer_event_done=event_done,
                   dead_peer_raised_in=raised_in,
                   dead_peer_sleep_s=after_sleep_s,
-                  dead_peer_message=msg[:240], after_abort_bitwise=True)
+                  dead_peer_message=msg[:240], after_abort_bitwise=True,
+                  dead_peer_postmortem=postmortem)
 
     # the features the store adapter and the teardown rely on
     result["store"] = _store_features()
@@ -1894,7 +1942,7 @@ def stall_phase(hvd, device, model, opt, x, y, smi: str):
     core_state.abort_group(group)
     result["abort_group"] = "torch.distributed.distributed_c10d." \
         "_abort_process_group"
-    result["counters"] = dict(stall.COUNTERS)
+    result["counters"] = stall.counters()
     log("stall " + json.dumps(result))
     return result
 
@@ -2023,6 +2071,353 @@ def faults_phase(hvd, device, model, opt, x, y, smi: str):
 
 
 # -- phase 7: the ring collectives A4/A5/A6 over 8 virtual ranks -----------
+
+# -- the observability planes on the training step --------------------------
+
+OBS_MODES = ("off", "defaults", "full")
+# each mode twice, in turns
+OBS_ORDER = ("off", "defaults", "full", "full", "defaults", "off")
+OBS_STEPS = 3          # timed steps a turn, after one warm-up step
+OBS_PROBE_OPS = 200    # hooked hvd.allreduce calls a turn (host µs an op)
+OBS_PROFILE_STEPS = 3  # steps in stepprof's profile window
+OBS_SLEEP_S = 0.02     # the known sleep the clock alignment is held to
+OBS_ALIGN_TOL_US = 2000.0
+OBS_IDLE_TOL = 0.05
+# tracing off/on in turns
+OBS_BURST_ORDER = (False, True, True, False, False, True, True, False)
+OBS_EVENTS = 2000      # timeline begin/end pairs timed alone
+
+
+def _obs_mode(hvd, mode: str, tmp: Path, k: int) -> dict:
+    """Put the planes in ``mode``: ``off`` (none), ``defaults`` (the
+    reference's init defaults: flight, stepprof, anomaly) or ``full``
+    (defaults, timeline and trace); fails unless each plane asked for is
+    active.  Returns the timeline and trace paths of a full turn."""
+    from horovod_tpu_torch.core import state as core_state
+    from horovod_tpu_torch.obs import anomaly, flight, stepprof, tracing
+
+    hvd.stop_timeline()
+    tracing.uninstall()
+    flight.uninstall()
+    anomaly.uninstall()
+    stepprof.uninstall()
+    stepprof.ACTIVE = False
+    paths = {}
+    if mode != "off":
+        flight.install(rank=0, size=1, out_dir=str(tmp), sigusr2=False)
+        anomaly.install(rank=0, size=1)
+        stepprof.ACTIVE = True
+        stepprof.install()
+    if mode == "full":
+        paths["timeline"] = tmp / f"timeline_{k}.json"
+        paths["trace"] = tmp / f"trace_{k}"
+        hvd.start_timeline(str(paths["timeline"]))
+        tracing.install(str(paths["trace"]), rank=0, size=1)
+    on = mode != "off"
+    active = {"flight": flight.ACTIVE, "anomaly": anomaly.ACTIVE,
+              "stepprof": stepprof.ACTIVE,
+              "timeline": core_state.global_state().timeline is not None,
+              "tracing": tracing.ACTIVE}
+    want = {"flight": on, "anomaly": on, "stepprof": on,
+            "timeline": mode == "full", "tracing": mode == "full"}
+    check(active == want, f"obs {mode}: planes {active}, asked {want}")
+    return paths
+
+
+def _trace_chains(trace_dir: Path) -> dict:
+    """name -> [phases of its spans..., "DONE" when its instant came] in
+    the rank-0 trace file; fails unless every B has its E."""
+    with open(trace_dir / "rank0.trace.json") as f:
+        events = json.load(f)
+    chains, depth = {}, {}
+    for e in events:
+        args = e.get("args") or {}
+        if e.get("ph") == "B":
+            chains.setdefault(args["tensor"], []).append(e["name"])
+            depth[e["tid"]] = depth.get(e["tid"], 0) + 1
+        elif e.get("ph") == "E":
+            depth[e["tid"]] -= 1
+        elif e.get("name") == "DONE":
+            chains.setdefault(args["tensor"], []).append("DONE")
+    check(all(v == 0 for v in depth.values()),
+          f"obs: unmatched trace spans in {trace_dir}")
+    return chains
+
+
+def _timeline_event_us(tmp: Path) -> float:
+    """Host µs one timeline event costs (a ``json.dump`` and a ``flush``
+    into a file on this host's disk): OBS_EVENTS begin/end pairs."""
+    from horovod_tpu_torch.obs.timeline import Timeline
+
+    tl = Timeline(str(tmp / "events.json"))
+    t0 = time.perf_counter()
+    for i in range(OBS_EVENTS):
+        tl.begin("probe", "NEGOTIATE_ALLREDUCE")
+        tl.end("probe")
+    secs = time.perf_counter() - t0
+    tl.close()
+    return secs / (2 * OBS_EVENTS) * 1e6
+
+
+def _union_us(intervals) -> float:
+    total, end = 0.0, float("-inf")
+    for t0, t1 in sorted(intervals):
+        if t1 <= end:
+            continue
+        total += t1 - max(t0, end)
+        end = t1
+    return total
+
+
+def obs_phase(hvd, device, model, opt, x, y, smi: str, tmp: Path):
+    """The observability planes on the training step of phase 3, in three
+    modes in turns (every plane off; the reference's defaults; defaults
+    plus timeline and trace): the optimizer's reduction of one fixed
+    backward bitwise across modes, A1's launches a step, the timeline's
+    spans a step, the trace merged by ``tools/hvtputrace``, images/s and
+    the host µs of a hooked op; the metrics endpoint; stepprof's profile
+    window (idle share, exposed comm, MFU) against the same trace read as
+    ``torch_port_profile.py`` reads it, and its clock alignment against a
+    known sleep; the async fp16 burst of 161 ``allreduce_async_`` with
+    tracing on and off in turns."""
+    import urllib.request
+
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import record_function
+
+    from horovod_tpu_torch.comm import stall
+    from horovod_tpu_torch.core import state as core_state
+    from horovod_tpu_torch.eager import get_controller
+    from horovod_tpu_torch.models import ResNet
+    from horovod_tpu_torch.obs import metrics, profile, stepprof, tracing
+    from horovod_tpu_torch.ops import fused_scale_cast
+
+    params = [p for p in model.parameters() if p.requires_grad]
+    raw = [g.contiguous() for g in torch.autograd.grad(
+        F.cross_entropy(model(x), y), params)]
+    multi = sum(len(b) > 1 for b in opt.buckets)
+    result = {"card": smi, "steps_a_turn": OBS_STEPS, "order": OBS_ORDER}
+
+    def reduce_once():
+        """The optimizer's reduction of the fixed gradients (every hook
+        unfired: ``synchronize`` launches each bucket)."""
+        for p, g in zip(params, raw):
+            p.grad = g.clone()
+        opt.synchronize()
+        out = [p.grad.clone() for p in params]
+        opt.zero_grad()
+        # the next step() synchronizes its own backward without warning
+        opt._synchronized = False
+        return out
+
+    def train_step():
+        opt.zero_grad()
+        F.cross_entropy(model(x), y).backward()
+        opt.step()
+        metrics.note_step(examples=BATCH)
+
+    per_mode = {m: {"images_per_s": [], "launches_per_step": [],
+                    "probe_us": []} for m in OBS_MODES}
+    reduced, spans, merged = {}, [], []
+    probe = torch.ones(1024, device=device)
+    for k, mode in enumerate(OBS_ORDER):
+        paths = _obs_mode(hvd, mode, tmp, k)
+        reductions = 0
+        if mode not in reduced:
+            reduced[mode] = reduce_once()
+            reductions = 1
+        torch.cuda.synchronize()
+        secs = []
+        fused_scale_cast.launches = 0
+        for step in range(1 + OBS_STEPS):
+            before = fused_scale_cast.launches
+            t0 = time.perf_counter()
+            train_step()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            delta = fused_scale_cast.launches - before
+            check(delta == 2 * multi, f"obs {mode}: {delta} A1 launches in "
+                  f"step {step}, expected {2 * multi}")
+        per_mode[mode]["launches_per_step"].append(delta)
+        per_mode[mode]["images_per_s"].append(
+            BATCH * OBS_STEPS / sum(secs[1:]))
+        t0 = time.perf_counter()
+        for _ in range(OBS_PROBE_OPS):
+            hvd.allreduce(probe, name="obs.probe")
+        torch.cuda.synchronize()
+        per_mode[mode]["probe_us"].append(
+            (time.perf_counter() - t0) / OBS_PROBE_OPS * 1e6)
+        if mode == "full":
+            hvd.stop_timeline()
+            with open(paths["timeline"]) as f:
+                events = json.load(f)       # parses: the file is closed
+            steps = 1 + OBS_STEPS + reductions
+            neg = sum(1 for e in events if e.get("ph") == "B"
+                      and e["name"] == "NEGOTIATE_ALLREDUCE")
+            fused = sum(1 for e in events if e.get("ph") == "B"
+                        and e["name"] == "NCCL_ALLREDUCE"
+                        and e["args"]["tensor"].startswith("fused."))
+            spans.append({"gradient_spans": neg / steps,
+                          "bucket_spans": fused / steps})
+            check(neg == RESNET50_GRADS * steps and fused == multi * steps,
+                  f"obs: timeline holds {neg} gradient and {fused} bucket "
+                  f"spans in {steps} steps")
+            tracing.uninstall()
+            chains = _trace_chains(paths["trace"])
+            check(all(c[-1] == "DONE" for n, c in chains.items()
+                      if n.startswith("allreduce.")),
+                  "obs: a gradient's trace chain has no DONE")
+            run = subprocess.run(
+                [sys.executable, "-m", "tools.hvtputrace", "merge",
+                 str(paths["trace"])], cwd=REPO, capture_output=True,
+                text=True, timeout=120)
+            check(run.returncode == 0,
+                  f"obs: hvtputrace merge failed: {run.stderr[-400:]}")
+            with open(paths["trace"] / "merged.trace.json") as f:
+                merged.append(len(json.load(f)))
+    for mode in OBS_MODES[1:]:
+        check(all(same_bits(a, b) for a, b in
+                  zip(reduced[mode], reduced["off"])),
+              f"obs {mode}: the reduced gradients differ from the "
+              "planes-off ones")
+    for mode, d in per_mode.items():
+        d["images_per_s_median"] = statistics.median(d["images_per_s"])
+        d["probe_us_median"] = statistics.median(d["probe_us"])
+    result.update(modes=per_mode, reduced_bitwise=True,
+                  timeline_spans_per_step=spans,
+                  merged_trace_events=merged,
+                  event_us=_timeline_event_us(tmp))
+
+    # the endpoints, in the defaults mode with the watchdog armed
+    _obs_mode(hvd, "defaults", tmp, len(OBS_ORDER))
+    st = core_state.global_state()
+    stall._make_inspector(st, st.config)
+    port = metrics.start_http_server(0, addr="127.0.0.1")
+    try:
+        base = f"http://127.0.0.1:{port}"
+        text = urllib.request.urlopen(base + "/metrics",
+                                      timeout=30).read().decode()
+        debug = json.loads(urllib.request.urlopen(base + "/debug",
+                                                  timeout=30).read())
+    finally:
+        metrics.stop_http_server()
+        stall.stop(st)
+    for family in ("hvtpu_allreduce_total", "hvtpu_optimizer_steps_total",
+                   "hvtpu_allreduce_latency_seconds_bucket"):
+        check(family in text, f"obs: /metrics lacks {family}")
+    check({"job", "stall", "flight", "anomaly", "stepprof",
+           "controller"} <= set(debug),
+          f"obs: /debug providers {sorted(debug)}")
+    result["endpoints"] = {"metrics_bytes": len(text),
+                           "debug": sorted(debug)}
+
+    # stepprof: one profile window over OBS_PROFILE_STEPS steps
+    flop_model = ResNet([3, 4, 6, 3], dtype=torch.bfloat16, device=device,
+                        generator=torch.Generator().manual_seed(SEED))
+    flops = stepprof.measured_flops(
+        lambda: F.cross_entropy(flop_model(x), y).backward())
+    del flop_model
+    check(flops is not None and flops > 0, "obs: no FLOPs counted")
+    stepprof.set_step_flops(flops)
+    logdir = tmp / "stepprof"
+    with stepprof.profile_window(str(logdir)) as joined:
+        for _ in range(OBS_PROFILE_STEPS):
+            with record_function("train_step"):
+                train_step()
+                torch.cuda.synchronize()
+    check(joined["status"] == "ok", f"obs: stepprof join {joined}")
+    events = profile.read_trace(profile.newest(str(logdir)))["traceEvents"]
+    kernels = [(e["ts"], e["ts"] + e["dur"]) for e in events
+               if e.get("cat") == "kernel" and "dur" in e]
+    steps_us = sum(e["dur"] for e in events if e.get("name") == "train_step"
+                   and e.get("cat") == "user_annotation")
+    idle_tpp = 1 - _union_us(kernels) / steps_us
+    step_s = joined["window_s"] / OBS_PROFILE_STEPS
+    mfu = stepprof.mfu(flops, step_s)
+    check(abs(joined["idle_share"] - idle_tpp) <= OBS_IDLE_TOL,
+          f"obs: stepprof's idle share {joined['idle_share']:.4f} against "
+          f"{idle_tpp:.4f} read as torch_port_profile.py reads it")
+    check(mfu is not None, "obs: no MFU on this card")
+
+    # the clock alignment, against a known sleep of the card
+    cycles = _sleep_cycles(OBS_SLEEP_S)
+    aligndir = tmp / "align"
+    with stepprof.profile_window(str(aligndir)) as joined2:
+        time.sleep(0.005)
+        ta = time.time()
+        torch.cuda._sleep(cycles)
+        torch.cuda.synchronize()
+        tb = time.time()
+    prof = profile.load_profile(str(aligndir))
+    origin = profile.marker_us(prof["doc"], stepprof.WINDOW_MARKER)
+    ivs = [iv for lane in prof["planes"].values() for iv in lane]
+    aligned, _shift = stepprof.align_device_intervals(
+        ivs, joined2["window"][0] * 1e6, origin)
+    spin = max(aligned, key=lambda iv: iv["t1_us"] - iv["t0_us"])
+    lead_us, lag_us = spin["t0_us"] - ta * 1e6, tb * 1e6 - spin["t1_us"]
+    check(lead_us >= -OBS_ALIGN_TOL_US and lag_us >= -OBS_ALIGN_TOL_US,
+          f"obs: the sleep kernel aligned {lead_us:.0f} µs after its "
+          f"launch and {lag_us:.0f} µs before its wait returned")
+    result["stepprof"] = {
+        "steps": OBS_PROFILE_STEPS, "window_s": joined["window_s"],
+        "idle_share": joined["idle_share"],
+        "idle_share_torch_port_profile": idle_tpp,
+        "exposed_comm_ms_per_step":
+            joined["exposed_comm_s"] / OBS_PROFILE_STEPS * 1e3,
+        "overlap_fraction": joined["overlap_fraction"],
+        "flops_per_step": flops, "peak_tflops": stepprof.peak_flops() / 1e12,
+        "mfu": mfu, "device_planes": joined["device_planes"],
+        "align": {"sleep_ms": (spin["t1_us"] - spin["t0_us"]) / 1e3,
+                  "kernel": spin["op"][:60], "lead_us": lead_us,
+                  "lag_us": lag_us}}
+
+    # the async fp16 burst with tracing on and off in turns
+    _obs_mode(hvd, "defaults", tmp, len(OBS_ORDER) + 1)
+    grads = hook_order_grads(model, opt, x, y)
+    by_name = {f"allreduce.{n}": g for n, g in grads}
+    pre, post = 1.0 / PREDIVIDE, PREDIVIDE / hvd.size()
+    ctrl = get_controller()
+    bursts = {"off": [], "on": []}
+    cycles = {"off": [], "on": []}
+    outs0 = None
+    for k, on in enumerate(OBS_BURST_ORDER):
+        trace_dir = tmp / f"burst_trace_{k}"
+        if on:
+            tracing.install(str(trace_dir), rank=0, size=1)
+        tensors = {n: g.clone() for n, g in by_name.items()}
+        torch.cuda.synchronize()
+        cycle0 = ctrl._cycle
+        t0 = time.perf_counter()
+        ctrl.hint_burst(len(tensors))
+        handles = {n: hvd.allreduce_async_(
+            t, name=n, op=hvd.Sum, compression=hvd.Compression.fp16,
+            prescale_factor=pre, postscale_factor=post)
+            for n, t in tensors.items()}
+        outs = {n: hvd.synchronize(h) for n, h in handles.items()}
+        torch.cuda.synchronize()
+        bursts["on" if on else "off"].append(
+            (time.perf_counter() - t0) * 1e3)
+        cycles["on" if on else "off"].append(ctrl._cycle - cycle0)
+        if outs0 is None:
+            outs0 = outs
+        check(all(same_bits(outs[n], outs0[n]) for n in by_name),
+              f"obs: burst {k} (tracing {on}) differs from burst 0")
+        if on:
+            tracing.uninstall()
+            chains = _trace_chains(trace_dir)
+            for n in by_name:
+                c = chains.get(n, [])
+                check(c[:2] == ["NEGOTIATE", "QUEUE"] and "EXEC" in c
+                      and c[-1] == "DONE",
+                      f"obs: {n} traced as {c}")
+    result["burst_ms"] = {m: {"runs": v, "median": statistics.median(v),
+                              "cycles": cycles[m]}
+                          for m, v in bursts.items()}
+    _obs_mode(hvd, "off", tmp, len(OBS_ORDER) + 2)
+    log("obs " + json.dumps(result))
+    return result
+
 
 def ring_buckets(model, x, y, ranks: int):
     """Data-parallel ResNet-50 over ``ranks`` virtual ranks: the batch in
@@ -2514,6 +2909,9 @@ def main() -> int:
     log(f"device: {kind}, torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
 
+    # the flight recorder's postmortems go to a directory of this run
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    os.environ["HVTPU_FLIGHT_DIR"] = str(tmp)
     hvd.init()                            # one-rank NCCL world on cuda:0
     device = hvd.device()
     try:
@@ -2532,13 +2930,15 @@ def main() -> int:
         surface_autograd_phase(hvd, device)
         async_path = async_phase(hvd, device, model, opt, x, y, smi)
         adasum_phase(hvd, device, model, x, y)
-        stall_line = stall_phase(hvd, device, model, opt, x, y, smi)
+        stall_line = stall_phase(hvd, device, model, opt, x, y, smi, tmp)
         faults_phase(hvd, device, model, opt, x, y, smi)
+        obs = obs_phase(hvd, device, model, opt, x, y, smi, tmp)
         ring = ring_phase(ring_buckets(model, x, y, RING_RANKS), reps=10)
         del model, opt, x, y
         reference_phase(hvd, device)
     finally:
         hvd.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
 
     log(f"{smi} | ResNet-50 bf16 batch {BATCH} {IMAGE}x{IMAGE}: "
         f"{train['images_per_s']:.1f} images/s")
@@ -2557,6 +2957,8 @@ def main() -> int:
         "async_launches": async_path["a1_launches"],
         "zero_copy_launches": async_path["zero_copy"]["a1_launches_on"],
         "stall_launches": stall_line["stall_launches"],
+        "obs_launches_per_step": {m: d["launches_per_step"]
+                                  for m, d in obs["modes"].items()},
         "max_abs_err": kern["max_abs_err"],
         "ms": pre["ms"],
         "plain_ms": pre["plain_ms"],

@@ -36,12 +36,28 @@ alltoall exchanges first included).  Each op is also the
 site for its result (``core/faults.py``); both are skipped inside
 :func:`controller_execution`, whose ops fired ``collective.pre`` at
 enqueue.
+
+Each op takes the user's ``name``; without one it is named as the
+reference names it (``allreduce.(2, 3).float32``, the shape a tuple and
+the dtype numpy's spelling).  The name is in the op's stall descriptor,
+so two ranks entering differently named ops are diagnosed as diverged.
+Observability, as in the reference (``horovod_tpu/comm/eager.py``):
+every op counts in ``hvtpu_<kind>_total`` and, past one member, in
+``hvtpu_tensor_bytes_total`` and ``hvtpu_wire_bytes_total`` (the int8
+wire with its scales).  ``allreduce`` also opens a ``NCCL_ALLREDUCE``
+timeline span and an ``EXEC`` trace span (not on the controller's
+threads, whose phase chain spans the op already), observes
+``hvtpu_allreduce_latency_seconds`` and records its wall window for the
+step profiler; these come before the world-of-one shortcut, as the
+reference's do.  With a timeline set, an allreduce on the card waits
+for its result before the span ends; without one, no hook synchronizes.
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
+import time
 from typing import List, Optional, Sequence
 
 import torch
@@ -50,6 +66,10 @@ import torch.distributed as dist
 from ..core import faults
 from ..core import state as core_state
 from ..core.process_set import ProcessSet, global_process_set
+from ..obs import metrics as obs_metrics
+from ..obs import stepprof
+from ..obs import tracing
+from ..obs.timeline import NCCL_ALLREDUCE
 from . import stall
 from .adasum import adasum_reduce
 from .compression import Int8Compressor, NoneCompressor
@@ -78,15 +98,117 @@ def _group(ps: ProcessSet):
         else ps.group
 
 
-def _record_collective(kind: str, x: torch.Tensor, ps: ProcessSet
-                       ) -> torch.Tensor:
+def dtype_name(dtype: torch.dtype) -> str:
+    """numpy's spelling of a dtype (``float32``), as the reference's
+    names and descriptors carry it."""
+    return str(dtype).rsplit(".", 1)[-1]
+
+
+def default_name(kind: str, shape, dtype: torch.dtype) -> str:
+    """The reference's name of an unnamed op:
+    ``<kind>.<shape tuple>.<dtype>``."""
+    return f"{kind}.{tuple(shape)}.{dtype_name(dtype)}"
+
+
+def _record_collective(kind: str, x: torch.Tensor, ps: ProcessSet,
+                       compression=None) -> torch.Tensor:
     """The ``collective.pre`` fault site: an armed clause can delay,
     error or kill this rank at the dispatch boundary, or ``corrupt`` its
-    input.  Returns the (possibly poisoned) tensor."""
+    input.  Then the op's counters (:func:`count_collective`).  Returns
+    the (possibly poisoned) tensor."""
     if faults.ACTIVE and not getattr(_exec, "active", False):
         x = faults.inject_tensor("collective.pre", x,
                                  pset=ps.process_set_id, detail=kind)
+    count_collective(kind, x, ps, compression)
     return x
+
+
+def count_collective(kind: str, x: torch.Tensor, ps: ProcessSet,
+                     compression=None) -> None:
+    """``hvtpu_<kind>_total`` always; past one member the payload bytes
+    and the bytes on the wire after ``compression`` (the int8 codes with
+    their float32 block scales)."""
+    obs_metrics.op_counter(kind).inc()
+    if ps.size <= 1:
+        return
+    nbytes = x.numel() * x.element_size()
+    obs_metrics.TENSOR_BYTES.inc(nbytes)
+    wire_nbytes = nbytes
+    if compression is not None:
+        wd = compression.wire_dtype(x.dtype)
+        wire_nbytes = x.numel() * torch.empty((), dtype=wd).element_size()
+        if wd == torch.int8 and x.is_floating_point():
+            wire_nbytes += 4 * (-(-x.numel() // Int8Compressor.BLOCK))
+    obs_metrics.WIRE_BYTES.inc(wire_nbytes)
+
+
+@contextlib.contextmanager
+def untraced():
+    """Allreduces called inside open no trace span: their caller (the
+    optimizer's bucket plan) spans the ops itself."""
+    prev = getattr(_exec, "untraced", False)
+    _exec.untraced = True
+    try:
+        yield
+    finally:
+        _exec.untraced = prev
+
+
+class AllreduceSpan:
+    """The reference's hooks around one allreduce
+    (``horovod_tpu/comm/eager.py`` ``allreduce``): a ``NCCL_ALLREDUCE``
+    timeline span, an ``EXEC`` trace span ending in a ``DONE`` instant
+    with the wall window (not on the controller's threads, nor inside
+    :func:`untraced`), the latency histogram and the step profiler's
+    comm window.  Opened at dispatch; :meth:`close` ends it — after the
+    result is complete on the card when a timeline is set, and only
+    then."""
+
+    __slots__ = ("name", "nbytes", "timeline", "traced", "t0", "wall0")
+
+    def __init__(self, st, name: str, nbytes: int):
+        self.name, self.nbytes = name, nbytes
+        self.t0 = time.monotonic()
+        # wall clock: the step profiler joins it against the device
+        # trace's wall-aligned timestamps
+        self.wall0 = time.time()
+        self.timeline = st.timeline
+        if self.timeline is not None:
+            self.timeline.begin(name, NCCL_ALLREDUCE)
+        self.traced = (tracing.ACTIVE and not stall.bypass_active()
+                       and not getattr(_exec, "untraced", False))
+        if self.traced:
+            tracing.op_begin(name, "allreduce", phase=tracing.EXEC)
+
+    def close(self, out=None, completed: bool = False) -> None:
+        """End the span; ``completed``: the op succeeded with ``out``."""
+        try:
+            if completed:
+                if self.timeline is not None:
+                    _complete(out)
+                obs_metrics.ALLREDUCE_LATENCY.observe(
+                    time.monotonic() - self.t0)
+        finally:
+            wall1 = time.time()
+            if stepprof.ACTIVE:
+                stepprof.note_comm(self.name, self.wall0, wall1,
+                                   nbytes=self.nbytes)
+            if self.traced:
+                tracing.op_done(self.name, bytes=self.nbytes,
+                                wall_t0_us=int(self.wall0 * 1e6),
+                                wall_t1_us=int(wall1 * 1e6))
+            if self.timeline is not None:
+                self.timeline.end(self.name)
+
+
+def _complete(out) -> None:
+    """Wait until a card result is complete (the timeline's span ends
+    then); called only with a timeline set, after the watchdog's
+    interruptible wait."""
+    if isinstance(out, torch.Tensor) and out.is_cuda:
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(out.device))
+        done.synchronize()
 
 
 def _post_collective(kind: str, out: torch.Tensor, ps: ProcessSet
@@ -215,8 +337,8 @@ def allreduce(
     name: Optional[str] = None,
 ) -> torch.Tensor:
     """Reduce ``tensor`` over the ranks (``compression`` is an engine
-    codec of ``comm/compression.py``; ``name`` is accepted for parity and
-    unused until the port has a timeline)."""
+    codec of ``comm/compression.py``; ``name`` names the op in its stall
+    descriptor, its timeline span and its trace span)."""
     rop = normalize_op(op, average)
     if rop == ReduceOp.ADASUM and _is_int8(compression):
         # size-independent, as in the reference: dot products over
@@ -226,25 +348,34 @@ def allreduce(
             "would corrupt the dot products); use fp16/bf16/none")
     ps = _resolve_process_set(process_set, "allreduce")
     st = core_state.global_state()
-    x = _record_collective("allreduce", tensor.detach(), ps)
-    if ps.size == 1:
-        factor = prescale_factor * postscale_factor
-        if factor != 1.0:
-            return _post_collective("allreduce", _scale(x, factor), ps)
-        return _post_collective(
-            "allreduce", x.clone(memory_format=torch.contiguous_format), ps)
-    # the descriptor carries the tensor NAME: two ranks entering
-    # different same-shaped collectives are still diagnosed as diverged
-    tname = name or f"allreduce.{tuple(x.shape)}.{x.dtype}"
-    sdesc = stall.check(
-        st, ps, f"allreduce:{tname}:{tuple(x.shape)}:{x.dtype}:{rop.name}")
-    x = x.clone(memory_format=torch.contiguous_format)
-    if prescale_factor != 1.0:
-        x = _scale_f32(x, prescale_factor)
-    out = _guarded(st, ps, sdesc, ("allreduce", rop, _is_int8(compression)),
-                   lambda: _reduce(x, rop, compression, ps))
-    if postscale_factor != 1.0:
-        out = _scale_f32(out, postscale_factor)
+    x = _record_collective("allreduce", tensor.detach(), ps, compression)
+    tname = name or default_name("allreduce", x.shape, x.dtype)
+    span = AllreduceSpan(st, tname, x.numel() * x.element_size())
+    out = None
+    try:
+        if ps.size == 1:
+            factor = prescale_factor * postscale_factor
+            out = (_scale(x, factor) if factor != 1.0
+                   else x.clone(memory_format=torch.contiguous_format))
+        else:
+            # the descriptor carries the tensor NAME: two ranks entering
+            # different same-shaped collectives are still diagnosed as
+            # diverged
+            sdesc = stall.check(
+                st, ps, f"allreduce:{tname}:{tuple(x.shape)}:"
+                f"{dtype_name(x.dtype)}:{rop.name}")
+            x = x.clone(memory_format=torch.contiguous_format)
+            if prescale_factor != 1.0:
+                x = _scale_f32(x, prescale_factor)
+            out = _guarded(st, ps, sdesc,
+                           ("allreduce", rop, _is_int8(compression)),
+                           lambda: _reduce(x, rop, compression, ps))
+            if postscale_factor != 1.0:
+                out = _scale_f32(out, postscale_factor)
+        span.close(out, completed=True)
+    except BaseException:
+        span.close()
+        raise
     return _post_collective("allreduce", out, ps)
 
 
@@ -275,7 +406,8 @@ def grouped_allreduce(
 
 
 def allgather(tensor: torch.Tensor, *,
-              process_set: Optional[ProcessSet] = None) -> torch.Tensor:
+              process_set: Optional[ProcessSet] = None,
+              name: Optional[str] = None) -> torch.Tensor:
     """Concatenate every rank's tensor along dim 0; dim 0 may differ per
     rank (the sizes are exchanged first)."""
     ps = _resolve_process_set(process_set, "allgather")
@@ -285,9 +417,10 @@ def allgather(tensor: torch.Tensor, *,
         return x.clone(memory_format=torch.contiguous_format)
     # dim0 left out of the descriptor: per-rank sizes are legitimate
     # for allgather and exchanged right below
-    tname = f"allgather.{tuple(x.shape[1:])}.{x.dtype}"
+    tname = name or default_name("allgather", x.shape[1:], x.dtype)
     sdesc = stall.check(
-        st, ps, f"allgather:{tname}:{tuple(x.shape[1:])}:{x.dtype}")
+        st, ps,
+        f"allgather:{tname}:{tuple(x.shape[1:])}:{dtype_name(x.dtype)}")
     dim0 = torch.tensor([x.shape[0]], dtype=torch.int64, device=x.device)
     # the size exchange completes under the watchdog before the host
     # reads it (.tolist() would park in a CUDA wait)
@@ -306,7 +439,8 @@ def allgather(tensor: torch.Tensor, *,
 
 
 def alltoall(tensor: torch.Tensor, splits=None, *,
-             process_set: Optional[ProcessSet] = None):
+             process_set: Optional[ProcessSet] = None,
+             name: Optional[str] = None):
     """Send ``splits[i]`` rows of dim 0 to rank i (equal splits when
     ``splits`` is None).  Returns the received tensor, or ``(received,
     received_splits)`` when ``splits`` is given."""
@@ -328,9 +462,10 @@ def alltoall(tensor: torch.Tensor, splits=None, *,
         out = x.clone(memory_format=torch.contiguous_format)
         return (out, torch.tensor(splits, dtype=torch.int32)) \
             if return_splits else out
-    tname = f"alltoall.{tuple(x.shape[1:])}.{x.dtype}"
+    tname = name or default_name("alltoall", x.shape[1:], x.dtype)
     sdesc = stall.check(
-        st, ps, f"alltoall:{tname}:{tuple(x.shape[1:])}:{x.dtype}")
+        st, ps,
+        f"alltoall:{tname}:{tuple(x.shape[1:])}:{dtype_name(x.dtype)}")
     # row r of the split matrix: what rank r sends to each rank
     mine = torch.tensor(splits, dtype=torch.int64, device=x.device)
     matrix = _guarded(st, ps, None, "alltoall.splits",
@@ -351,7 +486,8 @@ def alltoall(tensor: torch.Tensor, splits=None, *,
 
 
 def reducescatter(tensor: torch.Tensor, *, op: Optional[ReduceOp] = None,
-                  process_set: Optional[ProcessSet] = None) -> torch.Tensor:
+                  process_set: Optional[ProcessSet] = None,
+                  name: Optional[str] = None) -> torch.Tensor:
     """Reduce over the ranks and return this rank's dim-0 shard.  An
     uneven dim 0 gives the first ``dim0 % size`` ranks one extra row."""
     rop = normalize_op(op, None)
@@ -361,13 +497,14 @@ def reducescatter(tensor: torch.Tensor, *, op: Optional[ReduceOp] = None,
     p = ps.size
     if p == 1:
         return x.clone(memory_format=torch.contiguous_format)
-    if x.shape[0] % p == 0:
-        if rop not in (ReduceOp.SUM, ReduceOp.AVERAGE):
-            raise ValueError("reducescatter supports Sum and Average")
-        tname = f"reducescatter.{tuple(x.shape)}.{x.dtype}"
-        sdesc = stall.check(
-            st, ps, f"reducescatter:{tname}:{tuple(x.shape)}:{x.dtype}:"
-            f"{rop.name}")
+    even = x.shape[0] % p == 0
+    if even and rop not in (ReduceOp.SUM, ReduceOp.AVERAGE):
+        raise ValueError("reducescatter supports Sum and Average")
+    tname = name or default_name("reducescatter", x.shape, x.dtype)
+    sdesc = stall.check(
+        st, ps, f"reducescatter:{tname}:{tuple(x.shape)}:"
+        f"{dtype_name(x.dtype)}:{rop.name}")
+    if even:
         out = x.new_empty((x.shape[0] // p,) + tuple(x.shape[1:]))
         send = x.contiguous()
 
@@ -388,7 +525,8 @@ def reducescatter(tensor: torch.Tensor, *, op: Optional[ReduceOp] = None,
 
 
 def broadcast(tensor: torch.Tensor, root_rank: int = 0,
-              process_set: Optional[ProcessSet] = None) -> torch.Tensor:
+              process_set: Optional[ProcessSet] = None,
+              name: Optional[str] = None) -> torch.Tensor:
     """Return a new tensor holding ``root_rank``'s value (a global rank,
     a member of the set)."""
     ps = _resolve_process_set(process_set, "broadcast")
@@ -401,10 +539,10 @@ def broadcast(tensor: torch.Tensor, root_rank: int = 0,
         raise ValueError(
             f"root_rank {root_rank} is not a member of process set "
             f"{ps.process_set_id} (ranks {ps.ranks})")
-    tname = f"broadcast.{tuple(x.shape)}.{x.dtype}"
+    tname = name or default_name("broadcast", x.shape, x.dtype)
     sdesc = stall.check(
-        st, ps,
-        f"broadcast:{tname}:{tuple(x.shape)}:{x.dtype}:root{root_rank}")
+        st, ps, f"broadcast:{tname}:{tuple(x.shape)}:"
+        f"{dtype_name(x.dtype)}:root{root_rank}")
 
     def launch():
         dist.broadcast(out, src=root_rank, group=_group(ps))
@@ -415,10 +553,11 @@ def broadcast(tensor: torch.Tensor, root_rank: int = 0,
 
 
 def broadcast_(tensor: torch.Tensor, root_rank: int = 0,
-               process_set: Optional[ProcessSet] = None) -> torch.Tensor:
+               process_set: Optional[ProcessSet] = None,
+               name: Optional[str] = None) -> torch.Tensor:
     """In-place broadcast from ``root_rank``."""
     with torch.no_grad():
-        tensor.copy_(broadcast(tensor, root_rank, process_set))
+        tensor.copy_(broadcast(tensor, root_rank, process_set, name=name))
     return tensor
 
 
@@ -428,6 +567,7 @@ def barrier(process_set: Optional[ProcessSet] = None) -> None:
     NCCL barrier's own wait synchronizes the card)."""
     ps = _resolve_process_set(process_set, "barrier")
     st = core_state.global_state()
+    obs_metrics.op_counter("barrier").inc()
     sdesc = stall.check(st, ps, "barrier")
     if not stall.engaged(st, ps):
         dist.barrier(group=_group(ps))

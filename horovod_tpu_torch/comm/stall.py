@@ -52,12 +52,17 @@ reference's transport markers, and the text NCCL and
 latches within two heartbeats; with ``HVTPU_WIRE_RETRIES`` > 0 it first
 goes through ``comm/wirefault.py``'s abort-and-retry consensus.
 
+Observability at the reference's sites: ``hvtpu_stall_warnings_total``,
+``hvtpu_stall_aborts_total``, ``hvtpu_stall_heartbeat_age_seconds`` and
+``hvtpu_partition_suspect_seconds``; flight-recorder notes of warnings,
+aborts, mismatches and partition suspects, and a postmortem on every
+abort and mismatch; a ``stall_warning`` trace instant; the ``stall``
+/debug provider.
+
 Not yet ported, and left out where the reference calls them: the
 preemption plane (``preempt.pending()`` / ``draining_ranks()``: no rank
-is ever excused as draining), the elastic branch of
-:func:`poison_exit_status` (``RESET_EXIT_CODE``), the flight recorder,
-tracing and metrics (:data:`COUNTERS` keeps the warning and abort counts
-as plain integers; ``debug_state()`` reports the heartbeat ages).
+is ever excused as draining) and the elastic branch of
+:func:`poison_exit_status` (``RESET_EXIT_CODE``).
 """
 
 from __future__ import annotations
@@ -77,19 +82,34 @@ import torch.distributed as dist
 from ..core import clock
 from ..core import faults
 from ..core.exceptions import HorovodInternalError
+from ..obs import flight
+from ..obs import metrics as obs_metrics
+from ..obs import tracing
 from . import wirefault
 
 logger = logging.getLogger("horovod_tpu_torch")
 
-#: The reference's ``hvtpu_stall_warnings_total`` and
-#: ``hvtpu_stall_aborts_total``, as plain process-wide counts.
-COUNTERS = {"stall_warnings": 0, "stall_aborts": 0}
-_counters_lock = threading.Lock()
+# Watchdog telemetry (obs/metrics.py), the reference's families.
+_M_HB_AGE = obs_metrics.gauge(
+    "hvtpu_stall_heartbeat_age_seconds",
+    "Age of the most-stale live peer heartbeat (amortized mode); a "
+    "climbing value means a peer stopped beating.")
+_M_WARNINGS = obs_metrics.counter(
+    "hvtpu_stall_warnings_total", "Stall warnings emitted.")
+_M_ABORTS = obs_metrics.counter(
+    "hvtpu_stall_aborts_total",
+    "Stall/mismatch failures latched or raised (job-fatal).")
+_M_SUSPECT_S = obs_metrics.histogram(
+    "hvtpu_partition_suspect_seconds",
+    "How long silent peers spent in the partitioned-suspect state "
+    "(stall blame held) before recovering or being declared dead; "
+    "observed at resolution.")
 
 
-def _count(name: str) -> None:
-    with _counters_lock:
-        COUNTERS[name] += 1
+def counters() -> Dict[str, float]:
+    """The warning and abort families' process-wide values."""
+    return {"stall_warnings": _M_WARNINGS.value(),
+            "stall_aborts": _M_ABORTS.value()}
 
 _NS = "hvtstall"      # strict-mode per-op rendezvous marks
 _HB = "hvtstallhb"    # amortized-mode heartbeat snapshots
@@ -264,7 +284,14 @@ class SyncStallInspector:
                 if val is None:
                     still.append(r)
                 elif val != desc:
-                    _count("stall_aborts")
+                    _M_ABORTS.inc()
+                    if flight.ACTIVE:
+                        flight.note("collective_mismatch", collective=desc,
+                                    process_set=set_id, op_seq=seq,
+                                    peer_rank=r, peer_desc=val)
+                    flight.dump_postmortem(
+                        "collective_mismatch", collective=desc,
+                        peer_rank=r)
                     raise HorovodInternalError(
                         _mismatch_msg(set_id, seq, self.rank, desc,
                                       r, val))
@@ -273,18 +300,36 @@ class SyncStallInspector:
                 break
             elapsed = clock.monotonic() - start
             if self.abort_s > 0 and elapsed > self.abort_s:
-                _count("stall_aborts")
+                _M_ABORTS.inc()
+                if flight.ACTIVE:
+                    flight.note("stall_abort", collective=desc,
+                                process_set=set_id, op_seq=seq,
+                                waited_s=round(elapsed, 3),
+                                ranks_missing=sorted(pending))
+                flight.dump_postmortem(
+                    "stall_abort", collective=desc,
+                    ranks_missing=sorted(pending))
                 raise HorovodInternalError(
                     _stall_abort_msg(desc, set_id, seq, elapsed,
                                      self.abort_s, pending))
             if self.warn_s > 0 and elapsed > next_warn:
                 next_warn += self.warn_s
-                _count("stall_warnings")
+                _M_WARNINGS.inc()
                 logger.warning(
                     "stalled collective [%s] (process set %s, op #%d): "
                     "waited %.1fs; ranks not at the rendezvous: %s",
                     desc, set_id, seq, elapsed, pending,
                 )
+                if tracing.ACTIVE:
+                    tracing.instant(
+                        "stall_warning", collective=desc,
+                        process_set=set_id, op_seq=seq,
+                        waited_s=elapsed, ranks_missing=sorted(pending))
+                if flight.ACTIVE:
+                    flight.note("stall_warning", collective=desc,
+                                process_set=set_id, op_seq=seq,
+                                waited_s=round(elapsed, 3),
+                                ranks_missing=sorted(pending))
             # back off from a near-spin (normal skew is sub-ms) to a
             # 20ms poll for genuinely late peers
             sleep = min(0.02, sleep * 2 if sleep else 0.0002)
@@ -607,7 +652,7 @@ class AmortizedStallInspector:
             "peer_heartbeat_age_s": ages,
             "link_health": self.link_health.snapshot(),
             "failure": self.failure,
-            "counters": dict(COUNTERS),
+            "counters": counters(),
         }
 
     def stop(self) -> None:
@@ -717,6 +762,10 @@ class AmortizedStallInspector:
                 # them outright): one loss observation per own beat
                 # until the peer recovers or goes stale
                 lh.observe(r, lost=True)
+        lh.publish()
+        _M_HB_AGE.set(max(
+            (now - t for _b, t in self._peer_seen.values()),
+            default=0.0))
         peers: Dict[int, dict] = {}
         bye = set()
         bye_fails = []
@@ -746,14 +795,21 @@ class AmortizedStallInspector:
             for r in suspect:
                 if r not in self._suspected:
                     self._suspected[r] = now
+                    if flight.ACTIVE:
+                        flight.note("partition_suspect", rank=self.rank,
+                                    peer=r)
                     logger.warning(
                         "rank %d heartbeat silent %.1fs: partition "
                         "suspect — holding stall blame for %.1fs",
                         r, now - self._peer_seen[r][1], self.suspect_s)
             for r in list(self._suspected):
                 if r not in suspect:
-                    self._suspected.pop(r)
+                    _M_SUSPECT_S.observe(now - self._suspected.pop(r))
                     outcome = "dead" if r in stale else "recovered"
+                    if flight.ACTIVE:
+                        flight.note("partition_resolved",
+                                    rank=self.rank, peer=r,
+                                    outcome=outcome)
                     logger.info("rank %d left the partition-suspect "
                                 "state: %s", r, outcome)
         self._evaluate(peers, stale, bye, bye_fails, suspect=suspect)
@@ -854,14 +910,27 @@ class AmortizedStallInspector:
                             (tr.inflight, sid, tr.seq - 1, age, behind))
             if fail:
                 self.failure = fail
-                _count("stall_aborts")
+                _M_ABORTS.inc()
+                if flight.ACTIVE:
+                    flight.note("stall_abort", detail=fail[:300])
+                flight.dump_postmortem("stall_abort")
         for desc, sid, op, age, behind in warns:
-            _count("stall_warnings")
+            _M_WARNINGS.inc()
             logger.warning(
                 "stalled collective [%s] (process set %s, op #%d): "
                 "waited %.1fs; ranks not at the rendezvous: %s",
                 desc, sid, op, age, behind,
             )
+            if tracing.ACTIVE:
+                tracing.instant(
+                    "stall_warning", collective=desc, process_set=sid,
+                    op_seq=op, waited_s=age,
+                    ranks_missing=sorted(behind))
+            if flight.ACTIVE:
+                flight.note("stall_warning", collective=desc,
+                            process_set=sid, op_seq=op,
+                            waited_s=round(age, 3),
+                            ranks_missing=sorted(behind))
 
 
 def _caller_context():
@@ -967,6 +1036,7 @@ def _make_inspector(st, cfg):
             generation=st.init_generation,
         )
     st.sync_stall = insp
+    obs_metrics.register_debug_provider("stall", insp.debug_state)
     return insp
 
 
@@ -1290,6 +1360,7 @@ def stall_guard(fn=None, *, name: Optional[str] = None,
 def stop(st) -> None:
     """Shut down the inspector's background thread (called from
     ``core.state.shutdown``, before the store goes away)."""
+    obs_metrics.unregister_debug_provider("stall")
     insp = st.sync_stall
     if isinstance(insp, AmortizedStallInspector):
         try:

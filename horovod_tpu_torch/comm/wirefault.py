@@ -35,13 +35,11 @@ to the tail.  The order is advisory, as it is on the reference's XLA
 data plane: NCCL and gloo own their rings.
 
 Retries are OFF by default (``HVTPU_WIRE_RETRIES=0``).  All timing goes
-through ``core/clock.py``.
-
-Not yet ported, and left out where the reference calls them: the
-metrics registry and the flight recorder.  :data:`COUNTERS` keeps the
-reference's ``hvtpu_collective_retries_total`` and
-``hvtpu_ring_reroutes_total`` as plain integers; the consensus-time
-histogram and the link-health gauge are not kept.
+through ``core/clock.py``.  Telemetry at the reference's sites:
+``hvtpu_collective_retries_total``,
+``hvtpu_collective_abort_consensus_seconds``, ``hvtpu_link_health`` and
+``hvtpu_ring_reroutes_total``, with flight-recorder notes of retries,
+consensus decisions and reroutes.
 """
 
 from __future__ import annotations
@@ -53,18 +51,28 @@ import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from ..core import clock
+from ..obs import flight
+from ..obs import metrics as obs_metrics
 
 logger = logging.getLogger("horovod_tpu_torch")
 
-#: Collective attempts reissued (or late-joined) after a consensus abort
-#: agreed the previous attempt was dead, and ring reroutes taken.
-COUNTERS = {"collective_retries": 0, "ring_reroutes": 0}
-_counters_lock = threading.Lock()
-
-
-def _count(name: str) -> None:
-    with _counters_lock:
-        COUNTERS[name] += 1
+# Recovery telemetry (obs/metrics.py), the reference's families.
+_M_RETRIES = obs_metrics.counter(
+    "hvtpu_collective_retries_total",
+    "Collective attempts reissued (or late-joined) after a consensus "
+    "abort agreed the previous attempt was dead.")
+_M_CONSENSUS_S = obs_metrics.histogram(
+    "hvtpu_collective_abort_consensus_seconds",
+    "Time from posting an abort vote for a failed collective attempt "
+    "to the agreed decision (retry / late-join / escalate).")
+_M_LINK_HEALTH = obs_metrics.gauge(
+    "hvtpu_link_health",
+    "Worst per-peer wire-link degradation score (0 = healthy, "
+    "1 = dead), from heartbeat-derived EWMA latency/loss.")
+_M_REROUTES = obs_metrics.counter(
+    "hvtpu_ring_reroutes_total",
+    "Ring-permutation reroutes taken to avoid a degraded link before "
+    "escalating to an elastic reset.")
 
 _NS = "hvtwire"  # abort-consensus vote namespace on the fenced KV
 
@@ -106,10 +114,13 @@ def record_retry(rank: int, set_id, seq: int, attempt: int,
                  decision: str) -> None:
     """Count a consensus-approved reissue (RETRY or LATE_JOIN) and
     leave the audit trail."""
-    _count("collective_retries")
+    _M_RETRIES.inc()
     logger.warning(
         "collective (set %s, op #%s) attempt %d agreed dead by "
         "consensus: %s", set_id, seq, attempt, decision)
+    if flight.ACTIVE:
+        flight.note("collective_retry", rank=rank, process_set=set_id,
+                    op_seq=seq, attempt=attempt, decision=decision)
 
 
 class AttemptFailed(Exception):
@@ -305,6 +316,12 @@ class WireConsensus:
             if not self._post(self._key(set_id, seq, attempt, self.rank),
                               json.dumps({"st": "rejoin", "d": desc})):
                 decision = ESCALATE
+        waited = clock.monotonic() - t0
+        _M_CONSENSUS_S.observe(waited)
+        if flight.ACTIVE:
+            flight.note("collective_abort_consensus", rank=self.rank,
+                        process_set=set_id, op_seq=seq, attempt=attempt,
+                        decision=decision, waited_s=round(waited, 6))
         return decision
 
     def cleanup(self, set_id, seq: int, attempts: int) -> None:
@@ -383,6 +400,10 @@ class LinkHealth:
             return [r for r in peers
                     if self._score_locked(r) >= self.degraded_score]
 
+    def publish(self) -> None:
+        """Export the worst score to the ``hvtpu_link_health`` gauge."""
+        _M_LINK_HEALTH.set(self.worst())
+
     def snapshot(self) -> Dict[str, dict]:
         with self._lock:
             peers = sorted(set(self._lat) | set(self._loss))
@@ -395,7 +416,7 @@ class LinkHealth:
     def ring_order(self, members: Sequence[int]) -> List[int]:
         """``members`` re-ordered so degraded peers sit at the ring
         tail (healthiest first among the sick; relative order of
-        healthy members preserved).  Counts a reroute
+        healthy members preserved).  Counts a reroute + flight event
         when the order for this member set actually changes."""
         with self._lock:
             scored = [(self._score_locked(r), i, r)
@@ -410,8 +431,11 @@ class LinkHealth:
             changed = prev is not None and prev != tuple(order)
             self._last_order[key] = tuple(order)
         if changed:
-            _count("ring_reroutes")
+            _M_REROUTES.inc()
             logger.warning(
                 "wire link degraded: ring rerouted to demote ranks %s "
                 "to the tail", sick)
+            if flight.ACTIVE:
+                flight.note("ring_reroute", demoted=list(sick),
+                            order=list(order))
         return order

@@ -4,8 +4,9 @@ Counterpart of ``horovod_tpu/core/config.py``: the same env names, read
 the same way (``HVTPU_<NAME>`` first, then the reference's
 ``HOROVOD_<NAME>``), for the fields this part of the port uses — the
 fusion threshold, the controller's cycle time and response-cache
-capacity, the stall watchdog's settings, the fault-injection spec and
-seed, and the rank, size and local rank the launcher sets.
+capacity, the timeline and the trace directory, the stall watchdog's
+settings, the fault-injection spec and seed, and the rank, size and
+local rank the launcher sets.
 """
 
 from __future__ import annotations
@@ -54,6 +55,17 @@ class Config:
     cycle_time_ms: float = 1.0
     cache_capacity: int = 1024
 
+    # --- timeline / tracing ---
+    timeline_filename: Optional[str] = None
+    timeline_mark_cycles: bool = False
+    # directory for per-rank cross-rank trace files (obs/tracing.py);
+    # None disables tracing entirely (the hot-path guard is a single
+    # module-attribute check)
+    trace_dir: Optional[str] = None
+    # store clock-sync pings per rank at trace install (min-RTT sample
+    # wins; more pings tighten the offset error bound)
+    trace_clock_pings: int = 8
+
     # --- stall inspector (comm/stall.py) ---
     stall_check_disable: bool = False
     stall_check_time_seconds: float = 60.0
@@ -84,6 +96,10 @@ class Config:
             fusion_threshold_bytes=fusion_bytes,
             cycle_time_ms=_env_float("CYCLE_TIME", 1.0),
             cache_capacity=_env_int("CACHE_CAPACITY", 1024),
+            timeline_filename=_env_str("TIMELINE"),
+            timeline_mark_cycles=_env_bool("TIMELINE_MARK_CYCLES", False),
+            trace_dir=_env_str("TRACE"),
+            trace_clock_pings=_env_int("TRACE_CLOCK_PINGS", 8),
             stall_check_disable=_env_bool("STALL_CHECK_DISABLE", False),
             stall_check_time_seconds=_env_float(
                 "STALL_CHECK_TIME_SECONDS", 60.0),

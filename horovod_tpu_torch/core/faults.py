@@ -63,10 +63,13 @@ float32 and float64 in ``nan`` mode; otherwise the top bit of element
 as in the reference, whose ``np.issubdtype(bfloat16, np.floating)`` is
 False.
 
-Not yet ported, and left out where the reference calls them: the
+A ``flap`` or ``partition`` window opening is noted in the flight
+recorder, and a ``kill`` dumps a postmortem before the process exits 1,
+as in the reference.
+
+Not yet ported, and left out where the reference calls it: the
 ``preempt`` action's notice (``core/preempt.py``: the clause fires,
-logs and counts, and nothing drains), the flight recorder's notes and
-the postmortem a ``kill`` dumps (the process still exits 1).
+logs and counts, and nothing drains).
 
 Zero overhead when no spec is installed: hot call sites guard on the
 module-level ``ACTIVE`` flag (one attribute read) and never call
@@ -447,11 +450,21 @@ class FaultRegistry:
             until = clock.monotonic() + fired.flap_ms / 1000.0
             with self._lock:
                 self._flap_until = max(self._flap_until, until)
+            from ..obs import flight as _flight
+
+            if _flight.ACTIVE:
+                _flight.note("link_flap_start", rank=self.rank,
+                             window_ms=fired.flap_ms, site=site)
             return True  # the triggering op is the window's first loss
         if fired.action == "partition":
             until = clock.monotonic() + fired.partition_ms / 1000.0
             with self._lock:
                 self._partition_until = max(self._partition_until, until)
+            from ..obs import flight as _flight
+
+            if _flight.ACTIVE:
+                _flight.note("partition_start", rank=self.rank,
+                             window_ms=fired.partition_ms, site=site)
             return True  # the triggering op is the window's first loss
         if fired.action == "error":
             raise InjectedFault(fired, site)
@@ -462,9 +475,14 @@ class FaultRegistry:
             return False
         # kill: flush and hard-exit — simulate a worker dying mid-op
         # (exit 1 = crash, NOT the reset code: the launcher must treat
-        # this as an unplanned death, exactly like a real one).
+        # this as an unplanned death, exactly like a real one).  The
+        # flight recorder flushes its black box first: a killed rank
+        # still leaves a postmortem behind.
         import sys
 
+        from ..obs import flight as _flight
+
+        _flight.dump_postmortem("fault_kill", site=site)
         print(f"hvtpu fault injection: killing rank {self.rank} "
               f"([{fired.source}] at {site})", file=sys.stderr, flush=True)
         sys.stdout.flush()

@@ -9,7 +9,9 @@ coordination store under it.
   through ``core/kv.py``'s adapter, which speaks the JAX coordination
   client's method names so these wrappers keep the reference's code.  A
   transient failure retries with backoff and only an exhausted budget
-  surfaces.  Retries and exhaustions are counted in :data:`COUNTERS`.
+  surfaces.  Retries and exhaustions are counted in the metrics registry
+  (``hvtpu_kv_retries_total``, ``hvtpu_kv_retry_exhausted_total``) and
+  noted in the flight recorder.
 - **gloo teardown races** (``GLOO_TEARDOWN``): a named policy for
   relaunching a localhost gloo run whose transport dropped a connection.
 
@@ -23,10 +25,6 @@ Env knobs (the reference's):
 - ``HVTPU_KV_RETRY_MAX_MS``     (default 2000) per-sleep cap
 - ``HVTPU_KV_RETRY_DEADLINE_S`` (default 30) wall-clock budget per op
 
-Not yet ported, and left out where the reference calls them: the
-metrics registry and the flight recorder (plain integer counters in
-:data:`COUNTERS` stand in for the four metrics), and the postmortem a
-fence dumps.
 """
 
 from __future__ import annotations
@@ -34,25 +32,22 @@ from __future__ import annotations
 import dataclasses
 import os
 import random
-import threading
 from typing import Any, Callable, Optional, Tuple
 
 import torch.distributed as dist
 
+from ..obs import flight
+from ..obs import metrics as obs_metrics
 from . import clock
 from . import faults
 
-#: The reference's ``hvtpu_kv_retries_total``,
-#: ``hvtpu_kv_retry_exhausted_total``, ``hvtpu_kv_fenced_writes_total``
-#: and ``hvtpu_fence_exits_total``, as plain process-wide counts.
-COUNTERS = {"kv_retries": 0, "kv_retry_exhausted": 0,
-            "kv_fenced_writes": 0, "fence_exits": 0}
-_counters_lock = threading.Lock()
-
-
-def _count(name: str) -> None:
-    with _counters_lock:
-        COUNTERS[name] += 1
+_M_KV_RETRIES = obs_metrics.counter(
+    "hvtpu_kv_retries_total",
+    "Coordination-KV operations retried after a transient failure.")
+_M_KV_EXHAUSTED = obs_metrics.counter(
+    "hvtpu_kv_retry_exhausted_total",
+    "Coordination-KV operations that failed even after exhausting the "
+    "retry budget (the error then surfaces to the caller).")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -258,7 +253,10 @@ class ResilientKV:
             self.key_value_dir_get = self._dir_get
 
     def _on_retry(self, attempt: int, exc) -> None:
-        _count("kv_retries")
+        _M_KV_RETRIES.inc()
+        if flight.ACTIVE:
+            flight.note("kv_retry", rank=self._rank, attempt=attempt,
+                        error=type(exc).__name__)
 
     def _call(self, fn, *args):
         try:
@@ -266,7 +264,10 @@ class ResilientKV:
                         on_retry=self._on_retry, rng=self._rng)
         except Exception as e:
             if kv_retryable(e):
-                _count("kv_retry_exhausted")
+                _M_KV_EXHAUSTED.inc()
+                if flight.ACTIVE:
+                    flight.note("kv_retry_exhausted", rank=self._rank,
+                                error=str(e)[:200])
             raise
 
     # Fault injection happens INSIDE the retried closures below, so an
@@ -348,6 +349,15 @@ _STAMP_SEP = "\x1f"
 #: advertised.  Deliberately OUTSIDE every protocol namespace and never
 #: itself stamped: its value IS a token.
 FENCE_BEACON_KEY = "hvtfence/beacon"
+
+_M_FENCED_WRITES = obs_metrics.counter(
+    "hvtpu_kv_fenced_writes_total",
+    "Stale KV values from fenced (superseded-generation) writers "
+    "rejected by readers.")
+_M_FENCE_EXITS = obs_metrics.counter(
+    "hvtpu_fence_exits_total",
+    "Ranks that self-fenced (generation superseded or KV lease "
+    "expired) and exited with FENCE_EXIT_CODE.")
 
 
 def _parse_token(text) -> Optional[Tuple[int, int]]:
@@ -484,7 +494,13 @@ class FencedKV(ResilientKV):
         if not self._fenced:
             self._fenced = True
             self._fence_reason = reason
-            _count("fence_exits")
+            _M_FENCE_EXITS.inc()
+            if flight.ACTIVE:
+                flight.note("fence_exit", rank=self._rank,
+                            token=self.token_str(), reason=reason)
+            flight.dump_postmortem("fenced", rank=self._rank,
+                                   token=self.token_str(),
+                                   detail=reason)
             import sys
 
             print(f"hvtpu fence: rank {self._rank} token "
@@ -509,7 +525,11 @@ class FencedKV(ResilientKV):
         if token > self._token:
             self.fence(f"generation superseded (saw token "
                        f"{token[0]}.{token[1]})")
-        _count("kv_fenced_writes")
+        _M_FENCED_WRITES.inc()
+        if flight.ACTIVE:
+            flight.note("fenced_write_rejected", rank=self._rank,
+                        stale=f"{token[0]}.{token[1]}",
+                        token=self.token_str())
         return True
 
     # -- lease ----------------------------------------------------------

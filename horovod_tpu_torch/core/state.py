@@ -29,8 +29,20 @@ the rank/size queries) over ``torch.distributed``:
   (:func:`abort_group`), a gloo group's destruction gets 15 s, and an
   exit hook hard-exits past what is still stuck.
 
+The observability planes (``horovod_tpu_torch/obs``) install at
+``init()`` as the reference's do (``horovod_tpu/core/state.py``): the
+identity gauges and the metrics endpoint (``HVTPU_METRICS_PORT``), the
+rendezvous histogram, the timeline (``HVTPU_TIMELINE``), tracing
+(``HVTPU_TRACE``, with its clock handshake over a fenced store client
+past one rank), the ``job`` debug provider, the step profiler
+(``HVTPU_STEPPROF``), the flight recorder (``HVTPU_FLIGHT``,
+``HVTPU_FLIGHT_DIR``) and anomaly detection (``HVTPU_ANOMALY``).  A plane
+that fails to install logs a warning and stays off; ``shutdown()``
+tears them down.
+
 Not yet ported: the journal replay at ``init()`` (``core/journal.py``)
-comes with the elastic plane.
+comes with the elastic plane, and so do the preemption watcher and the
+fleet health publisher of the reference's ``init()``.
 """
 
 from __future__ import annotations
@@ -41,12 +53,14 @@ import datetime
 import logging
 import os
 import threading
+import time
 from typing import Any, Optional
 
 import torch
 import torch.distributed as dist
 
 from ..comm import stall
+from ..obs import metrics as obs_metrics
 from . import faults
 from .config import Config
 from .exceptions import NotInitializedError
@@ -79,6 +93,9 @@ class GlobalState:
     init_generation: int = 0
     # the timeout of the groups init() creates (None: the backend's)
     group_timeout: Optional[datetime.timedelta] = None
+    # the Chrome-trace timeline (obs/timeline.py), HVTPU_TIMELINE or
+    # start_timeline
+    timeline: Any = None
 
 
 _state = GlobalState()
@@ -89,6 +106,22 @@ logger = logging.getLogger("horovod_tpu_torch")
 
 def global_state() -> GlobalState:
     return _state
+
+
+def _job_debug_state() -> dict:
+    """Job identity for the metrics server's /debug endpoint
+    (registered by init(), removed by shutdown())."""
+    return {
+        "initialized": _state.initialized,
+        "rank": _state.rank,
+        "size": _state.size,
+        "local_rank": _state.local_rank,
+        "init_generation": _state.init_generation,
+        "elastic_generation": int(
+            os.environ.get("HVTPU_ELASTIC_GENERATION", "0") or 0),
+        "device": str(_state.device),
+        "backend": _state.backend,
+    }
 
 
 def require_init(name: str = "this operation") -> GlobalState:
@@ -165,9 +198,15 @@ def init(device=None) -> GlobalState:
                         f"horovod_tpu_torch.init(): a world of {size} "
                         f"ranks needs {' and '.join(missing)} in the env "
                         "(or an initialized torch.distributed group)")
+                t_rdv = time.monotonic()
                 dist.init_process_group(backend, init_method="env://",
                                         rank=rank, world_size=size,
                                         timeout=timeout)
+                obs_metrics.histogram(
+                    "hvtpu_rendezvous_seconds",
+                    "Coordination-service rendezvous duration at init "
+                    "(per incarnation; elastic restarts re-observe it).",
+                ).observe(time.monotonic() - t_rdv)
             owns = True
         _state.config = cfg
         _state.rank, _state.size = rank, size
@@ -184,12 +223,98 @@ def init(device=None) -> GlobalState:
         # bind correctly; a malformed spec fails init loudly
         if cfg.fault_spec:
             faults.install_from_config(cfg, rank)
+        _install_obs(cfg)
         global _atexit_registered
         if not _atexit_registered:
             atexit.register(_shutdown_at_exit)
             _atexit_registered = True
         _state.initialized = True
         return _state
+
+
+def _install_obs(cfg: Config) -> None:
+    """The observability planes, in the reference's order.  A plane
+    that fails to install logs a warning and stays off: telemetry never
+    takes a healthy job down."""
+    from ..obs import anomaly, flight, stepprof, tracing
+    from ..obs.timeline import Timeline
+    from .retry import fenced_kv
+
+    # identity gauges for the cluster view (summed by
+    # metrics.aggregate, the worker gauge is the cluster worker count)
+    obs_metrics.gauge(
+        "hvtpu_elastic_workers",
+        "Live worker (rank) count of this incarnation's world as "
+        "seen by this rank.",
+    ).set(_state.size)
+    obs_metrics.gauge(
+        "hvtpu_elastic_generation",
+        "Elastic incarnation counter (0 = first launch; bumps on "
+        "every driver relaunch).",
+    ).set(int(os.environ.get("HVTPU_ELASTIC_GENERATION", "0") or 0))
+    obs_metrics.serve_from_env(local_rank=_state.local_rank)
+    if cfg.timeline_filename:
+        _state.timeline = Timeline(cfg.timeline_filename, _state.rank,
+                                   mark_cycles=cfg.timeline_mark_cycles)
+    if cfg.trace_dir:
+        try:
+            client = (fenced_kv(_state.kv, rank=_state.rank)
+                      if _state.size > 1 else None)
+            tracing.install(cfg.trace_dir, rank=_state.rank,
+                            size=_state.size, client=client,
+                            pings=cfg.trace_clock_pings)
+        except Exception:  # noqa: BLE001 — tracing must not kill init
+            logger.warning("distributed tracing disabled: install failed",
+                           exc_info=True)
+    obs_metrics.register_debug_provider("job", _job_debug_state)
+    try:
+        if stepprof.ACTIVE:
+            stepprof.install()
+    except Exception:  # noqa: BLE001
+        pass
+    try:
+        if flight.env_enabled():
+            flight.install(
+                rank=_state.rank, size=_state.size,
+                generation=int(os.environ.get(
+                    "HVTPU_ELASTIC_GENERATION", "0") or 0),
+                out_dir=(os.environ.get("HVTPU_FLIGHT_DIR")
+                         or cfg.trace_dir
+                         or os.environ.get("HVTPU_ELASTIC_STATE_DIR")
+                         or "."),
+                window=flight.env_window())
+    except Exception:  # noqa: BLE001
+        logger.warning("flight recorder disabled: install failed",
+                       exc_info=True)
+    try:
+        if anomaly.env_enabled():
+            anomaly.install(rank=_state.rank, size=_state.size)
+    except Exception:  # noqa: BLE001
+        logger.warning("anomaly detection disabled: install failed",
+                       exc_info=True)
+
+
+def _uninstall_obs() -> None:
+    """Tear the planes down (each idempotent): the timeline and the
+    trace files are flushed, the anomaly engine and the flight recorder
+    dropped (postmortems exist for fatal paths only), the providers
+    unregistered and the metrics endpoint stopped."""
+    from ..obs import anomaly, flight, stepprof, tracing
+
+    if _state.timeline is not None:
+        try:
+            _state.timeline.close()
+        except Exception:  # noqa: BLE001
+            pass
+        _state.timeline = None
+    for teardown in (tracing.uninstall, anomaly.uninstall,
+                     flight.uninstall,
+                     lambda: obs_metrics.unregister_debug_provider("job"),
+                     stepprof.uninstall, obs_metrics.stop_http_server):
+        try:
+            teardown()
+        except Exception:  # noqa: BLE001 — teardown goes on
+            pass
 
 
 def _make_groups(ps: ProcessSet) -> None:
@@ -276,8 +401,9 @@ def _abandon_groups() -> None:
 
 def shutdown():
     """Tear down: stop the async controller (every pending op fails),
-    stop the stall watchdog (its goodbye rides the store), then destroy
-    the groups, and the default group if ``init()`` created it."""
+    the observability planes, the stall watchdog (its goodbye rides the
+    store), then destroy the groups, and the default group if ``init()``
+    created it."""
     with _lock:
         if not _state.initialized:
             return
@@ -285,6 +411,8 @@ def shutdown():
             _state.controller.request_shutdown()
             _state.controller.stop()
             _state.controller = None
+        # the trace files are flushed before the store goes away
+        _uninstall_obs()
         try:
             stall.stop(_state)
         except Exception:  # noqa: BLE001 — teardown goes on
@@ -316,6 +444,39 @@ def _shutdown_at_exit():
         sys.stdout.flush()
         sys.stderr.flush()
         os._exit(stall.poison_exit_status())
+
+
+def start_timeline(filename: str, mark_cycles: bool = False):
+    """Begin writing a Chrome-trace timeline (parity: hvd.start_timeline,
+    ``horovod_tpu/__init__.py``).  A timeline already running is closed;
+    its open spans carry over into the new file, and a live async
+    controller gets the new timeline."""
+    from ..obs.timeline import Timeline
+
+    st = require_init("start_timeline")
+    old = st.timeline
+    new_tl = Timeline(filename, st.rank, mark_cycles=mark_cycles)
+    if old is not None:
+        # carry in-flight spans over so their 'E' events land in the
+        # new file; close() below writes matching 'E's into the old one
+        for name, phase in list(old._open_spans.items()):
+            new_tl.begin(name, phase)
+    st.timeline = new_tl
+    if st.controller is not None:
+        st.controller._timeline = new_tl
+    if old is not None:
+        old.close()
+    return new_tl
+
+
+def stop_timeline():
+    """Stop and flush the timeline (parity: hvd.stop_timeline)."""
+    st = require_init("stop_timeline")
+    if st.timeline is not None:
+        st.timeline.close()
+        st.timeline = None
+    if st.controller is not None:
+        st.controller._timeline = None
 
 
 def is_initialized() -> bool:

@@ -26,7 +26,7 @@ _init_lock = threading.Lock()
 def get_controller() -> EagerController:
     """The process-wide controller, started lazily on first use (parity:
     InitializeHorovodOnce starting the background thread), with the
-    process sets of the table.  Thread-safe: concurrent first calls
+    process sets of the table and the state's timeline.  Thread-safe: concurrent first calls
     create exactly one controller."""
     st = core_state.require_init("async collectives")
     if st.controller is not None:
@@ -46,6 +46,7 @@ def get_controller() -> EagerController:
                 stall_abort_s=cfg.stall_shutdown_time_seconds,
                 process_sets=process_sets,
                 device=st.device,
+                timeline=st.timeline,
             )
             controller.start()
             st.controller = controller

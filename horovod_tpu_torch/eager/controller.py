@@ -69,11 +69,22 @@ its enqueue (``core/faults.py``), the transport's store writes are the
 ``kv.put`` site under ``core/retry.py``'s KV policy, and its reads the
 ``kv.get`` site, polled again on a transient error.
 
+Observability at the reference's sites: the ``hvtpu_controller_*``,
+``hvtpu_negotiation_seconds``, ``hvtpu_collective_arrival_skew_seconds``
+/ ``_last_arriver_total`` and ``hvtpu_fusion_*`` families; the
+``controller`` /debug provider; the timeline's ``NEGOTIATE_<OP>`` span
+of each op from enqueue until its response is applied (``hvd.start_timeline``
+hands a live controller its new timeline) and ``CYCLE`` marks; the trace
+phase chain NEGOTIATE → (PREDICT) → QUEUE → FUSE → EXEC → DONE with the
+``mispredict``, ``predict_confirm``, ``arrival_skew`` and
+``stall_warning`` instants; the anomaly plane's straggler feed; flight
+notes of mispredicts, resyncs and stall aborts, and a postmortem on a
+stall abort.
+
 Not yet ported, and left out where the reference calls them: preemption
 (``preempt.pending()`` in ``_try_predict`` and ``_gate_burst``), the
-tracing, flight, metrics and timeline hooks and the autotuner (so
-``_try_predict``'s autotuner gate is always open and the counters below
-are plain integers), and the C++ negotiation core.
+autotuner (so ``_try_predict``'s autotuner gate is always open), and the
+C++ negotiation core.
 """
 
 from __future__ import annotations
@@ -100,12 +111,84 @@ from ..comm import stall as sync_stall
 from ..comm.reduce_ops import ReduceOp
 from ..core import faults
 from ..core import retry as core_retry
+from ..core import state as core_state
 from ..core.exceptions import HorovodInternalError, HvtpuMismatchError
 from ..native import wire
+from ..obs import anomaly
+from ..obs import flight
+from ..obs import metrics as obs_metrics
+from ..obs import tracing
 from ..ops.scale_cast import casts_to_wire, unpack_cast_scale
 from ..torch.optimizer import GroupReduction, apply_scale
 
 logger = logging.getLogger("horovod_tpu_torch.eager")
+
+# Controller telemetry (obs/metrics.py), the reference's families.
+_M_CYCLES = obs_metrics.counter(
+    "hvtpu_controller_cycles_total", "Coordination cycles run.")
+_M_CYCLE_S = obs_metrics.histogram(
+    "hvtpu_controller_cycle_seconds",
+    "Coordination cycle duration (coalescing gate + drain + transport "
+    "exchange; execution overlaps on the pipelined executor thread, "
+    "inline only in manual/test mode).")
+_M_QUEUE_DEPTH = obs_metrics.gauge(
+    "hvtpu_controller_queue_depth",
+    "Ops enqueued but not yet executed, sampled after each cycle.")
+_M_NEGOTIATION_S = obs_metrics.histogram(
+    "hvtpu_negotiation_seconds",
+    "Enqueue-to-agreed-response latency through the controller.")
+_M_CACHE_HITS = obs_metrics.counter(
+    "hvtpu_controller_cache_hits_total",
+    "Requests answered from the response cache (name+signature only "
+    "on the wire).")
+_M_CACHE_SIZE = obs_metrics.gauge(
+    "hvtpu_controller_cache_size", "Live response-cache entries.")
+_M_BYPASS = obs_metrics.counter(
+    "hvtpu_controller_bypass_cycles_total",
+    "Steady-state cycles negotiated via the compact cache-bit vector "
+    "(no serialized requests on the wire).")
+_M_RESYNC = obs_metrics.counter(
+    "hvtpu_controller_resync_cycles_total",
+    "Full-resync cycles (periodic cadence or coordinator-forced) that "
+    "re-anchor the coordinator's message table on full entries.")
+_M_PREDICTED = obs_metrics.counter(
+    "hvtpu_controller_predicted_cycles_total",
+    "Steady-state bypass cycles whose agreed schedule was predicted "
+    "locally from the replicated response cache and executed without "
+    "waiting for the coordinator round trip.")
+_M_MISPREDICT = obs_metrics.counter(
+    "hvtpu_controller_mispredicts_total",
+    "Predicted schedules the coordinator did NOT confirm (the released "
+    "schedule differed); every one forces immediate full negotiation "
+    "and a cache-resync re-anchor — fail back to correct, never to "
+    "fast.")
+_M_MISMATCH = obs_metrics.counter(
+    "hvtpu_controller_mismatch_errors_total",
+    "Error responses for cross-rank tensor-metadata disagreement "
+    "(mismatched type/red_op/dtype/shape/root for one tensor name), "
+    "surfaced as HvtpuMismatchError on every member rank.")
+_M_ARRIVAL_SKEW = obs_metrics.histogram(
+    "hvtpu_collective_arrival_skew_seconds",
+    "Per-collective spread between the first and last member rank's "
+    "announcement reaching the coordinator (rank 0 only; straggler "
+    "signal).",
+    buckets=(0.0001, 0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 30.0))
+_M_LAST_ARRIVER = obs_metrics.counter(
+    "hvtpu_collective_last_arriver_total",
+    "Times each rank was the LAST member to announce a collective "
+    "(rank 0 only; labeled by the straggling rank).")
+_M_FUSION_ZC = obs_metrics.counter(
+    "hvtpu_fusion_zero_copy_ops_total",
+    "Fused allreduce ops that rode the zero-copy fusion-buffer plane: "
+    "payload bytes packed into the pooled exchange buffer at enqueue "
+    "time (offsets fixed by the steady predicted schedule) and "
+    "unpacked as lazy views — no drain-time staging copies.")
+_M_FUSION_STAGED = obs_metrics.counter(
+    "hvtpu_fusion_staged_copies_total",
+    "Fused allreduce ops that took the drain-time staged-copy path "
+    "(pack_flat concatenate + eager per-tensor unpack) because the "
+    "drain was unpredicted, mispredicted, or the group was not "
+    "prepack-eligible — fail back to correct, never to fast.")
 
 #: Error-text marker the negotiation core emits for cross-rank metadata
 #: disagreement; raised as the typed error instead of the generic one.
@@ -339,7 +422,7 @@ class KVTransport:
         self._closed = threading.Event()
         # Transient store blips (and injected kv.put faults) retry with
         # backoff instead of killing the control thread
-        # (core/retry.py); the retries count in its COUNTERS.
+        # (core/retry.py); the retries count in hvtpu_kv_retries_total.
         self._put_policy = core_retry.kv_policy()
 
     def _set(self, key: str, blob: bytes):
@@ -350,7 +433,8 @@ class KVTransport:
 
         core_retry.call(
             self._put_policy, _put,
-            on_retry=lambda a, e: core_retry._count("kv_retries"))
+            on_retry=lambda a, e: obs_metrics.counter(
+                "hvtpu_kv_retries_total").inc())
 
     def _get(self, key: str, deadline_s: Optional[float] = None) -> bytes:
         wait = self.timeout_ms / 1000.0 if deadline_s is None else deadline_s
@@ -529,8 +613,10 @@ class EagerController:
     executor's stream lives.
 
     ``zero_copy_ops``, ``staged_copies``, ``mispredicts`` and
-    ``predicted_bursts`` count what the reference's metrics of those
-    names count (``debug_state`` reports them).
+    ``predicted_bursts`` count this controller's share of what the
+    ``hvtpu_fusion_*`` and ``hvtpu_controller_*`` families count
+    process-wide (``debug_state`` reports them).  ``timeline``: the
+    state's timeline (``hvd.start_timeline`` replaces it).
     """
 
     def __init__(self, rank: int, size: int, *,
@@ -542,8 +628,10 @@ class EagerController:
                  transport=None,
                  process_sets: Optional[Dict[int, List[int]]] = None,
                  device: Optional[torch.device] = None,
+                 timeline=None,
                  manual: bool = False):
         self.rank, self.size = rank, size
+        self._timeline = timeline
         # manual=True: no background thread; tests drive run_cycle_once.
         self.manual = manual
         self.device = torch.device("cpu") if device is None else device
@@ -692,6 +780,8 @@ class EagerController:
                     target=self._loop, name="hvt-eager-controller",
                     daemon=True)
             self._thread.start()
+            obs_metrics.register_debug_provider(
+                "controller", self.debug_state)
 
     def quiesce(self, timeout: float = 5.0) -> bool:
         """Wait until this rank has no queued or in-flight ops; True when
@@ -768,6 +858,7 @@ class EagerController:
                     break
         self._stop.set()
         self._wake.set()
+        obs_metrics.unregister_debug_provider("controller")
         # Close the transport so a thread blocked in a store get
         # unblocks promptly (TransportClosed).
         self._transport.close()
@@ -890,6 +981,13 @@ class EagerController:
                 # the payload to the executor, which waits on it
                 payload.ready = torch.cuda.Event()
                 payload.ready.record(torch.cuda.current_stream(x.device))
+            if self._timeline is not None:
+                # parity: timeline.cc NEGOTIATE_<OP> span from enqueue
+                # until the agreed response arrives; inside the lock, or
+                # the cycle thread could end() before begin()
+                self._timeline.begin(name, f"NEGOTIATE_{kind.upper()}")
+            if tracing.ACTIVE:
+                tracing.op_begin(name, kind)
         self._wake.set()
         self.start()
         return fut
@@ -1118,9 +1216,14 @@ class EagerController:
         resets the predictor, so the pattern must verify again from
         scratch."""
         self.mispredicts += 1
+        _M_MISPREDICT.inc()
         logger.error(
             "schedule mispredict (%s): forcing full negotiation + "
             "cache-resync re-anchor", why)
+        if tracing.ACTIVE:
+            tracing.instant("mispredict", why=why)
+        if flight.ACTIVE:
+            flight.note("mispredict", why=why)
         self._reset_predict_state()
         self._ctrl.force_resync()
         self._post_needed = True
@@ -1176,6 +1279,7 @@ class EagerController:
         blob directly); in steady state the agreed schedule is predicted
         and executed before the blob leaves this host, and the blob goes
         out flagged as a confirmation."""
+        t0 = time.monotonic()
         self._gate_burst()
         # Atomic-burst drain cap: with an established steady burst,
         # drain exactly one burst per wire unit — enqueues of the NEXT
@@ -1215,6 +1319,8 @@ class EagerController:
             self._req_idx += 1
         if take < drained:
             self._wake.set()  # the capped remainder drains next pass
+        _M_CYCLES.inc()
+        _M_CYCLE_S.observe(time.monotonic() - t0)
         return True
 
     def _try_predict(self, parsed: wire.RequestList,
@@ -1280,20 +1386,34 @@ class EagerController:
                 "responses": list(rl.responses),
                 "names": list(got),
             })
+        if tracing.ACTIVE:
+            for n in got:
+                tracing.op_phase(n, tracing.PREDICT)
         # retire in-flight NOW: the futures resolve on execution, and the
         # next step re-enqueues the same names before the real response
         # streams in
         self._ctrl.finish(got)
         self._dispatch_execution(rl)
         self.predicted_bursts += 1
+        _M_PREDICTED.inc()
         return True
 
     def _drain_arrival_skew(self):
-        """Coordinator only: keep the latest per-op arrival spreads the
-        core recorded (the reference's straggler metrics read them;
-        ``debug_state`` reports them here)."""
-        if self.rank == 0:
-            self._arrival_skew.extend(self._ctrl.take_arrival_skew())
+        """Coordinator only: feed the per-op arrival spreads the core
+        recorded into the straggler metrics, an ``arrival_skew`` trace
+        instant and the anomaly plane (which names the offending rank);
+        the latest 64 stay for ``debug_state``."""
+        if self.rank != 0:
+            return
+        for name, skew, last in self._ctrl.take_arrival_skew():
+            self._arrival_skew.append((name, skew, last))
+            _M_ARRIVAL_SKEW.observe(skew)
+            _M_LAST_ARRIVER.inc(rank=str(last))
+            if tracing.ACTIVE:
+                tracing.instant("arrival_skew", tensor=name,
+                                skew_s=skew, last_rank=last)
+            if anomaly.ACTIVE:
+                anomaly.on_arrival_skew(name, skew, last)
 
     def _service_once(self) -> bool:
         """Rank 0's coordination service: ingest newly streamed request
@@ -1378,7 +1498,11 @@ class EagerController:
             # means the head burst was released differently: mispredict.
             for h in rl.confirm_hashes:
                 if self._predicted and h == self._predicted[0]["hash"]:
-                    self._predicted.popleft()
+                    rec = self._predicted.popleft()
+                    if tracing.ACTIVE:
+                        # the predicted burst's PREDICT spans were real
+                        tracing.instant("predict_confirm", how="hash",
+                                        names=list(rec["names"]))
                 elif any(h == rec["hash"] for rec in self._predicted):
                     self._on_mispredict(
                         "confirmation skipped the oldest outstanding "
@@ -1399,6 +1523,10 @@ class EagerController:
                     rec["responses"].pop(0)
                     if not rec["responses"]:
                         self._predicted.popleft()
+                        if tracing.ACTIVE:
+                            tracing.instant("predict_confirm",
+                                            how="byte-verify",
+                                            names=list(rec["names"]))
                     continue
                 if rec is not None and set(
                         rs.tensor_names) & set(rec["names"]):
@@ -1494,7 +1622,18 @@ class EagerController:
         with self._lock:
             if self._burst_hint and drained >= self._burst_hint:
                 self._burst_hint = 0  # consumed; hooks re-arm per step
-        return wire.parse_request_list(req)
+        parsed = wire.parse_request_list(req)
+        if parsed.cache_bypass:
+            _M_BYPASS.inc()
+            _M_CACHE_HITS.inc(sum(
+                bin(w).count("1") for w in parsed.cache_bits))
+        else:
+            if parsed.cache_resync:
+                _M_RESYNC.inc()
+                if flight.ACTIVE:
+                    flight.note("resync", drained=drained)
+            _M_CACHE_HITS.inc(len(parsed.cache_hits))
+        return parsed
 
     def _dispatch_execution(self, rl: wire.ResponseList):
         """Hand one applied ResponseList to the pipelined executor (or
@@ -1507,6 +1646,13 @@ class EagerController:
             # gate's steady size included
             with self._lock:
                 self._reset_predict_state()
+        if tracing.ACTIVE and rl.responses:
+            # negotiation is over for these tensors: they now wait for
+            # the executor (op_phase skips names this rank does not hold)
+            for rs in rl.responses:
+                if not rs.error:
+                    for n in rs.tensor_names:
+                        tracing.op_phase(n, tracing.QUEUE)
         if rl.responses or rl.join_last_rank >= 0:
             if self._exec_queue is not None:
                 # bounded queue: if the executor falls behind,
@@ -1522,14 +1668,20 @@ class EagerController:
                 self._execute(rl)
         if rl.shutdown:
             self._shutdown_seen.set()
+        with self._lock:
+            _M_QUEUE_DEPTH.set(len(self._payloads))
+        _M_CACHE_SIZE.set(self._ctrl.cache_size)
 
     def run_cycle_once(self) -> bool:
         """One lockstep coordination cycle (parity: RunLoopOnce).
         Returns True when the cycle carried work (requests drained or
         responses executed) — the loop's idle-backoff signal."""
+        t_cycle0 = time.monotonic()
         self._gate_burst()
         cycle = self._cycle
         self._cycle += 1
+        if self._timeline is not None and self._timeline.mark_cycles:
+            self._timeline.mark_cycle(cycle)
         with self._lock:
             # counter reset and drain in ONE critical section: an
             # enqueue between them would be drained yet still counted
@@ -1546,6 +1698,8 @@ class EagerController:
         self._dispatch_execution(rl)
         if cycle % 256 == 0:
             self._inspect_stalls()
+        _M_CYCLES.inc()
+        _M_CYCLE_S.observe(time.monotonic() - t_cycle0)
         return bool(rl.responses) or drained > 0
 
     def _inspect_stalls(self):
@@ -1562,15 +1716,26 @@ class EagerController:
             key = s["name"]
             if key not in self._stall_logged:
                 self._stall_logged.add(key)
-                sync_stall._count("stall_warnings")
+                obs_metrics.counter("hvtpu_stall_warnings_total").inc()
                 logger.warning(
                     "stalled collective %r: waited %.1fs; ranks ready %s, "
                     "ranks missing %s",
                     s["name"], s["waiting_s"], s["present"], s["missing"],
                 )
+                if tracing.ACTIVE:
+                    tracing.instant(
+                        "stall_warning", tensor=s["name"],
+                        waited_s=s["waiting_s"],
+                        ranks_present=s["present"],
+                        ranks_missing=s["missing"])
             if (self.stall_abort_s > 0
                     and s["waiting_s"] > self.stall_abort_s):
-                sync_stall._count("stall_aborts")
+                obs_metrics.counter("hvtpu_stall_aborts_total").inc()
+                if flight.ACTIVE:
+                    flight.note("stall_abort", tensor=s["name"],
+                                waited_s=round(s["waiting_s"], 3),
+                                ranks_missing=s["missing"])
+                flight.dump_postmortem("stall_abort", tensor=s["name"])
                 raise HorovodInternalError(
                     f"collective {s['name']!r} stalled for "
                     f"{s['waiting_s']:.0f}s; missing ranks {s['missing']}"
@@ -1590,14 +1755,23 @@ class EagerController:
             key = f"local:{name}"
             if key not in self._stall_logged:
                 self._stall_logged.add(key)
-                sync_stall._count("stall_warnings")
+                obs_metrics.counter("hvtpu_stall_warnings_total").inc()
                 logger.warning(
                     "stalled collective %r: waited %.1fs on rank %d "
                     "(coordinator rank 0 logs which ranks are missing)",
                     name, waited, self.rank,
                 )
+                if tracing.ACTIVE:
+                    tracing.instant(
+                        "stall_warning", tensor=name,
+                        waited_s=waited, rank=self.rank)
             if self.stall_abort_s > 0 and waited > self.stall_abort_s:
-                sync_stall._count("stall_aborts")
+                obs_metrics.counter("hvtpu_stall_aborts_total").inc()
+                if flight.ACTIVE:
+                    flight.note("stall_abort", tensor=name,
+                                waited_s=round(waited, 3),
+                                rank=self.rank)
+                flight.dump_postmortem("stall_abort", tensor=name)
                 raise HorovodInternalError(
                     f"collective {name!r} stalled for {waited:.0f}s on "
                     f"rank {self.rank}"
@@ -1605,9 +1779,8 @@ class EagerController:
 
     # ---- live introspection ----
     def debug_state(self) -> dict:
-        """A JSON-serializable snapshot of the controller (the reference
-        serves it at its metrics server's /debug, which the port does not
-        have yet)."""
+        """A JSON-serializable snapshot of the controller, served as the
+        ``controller`` provider at the metrics server's /debug."""
         with self._lock:
             out: Dict[str, Any] = {
                 "rank": self.rank,
@@ -1727,8 +1900,13 @@ class EagerController:
         err_cls = HorovodInternalError
         if rs.error.startswith(_MISMATCH_MARKER):
             err_cls = HvtpuMismatchError
+            _M_MISMATCH.inc()
             logger.error("coordinator mismatch diagnostics: %s", rs.error)
         for p in self._take_payloads(rs, strict=False):
+            if self._timeline is not None:
+                self._timeline.end(p.name)
+            if tracing.ACTIVE:
+                tracing.op_done(p.name, error=rs.error)
             p.future.set_error(err_cls(rs.error))
 
     def _execute_responses(self, rl: wire.ResponseList):
@@ -1743,6 +1921,15 @@ class EagerController:
             payloads = self._take_payloads(rs)
             if not payloads:
                 continue  # every name resolved by a predicted execution
+            now = time.monotonic()
+            # one histogram lock for the whole fused group
+            waits = [now - p.t_enqueue for p in payloads if p.seq != -1]
+            if waits:
+                _M_NEGOTIATION_S.observe_many(waits)
+            if self._timeline is not None:
+                for p in payloads:
+                    if p.seq != -1:  # not a synthetic zero payload
+                        self._timeline.end(p.name)
             try:
                 self._await_inputs(payloads)
                 self._resolve(payloads, self._execute_one(rs, payloads))
@@ -1751,6 +1938,8 @@ class EagerController:
                 # futures (parity: entry.callback(Status error)).
                 for p in payloads:
                     if not p.future.done():
+                        if tracing.ACTIVE:
+                            tracing.op_done(p.name, error=str(e))
                         p.future.set_error(HorovodInternalError(str(e)))
         if rl.join_last_rank >= 0:
             with self._lock:
@@ -1781,27 +1970,38 @@ class EagerController:
         process_set_id communicator)."""
         if rs.type == wire.BARRIER:
             for p in payloads:
+                if tracing.ACTIVE:
+                    tracing.op_phase(p.name, tracing.EXEC)
                 eager_comm.barrier(process_set=p.process_set)
+                if tracing.ACTIVE:
+                    tracing.op_done(p.name)
             return [None] * len(payloads)
         if rs.type == wire.ALLREDUCE:
             return self._execute_allreduce(rs, payloads)
+        if tracing.ACTIVE:
+            tracing.op_phase_many([p.name for p in payloads], tracing.EXEC)
         if rs.type == wire.ALLGATHER:
-            return [eager_comm.allgather(p.tensor,
+            outs = [eager_comm.allgather(p.tensor,
                                          process_set=p.process_set)
                     for p in payloads]
-        if rs.type == wire.BROADCAST:
-            return [eager_comm.broadcast(p.tensor, root_rank=rs.root_rank,
+        elif rs.type == wire.BROADCAST:
+            outs = [eager_comm.broadcast(p.tensor, root_rank=rs.root_rank,
                                          process_set=p.process_set)
                     for p in payloads]
-        if rs.type == wire.ALLTOALL:
-            return [eager_comm.alltoall(p.tensor, p.splits,
+        elif rs.type == wire.ALLTOALL:
+            outs = [eager_comm.alltoall(p.tensor, p.splits,
                                         process_set=p.process_set)
                     for p in payloads]
-        if rs.type == wire.REDUCESCATTER:
-            return [eager_comm.reducescatter(p.tensor, op=p.rop,
+        elif rs.type == wire.REDUCESCATTER:
+            outs = [eager_comm.reducescatter(p.tensor, op=p.rop,
                                              process_set=p.process_set)
                     for p in payloads]
-        raise HorovodInternalError(f"unknown response type {rs.type}")
+        else:
+            raise HorovodInternalError(f"unknown response type {rs.type}")
+        if tracing.ACTIVE:
+            tracing.op_done_many([(p.name, {}) for p in payloads],
+                                 bytes=rs.total_bytes)
+        return outs
 
     def _execute_allreduce(self, rs: wire.Response,
                            payloads: List[_Payload]) -> list:
@@ -1815,10 +2015,20 @@ class EagerController:
         if unfusable or len(payloads) == 1:
             # Adasum stays per tensor (its coefficients are per tensor);
             # single-tensor responses skip the pack entirely
-            return [eager_comm.allreduce(
-                p.tensor, op=p.rop, prescale_factor=p.prescale,
-                postscale_factor=p.postscale, compression=p.compressor,
-                name=p.name, process_set=p.process_set) for p in payloads]
+            outs = []
+            for p in payloads:
+                if tracing.ACTIVE:
+                    tracing.op_phase(p.name, tracing.EXEC)
+                outs.append(eager_comm.allreduce(
+                    p.tensor, op=p.rop, prescale_factor=p.prescale,
+                    postscale_factor=p.postscale, compression=p.compressor,
+                    name=p.name, process_set=p.process_set))
+                if tracing.ACTIVE:
+                    # wire bytes: what the collective moved
+                    wd = p.compressor.wire_dtype(p.tensor.dtype)
+                    tracing.op_done(p.name, bytes=p.tensor.numel() * (
+                        torch.empty((), dtype=wd).element_size()))
+            return outs
         # The fuser merges only responses of one process set, so the
         # group's set is payloads[0]'s.
         p0 = payloads[0]
@@ -1838,25 +2048,31 @@ class EagerController:
             # failed its slot checks): return it and stage
             self._fusion_pool.release(p0.psid, pack)
         self.staged_copies += len(payloads)
+        _M_FUSION_STAGED.inc(len(payloads))
+        names = [p.name for p in payloads]
         if rop in (ReduceOp.SUM, ReduceOp.AVERAGE) and all(
                 p.prescale == p0.prescale and p.postscale == p0.postscale
                 and p.compressor is p0.compressor for p in payloads):
             # one scale a direction and one codec: the optimizer's group
             # reduction, which takes A1's grouped passes where it can
+            # (and emits the FUSE, EXEC and DONE of the ops)
             outs = GroupReduction(rop, p0.prescale, p0.postscale,
                                   p0.compressor, ps).reduce(
-                [p.tensor for p in payloads])
+                [p.tensor for p in payloads], names)
         else:
-            outs = self._staged_by_payload(payloads, rop, ps)
+            outs = self._staged_by_payload(payloads, rop, ps, names)
         self._maybe_learn_pack_plan(rs, payloads)
         return outs
 
     @staticmethod
-    def _staged_by_payload(payloads: List[_Payload], rop: ReduceOp, ps):
+    def _staged_by_payload(payloads: List[_Payload], rop: ReduceOp, ps,
+                           names: List[str]):
         """Scales or codecs that differ by payload, or Min/Max/Product:
         the reference's staged steps, payload by payload, around one flat
         collective (parity: MemcpyInFusionBuffer -> one allreduce ->
         MemcpyOutFusionBuffer)."""
+        if tracing.ACTIVE:
+            tracing.op_phase_many(names, tracing.FUSE)
         wires, ctxs = [], []
         for p in payloads:
             t = p.tensor
@@ -1866,13 +2082,22 @@ class EagerController:
             wires.append(t)
             ctxs.append(ctx)
         flat, specs = pack_flat(wires)
-        flat = eager_comm.allreduce(flat, op=rop, process_set=ps)
+        if tracing.ACTIVE:
+            tracing.op_phase_many(names, tracing.EXEC)
+        flat = eager_comm.allreduce(
+            flat, op=rop, process_set=ps,
+            name=f"fused.{names[0]}.{len(names)}")
         outs = []
         for p, ctx, piece in zip(payloads, ctxs, unpack_flat(flat, specs)):
             out = p.compressor.decompress(piece, ctx)
             if p.postscale != 1.0:
                 out = apply_scale(out, p.postscale)
             outs.append(out)
+        if tracing.ACTIVE:
+            tracing.op_done_many(
+                [(n, {"bytes": int(spec[2]) * flat.element_size()})
+                 for n, spec in zip(names, specs)],
+                fused=len(names), zero_copy=False)
         return outs
 
     def _execute_allreduce_zero_copy(self, payloads: List[_Payload], pack,
@@ -1881,12 +2106,32 @@ class EagerController:
         the collective reduces the buffer in place (no pack, no
         concatenate), and the futures resolve with lazy pieces whose
         first consumer unpacks the group (:class:`_GroupUnpack`)."""
+        names = [p.name for p in payloads]
+        if tracing.ACTIVE:
+            tracing.op_phase_many(names, tracing.EXEC)
         if self._exec_stream is not None:
             pack.buf.record_stream(self._exec_stream)
-        red = eager_comm._reduce(pack.typed_view(), rop, NoneCompressor, ps)
+        buf = pack.typed_view()
+        eager_comm.count_collective("allreduce", buf, ps)
+        # the executor's thread: no trace span (the ops' chains cover it)
+        span = eager_comm.AllreduceSpan(
+            core_state.global_state(), f"fused.{names[0]}.{len(names)}",
+            buf.numel() * buf.element_size())
+        try:
+            red = eager_comm._reduce(buf, rop, NoneCompressor, ps)
+        except BaseException:
+            span.close()
+            raise
+        span.close(red, completed=True)
         group = _GroupUnpack(red, pack.element_specs(), pack,
                              self._fusion_pool, payloads[0].psid,
                              [p.postscale for p in payloads],
                              [p.out for p in payloads])
         self.zero_copy_ops += len(payloads)
+        _M_FUSION_ZC.inc(len(payloads))
+        if tracing.ACTIVE:
+            tracing.op_done_many(
+                [(n, {"bytes": int(pack.specs[i][2])})
+                 for i, n in enumerate(names)],
+                fused=len(names), zero_copy=True)
         return [_LazyPiece(group, i) for i in range(len(payloads))]

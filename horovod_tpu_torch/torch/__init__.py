@@ -30,6 +30,12 @@ training step's boundary::
 
     step = hvd.stall_guard(train_step, name="train")
 
+The timeline (``HVTPU_TIMELINE`` at ``init()``, or at any time)::
+
+    hvd.start_timeline("/tmp/timeline.json", mark_cycles=False)
+    ...
+    hvd.stop_timeline()
+
 The engine's int8 wire is reached through the engine's own
 allreduce::
 
@@ -59,6 +65,8 @@ from ..core.state import (
     remove_process_set,
     shutdown,
     size,
+    start_timeline,
+    stop_timeline,
 )
 from .compression import Compression
 from .functions import (
@@ -101,7 +109,8 @@ from .optimizer import DistributedOptimizer
 __all__ = [
     "init", "shutdown", "is_initialized", "rank", "size", "local_rank",
     "device", "ProcessSet", "global_process_set", "add_process_set",
-    "remove_process_set", "NotInitializedError", "HorovodInternalError",
+    "remove_process_set", "start_timeline", "stop_timeline",
+    "NotInitializedError", "HorovodInternalError",
     "HvtpuMismatchError", "StallError", "stall_guard",
     "Compression", "Sum", "Average", "Adasum", "Min", "Max", "Product",
     "allreduce", "allreduce_", "grouped_allreduce", "grouped_allreduce_",

@@ -27,9 +27,11 @@ def broadcast_parameters(params, root_rank: int = 0,
             broadcast_(p, root_rank=root_rank, process_set=process_set)
 
 
-def broadcast_object(obj: Any, root_rank: int = 0,
+def broadcast_object(obj: Any, root_rank: int = 0, name: str = None,
                      process_set: Optional[ProcessSet] = None) -> Any:
-    """Pickle-broadcast an arbitrary object from ``root_rank``."""
+    """Pickle-broadcast an arbitrary object from ``root_rank``; ``name``
+    is accepted and dropped, as the reference drops it."""
+    del name
     ps = _resolve_process_set(process_set, "broadcast_object")
     box = [obj]
     dist.broadcast_object_list(box, src=root_rank, group=_group(ps))

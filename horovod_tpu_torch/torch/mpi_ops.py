@@ -150,7 +150,8 @@ class _GroupedAllreduceFunction(torch.autograd.Function):
         _check_grad_op(op, average)
         idx = [i for i, m in enumerate(grad_mask) if m]
         gs = grouped_allreduce([grads[i] for i in idx], average, None,
-                               compression, op, pre, post, process_set)
+                               compression, op, process_set,
+                               prescale_factor=pre, postscale_factor=post)
         out: List[Optional[torch.Tensor]] = [None] * len(grads)
         for j, i in enumerate(idx):
             out[i] = gs[j]
@@ -159,10 +160,13 @@ class _GroupedAllreduceFunction(torch.autograd.Function):
 
 def grouped_allreduce(tensors, average=None, name=None,
                       compression=Compression.none, op=None,
+                      process_set=None, *,
                       prescale_factor: float = 1.0,
-                      postscale_factor: float = 1.0,
-                      process_set=None) -> List[torch.Tensor]:
-    """Allreduce a list of tensors as one unit; differentiable."""
+                      postscale_factor: float = 1.0) -> List[torch.Tensor]:
+    """Allreduce a list of tensors as one unit; differentiable.  The
+    reference's positional order (``process_set`` sixth); the scales,
+    which the reference lacks, are keyword-only, as
+    ``grouped_allreduce_async`` has them."""
     tensors = list(tensors)
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         mask = tuple(t.requires_grad for t in tensors)
@@ -175,9 +179,9 @@ def grouped_allreduce(tensors, average=None, name=None,
 
 def grouped_allreduce_(tensors, average=None, name=None,
                        compression=Compression.none, op=None,
+                       process_set=None, *,
                        prescale_factor: float = 1.0,
-                       postscale_factor: float = 1.0,
-                       process_set=None) -> List[torch.Tensor]:
+                       postscale_factor: float = 1.0) -> List[torch.Tensor]:
     """In-place grouped allreduce."""
     outs = _grouped_impl(list(tensors), average, compression, op,
                          prescale_factor, postscale_factor, process_set)
@@ -190,9 +194,9 @@ def grouped_allreduce_(tensors, average=None, name=None,
 
 class _AllgatherFunction(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, tensor, process_set):
+    def forward(ctx, tensor, name, process_set):
         ctx.meta = (tensor.shape[0], process_set)
-        return eager.allgather(tensor, process_set=process_set)
+        return eager.allgather(tensor, process_set=process_set, name=name)
 
     @staticmethod
     def backward(ctx, grad):
@@ -201,7 +205,7 @@ class _AllgatherFunction(torch.autograd.Function):
         sizes = allgather(torch.tensor([rows], device=grad.device),
                           process_set=process_set)
         offset = int(sizes[:participant_rank(process_set)].sum())
-        return summed[offset:offset + rows], None
+        return summed[offset:offset + rows], None, None
 
 
 def allgather(tensor: torch.Tensor, name=None, process_set=None
@@ -209,17 +213,17 @@ def allgather(tensor: torch.Tensor, name=None, process_set=None
     """Concatenate every rank's tensor along dim 0 (ragged dim 0
     allowed); differentiable."""
     if torch.is_grad_enabled() and tensor.requires_grad:
-        return _AllgatherFunction.apply(tensor, process_set)
-    return eager.allgather(tensor, process_set=process_set)
+        return _AllgatherFunction.apply(tensor, name, process_set)
+    return eager.allgather(tensor, process_set=process_set, name=name)
 
 
 # -- broadcast -----------------------------------------------------------------
 
 class _BroadcastFunction(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, tensor, root_rank, process_set):
+    def forward(ctx, tensor, root_rank, name, process_set):
         ctx.meta = (root_rank, process_set)
-        return eager.broadcast(tensor, root_rank, process_set)
+        return eager.broadcast(tensor, root_rank, process_set, name=name)
 
     @staticmethod
     def backward(ctx, grad):
@@ -227,21 +231,23 @@ class _BroadcastFunction(torch.autograd.Function):
         summed = allreduce(grad, op=Sum, process_set=process_set)
         if core_state.rank() != root_rank:
             summed = torch.zeros_like(summed)
-        return summed, None, None
+        return summed, None, None, None
 
 
 def broadcast(tensor: torch.Tensor, root_rank: int = 0, name=None,
               process_set=None) -> torch.Tensor:
     """A new tensor holding ``root_rank``'s value; differentiable."""
     if torch.is_grad_enabled() and tensor.requires_grad:
-        return _BroadcastFunction.apply(tensor, root_rank, process_set)
-    return eager.broadcast(tensor, root_rank, process_set)
+        return _BroadcastFunction.apply(tensor, root_rank, name,
+                                        process_set)
+    return eager.broadcast(tensor, root_rank, process_set, name=name)
 
 
 def broadcast_(tensor: torch.Tensor, root_rank: int = 0, name=None,
                process_set=None) -> torch.Tensor:
     """In-place broadcast from ``root_rank``."""
-    tensor.data.copy_(eager.broadcast(tensor, root_rank, process_set))
+    tensor.data.copy_(eager.broadcast(tensor, root_rank, process_set,
+                                      name=name))
     return tensor
 
 
@@ -249,7 +255,7 @@ def broadcast_(tensor: torch.Tensor, root_rank: int = 0, name=None,
 
 class _AlltoallFunction(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, tensor, splits, process_set):
+    def forward(ctx, tensor, splits, name, process_set):
         single = splits is None
         if single:
             # the adjoint replays with the received counts, so an
@@ -260,7 +266,7 @@ class _AlltoallFunction(torch.autograd.Function):
                                  f"divisible by size {p}")
             splits = [tensor.shape[0] // p] * p
         data, received = eager.alltoall(tensor, splits,
-                                        process_set=process_set)
+                                        process_set=process_set, name=name)
         ctx.meta = (received, process_set)
         return data if single else (data, received)
 
@@ -268,7 +274,7 @@ class _AlltoallFunction(torch.autograd.Function):
     def backward(ctx, grad, *_):
         received, process_set = ctx.meta
         g, _ = eager.alltoall(grad, received, process_set=process_set)
-        return g, None, None
+        return g, None, None, None
 
 
 def alltoall(tensor: torch.Tensor, splits=None, name=None,
@@ -277,17 +283,19 @@ def alltoall(tensor: torch.Tensor, splits=None, name=None,
     None); returns the received tensor, and the received splits when
     ``splits`` is given; differentiable."""
     if torch.is_grad_enabled() and tensor.requires_grad:
-        return _AlltoallFunction.apply(tensor, splits, process_set)
-    return eager.alltoall(tensor, splits, process_set=process_set)
+        return _AlltoallFunction.apply(tensor, splits, name, process_set)
+    return eager.alltoall(tensor, splits, process_set=process_set,
+                          name=name)
 
 
 # -- reducescatter -------------------------------------------------------------
 
 class _ReducescatterFunction(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, tensor, op, process_set):
+    def forward(ctx, tensor, op, name, process_set):
         ctx.meta = (op, process_set)
-        return eager.reducescatter(tensor, op=op, process_set=process_set)
+        return eager.reducescatter(tensor, op=op, process_set=process_set,
+                                   name=name)
 
     @staticmethod
     def backward(ctx, grad):
@@ -299,7 +307,7 @@ class _ReducescatterFunction(torch.autograd.Function):
         g = allgather(grad, process_set=process_set)
         if rop == ReduceOp.AVERAGE:
             g = g / _set_size(process_set)
-        return g, None, None
+        return g, None, None, None
 
 
 def reducescatter(tensor: torch.Tensor, op=None, name=None,
@@ -307,8 +315,9 @@ def reducescatter(tensor: torch.Tensor, op=None, name=None,
     """Reduce over the ranks and return this rank's dim-0 shard;
     differentiable."""
     if torch.is_grad_enabled() and tensor.requires_grad:
-        return _ReducescatterFunction.apply(tensor, op, process_set)
-    return eager.reducescatter(tensor, op=op, process_set=process_set)
+        return _ReducescatterFunction.apply(tensor, op, name, process_set)
+    return eager.reducescatter(tensor, op=op, process_set=process_set,
+                               name=name)
 
 
 def barrier(process_set=None) -> None:

@@ -55,6 +55,24 @@ watchdog's ``dispatch``; ``finish`` polls the collective's completion
 it.  A rank that stops stepping is then named by the others instead of
 leaving them parked in the collective.
 
+``op=Min``, ``Max`` and ``Product`` (which ``GroupReduction`` does not
+serve) take the reference's own route: each gradient goes through the
+async controller as ``allreduce_async_`` from its hook, and
+``synchronize()`` waits for them; the bucket plan is not used.
+
+Observability, as the reference's fused path emits it for the same
+gradients (``horovod_tpu/eager/controller.py``): per gradient, under
+``allreduce.<parameter name>``, a ``NEGOTIATE_ALLREDUCE`` timeline span
+from its hook to its bucket's completion and the trace chain (the
+op's span opens at the hook; ``FUSE`` at the bucket's pack, ``EXEC`` at
+its collective, then a ``DONE`` instant with ``fused=n``); and per
+bucket one ``NCCL_ALLREDUCE`` timeline span under the reference's fused
+name ``fused.<first name>.<n>``, which also counts in
+``hvtpu_allreduce_total`` and the latency histogram and is the step
+profiler's comm window.  A bucket of one gradient is its gradient's
+allreduce.  No step hook: the training loop notes steps with
+``metrics.note_step()``.
+
 Sparse gradients (``nn.Embedding(sparse=True)``) follow the reference
 (``horovod_tpu/torch/optimizer.py:127-142``): with
 ``sparse_as_dense=True`` a sparse gradient becomes dense in its hook and
@@ -81,6 +99,7 @@ from ..comm.packing import pack_flat, unpack_flat
 from ..comm.reduce_ops import ReduceOp, normalize_op
 from ..core import state as core_state
 from ..core.process_set import ProcessSet, global_process_set
+from ..obs import tracing
 from ..ops.scale_cast import (
     casts_to_wire,
     fused_scale_cast,
@@ -106,6 +125,9 @@ class PendingGroup:
     grouped: bool = False
     # the watchdog's descriptor of the op (None: not guarded)
     sdesc: Optional[str] = None
+    # the gradients' trace names and the bucket's allreduce span
+    names: Optional[List[str]] = None
+    span: object = None
 
 
 def apply_scale(t: torch.Tensor, factor: float,
@@ -151,15 +173,17 @@ class GroupReduction:
                    for t in tensors)
 
     def launch(self, tensors: Sequence[torch.Tensor],
-               index: Optional[int] = None) -> PendingGroup:
+               index: Optional[int] = None,
+               names: Optional[Sequence[str]] = None) -> PendingGroup:
         """Launch the group's reduction; ``index`` is its bucket's place
-        in the plan (the watchdog's descriptor names it)."""
+        in the plan (the watchdog's descriptor names it).  ``names``, the
+        tensors' op names, turn on the reference's fused-path telemetry:
+        the trace phases of each op and the group's allreduce span under
+        ``fused.<first name>.<n>``."""
         if len(tensors) == 1 or self.op == ReduceOp.ADASUM:
-            return PendingGroup(outs=[eager.allreduce(
-                t, op=self.op, prescale_factor=self.prescale,
-                postscale_factor=self.postscale,
-                compression=self.compression,
-                process_set=self.process_set) for t in tensors])
+            return PendingGroup(outs=self._per_tensor(tensors, names))
+        if names is not None and tracing.ACTIVE:
+            tracing.op_phase_many(names, tracing.FUSE)
         grouped = self.grouped(tensors)
         if grouped:
             flat, specs = self.pack(tensors, self.prescale, self.compression)
@@ -177,6 +201,16 @@ class GroupReduction:
             flat, specs = pack_flat(wires)
         ps = self.process_set
         st = core_state.global_state()
+        eager.count_collective("allreduce", flat, ps)
+        span = None
+        if names is not None:
+            if tracing.ACTIVE:
+                tracing.op_phase_many(names, tracing.EXEC)
+            # untraced: the ops' own trace spans cover the collective
+            with eager.untraced():
+                span = eager.AllreduceSpan(
+                    st, f"fused.{names[0]}.{len(names)}",
+                    flat.numel() * flat.element_size())
         sdesc = stall.check(
             st, ps, f"bucket:{'-' if index is None else index}:"
             f"{flat.numel() * flat.element_size()}:{flat.dtype}")
@@ -185,7 +219,30 @@ class GroupReduction:
                                       eager._group(ps), True),
             owner="bucket", desc=sdesc)
         return PendingGroup(flat, specs, ctxs, work, grouped=grouped,
-                            sdesc=sdesc)
+                            sdesc=sdesc,
+                            names=None if names is None else list(names),
+                            span=span)
+
+    def _per_tensor(self, tensors, names) -> List[torch.Tensor]:
+        """A group of one tensor, or Adasum's: each tensor its own
+        allreduce, under its op's name (the op's trace span covers it)."""
+        outs = []
+        for i, t in enumerate(tensors):
+            name = None if names is None else names[i]
+            if name is not None and tracing.ACTIVE:
+                tracing.op_phase(name, tracing.EXEC)
+            with eager.untraced():
+                out = eager.allreduce(
+                    t, op=self.op, prescale_factor=self.prescale,
+                    postscale_factor=self.postscale,
+                    compression=self.compression,
+                    process_set=self.process_set, name=name)
+            outs.append(out)
+            if name is not None and tracing.ACTIVE:
+                wire = self.compression.wire_dtype(t.dtype)
+                tracing.op_done(name, bytes=t.numel() * torch.empty(
+                    (), dtype=wire).element_size())
+        return outs
 
     def finish(self, pending: PendingGroup,
                outs: Optional[Sequence[torch.Tensor]] = None
@@ -194,12 +251,25 @@ class GroupReduction:
         launched tensors' shapes and dtypes) when given."""
         if pending.outs is not None:
             return _into(outs, pending.outs)
-        stall.finish(core_state.global_state(), self.process_set,
-                     pending.work, pending.sdesc)
-        pending.work.wait()
-        flat = pending.flat
-        if self.op == ReduceOp.AVERAGE:
-            eager.average_(flat, self.process_set.size)
+        try:
+            stall.finish(core_state.global_state(), self.process_set,
+                         pending.work, pending.sdesc)
+            pending.work.wait()
+            flat = pending.flat
+            if self.op == ReduceOp.AVERAGE:
+                eager.average_(flat, self.process_set.size)
+        except BaseException:
+            if pending.span is not None:
+                pending.span.close()
+            raise
+        if pending.span is not None:
+            pending.span.close(flat, completed=True)
+        if pending.names is not None and tracing.ACTIVE:
+            size = flat.element_size()
+            tracing.op_done_many(
+                [(n, {"bytes": int(spec[2]) * size})
+                 for n, spec in zip(pending.names, pending.specs)],
+                fused=len(pending.names), zero_copy=False)
         if pending.grouped:
             return self.unpack(flat, pending.specs, pending.ctxs,
                                self.postscale, outs)
@@ -212,8 +282,10 @@ class GroupReduction:
             results.append(out)
         return _into(outs, results)
 
-    def reduce(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-        return self.finish(self.launch(tensors))
+    def reduce(self, tensors: Sequence[torch.Tensor],
+               names: Optional[Sequence[str]] = None
+               ) -> List[torch.Tensor]:
+        return self.finish(self.launch(tensors, names=names))
 
 
 def _into(outs, results: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -238,9 +310,11 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             raise ValueError(
                 "gradient_predivide_factor requires op=Average"
             )
-        if op not in (ReduceOp.SUM, ReduceOp.AVERAGE, ReduceOp.ADASUM):
-            raise NotImplementedError(
-                f"op={op.name} is not ported yet (Sum, Average, Adasum)")
+        # Min/Max/Product: each gradient through the async controller
+        self._per_op = op not in (ReduceOp.SUM, ReduceOp.AVERAGE,
+                                  ReduceOp.ADASUM)
+        self._compression = compression
+        self._handles: dict = {}
         self._process_set = process_set
         process_set = process_set or global_process_set
         self._op = op
@@ -299,10 +373,47 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             )
         self._passes[p] += 1
         if self._passes[p] == self.backward_passes_per_step:
+            self._begin_op(p)
+            if self._per_op:
+                self._handles[p] = self._allreduce_async(p)
+                self._ready.add(p)
+                return
             if p.grad.is_sparse:
                 self._sparse_grad(p)
             self._mark_ready(p)
             self._launch_ready()
+
+    def _op_name(self, p) -> str:
+        return f"allreduce.{self._name_of[p]}"
+
+    def _begin_op(self, p):
+        """The gradient's op begins: its timeline span and its trace
+        span open (a gradient through the controller gets both from the
+        controller)."""
+        if self._per_op or (p.grad is not None and p.grad.is_sparse
+                            and not self._sparse_as_dense):
+            return
+        name = self._op_name(p)
+        timeline = core_state.global_state().timeline
+        if timeline is not None:
+            timeline.begin(name, "NEGOTIATE_ALLREDUCE")
+        if tracing.ACTIVE:
+            tracing.op_begin(name, "allreduce")
+
+    def _end_ops(self, params):
+        """The bucket completed: its gradients' timeline spans end (their
+        trace spans ended with the bucket's ``DONE`` instants)."""
+        timeline = core_state.global_state().timeline
+        if timeline is not None:
+            for p in params:
+                timeline.end(self._op_name(p))
+
+    def _allreduce_async(self, p):
+        """Min/Max/Product: the gradient through the async controller, in
+        place (the reference's per-gradient ``allreduce_async_``)."""
+        return mpi_ops.allreduce_async_(
+            p.grad, name=self._op_name(p), op=self._op,
+            compression=self._compression, process_set=self._process_set)
 
     def _sparse_grad(self, p):
         """A sparse gradient becomes dense (``sparse_as_dense``) and rides
@@ -333,7 +444,8 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             if dense:
                 self._pending.append(
                     (dense, self.reduction.launch(
-                        [p.grad for p in dense], self._next_bucket)))
+                        [p.grad for p in dense], self._next_bucket,
+                        [self._op_name(p) for p in dense])))
             self._next_bucket += 1
 
     # -- public contract --------------------------------------------------
@@ -349,17 +461,22 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         A parameter whose hook never fired (unused this step, or a
         partial accumulation) is reduced too, with zeros when it has no
         grad: every rank must issue the same collectives."""
+        if self._per_op:
+            self._synchronize_per_op()
+            return
         for p in self._params:
             if p not in self._ready:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
                 elif p.grad.is_sparse:
                     self._sparse_grad(p)
+                self._begin_op(p)
                 self._mark_ready(p)
         self._launch_ready()
         with torch.no_grad():
             for dense, pending in self._pending:
                 self.reduction.finish(pending, [p.grad for p in dense])
+                self._end_ops(dense)
         for p, handle in self._sparse.items():
             # sparse results cannot land in place: the gradient is
             # replaced (parity: p.grad = synchronize(handle))
@@ -369,6 +486,23 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         self._ready.clear()
         self._ready_count = [0] * len(self.buckets)
         self._next_bucket = 0
+        for p in self._passes:
+            self._passes[p] = 0
+        self._synchronized = True
+
+    def _synchronize_per_op(self):
+        """Min/Max/Product: wait for every gradient's async allreduce
+        (enqueued now, with zeros when it has no grad, for a hook that
+        never fired), each written into its gradient in place."""
+        for p in self._params:
+            if p not in self._handles:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+                self._handles[p] = self._allreduce_async(p)
+        for p in self._params:
+            mpi_ops.synchronize(self._handles[p])
+        self._handles.clear()
+        self._ready.clear()
         for p in self._passes:
             self._passes[p] = 0
         self._synchronized = True
@@ -395,7 +529,7 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         return super(self.__class__, self).step(closure)
 
     def zero_grad(self, set_to_none: bool = True):
-        if self._ready or self._pending or self._sparse:
+        if self._ready or self._pending or self._sparse or self._handles:
             raise AssertionError(
                 "optimizer.zero_grad() was called after loss.backward() "
                 "but before optimizer.step() or optimizer.synchronize(). "

@@ -363,8 +363,13 @@ def test_factories_match_reference(monkeypatch):
                    None) is None
 
 
+def _kv_counts():
+    return {"kv_retries": retry._M_KV_RETRIES.value(),
+            "kv_retry_exhausted": retry._M_KV_EXHAUSTED.value()}
+
+
 def test_counters_count_retries_exhaustions_and_fences():
-    before = dict(retry.COUNTERS)
+    before = _kv_counts()
     policy = retry.RetryPolicy(name="kv", max_attempts=4, base_delay_s=0.0,
                                retryable=retry.kv_retryable)
     retry.ResilientKV(LoggingKV(fails=2), policy=policy).key_value_set(
@@ -372,8 +377,8 @@ def test_counters_count_retries_exhaustions_and_fences():
     with pytest.raises(RuntimeError):
         retry.ResilientKV(LoggingKV(fails=50),
                           policy=policy).key_value_set("a", "1")
-    assert retry.COUNTERS["kv_retries"] - before["kv_retries"] == 5
-    assert retry.COUNTERS["kv_retry_exhausted"] - \
+    assert _kv_counts()["kv_retries"] - before["kv_retries"] == 5
+    assert _kv_counts()["kv_retry_exhausted"] - \
         before["kv_retry_exhausted"] == 1
 
 

@@ -219,7 +219,8 @@ def test_import_leaves_no_jax_or_reference_module():
             " horovod_tpu_torch.ops.ring, horovod_tpu_torch.native,"
             " horovod_tpu_torch.eager, horovod_tpu_torch.api.handles,"
             " horovod_tpu_torch.api.async_ops, horovod_tpu_torch.comm.stall,"
-            " horovod_tpu_torch.core.retry, horovod_tpu_torch.core.journal;"
+            " horovod_tpu_torch.core.retry, horovod_tpu_torch.core.journal,"
+            " horovod_tpu_torch.obs;"
             " print('\\n'.join(sorted(sys.modules)))")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -232,7 +233,11 @@ def test_import_leaves_no_jax_or_reference_module():
             "horovod_tpu_torch.comm.stall", "horovod_tpu_torch.comm.wirefault",
             "horovod_tpu_torch.core.faults", "horovod_tpu_torch.core.retry",
             "horovod_tpu_torch.core.clock", "horovod_tpu_torch.core.kv",
-            "horovod_tpu_torch.core.journal"} <= set(out)
+            "horovod_tpu_torch.core.journal", "horovod_tpu_torch.obs.metrics",
+            "horovod_tpu_torch.obs.timeline", "horovod_tpu_torch.obs.tracing",
+            "horovod_tpu_torch.obs.flight", "horovod_tpu_torch.obs.anomaly",
+            "horovod_tpu_torch.obs.profile",
+            "horovod_tpu_torch.obs.stepprof"} <= set(out)
     assert [m for m in out if _forbidden(m)] == []
 
 
@@ -254,7 +259,10 @@ def test_ast_scan_finds_no_jax_or_reference_import():
                 "eager/controller.py", "api/handles.py", "comm/adasum.py",
                 "comm/packing.py", "core/clock.py", "core/faults.py",
                 "core/retry.py", "core/journal.py", "core/kv.py",
-                "comm/stall.py", "comm/wirefault.py"):
+                "comm/stall.py", "comm/wirefault.py", "obs/__init__.py",
+                "obs/metrics.py", "obs/timeline.py", "obs/tracing.py",
+                "obs/flight.py", "obs/anomaly.py", "obs/profile.py",
+                "obs/stepprof.py"):
         assert REPO / "horovod_tpu_torch" / sub in files
     assert len(files) > 15
     bad = [(f.name, m) for f in files for m in _imports(f) if _forbidden(m)]

@@ -988,12 +988,12 @@ class TestWireRetryLoop:
         faults.install("wire.send:drop@times=1", rank=0)
         kv = store_kv(1)
         insp, st, ps = self._harness(kv)
-        before = wirefault.COUNTERS["collective_retries"]
+        before = wirefault._M_RETRIES.value()
         try:
             out = stall.dispatch(st, ps, lambda: 42, (),
                                  desc="allreduce:r:(2,):float32")
             assert out == 42
-            assert wirefault.COUNTERS["collective_retries"] == before + 1
+            assert wirefault._M_RETRIES.value() == before + 1
             assert not _present(kv, "hvtwire/1/0/0/0/0")
             insp.wait_ready(0, out)
             assert insp._tracks["0"].inflight is None
@@ -1159,6 +1159,15 @@ def test_two_rank_skipped_collective_aborts_naming_the_rank(tmp_path):
     assert r1["status"] == "skipped"
     # the abandoned collective poisoned rank 0: its exit hook hard-exits
     assert r0["poisoned"] and codes == [1, 0]
+    # the warning and abort families counted it, and the flight recorder
+    # left a postmortem whose ring names the op
+    assert r0["counters"]["stall_warnings"] >= 1
+    assert r0["counters"]["stall_aborts"] >= 1
+    pm = r0["postmortem"]
+    assert pm["reason"] == "stall_abort" and pm["rank"] == 0
+    aborts = [e for e in pm["events"] if e["kind"] == "stall_abort"]
+    assert aborts and "allreduce" in aborts[-1]["detail"]
+    assert "stall" in pm["debug"]
 
 
 @pytest.mark.parametrize("mode", ["amortized", "strict"])
@@ -1174,6 +1183,9 @@ def test_two_rank_diverged_collectives_name_both_ops(tmp_path, mode):
         assert "diverged" in r["msg"]
         assert "grads" in r["msg"] and "broadcast" in r["msg"]
         assert r["waited"] < abort + 2 * hb
+        # the abort family counted it; the postmortem names the op
+        assert r["counters"]["stall_aborts"] >= 1
+        assert "grads" in json.dumps(r["postmortem"])
 
 
 def test_two_rank_optimizer_names_the_rank_that_stopped(tmp_path):

@@ -648,8 +648,9 @@ def adasum_worker(rank: int, world: int, store_path: str,
 
 def spawn_world(target, world: int, tmp_path, *args, timeout: float = 60.0):
     """Run ``target(rank, world, store_path, out_dir, *args)`` in ``world``
-    spawned processes, join them under ``timeout`` (killing any still
-    alive) and return ``(exit codes, [rank r's JSON result or None])``."""
+    spawned processes (``HVTPU_FLIGHT_DIR`` set to ``tmp_path``), join
+    them under ``timeout`` (killing any still alive) and return
+    ``(exit codes, [rank r's JSON result or None])``."""
     import json
     import multiprocessing
     import time
@@ -659,8 +660,17 @@ def spawn_world(target, world: int, tmp_path, *args, timeout: float = 60.0):
     procs = [ctx.Process(target=target,
                          args=(r, world, store, str(tmp_path)) + args)
              for r in range(world)]
-    for p in procs:
-        p.start()
+    # the ranks' postmortems go to the test's directory, not the cwd
+    saved = os.environ.get("HVTPU_FLIGHT_DIR")
+    os.environ["HVTPU_FLIGHT_DIR"] = str(tmp_path)
+    try:
+        for p in procs:
+            p.start()
+    finally:
+        if saved is None:
+            os.environ.pop("HVTPU_FLIGHT_DIR", None)
+        else:
+            os.environ["HVTPU_FLIGHT_DIR"] = saved
     deadline = time.monotonic() + timeout
     for p in procs:
         p.join(timeout=max(0.0, deadline - time.monotonic()))
@@ -748,13 +758,13 @@ def _stall_healthy(hvd, rank: int, out_dir: str) -> dict:
 
     y = torch.arange(8, dtype=torch.float32) * (rank + 1) + 0.125
     clean = hvd.allreduce(y, op=hvd.Sum, name="retry").numpy().tolist()
-    before = wirefault.COUNTERS["collective_retries"]
+    before = wirefault._M_RETRIES.value()
     faults.install("wire.send:drop@rank=0,times=1", rank=rank)
     try:
         faulted = hvd.allreduce(y, op=hvd.Sum, name="retry").numpy().tolist()
     finally:
         faults.uninstall()
-    retries = wirefault.COUNTERS["collective_retries"] - before
+    retries = wirefault._M_RETRIES.value() - before
     ok = float(hvd.allreduce(torch.ones(()), op=hvd.Sum))
     return {"guarded": guarded, "plain": plain, "mode": mode,
             "counters": guarded_seq, "losses": losses, "params": params,
@@ -776,8 +786,30 @@ def _stall_skipped(hvd, rank: int, out_dir: str) -> dict:
         hvd.allreduce(torch.ones(4), op=hvd.Sum)
     except hvd.HorovodInternalError as e:
         return {"status": "aborted", "msg": str(e),
-                "age": time.monotonic() - insp._tracks["0"].t0}
+                "age": time.monotonic() - insp._tracks["0"].t0,
+                **_obs_record(rank, out_dir)}
     return {"status": "completed"}
+
+
+def _obs_record(rank: int, out_dir: str) -> dict:
+    """The watchdog's metric families and this rank's postmortem (the
+    flight recorder dumps it into ``HVTPU_FLIGHT_DIR``)."""
+    import json
+    import time
+
+    from horovod_tpu_torch.comm import stall
+
+    # the heartbeat thread that latched the failure writes the file; the
+    # error can surface on this thread first
+    path = os.path.join(out_dir, f"postmortem-{rank}-0.json")
+    deadline = time.monotonic() + 5.0
+    while not os.path.exists(path) and time.monotonic() < deadline:
+        time.sleep(0.05)
+    postmortem = None
+    if os.path.exists(path):
+        with open(path) as f:
+            postmortem = json.load(f)
+    return {"counters": stall.counters(), "postmortem": postmortem}
 
 
 def _stall_diverged(hvd, rank: int, out_dir: str) -> dict:
@@ -797,7 +829,8 @@ def _stall_diverged(hvd, rank: int, out_dir: str) -> dict:
             time.sleep(0.05)
     except hvd.HorovodInternalError as e:
         return {"status": "mismatch", "msg": str(e),
-                "waited": time.monotonic() - t0}
+                "waited": time.monotonic() - t0,
+                **_obs_record(rank, out_dir)}
     return {"status": "no-error"}
 
 
@@ -898,3 +931,152 @@ def stall_worker(rank: int, world: int, store_path: str, out_dir: str,
     if rank != 0 or not stall.poisoned():
         os._exit(0)
     hvd.shutdown()      # bounded; the exit hook then hard-exits
+
+
+# -- the observability slice (test_torch_port_obs_slice.py) -----------------
+
+OBS_KINDS = ("allreduce", "allgather", "broadcast", "alltoall",
+             "reducescatter")
+
+
+def _named_op(hvd, kind: str, name: str):
+    x = torch.ones(4, 2)
+    if kind == "allreduce":
+        return hvd.allreduce(x, op=hvd.Sum, name=name)
+    if kind == "allgather":
+        return hvd.allgather(x, name=name)
+    if kind == "broadcast":
+        return hvd.broadcast(x, 0, name)
+    if kind == "alltoall":
+        return hvd.alltoall(x, name=name)
+    return hvd.reducescatter(x, hvd.Sum, name)
+
+
+def trace_span_names(path: str) -> list:
+    """Per step window (cut at the ``step_boundary`` instants), the set
+    of op names whose trace spans open in it."""
+    import json
+
+    with open(path) as f:
+        events = json.load(f)
+    steps, cur = [], set()
+    for e in events:
+        if e.get("name") == "step_boundary":
+            steps.append(sorted(cur))
+            cur = set()
+        elif e.get("ph") == "B":
+            cur.add(e["args"]["tensor"])
+    return steps[1:] + ([sorted(cur)] if cur else [])
+
+
+def timeline_span_names(path: str) -> list:
+    """The (phase, name) pairs of a timeline's spans."""
+    import json
+
+    with open(path) as f:
+        events = json.load(f)
+    return sorted({(e["name"], e["args"]["tensor"]) for e in events
+                   if e.get("ph") == "B"})
+
+
+def obs_worker(rank: int, world: int, store_path: str, out_dir: str,
+               steps: int) -> None:
+    """One rank of the slice: planes on (timeline, trace, the defaults),
+    ``steps`` steps of the narrow ResNet with ``metrics.note_step``, a
+    ``metrics.aggregate``, a traced async burst; then the same steps
+    with every plane off; then five differently named ops a mode, each
+    diagnosed as diverged.  Its result as JSON."""
+    import json
+    import time
+
+    torch.set_num_threads(1)
+    os.environ.update({
+        "HVTPU_TIMELINE": os.path.join(out_dir, f"timeline{rank}.json"),
+        "HVTPU_TRACE": os.path.join(out_dir, "trace"),
+        "HVTPU_FLIGHT_DIR": out_dir})
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.comm import stall
+    from horovod_tpu_torch.core import state as core_state
+    from horovod_tpu_torch.obs import flight, metrics, stepprof, tracing
+
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    batches = synthetic_batches(steps, batch=4, seed=7 + rank)
+
+    def train():
+        model = narrow_resnet(seed=0)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
+            named_parameters=model.named_parameters())
+        before = metrics.op_counter("allreduce").value()
+        metrics.note_step()
+        for b in batches:
+            train_steps(model, opt, [b])
+            metrics.note_step()
+        params = torch.cat([p.detach().reshape(-1)
+                            for p in model.parameters()])
+        return (params.numpy().tolist(),
+                metrics.op_counter("allreduce").value() - before)
+
+    hvd.init(device="cpu")
+    tracer = tracing.get_tracer()
+    res = {"planes_on": [tracing.ACTIVE, flight.ACTIVE, stepprof.ACTIVE,
+                         core_state.global_state().timeline is not None],
+           "offset_us": tracer.offset_us}
+    res["params_on"], res["allreduces"] = train()
+    agg = metrics.aggregate()
+    res["aggregate_ranks"] = sorted(agg["per_rank"])
+    res["aggregate_ok"] = agg["merged"] == metrics.merge_snapshots(
+        [agg["per_rank"][r] for r in sorted(agg["per_rank"])])
+    names = [f"burst.{i}" for i in range(6)]
+    handles = hvd.grouped_allreduce_async(
+        [torch.full((3,), float(i + rank)) for i in range(6)], names=names,
+        op=hvd.Sum)
+    res["burst"] = [hvd.synchronize(h).tolist() for h in handles]
+    res["debug"] = sorted(metrics.debug_snapshot())
+    hvd.shutdown()
+
+    for key in ("HVTPU_TIMELINE", "HVTPU_TRACE"):
+        os.environ.pop(key)
+    os.environ.update(HVTPU_FLIGHT="0", HVTPU_ANOMALY="0")
+    stepprof.ACTIVE = False
+    hvd.init(device="cpu")
+    res["planes_off"] = [tracing.ACTIVE, flight.ACTIVE]
+    res["params_off"], _ = train()
+    hvd.shutdown()
+
+    os.environ.pop("HVTPU_FLIGHT")
+    os.environ.update(HVTPU_STALL_CHECK_TIME_SECONDS="5",
+                      HVTPU_STALL_SHUTDOWN_TIME_SECONDS="30",
+                      HVTPU_STALL_HEARTBEAT_SECONDS="0.1")
+    diverged = {}
+    for mode in ("amortized", "strict"):
+        os.environ["HVTPU_STALL_CHECK_MODE"] = mode
+        for kind in OBS_KINDS:
+            hvd.init(device="cpu")
+            aborts = stall.counters()["stall_aborts"]
+            msg = None
+            try:
+                _named_op(hvd, kind, f"{kind}.r{rank}")
+                insp = core_state.global_state().sync_stall
+                deadline = time.monotonic() + 5.0
+                while insp.failure is None and time.monotonic() < deadline:
+                    time.sleep(0.02)
+                msg = insp.failure
+            except hvd.HorovodInternalError as e:
+                msg = str(e)
+            pm_path = os.path.join(out_dir, f"postmortem-{rank}-0.json")
+            deadline = time.monotonic() + 5.0
+            while not os.path.exists(pm_path) and time.monotonic() < deadline:
+                time.sleep(0.02)
+            with open(pm_path) as f:
+                pm = f.read()
+            os.remove(pm_path)
+            diverged[f"{mode}:{kind}"] = {
+                "msg": msg, "postmortem": pm,
+                "aborts": stall.counters()["stall_aborts"] - aborts}
+            hvd.shutdown()
+    res["diverged"] = diverged
+    dist.destroy_process_group()
+    _write_result(out_dir, rank, json.loads(json.dumps(res)))
+
