@@ -121,14 +121,36 @@ Builds the port's CUDA kernels from ``horovod_tpu_torch/csrc`` and then:
    bucket a rank, and a call's time at 1,000,003), and the last timed
    call checked again;
 8. checks a narrow float32 ResNet trained 2 steps on the card against the
-   same steps computed on the CPU with plain PyTorch.
+   same steps computed on the CPU with plain PyTorch;
+9. drives the elastic path in child processes (``chip_smoke.py
+   --elastic-child``): the training of phase 3 at full width (ResNet-50
+   bf16 NHWC 224x224, batch 64, the same optimizer) under
+   ``hvd.elastic.run`` with ``TorchState(model, optimizer,
+   data=loader.state)`` over an ``ElasticDataLoader`` of 512 float32
+   images from seed 0 (8 steps an epoch), 2 epochs, a commit a step,
+   deterministic cuDNN and ``torch.use_deterministic_algorithms``: once
+   uninterrupted, then incarnations 0-3 on one state dir
+   (``HVTPU_ELASTIC=1``, ``HVTPU_CKPT_KEEP=2``): a ``worker.step`` kill
+   at the 4th commit (exit 1), SIGUSR1 after 6 commits so the next
+   commit raises ``HostsUpdatedInterrupt`` (exit 73), a preemption
+   notice by SIGTERM, which the child sends itself before its first
+   step, drained at the next commit but one (exit 79), and the rest
+   (exit 0).  Gates: the final model and optimizer state bitwise the
+   uninterrupted run's, the committed steps' samples each epoch's
+   permutation once, every incarnation starting at the last verified
+   commit (so the drain loses no step), every snapshot on disk
+   verifying within the retention, 4 A1 launches every step of every
+   child, every batch on the card.
 
 Prints one ``int8_quantized_allreduce {...}`` line, one ``async_path
 {...}`` line (its ``zero_copy`` part the route's bursts), one ``adasum
 {...}`` line, one ``stall {...}`` line, one ``faults {...}`` line, one
-``obs {...}`` line, one ``ring_path {...}`` line, one ``{"kernels": [...]}`` line of 10 entries
-(A1's with ``stall_launches`` and ``obs_launches_per_step``) and,
-last,
+``obs {...}`` line, one ``ring_path {...}`` line, one ``elastic {...}``
+line (the exits, the commits' ms in memory, on the training thread and
+on the writer, a snapshot's bytes, ``sync``'s ms, each child's seconds
+to its first step), one ``{"kernels": [...]}`` line of 10 entries
+(A1's with ``stall_launches``, ``obs_launches_per_step`` and
+``elastic_launches``) and, last,
 ``{"ok": true,
 "device": {...}}``.  Exits non-zero, printing no result, when CUDA is
 absent, when the package is not beside this script, or when any phase
@@ -2885,6 +2907,345 @@ def reference_phase(hvd, device):
         torch.backends.cudnn.allow_tf32 = True
 
 
+# -- the elastic phase: incarnations in child processes -----------------------
+
+ELASTIC_IMAGES = 512      # 8 steps an epoch at batch 64
+ELASTIC_EPOCHS = 2
+ELASTIC_KEEP = 2          # HVTPU_CKPT_KEEP of the incarnations
+# the incarnations after the uninterrupted reference: (what it does, its
+# env, the exit expected); a signal named here is sent by the child to
+# itself at the start of a step, after the given number of its commits
+ELASTIC_GENS = (
+    ("kill at the 4th commit", {"HVTPU_FAULT_SPEC": "worker.step:kill@count=4"},
+     1, "hvtpu fault injection: killing rank 0"),
+    ("SIGUSR1 after 6 commits", {"HVT_USR1_AFTER": "6"}, 73,
+     "requesting world reset (hosts updated)"),
+    ("SIGTERM notice before its first step", {"HVT_TERM_AFTER": "0"}, 79,
+     "exiting 79 for a planned departure"),
+    ("to the end", {}, 0, ""),
+)
+ELASTIC_TIMEOUT_S = 300
+
+
+def _elastic_record(path: str, rec: dict, _lock=[]) -> None:
+    import threading
+
+    if not _lock:
+        _lock.append(threading.Lock())
+    with _lock[0]:
+        with open(path, "a") as f:
+            f.write(json.dumps(rec) + "\n")
+
+
+def elastic_child() -> int:
+    """One incarnation of the elastic phase (``chip_smoke.py
+    --elastic-child``, started by :func:`elastic_phase`): full-width
+    ResNet-50 (bf16, NHWC 224x224, batch 64) through
+    ``DistributedOptimizer(SGD momentum 0.9, Compression.fp16,
+    gradient_predivide_factor=2.0)`` under ``hvd.elastic.run``, with
+    ``TorchState(model, optimizer, data=loader.state)`` over an
+    ``ElasticDataLoader`` of 512 float32 images from seed 0 and a commit
+    a step, deterministic.  One JSON line a step, a commit phase and a
+    durable write in ``HVT_LOG``; the final state_dicts in ``HVT_OUT``."""
+    import signal
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    t_import = time.time()
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True)
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.core import durable
+    from horovod_tpu_torch.data import ArraySource, ElasticDataLoader
+    from horovod_tpu_torch.models import ResNet
+    from horovod_tpu_torch.ops import _build, fused_scale_cast
+
+    log_path = os.environ["HVT_LOG"]
+    gen = int(os.environ["HVTPU_ELASTIC_GENERATION"])
+    t0 = float(os.environ["HVT_T0"])
+
+    def record(**rec):
+        _elastic_record(log_path, dict(gen=gen, **rec))
+
+    _build.build_all()
+    hvd.init()                              # one-rank NCCL world on cuda:0
+    device = hvd.device()
+    check(device.type == "cuda", f"elastic child on {device}")
+    model = ResNet([3, 4, 6, 3], dtype=torch.bfloat16, device=device,
+                   generator=torch.Generator().manual_seed(SEED))
+    opt = make_optimizer(hvd, model, hvd.Compression.fp16)
+    rng = np.random.default_rng(SEED)
+    source = ArraySource({
+        "x": rng.standard_normal((ELASTIC_IMAGES, IMAGE, IMAGE, 3),
+                                 dtype=np.float32),
+        "y": rng.integers(0, 1000, size=(ELASTIC_IMAGES,))})
+    loader = ElasticDataLoader(source, BATCH, seed=SEED, with_indices=True)
+    state = hvd.elastic.TorchState(model, opt, data=loader.state)
+
+    inner = {}
+
+    def timed(name, fn):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize(device)
+            t = time.perf_counter()
+            if name not in ("memory", "submit"):
+                inner.clear()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize(device)
+            ms = (time.perf_counter() - t) * 1e3
+            if name in ("memory", "submit"):
+                inner[name] = ms
+            else:
+                record(kind=name, ms=ms, memory_ms=inner.get("memory"),
+                       submit_ms=inner.get("submit", 0.0))
+            return out
+        return wrapper
+
+    # the commit's parts on the training thread: save() is the in-memory
+    # snapshot (the state_dicts copied on the card), the copy to the host
+    # and torch.save, then the hand-over to the writer (which waits while
+    # its queue is full); the write itself runs on the writer thread
+    state.save_to_memory = timed("memory", state.save_to_memory)
+    state.save = timed("save", state.save)
+    state.sync = timed("sync", state.sync)
+    durable.DurableWriter.submit = timed("submit",
+                                         durable.DurableWriter.submit)
+    write = durable.write_snapshot
+
+    def timed_write(root, seq, files, **kw):
+        t = time.perf_counter()
+        out = write(root, seq, files, **kw)
+        record(kind="write", seq=seq, ms=(time.perf_counter() - t) * 1e3,
+               bytes=sum(len(v) for v in files.values()))
+        return out
+
+    durable.write_snapshot = timed_write
+    signals = {int(os.environ.get(f"HVT_{name}_AFTER", "-1")): sig
+               for name, sig in (("USR1", signal.SIGUSR1),
+                                 ("TERM", signal.SIGTERM))}
+    spe = ELASTIC_IMAGES // BATCH
+    commits = [0]
+    record(kind="start", import_s=t_import - t0)
+
+    @hvd.elastic.run
+    def train(state):
+        while loader.state.epoch < ELASTIC_EPOCHS:
+            start = loader.state.state_dict()
+            for idx, batch in loader:
+                if commits[0] in signals:
+                    os.kill(os.getpid(), signals.pop(commits[0]))
+                if not commits[0]:
+                    record(kind="first_step", wall_s=time.time() - t0)
+                x, y = batch["x"], batch["y"]
+                before = fused_scale_cast.launches
+                opt.zero_grad()
+                loss = F.cross_entropy(model(x), y)
+                loss.backward()
+                opt.step()
+                torch.cuda.synchronize(device)
+                record(kind="step", step=loader.state.epoch * spe
+                       + loader.state.cursor // BATCH,
+                       epoch=loader.state.epoch,
+                       idx=[int(i) for i in idx], start=start,
+                       a1=fused_scale_cast.launches - before,
+                       device=[str(x.device), str(y.device)],
+                       loss=float(loss.detach()))
+                start = None
+                state.commit()
+                commits[0] += 1
+
+    fused_scale_cast.launches = 0       # this incarnation's path starts here
+    train(state)
+    torch.save({"model": {k: v.cpu() for k, v in model.state_dict().items()},
+                "momentum": [opt.state[p]["momentum_buffer"].cpu()
+                             for p in model.parameters()]},
+               os.environ["HVT_OUT"])
+    state.wait_durable()
+    hvd.shutdown()
+    return 0
+
+
+def _run_child(tmp: Path, name: str, gen: int, env: dict) -> dict:
+    log_path, out = tmp / f"{name}.jsonl", tmp / f"{name}.pt"
+    state_dir = tmp / f"state_{name}"
+    resume = committed_step(state_dir)
+    full = dict(os.environ)
+    for k in ("HVTPU_FAULT_SPEC", "HVT_USR1_AFTER", "HVT_TERM_AFTER"):
+        full.pop(k, None)
+    full.update({
+        "HVTPU_ELASTIC": "1", "HVTPU_ELASTIC_STATE_DIR": str(state_dir),
+        "HVTPU_ELASTIC_GENERATION": str(gen),
+        "HVTPU_CKPT_KEEP": str(ELASTIC_KEEP),
+        "CUBLAS_WORKSPACE_CONFIG": ":4096:8", "HVTPU_FLIGHT_DIR": str(tmp),
+        "HVT_LOG": str(log_path), "HVT_OUT": str(out),
+        "HVT_T0": repr(time.time())})
+    full.update(env)
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--elastic-child"],
+        env=full, cwd=str(tmp), capture_output=True, text=True,
+        timeout=ELASTIC_TIMEOUT_S)
+    return {"code": proc.returncode, "resume": resume,
+            "stderr": proc.stderr[-3000:], "log": log_path, "out": out,
+            "state_dir": state_dir}
+
+
+def committed_step(state_dir: Path) -> int:
+    """The step of the last verified commit under ``state_dir`` (0 when
+    none), read from the loader state it holds.  A commit's seq is not
+    its step: a commit torn by a kill leaves its seq behind."""
+    import io
+
+    import torch
+
+    from horovod_tpu_torch.core import durable
+    from horovod_tpu_torch.elastic.state import STATE_FILE
+
+    seq = durable.latest_verified(str(state_dir))
+    if seq is None:
+        return 0
+    payload = torch.load(
+        io.BytesIO(durable.read_snapshot(str(state_dir), seq)[STATE_FILE]),
+        map_location="cpu", weights_only=False)
+    data = payload["__sd__data"]
+    return data["epoch"] * (ELASTIC_IMAGES // BATCH) + data["cursor"] // BATCH
+
+
+def _median(xs):
+    return statistics.median(xs) if xs else None
+
+
+def elastic_phase(smi: str, tmp: Path) -> dict:
+    """The elastic path on the card in child processes: one uninterrupted
+    run of the 16 steps, then incarnations 0-3 of the same run (a kill,
+    a host update, a preemption drain, the end) on one state dir; the
+    gates of the module's docstring, and one ``elastic {...}`` line."""
+    import torch
+
+    from horovod_tpu_torch.core import durable
+    from horovod_tpu_torch.data import epoch_permutation
+
+    torch.cuda.empty_cache()
+    tmp = tmp / "elastic"
+    tmp.mkdir()
+    plain = _run_child(tmp, "plain", 0, {})
+    check(plain["code"] == 0, f"elastic: the uninterrupted run exited "
+          f"{plain['code']}:\n{plain['stderr']}")
+    runs = []
+    for gen, (what, env, want, says) in enumerate(ELASTIC_GENS):
+        run = _run_child(tmp, "elastic", gen, env)
+        log(f"elastic: incarnation {gen} ({what}) resumed from commit "
+            f"{run['resume']}, exit {run['code']}")
+        check(run["code"] == want and says in run["stderr"],
+              f"elastic: incarnation {gen} ({what}) exited {run['code']}, "
+              f"expected {want} and {says!r}:\n{run['stderr']}")
+        runs.append(run)
+
+    def records(path):
+        with open(path) as f:
+            return [json.loads(line) for line in f]
+
+    spe = ELASTIC_IMAGES // BATCH
+    total = spe * ELASTIC_EPOCHS
+    ref_recs, recs = records(plain["log"]), records(runs[0]["log"])
+    ref_final = torch.load(plain["out"])
+    final = torch.load(runs[-1]["out"])
+    # final state bitwise the uninterrupted run's
+    for k, t in ref_final["model"].items():
+        check(torch.equal(final["model"][k], t),
+              f"elastic: {k} differs from the uninterrupted run")
+    check(len(final["momentum"]) == len(ref_final["momentum"]) and all(
+        torch.equal(a, b) for a, b in zip(final["momentum"],
+                                          ref_final["momentum"])),
+        "elastic: momentum buffers differ from the uninterrupted run")
+    for r in ref_recs + recs:
+        if r["kind"] == "step":
+            check(r["a1"] == 4, f"elastic: gen {r['gen']} step {r['step']} "
+                  f"ran {r['a1']} A1 launches, expected 4")
+            check(r["device"] == ["cuda:0", "cuda:0"],
+                  f"elastic: a batch on {r['device']}")
+    # each incarnation starts at the last verified commit
+    resumes = [run["resume"] for run in runs]
+    steps = {g: [r for r in recs if r["kind"] == "step" and r["gen"] == g]
+             for g in range(len(runs))}
+    for g, resume in enumerate(resumes):
+        check(steps[g] and steps[g][0]["step"] == resume + 1,
+              f"elastic: incarnation {g} started at step "
+              f"{steps[g][0]['step'] if steps[g] else None}, its last "
+              f"verified commit is {resume}")
+        check(steps[g][0]["start"] == {
+            "epoch": resume // spe, "cursor": resume % spe * BATCH,
+            "seed": SEED}, f"elastic: incarnation {g} loader state "
+            f"{steps[g][0]['start']}")
+    # the drain lost no step: the next incarnation resumed at the commit
+    drained = steps[2][-1]["step"]
+    check(resumes[3] == drained, f"elastic: drained at step {drained}, "
+          f"relaunched from {resumes[3]}")
+    # the committed steps' samples cover each epoch's permutation once
+    committed = {}
+    for g, recs_g in steps.items():
+        upto = resumes[g + 1] if g + 1 < len(resumes) else total
+        for r in recs_g:
+            if r["step"] <= upto:
+                check(committed.setdefault(r["step"], r["idx"]) == r["idx"],
+                      f"elastic: step {r['step']} drew other samples again")
+    check(sorted(committed) == list(range(1, total + 1)),
+          f"elastic: committed steps {sorted(committed)}")
+    for e in range(ELASTIC_EPOCHS):
+        ids = [i for s in range(e * spe + 1, (e + 1) * spe + 1)
+               for i in committed[s]]
+        check(ids == epoch_permutation(ELASTIC_IMAGES, SEED, e).tolist(),
+              f"elastic: epoch {e} samples are not its permutation once")
+    # every snapshot on disk verifies; the retention holds
+    for d in (plain["state_dir"], runs[0]["state_dir"]):
+        seqs = durable.list_snapshots(str(d))
+        check(0 < len(seqs) <= ELASTIC_KEEP and committed_step(d) == total,
+              f"elastic: snapshots {seqs} under {d.name}")
+        for s in seqs:
+            check(durable.verify_snapshot(durable.snapshot_path(str(d), s)),
+                  f"elastic: snapshot {s} under {d.name} fails verification")
+
+    def kind(rs, k, key="ms"):
+        return [r[key] for r in rs if r["kind"] == k]
+
+    every = ref_recs + recs
+    saves = [r for r in every if r["kind"] == "save"]
+    writes = kind(every, "write")
+    result = {
+        "card": smi,
+        "exits": [plain["code"]] + [r["code"] for r in runs],
+        "resumed_from": resumes,
+        "steps_per_incarnation": [len(steps[g]) for g in steps],
+        "notice": "SIGTERM sent by the child to itself before its first "
+                  "step (handler on the main thread)",
+        "a1_launches_per_step": sorted({r["a1"] for r in every
+                                        if r["kind"] == "step"}),
+        "a1_launches": sum(kind(every, "step", "a1")),
+        "memory_commit_ms": _median([r["memory_ms"] for r in saves]),
+        # save() minus its in-memory snapshot: the copy to the host,
+        # torch.save and the hand-over on the training thread; the last
+        # alone (submit_ms: waiting for room in the writer's queue)
+        "durable_thread_ms": _median([r["ms"] - r["memory_ms"]
+                                      for r in saves]),
+        "serialize_ms": _median([r["ms"] - r["memory_ms"] - r["submit_ms"]
+                                 for r in saves]),
+        "submit_ms": _median([r["submit_ms"] for r in saves]),
+        "writer_ms": _median(writes),
+        "commits": len(saves),
+        "snapshot_bytes": _median(kind(every, "write", "bytes")),
+        "sync_ms": kind([r for r in recs if r["gen"] > 0], "sync"),
+        "first_step_s": kind(ref_recs, "first_step", "wall_s")
+        + kind(recs, "first_step", "wall_s"),
+        "import_s": kind(ref_recs, "start", "import_s")
+        + kind(recs, "start", "import_s"),
+        "losses": [r["loss"] for r in ref_recs if r["kind"] == "step"],
+    }
+    log("elastic " + json.dumps(result))
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -2896,6 +3257,8 @@ def main() -> int:
               "this script", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
+    if sys.argv[1:] == ["--elastic-child"]:
+        return elastic_child()
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.ops import _build
 
@@ -2936,6 +3299,7 @@ def main() -> int:
         ring = ring_phase(ring_buckets(model, x, y, RING_RANKS), reps=10)
         del model, opt, x, y
         reference_phase(hvd, device)
+        elastic = elastic_phase(smi, tmp)
     finally:
         hvd.shutdown()
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2959,6 +3323,8 @@ def main() -> int:
         "stall_launches": stall_line["stall_launches"],
         "obs_launches_per_step": {m: d["launches_per_step"]
                                   for m, d in obs["modes"].items()},
+        "elastic_launches": elastic["a1_launches"],
+        "elastic_launches_per_step": elastic["a1_launches_per_step"],
         "max_abs_err": kern["max_abs_err"],
         "ms": pre["ms"],
         "plain_ms": pre["plain_ms"],

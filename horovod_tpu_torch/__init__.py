@@ -17,3 +17,4 @@ from __future__ import annotations
 
 from .torch import *  # noqa: F401,F403
 from .torch import __all__  # noqa: F401
+from . import elastic  # noqa: F401  (hvd.elastic)

@@ -59,10 +59,11 @@ aborts, mismatches and partition suspects, and a postmortem on every
 abort and mismatch; a ``stall_warning`` trace instant; the ``stall``
 /debug provider.
 
-Not yet ported, and left out where the reference calls them: the
-preemption plane (``preempt.pending()`` / ``draining_ranks()``: no rank
-is ever excused as draining) and the elastic branch of
-:func:`poison_exit_status` (``RESET_EXIT_CODE``).
+A rank inside its drain grace window (``core/preempt.py``) is late by
+design: both inspectors hold the abort for it and report it as
+draining, as the reference's do.  In an elastic job the hard-exit path
+(:func:`poison_exit_status`) exits with ``RESET_EXIT_CODE`` (73) so the
+relaunch feeds the death into recovery.
 """
 
 from __future__ import annotations
@@ -81,6 +82,7 @@ import torch.distributed as dist
 
 from ..core import clock
 from ..core import faults
+from ..core import preempt
 from ..core.exceptions import HorovodInternalError
 from ..obs import flight
 from ..obs import metrics as obs_metrics
@@ -153,9 +155,11 @@ def poisoned() -> bool:
 def poison_exit_status() -> int:
     """Exit status for the hard-exit path: 0 when the process
     re-initialized into a NEWER generation after the poisoning (the
-    wedged collective belongs to an earlier init), else 1 (the
-    reference's non-elastic hard abort; its elastic branch comes with
-    the elastic plane)."""
+    wedged collective belongs to an earlier init).  Otherwise the stall
+    abort is the terminal event: an ELASTIC job exits with
+    ``RESET_EXIT_CODE`` (73) so the relaunch feeds the death into its
+    recovery loop instead of scoring a crash; a non-elastic job keeps
+    the hard abort (1)."""
     try:
         from ..core import state as _core_state
 
@@ -163,7 +167,27 @@ def poison_exit_status() -> int:
             return 0
     except Exception:
         pass
+    if _elastic_job():
+        from ..elastic.worker import RESET_EXIT_CODE
+
+        return RESET_EXIT_CODE
     return 1
+
+
+def _elastic_job() -> bool:
+    """True when this process belongs to an elastic job: from the live
+    config when initialized, else from the env (the atexit path runs
+    after shutdown() cleared the config)."""
+    try:
+        from ..core import state as _core_state
+
+        cfg = _core_state.global_state().config
+        if cfg is not None:
+            return bool(cfg.elastic)
+    except Exception:
+        pass
+    return str(os.environ.get("HVTPU_ELASTIC", "")).strip().lower() in (
+        "1", "true", "yes", "on")
 
 
 def _reset_poison() -> None:
@@ -299,37 +323,53 @@ class SyncStallInspector:
             if not pending:
                 break
             elapsed = clock.monotonic() - start
-            if self.abort_s > 0 and elapsed > self.abort_s:
+            # A rank inside its drain grace window (core/preempt.py) is
+            # late BY DESIGN — it is heading for the drain commit, not
+            # stuck.  Hold the abort and report it as draining; once
+            # the window expires, draining_ranks() empties and normal
+            # abort semantics resume.
+            draining = preempt.draining_ranks() if preempt.pending() \
+                else {}
+            blamable = [r for r in pending if r not in draining]
+            if self.abort_s > 0 and elapsed > self.abort_s and blamable:
                 _M_ABORTS.inc()
                 if flight.ACTIVE:
                     flight.note("stall_abort", collective=desc,
                                 process_set=set_id, op_seq=seq,
                                 waited_s=round(elapsed, 3),
-                                ranks_missing=sorted(pending))
+                                ranks_missing=sorted(blamable))
                 flight.dump_postmortem(
                     "stall_abort", collective=desc,
-                    ranks_missing=sorted(pending))
+                    ranks_missing=sorted(blamable))
                 raise HorovodInternalError(
                     _stall_abort_msg(desc, set_id, seq, elapsed,
-                                     self.abort_s, pending))
-            if self.warn_s > 0 and elapsed > next_warn:
+                                     self.abort_s, blamable))
+            if self.warn_s > 0 and elapsed > next_warn and not blamable:
+                next_warn += self.warn_s
+                for r in sorted(r for r in pending if r in draining):
+                    logger.info(
+                        "rank %d draining (%.0fs grace remaining); "
+                        "holding the stall abort for [%s] "
+                        "(process set %s, op #%d)",
+                        r, draining.get(r, 0.0), desc, set_id, seq)
+            elif self.warn_s > 0 and elapsed > next_warn:
                 next_warn += self.warn_s
                 _M_WARNINGS.inc()
                 logger.warning(
                     "stalled collective [%s] (process set %s, op #%d): "
                     "waited %.1fs; ranks not at the rendezvous: %s",
-                    desc, set_id, seq, elapsed, pending,
+                    desc, set_id, seq, elapsed, blamable,
                 )
                 if tracing.ACTIVE:
                     tracing.instant(
                         "stall_warning", collective=desc,
                         process_set=set_id, op_seq=seq,
-                        waited_s=elapsed, ranks_missing=sorted(pending))
+                        waited_s=elapsed, ranks_missing=sorted(blamable))
                 if flight.ACTIVE:
                     flight.note("stall_warning", collective=desc,
                                 process_set=set_id, op_seq=seq,
                                 waited_s=round(elapsed, 3),
-                                ranks_missing=sorted(pending))
+                                ranks_missing=sorted(blamable))
             # back off from a near-spin (normal skew is sub-ms) to a
             # 20ms poll for genuinely late peers
             sleep = min(0.02, sleep * 2 if sleep else 0.0002)
@@ -825,6 +865,7 @@ class AmortizedStallInspector:
         now = clock.monotonic()
         fail: Optional[str] = None
         warns: List[tuple] = []
+        drain_notes: List[tuple] = []
         with self._lock:
             if self.failure:
                 return
@@ -871,7 +912,10 @@ class AmortizedStallInspector:
                     want_warn = self.warn_s > 0 and age > tr.next_warn
                     if not (want_abort or want_warn):
                         continue
+                    draining = (preempt.draining_ranks()
+                                if preempt.pending() else {})
                     behind = []
+                    drain_behind = []
                     for r in tr.members:
                         if r == self.rank or r in bye:
                             # a cleanly-exited rank is never blamed
@@ -887,7 +931,14 @@ class AmortizedStallInspector:
                         # last snapshot showed it caught up: it may
                         # have died mid-collective, after posting
                         if pseq < tr.seq or r in stale or r in suspect:
-                            if r in suspect:
+                            if r in draining:
+                                # inside its drain grace window
+                                # (core/preempt.py): heading for the
+                                # drain commit, not stuck — report,
+                                # don't blame.  The exclusion expires
+                                # with the window, unlike bye.
+                                drain_behind.append(r)
+                            elif r in suspect:
                                 # partition suspect: silent because it
                                 # may be cut off from the KV, not dead
                                 # — hold the blame until it recovers
@@ -897,6 +948,12 @@ class AmortizedStallInspector:
                             else:
                                 behind.append(r)
                     if not behind:
+                        if drain_behind and want_warn:
+                            tr.next_warn = age + self.warn_s
+                            for r in sorted(drain_behind):
+                                drain_notes.append(
+                                    (r, draining.get(r, 0.0),
+                                     tr.inflight, sid))
                         # everyone (still blamable) dispatched it: a
                         # slow collective, not a stall
                         continue
@@ -914,6 +971,11 @@ class AmortizedStallInspector:
                 if flight.ACTIVE:
                     flight.note("stall_abort", detail=fail[:300])
                 flight.dump_postmortem("stall_abort")
+        for r, rem, desc, sid in drain_notes:
+            logger.info(
+                "rank %d draining (%.0fs grace remaining); holding "
+                "the heartbeat abort for [%s] (process set %s)",
+                r, rem, desc, sid)
         for desc, sid, op, age, behind in warns:
             _M_WARNINGS.inc()
             logger.warning(

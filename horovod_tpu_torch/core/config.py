@@ -5,8 +5,11 @@ the same way (``HVTPU_<NAME>`` first, then the reference's
 ``HOROVOD_<NAME>``), for the fields this part of the port uses — the
 fusion threshold, the controller's cycle time and response-cache
 capacity, the timeline and the trace directory, the stall watchdog's
-settings, the fault-injection spec and seed, and the rank, size and
-local rank the launcher sets.
+settings, the fault-injection spec and seed, the rank, size and local
+rank the launcher sets, and the worker side of elastic training (the
+elastic flag, the preemption signal, notice file and drain grace).
+The elastic driver's fields (its timeout, discovery interval, restart
+budget, blacklist cooldowns) come with the launcher.
 """
 
 from __future__ import annotations
@@ -85,6 +88,22 @@ class Config:
     size: int = 1
     local_rank: int = 0
 
+    # --- elastic (elastic/, core/durable.py) ---
+    # the elastic driver's own fields (HVTPU_ELASTIC_TIMEOUT and the
+    # discovery settings) come with the launcher that reads them
+    elastic: bool = False
+
+    # --- graceful preemption / drain (core/preempt.py) ---
+    # signal interpreted as a preemption notice; a name that does not
+    # resolve (the empty one included) falls back to SIGTERM. The
+    # notice file and the fault action work whatever the signal.
+    preempt_signal: str = "SIGTERM"
+    # optional path polled for a preemption notice
+    preempt_notice_file: Optional[str] = None
+    # seconds a preempted worker may spend reaching a drain commit
+    # before force-exiting with the planned-departure code anyway
+    drain_grace_seconds: float = 30.0
+
     @staticmethod
     def from_env() -> "Config":
         fusion_mb = _env_str("FUSION_THRESHOLD_MB")
@@ -113,4 +132,8 @@ class Config:
             rank=_env_int("RANK", 0),
             size=_env_int("SIZE", 1),
             local_rank=_env_int("LOCAL_RANK", 0),
+            elastic=_env_bool("ELASTIC", False),
+            preempt_signal=_env_str("PREEMPT_SIGNAL", "SIGTERM"),
+            preempt_notice_file=_env_str("PREEMPT_NOTICE_FILE"),
+            drain_grace_seconds=_env_float("DRAIN_GRACE_SECONDS", 30.0),
         )

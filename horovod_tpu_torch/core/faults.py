@@ -67,9 +67,10 @@ A ``flap`` or ``partition`` window opening is noted in the flight
 recorder, and a ``kill`` dumps a postmortem before the process exits 1,
 as in the reference.
 
-Not yet ported, and left out where the reference calls it: the
-``preempt`` action's notice (``core/preempt.py``: the clause fires,
-logs and counts, and nothing drains).
+The ``preempt`` action delivers a preemption notice to
+``core/preempt.py`` (``preempt.notice("fault")``): the graceful drain
+takes it from there, and the firing is persisted like a kill so a
+relaunched rank does not re-preempt forever.
 
 Zero overhead when no spec is installed: hot call sites guard on the
 module-level ``ACTIVE`` flag (one attribute read) and never call
@@ -469,9 +470,13 @@ class FaultRegistry:
         if fired.action == "error":
             raise InjectedFault(fired, site)
         if fired.action == "preempt":
-            # the reference delivers a preemption notice here
-            # (core/preempt.py); the port has no drain plane yet, so the
-            # firing is persisted and logged above and nothing drains
+            # deliver a preemption notice instead of dying: the
+            # graceful-drain path (core/preempt.py) takes it from here
+            # — persisted above like kill, so the relaunched rank does
+            # not re-preempt forever.
+            from . import preempt as _preempt
+
+            _preempt.notice("fault")
             return False
         # kill: flush and hard-exit — simulate a worker dying mid-op
         # (exit 1 = crash, NOT the reset code: the launcher must treat

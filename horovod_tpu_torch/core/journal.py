@@ -19,10 +19,10 @@ write, ``entries`` folds the file newest-wins, ``forget`` appends a
 tombstone.  The file is rewritten compacted whenever it grows past
 ``_COMPACT_AT`` lines.
 
-Not yet ported: the replay at ``init()`` (``horovod_tpu/core/state.py``
-``_replay_journal``) comes with the elastic plane; :meth:`KeyJournal.
-replay` is here and takes any client with the coordination method
-names (``core/kv.py``).
+A relaunched elastic incarnation replays the journal into its fresh
+store at ``init()`` (``core/state.py``'s ``_replay_journal``, as the
+reference's); :meth:`KeyJournal.replay` takes any client with the
+coordination method names (``core/kv.py``).
 """
 
 from __future__ import annotations

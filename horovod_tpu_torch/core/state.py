@@ -40,9 +40,14 @@ past one rank), the ``job`` debug provider, the step profiler
 that fails to install logs a warning and stays off; ``shutdown()``
 tears them down.
 
-Not yet ported: the journal replay at ``init()`` (``core/journal.py``)
-comes with the elastic plane, and so do the preemption watcher and the
-fleet health publisher of the reference's ``init()``.
+Under ``HVTPU_ELASTIC=1`` ``init()`` also arms the preemption watcher
+(``core/preempt.py``: the signal handler, the notice file, the drain
+protocol over a fenced, journaled store client past one rank) and, in a
+relaunched incarnation (``HVTPU_ELASTIC_GENERATION`` > 0), replays this
+rank's journaled keys (``core/journal.py``) into the fresh store, as the
+reference's ``init()`` does; ``shutdown()`` uninstalls the watcher
+before the store goes away.  The reference's fleet health publisher is
+not part of the port.
 """
 
 from __future__ import annotations
@@ -122,6 +127,66 @@ def _job_debug_state() -> dict:
         "device": str(_state.device),
         "backend": _state.backend,
     }
+
+
+def _coordination_client_active() -> bool:
+    """True when the coordination client is up past one rank: a
+    ``torch.distributed`` store and more than one rank (the reference's
+    test of a live ``jax.distributed`` client)."""
+    return (_state.initialized and _state.kv is not None
+            and _state.size > 1)
+
+
+def _replay_journal(kv, rank: int) -> None:
+    """Relaunched incarnation: re-publish this rank's journaled durable
+    keys (restore-quorum votes, drain accounting: ``core/journal.py``)
+    into the fresh store.  Every relaunch starts an EMPTY store, so
+    without replay a relaunch also loses the accounting the recovery
+    protocols need.  Best-effort: a failed replay degrades to the
+    protocols recomputing from scratch."""
+    if kv is None:
+        return
+    if int(os.environ.get("HVTPU_ELASTIC_GENERATION", "0") or 0) <= 0:
+        return
+    try:
+        from ..obs import flight
+        from .journal import default_journal
+
+        journal = default_journal(rank)
+        if journal is None or len(journal) == 0:
+            return
+        replayed = journal.replay(kv)
+        if flight.ACTIVE:
+            flight.note("journal_replayed", rank=rank, keys=replayed,
+                        journaled=len(journal))
+        logger.info("kv journal: rank %d replayed %d of %d durable "
+                    "key(s) into the fresh store", rank, replayed,
+                    len(journal))
+    except Exception:  # noqa: BLE001 — best-effort
+        logger.warning("kv journal: replay failed (protocols will "
+                       "recompute)", exc_info=True)
+
+
+def _install_preempt(cfg: Config) -> None:
+    """Graceful-preemption watcher (``core/preempt.py``) for an elastic
+    job: the drain coordinator authors durable keys, so its client is
+    fenced and journaled.  Failure degrades to plain SIGTERM death, not
+    a broken init."""
+    try:
+        from . import preempt
+        from .journal import default_journal
+        from .retry import fenced_kv
+
+        client = None
+        if _state.size > 1:
+            client = fenced_kv(_state.kv, rank=_state.rank,
+                               journal=default_journal(_state.rank))
+        preempt.install(cfg, rank=_state.rank, size=_state.size,
+                        client=client)
+        _replay_journal(client, _state.rank)
+    except Exception:  # noqa: BLE001
+        logger.warning("graceful preemption disabled: install failed",
+                       exc_info=True)
 
 
 def require_init(name: str = "this operation") -> GlobalState:
@@ -224,6 +289,8 @@ def init(device=None) -> GlobalState:
         if cfg.fault_spec:
             faults.install_from_config(cfg, rank)
         _install_obs(cfg)
+        if cfg.elastic:
+            _install_preempt(cfg)
         global _atexit_registered
         if not _atexit_registered:
             atexit.register(_shutdown_at_exit)
@@ -413,6 +480,14 @@ def shutdown():
             _state.controller = None
         # the trace files are flushed before the store goes away
         _uninstall_obs()
+        # the preemption watcher polls the store: stop it first (it also
+        # restores the previous signal handler)
+        try:
+            from . import preempt
+
+            preempt.uninstall()
+        except Exception:  # noqa: BLE001 — teardown goes on
+            pass
         try:
             stall.stop(_state)
         except Exception:  # noqa: BLE001 — teardown goes on

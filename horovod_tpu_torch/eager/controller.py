@@ -81,10 +81,10 @@ phase chain NEGOTIATE → (PREDICT) → QUEUE → FUSE → EXEC → DONE with th
 notes of mispredicts, resyncs and stall aborts, and a postmortem on a
 stall abort.
 
-Not yet ported, and left out where the reference calls them: preemption
-(``preempt.pending()`` in ``_try_predict`` and ``_gate_burst``), the
-autotuner (so ``_try_predict``'s autotuner gate is always open), and the
-C++ negotiation core.
+While a drain is pending (``core/preempt.py``) ``_try_predict`` makes no
+new prediction and ``_gate_burst`` drains at once, as the reference's
+gates do.  Not part of the port: the autotuner (so ``_try_predict``'s
+autotuner gate is always open) and the C++ negotiation core.
 """
 
 from __future__ import annotations
@@ -110,6 +110,7 @@ from ..comm.packing import pack_flat, unpack_flat
 from ..comm import stall as sync_stall
 from ..comm.reduce_ops import ReduceOp
 from ..core import faults
+from ..core import preempt
 from ..core import retry as core_retry
 from ..core import state as core_state
 from ..core.exceptions import HorovodInternalError, HvtpuMismatchError
@@ -1329,8 +1330,7 @@ class EagerController:
         ResponseList is a function of state replicated on every rank —
         the response cache and the fusion threshold — executes NOW; the
         real response is verified and skipped when it streams in.  The
-        gates (the reference's, without its autotuner and preemption
-        gates, whose planes are not ported):
+        gates (the reference's, without its autotuner gate):
 
         - a bypass blob only (all cache hits, no join/shutdown flags);
         - the burst size steady for >= 2 drains;
@@ -1349,6 +1349,11 @@ class EagerController:
         and a resync (``_apply_response_blob``)."""
         if not (self._stream and self._predict_on
                 and parsed.cache_bypass):
+            return False
+        if preempt.pending():
+            # A coordinated drain is in flight: no NEW speculation —
+            # everything from here to the emergency commit runs fully
+            # negotiated (quiesce handles predictions already made).
             return False
         if self._burst_stable < 2:
             return False
@@ -1602,12 +1607,18 @@ class EagerController:
                 undrained = self._undrained
                 last_t = self._last_enqueue_t
             now = time.monotonic()
+            # A pending drain (core/preempt.py) must not wait out the
+            # burst gate: drain whatever is queued NOW so in-flight
+            # collectives finish before the drain commit's grace
+            # window burns down.
             if expected > 0:
                 if (undrained == 0 or undrained >= expected
-                        or now >= deadline or self._stop.is_set()):
+                        or now >= deadline or self._stop.is_set()
+                        or preempt.pending()):
                     break
             elif (undrained == 0 or now - last_t >= quiesce
-                    or now >= deadline or self._stop.is_set()):
+                    or now >= deadline or self._stop.is_set()
+                    or preempt.pending()):
                 break
             time.sleep(min(quiesce / 2, max(deadline - now, 1e-4)))
 

@@ -1,0 +1,53 @@
+"""Elastic training: commit/restore state over restart-based membership
+changes (counterpart of ``horovod_tpu/elastic``; parity: ``hvd.elastic``).
+
+Worker-side usage (the reference's shape)::
+
+    import horovod_tpu_torch as hvd
+
+    hvd.init()
+    state = hvd.elastic.TorchState(model, optimizer, epoch=0)
+
+    @hvd.elastic.run
+    def train(state):
+        while state.epoch < EPOCHS:
+            ...train one step...
+            state.commit()
+
+    train(state)
+
+``HVTPU_ELASTIC=1`` arms the preemption watcher at ``init()``;
+``HVTPU_ELASTIC_STATE_DIR`` names the durable commit directory and
+``HVTPU_ELASTIC_GENERATION`` the incarnation.  The launcher side (the
+elastic driver and host discovery) is not part of the port yet; a
+relaunch is any process that starts the script again with the next
+generation.  ``JaxState`` and ``ShardedJaxState`` are the JAX package's:
+``TorchState`` and ``ElasticSampler`` (``horovod_tpu_torch.torch.elastic``,
+also exported here, so ``hvd.elastic`` is the same surface from the
+package root and from ``horovod_tpu_torch.torch``) and ``ObjectState``
+carry tensors here.
+"""
+
+from ..core.exceptions import (  # noqa: F401
+    DrainInterrupt,
+    HorovodInternalError,
+    HostsUpdatedInterrupt,
+)
+from .state import ObjectState, State  # noqa: F401
+from .worker import RESET_EXIT_CODE, run  # noqa: F401
+
+__all__ = [
+    "State", "ObjectState", "TorchState", "ElasticSampler", "run",
+    "RESET_EXIT_CODE", "HorovodInternalError", "HostsUpdatedInterrupt",
+    "DrainInterrupt",
+]
+
+
+def __getattr__(name: str):
+    # TorchState and ElasticSampler live in torch/elastic.py, which
+    # imports this package: resolve them at first use
+    if name in ("TorchState", "ElasticSampler"):
+        from ..torch import elastic as torch_elastic
+
+        return getattr(torch_elastic, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

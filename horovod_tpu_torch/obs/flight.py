@@ -8,9 +8,14 @@ are shared.  The port's seams today: step records (``metrics.note_step``
 via obs/stepprof), controller mispredicts and resyncs, KV retries and
 fences (core/retry), stall warnings and aborts (comm/stall and the
 controller), wire retries and reroutes (comm/wirefault), fault-harness
-windows and kills (core/faults), and anomaly incidents.  The drain,
-elastic, audit and durable-writer seams of the reference come with
-those planes.
+windows and kills (core/faults), anomaly incidents, and the elastic
+plane's: durable commits (core/durable), drain begin/commit/exit
+(core/preempt), audits (core/audit), journal replays (core/state), and
+worker resets and exceptions (elastic/worker).  The recorder is
+installed with the elastic generation (``HVTPU_ELASTIC_GENERATION``):
+its /debug state, each postmortem and the postmortem's file name carry
+it, so the incarnations of one elastic job never overwrite each other's
+black boxes.
 
 Aviation flight recorders answer "what was the aircraft doing in the
 last N minutes" after the fact; this module does the same for a

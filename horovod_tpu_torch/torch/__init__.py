@@ -36,6 +36,17 @@ The timeline (``HVTPU_TIMELINE`` at ``init()``, or at any time)::
     ...
     hvd.stop_timeline()
 
+Elastic training (``hvd.elastic``: ``run``, ``TorchState``,
+``ElasticSampler``; the data loader in ``horovod_tpu_torch.data``) and
+checkpoints (``hvd.Checkpointer``)::
+
+    state = hvd.elastic.TorchState(model, optimizer, data=loader.state)
+
+    @hvd.elastic.run
+    def train(state):
+        ...
+        state.commit()
+
 The engine's int8 wire is reached through the engine's own
 allreduce::
 
@@ -49,7 +60,10 @@ from __future__ import annotations
 from ..comm.reduce_ops import Adasum, Average, Max, Min, Product, Sum
 from ..comm.stall import stall_guard
 from ..core.exceptions import (
+    DrainInterrupt,
     HorovodInternalError,
+    HostsUpdatedInterrupt,
+    HvtpuDivergenceError,
     HvtpuMismatchError,
     NotInitializedError,
     StallError,
@@ -105,13 +119,20 @@ from .mpi_ops import (
     synchronize,
 )
 from .optimizer import DistributedOptimizer
+from ..api.checkpoint import (
+    Checkpointer,
+    restore_checkpoint,
+    save_checkpoint,
+)
+from . import elastic  # noqa: E402  (hvd.elastic.TorchState parity)
 
 __all__ = [
     "init", "shutdown", "is_initialized", "rank", "size", "local_rank",
     "device", "ProcessSet", "global_process_set", "add_process_set",
     "remove_process_set", "start_timeline", "stop_timeline",
     "NotInitializedError", "HorovodInternalError",
-    "HvtpuMismatchError", "StallError", "stall_guard",
+    "HvtpuMismatchError", "HvtpuDivergenceError", "StallError",
+    "HostsUpdatedInterrupt", "DrainInterrupt", "stall_guard",
     "Compression", "Sum", "Average", "Adasum", "Min", "Max", "Product",
     "allreduce", "allreduce_", "grouped_allreduce", "grouped_allreduce_",
     "allgather", "grouped_allgather", "alltoall",
@@ -124,4 +145,5 @@ __all__ = [
     "SparseAllreduceHandle", "synchronize", "poll", "join",
     "broadcast_parameters", "broadcast_optimizer_state",
     "broadcast_object", "allgather_object", "DistributedOptimizer",
+    "Checkpointer", "save_checkpoint", "restore_checkpoint",
 ]

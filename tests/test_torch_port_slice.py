@@ -220,7 +220,10 @@ def test_import_leaves_no_jax_or_reference_module():
             " horovod_tpu_torch.eager, horovod_tpu_torch.api.handles,"
             " horovod_tpu_torch.api.async_ops, horovod_tpu_torch.comm.stall,"
             " horovod_tpu_torch.core.retry, horovod_tpu_torch.core.journal,"
-            " horovod_tpu_torch.obs;"
+            " horovod_tpu_torch.obs, horovod_tpu_torch.elastic,"
+            " horovod_tpu_torch.torch.elastic, horovod_tpu_torch.data,"
+            " horovod_tpu_torch.api.checkpoint, horovod_tpu_torch.core.audit,"
+            " horovod_tpu_torch.core.preempt, horovod_tpu_torch.core.durable;"
             " print('\\n'.join(sorted(sys.modules)))")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -237,7 +240,15 @@ def test_import_leaves_no_jax_or_reference_module():
             "horovod_tpu_torch.obs.timeline", "horovod_tpu_torch.obs.tracing",
             "horovod_tpu_torch.obs.flight", "horovod_tpu_torch.obs.anomaly",
             "horovod_tpu_torch.obs.profile",
-            "horovod_tpu_torch.obs.stepprof"} <= set(out)
+            "horovod_tpu_torch.obs.stepprof",
+            "horovod_tpu_torch.elastic.state",
+            "horovod_tpu_torch.elastic.worker",
+            "horovod_tpu_torch.torch.elastic",
+            "horovod_tpu_torch.data.loader", "horovod_tpu_torch.data.sharder",
+            "horovod_tpu_torch.data.sources",
+            "horovod_tpu_torch.api.checkpoint",
+            "horovod_tpu_torch.core.audit", "horovod_tpu_torch.core.preempt",
+            "horovod_tpu_torch.core.durable"} <= set(out)
     assert [m for m in out if _forbidden(m)] == []
 
 
@@ -262,7 +273,10 @@ def test_ast_scan_finds_no_jax_or_reference_import():
                 "comm/stall.py", "comm/wirefault.py", "obs/__init__.py",
                 "obs/metrics.py", "obs/timeline.py", "obs/tracing.py",
                 "obs/flight.py", "obs/anomaly.py", "obs/profile.py",
-                "obs/stepprof.py"):
+                "obs/stepprof.py", "core/durable.py", "core/audit.py",
+                "core/preempt.py", "data/loader.py", "data/sharder.py",
+                "data/sources.py", "api/checkpoint.py", "elastic/state.py",
+                "elastic/worker.py", "torch/elastic.py"):
         assert REPO / "horovod_tpu_torch" / sub in files
     assert len(files) > 15
     bad = [(f.name, m) for f in files for m in _imports(f) if _forbidden(m)]

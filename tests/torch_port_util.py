@@ -1080,3 +1080,342 @@ def obs_worker(rank: int, world: int, store_path: str, out_dir: str,
     dist.destroy_process_group()
     _write_result(out_dir, rank, json.loads(json.dumps(res)))
 
+
+
+# -- the elastic slice (test_torch_port_elastic.py and _data.py) -------------
+
+ELASTIC_BATCH = 4      # samples a rank a step
+ELASTIC_IMAGES = 32    # 8 steps an epoch at one rank
+ELASTIC_EPOCHS = 2
+
+
+def elastic_arrays(n: int = ELASTIC_IMAGES, size: int = 32, seed: int = 0):
+    """The images and labels of the elastic runs, made from a seed."""
+    rng = np.random.default_rng(seed)
+    return {"x": rng.standard_normal((n, size, size, 3), dtype=np.float32),
+            "y": rng.integers(0, 10, size=(n,))}
+
+
+def numpy_resnet_trees(model, seed: int = 0):
+    """flax-layout ``params`` / ``batch_stats`` trees of numpy arrays for
+    ``model``'s state_dict (conv kernels HWIO, the Dense kernel (in,
+    out)), from a seed: what ``weights.resnet_params_from_jax`` carries
+    into either package's torch model, so both start from the same
+    bytes."""
+    rng = np.random.default_rng(seed)
+    params, stats = {}, {}
+    for key, t in model.state_dict().items():
+        *mods, leaf = key.split(".")
+        shape = tuple(t.shape)
+        if leaf in ("mean", "var"):
+            node, value = stats, (rng.uniform(0.5, 1.5, shape) if leaf == "var"
+                                  else rng.normal(0.0, 0.1, shape))
+        elif leaf == "weight" and len(shape) == 4:
+            o, i, h, w = shape
+            node, leaf = params, "kernel"
+            value = rng.normal(0.0, (i * h * w) ** -0.5, (h, w, i, o))
+        elif leaf == "weight" and len(shape) == 2:
+            node, leaf = params, "kernel"
+            value = rng.normal(0.0, shape[1] ** -0.5, shape[::-1])
+        elif leaf == "scale":
+            node, value = params, rng.uniform(0.5, 1.5, shape)
+        elif leaf == "bias":
+            node, value = params, rng.normal(0.0, 0.1, shape)
+        else:
+            raise ValueError(f"unexpected state_dict entry {key}")
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = value.astype(np.float32)
+    return params, stats
+
+
+def elastic_model(seed: int = 0):
+    """The narrow ResNet with its weights from :func:`numpy_resnet_trees`
+    through ``horovod_tpu_torch/weights.py``."""
+    from horovod_tpu_torch.weights import resnet_params_from_jax
+
+    model = narrow_resnet(seed)
+    model.load_state_dict(resnet_params_from_jax(*numpy_resnet_trees(model,
+                                                                     seed)))
+    return model
+
+
+def _log(path: str, rec: dict) -> None:
+    import json
+
+    with open(path, "a") as f:
+        f.write(json.dumps(rec) + "\n")
+
+
+def elastic_incarnation() -> None:
+    """One incarnation of the elastic slice in this process, configured
+    by the env: ``HVT_PKG`` (``port``: horovod_tpu_torch on the CPU;
+    ``ref``: the JAX package's torch frontend and data loader),
+    ``HVT_LOG`` (one JSON line a step), ``HVT_OUT`` (the final
+    state_dicts), ``HVT_USR1_AFTER`` / ``HVT_TERM_AFTER`` (send itself
+    SIGUSR1, a host update, or SIGTERM, a preemption notice, after this
+    many commits of this incarnation).  ``HVTPU_ELASTIC*`` and
+    ``HVTPU_FAULT_SPEC`` drive the elastic plane as in a job."""
+    import signal
+
+    torch.set_num_threads(1)
+    torch.use_deterministic_algorithms(True)
+    pkg = os.environ["HVT_PKG"]
+    if pkg == "port":
+        import horovod_tpu_torch as hvd
+        from horovod_tpu_torch.data import ArraySource, ElasticDataLoader
+
+        hvd.init(device="cpu")
+        loader_kw = {}
+    elif pkg == "ref":
+        import horovod_tpu.torch as hvd
+        from horovod_tpu.data import ArraySource, ElasticDataLoader
+
+        hvd.init()
+        loader_kw = {"device_put": False}
+    else:
+        raise ValueError(f"HVT_PKG={pkg!r}: port or ref")
+    model = elastic_model()
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.05, momentum=0.9),
+        named_parameters=model.named_parameters())
+    loader = ElasticDataLoader(ArraySource(elastic_arrays()), ELASTIC_BATCH,
+                               seed=0, with_indices=True, **loader_kw)
+    state = hvd.elastic.TorchState(model, opt, data=loader.state)
+    gen = int(os.environ.get("HVTPU_ELASTIC_GENERATION", "0"))
+    signals = {int(os.environ.get(f"HVT_{name}_AFTER", "0")): sig
+               for name, sig in (("USR1", signal.SIGUSR1),
+                                 ("TERM", signal.SIGTERM))}
+    log = os.environ["HVT_LOG"]
+    spe = ELASTIC_IMAGES // ELASTIC_BATCH
+    commits = [0]
+
+    @hvd.elastic.run
+    def train(state):
+        while loader.state.epoch < ELASTIC_EPOCHS:
+            start = loader.state.state_dict()
+            for idx, batch in loader:
+                x, y = batch["x"], batch["y"]
+                if not torch.is_tensor(x):
+                    x, y = torch.from_numpy(x), torch.from_numpy(y)
+                opt.zero_grad()
+                F.cross_entropy(model(x), y).backward()
+                opt.step()
+                step = (loader.state.epoch * spe
+                        + loader.state.cursor // ELASTIC_BATCH)
+                _log(log, {"gen": gen, "step": step,
+                           "epoch": loader.state.epoch,
+                           "idx": [int(i) for i in idx], "start": start,
+                           "device": str(x.device)})
+                start = None
+                state.commit()
+                commits[0] += 1
+                if commits[0] in signals:
+                    os.kill(os.getpid(), signals[commits[0]])
+
+    train(state)
+    torch.save({"model": model.state_dict(),
+                "momentum": [opt.state[p]["momentum_buffer"]
+                             for p in model.parameters()]},
+               os.environ["HVT_OUT"])
+    hvd.shutdown()
+
+
+def run_incarnation(tmp_path, pkg: str, state_dir, gen: int, log, out,
+                    extra_env=None, timeout: float = 240.0):
+    """Run :func:`elastic_incarnation` in a child process; its exit
+    code."""
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ)
+    for k in ("HVTPU_FAULT_SPEC", "HVT_USR1_AFTER", "HVT_TERM_AFTER"):
+        env.pop(k, None)
+    env.update({
+        "PYTHONPATH": os.pathsep.join(
+            [repo, os.path.join(repo, "tests"), env.get("PYTHONPATH", "")]),
+        "JAX_PLATFORMS": "cpu", "HVT_PKG": pkg, "HVT_LOG": str(log),
+        "HVT_OUT": str(out), "HVTPU_ELASTIC": "1",
+        "HVTPU_ELASTIC_STATE_DIR": str(state_dir),
+        "HVTPU_ELASTIC_GENERATION": str(gen), "HVTPU_CKPT_FSYNC": "0",
+        "HVTPU_FLIGHT_DIR": str(tmp_path)})
+    env.update(extra_env or {})
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "import torch_port_util as u; u.elastic_incarnation()"],
+        env=env, cwd=str(tmp_path), timeout=timeout, capture_output=True,
+        text=True)
+    return proc.returncode, proc.stderr
+
+
+def committed_step(state_dir, pkg: str) -> int:
+    """The step of the last verified commit under ``state_dir`` (0 when
+    none), from the loader state it holds: a commit's seq is not its
+    step once a kill has torn a commit and left its seq behind."""
+    import io
+    import pickle
+
+    from horovod_tpu_torch.core import durable
+
+    seq = durable.latest_verified(str(state_dir))
+    if seq is None:
+        return 0
+    files = durable.read_snapshot(str(state_dir), seq)
+    if pkg == "ref":
+        payload = pickle.loads(files["state.pkl"])
+    else:
+        payload = torch.load(io.BytesIO(files["state.pt"]),
+                             weights_only=False)
+    data = payload["__sd__data"]
+    return data["epoch"] * (ELASTIC_IMAGES // ELASTIC_BATCH) \
+        + data["cursor"] // ELASTIC_BATCH
+
+
+def read_steps(log) -> list:
+    import json
+
+    with open(log) as f:
+        return [json.loads(line) for line in f]
+
+
+def committed_steps(records: list, resumes: list) -> dict:
+    """step -> the record of the run that committed it: incarnation k's
+    steps up to where incarnation k+1 resumed (``resumes[k]``, the
+    step it restarted from), the last incarnation's all."""
+    out = {}
+    for rec in records:
+        g = rec["gen"]
+        if g < len(resumes) and rec["step"] > resumes[g]:
+            continue
+        out.setdefault(rec["step"], []).append(rec)
+    return out
+
+
+# -- 2-rank elastic worlds over gloo ------------------------------------------
+
+DRAIN_SAMPLES = 48     # 6 steps an epoch at 2 ranks of 4
+
+
+def elastic_rank(rank: int, world: int, store_path: str, out_dir: str,
+                 state_dir: str, gen: int, fault_spec: str) -> None:
+    """One rank of a 2-rank elastic incarnation of a small linear model
+    over gloo, 0.5 s a step (the preemption watcher's 0.2 s poll fits
+    inside a step twice, under load too; the reference's drain tests
+    sleep 0.3 s), a JSON line a step in
+    ``out_dir/steps<rank>.jsonl`` and its final parameters in
+    ``final<rank>.pt``."""
+    os.environ.update({"HVTPU_ELASTIC": "1",
+                       "HVTPU_ELASTIC_STATE_DIR": state_dir,
+                       "HVTPU_ELASTIC_GENERATION": str(gen),
+                       "HVTPU_CKPT_FSYNC": "0"})
+    if fault_spec:
+        os.environ["HVTPU_FAULT_SPEC"] = fault_spec
+    torch.set_num_threads(1)
+    import time
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.data import ArraySource, ElasticDataLoader
+
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    hvd.init(device="cpu")
+    model = torch.nn.Linear(6, 3)
+    with torch.no_grad():
+        g = torch.Generator().manual_seed(5)
+        model.weight.copy_(torch.randn(3, 6, generator=g))
+        model.bias.zero_()
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
+        named_parameters=model.named_parameters())
+    rng = np.random.default_rng(3)
+    src = ArraySource({"x": rng.standard_normal((DRAIN_SAMPLES, 6),
+                                                dtype=np.float32),
+                       "y": rng.integers(0, 3, size=(DRAIN_SAMPLES,))})
+    loader = ElasticDataLoader(src, 4, seed=1, with_indices=True)
+    state = hvd.elastic.TorchState(model, opt, data=loader.state)
+    spe = DRAIN_SAMPLES // (4 * world)
+    log = os.path.join(out_dir, f"steps{rank}.jsonl")
+
+    @hvd.elastic.run
+    def train(state):
+        while loader.state.epoch < 2:
+            for idx, b in loader:
+                opt.zero_grad()
+                F.cross_entropy(model(b["x"]), b["y"]).backward()
+                opt.step()
+                time.sleep(0.5)
+                _log(log, {"gen": gen, "rank": rank,
+                           "step": loader.state.epoch * spe
+                           + loader.state.cursor // (4 * world),
+                           "epoch": loader.state.epoch,
+                           "idx": [int(i) for i in idx]})
+                state.commit()
+
+    train(state)
+    torch.save({k: v.clone() for k, v in model.state_dict().items()},
+               os.path.join(out_dir, f"final{rank}.pt"))
+    hvd.shutdown()
+    dist.destroy_process_group()
+    _write_result(out_dir, rank, {"ok": True})
+
+
+def data_rank(rank: int, world: int, store_path: str, out_dir: str) -> None:
+    """One rank of the 2-rank loader checks over gloo: a source of 20
+    samples on rank 0 and 17 on rank 1 (the world agrees on 17 by
+    allreduce-Min), delivered once plainly and once under
+    ``data.next:drop@count=2,times=1``."""
+    torch.set_num_threads(1)
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.core import faults
+    from horovod_tpu_torch.data import ElasticDataLoader, SyntheticSource
+
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    hvd.init(device="cpu")
+    n_local = 20 if rank == 0 else 17
+    result = {}
+    for mode in ("plain", "drop"):
+        if mode == "drop":
+            faults.install("data.next:drop@count=2,times=1", rank=rank)
+        loader = ElasticDataLoader(SyntheticSource(n_local, (2,), seed=3),
+                                   2, seed=9, with_indices=True,
+                                   name=f"rank{rank}-{mode}")
+        batches = [(idx.tolist(), b["x"][:, 0].tolist(), str(b["x"].device))
+                   for idx, b in loader]
+        result[mode] = {"n": loader._n, "steps": loader.steps_per_epoch(),
+                        "batches": batches, "state": loader.state.state_dict()}
+        loader.close()
+        faults.uninstall()
+    hvd.shutdown()
+    dist.destroy_process_group()
+    _write_result(out_dir, rank, result)
+
+
+def audit_rank(rank: int, world: int, store_path: str, out_dir: str) -> None:
+    """One rank of the 2-rank divergence audit over gloo: a clean audit
+    of the same tree, then rank 1's ``['model']['Dense_0.bias']``
+    perturbed, under ``abort`` and ``warn``."""
+    torch.set_num_threads(1)
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.core import audit
+
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    hvd.init(device="cpu")
+    model = elastic_model()
+    tree = {"model": model.state_dict(), "step": 3,
+            "half": torch.arange(8, dtype=torch.bfloat16)}
+    result = {"clean": audit.verify(tree, "clean", action="abort")}
+    if rank == 1:
+        with torch.no_grad():
+            model.Dense_0.bias[2] += 1.0
+    try:
+        audit.verify(tree, "params", action="abort")
+        result["abort"] = None
+    except hvd.HvtpuDivergenceError as e:
+        result["abort"] = str(e)
+    result["warn"] = audit.verify(tree, "params", action="warn")
+    hvd.shutdown()
+    dist.destroy_process_group()
+    _write_result(out_dir, rank, result)
