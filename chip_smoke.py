@@ -5,7 +5,13 @@
 
 Builds the port's CUDA kernels from ``horovod_tpu_torch/csrc`` and then:
 
-1. prints the card's name and power limit (``nvidia-smi``);
+1. prints the card's name and power limit (``nvidia-smi``); runs the
+   port's launcher (``python -m horovod_tpu_torch.runner``) with
+   ``--check-build`` (NCCL, gloo, CUDA and every kernel of ``csrc``
+   marked built) and with one rank a host more than the cards
+   (``-np 2`` on one card): it exits non-zero within the start timeout,
+   its output names the local rank that has no card and the card count,
+   and no worker is left behind;
 2. holds kernel A1 bitwise against its plain PyTorch versions: one
    tensor (``fused_scale_cast``, a table of one entry) over all 9 dtype
    pairs, lengths 1..2^20+3, aligned and unaligned buffers and every
@@ -123,19 +129,26 @@ Builds the port's CUDA kernels from ``horovod_tpu_torch/csrc`` and then:
 8. checks a narrow float32 ResNet trained 2 steps on the card against the
    same steps computed on the CPU with plain PyTorch;
 9. drives the elastic path in child processes (``chip_smoke.py
-   --elastic-child``): the training of phase 3 at full width (ResNet-50
+   --elastic-child``), each started by the port's launcher and
+   rendezvoused on its coordinator (their env names no
+   ``MASTER_ADDR``): the training of phase 3 at full width (ResNet-50
    bf16 NHWC 224x224, batch 64, the same optimizer) under
    ``hvd.elastic.run`` with ``TorchState(model, optimizer,
    data=loader.state)`` over an ``ElasticDataLoader`` of 512 float32
    images from seed 0 (8 steps an epoch), 2 epochs, a commit a step,
    deterministic cuDNN and ``torch.use_deterministic_algorithms``: once
-   uninterrupted, then incarnations 0-3 on one state dir
-   (``HVTPU_ELASTIC=1``, ``HVTPU_CKPT_KEEP=2``): a ``worker.step`` kill
+   uninterrupted (a static ``-np 1`` launch), then incarnations 0-3 on
+   one state dir (``HVTPU_CKPT_KEEP=2``) under one elastic driver
+   (``--host-discovery-script`` printing ``localhost:1``, a 0.1 s poll),
+   each incarnation picking its interruption by
+   ``HVTPU_ELASTIC_GENERATION``: a ``worker.step`` kill
    at the 4th commit (exit 1), SIGUSR1 after 6 commits so the next
    commit raises ``HostsUpdatedInterrupt`` (exit 73), a preemption
    notice by SIGTERM, which the child sends itself before its first
    step, drained at the next commit but one (exit 79), and the rest
-   (exit 0).  Gates: the final model and optimizer state bitwise the
+   (exit 0); the driver relaunches after each, charges the restart
+   budget for the kill only, and exits 0.  Gates: the driver's outcomes
+   and charge, the final model and optimizer state bitwise the
    uninterrupted run's, the committed steps' samples each epoch's
    permutation once, every incarnation starting at the last verified
    commit (so the drain loses no step), every snapshot on disk
@@ -148,9 +161,14 @@ Prints one ``int8_quantized_allreduce {...}`` line, one ``async_path
 ``obs {...}`` line, one ``ring_path {...}`` line, one ``elastic {...}``
 line (the exits, the commits' ms in memory, on the training thread and
 on the writer, a snapshot's bytes, ``sync``'s ms, each child's seconds
-to its first step), one ``{"kernels": [...]}`` line of 10 entries
-(A1's with ``stall_launches``, ``obs_launches_per_step`` and
-``elastic_launches``) and, last,
+to its first step), one ``launcher {...}`` line (the ``--check-build``
+flags, the static launch's rendezvous seconds, each relaunch's seconds
+from the driver seeing the exit to the next incarnation's first step,
+the driver's exits, outcomes and charged restarts, the negative gate),
+one ``{"kernels": [...]}`` line of 10 entries
+(A1's with ``stall_launches``, ``obs_launches_per_step``,
+``elastic_launches`` and ``launcher_launches``, the last by the
+launcher's entry point) and, last,
 ``{"ok": true,
 "device": {...}}``.  Exits non-zero, printing no result, when CUDA is
 absent, when the package is not beside this script, or when any phase
@@ -163,6 +181,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -2954,6 +2973,11 @@ def elastic_child() -> int:
     import torch.nn.functional as F
 
     t_import = time.time()
+    gen = int(os.environ["HVTPU_ELASTIC_GENERATION"])
+    if os.environ.get("HVT_BY_GENERATION") == "1":
+        # under the driver every incarnation gets the same env: this
+        # generation's interruption comes from ELASTIC_GENS
+        os.environ.update(ELASTIC_GENS[gen][1])
     torch.backends.cudnn.benchmark = False
     torch.backends.cudnn.deterministic = True
     torch.use_deterministic_algorithms(True)
@@ -2963,15 +2987,23 @@ def elastic_child() -> int:
     from horovod_tpu_torch.models import ResNet
     from horovod_tpu_torch.ops import _build, fused_scale_cast
 
+    from horovod_tpu_torch.obs import metrics as obs_metrics
+
     log_path = os.environ["HVT_LOG"]
-    gen = int(os.environ["HVTPU_ELASTIC_GENERATION"])
-    t0 = float(os.environ["HVT_T0"])
+    # the last verified commit on disk before this incarnation restores
+    resume = committed_step(Path(os.environ["HVTPU_ELASTIC_STATE_DIR"]))
 
     def record(**rec):
         _elastic_record(log_path, dict(gen=gen, **rec))
 
     _build.build_all()
-    hvd.init()                              # one-rank NCCL world on cuda:0
+    # a one-rank NCCL world on cuda:0, rendezvoused on the launcher's
+    # coordinator (the launcher's env names no MASTER_ADDR)
+    check("MASTER_ADDR" not in os.environ
+          and "HVTPU_COORDINATOR_PORT" in os.environ,
+          "elastic child: not started by the port's launcher")
+    hvd.init()
+    rdv = obs_metrics.snapshot()["hvtpu_rendezvous_seconds"]["values"][""]
     device = hvd.device()
     check(device.type == "cuda", f"elastic child on {device}")
     model = ResNet([3, 4, 6, 3], dtype=torch.bfloat16, device=device,
@@ -3028,7 +3060,8 @@ def elastic_child() -> int:
                                  ("TERM", signal.SIGTERM))}
     spe = ELASTIC_IMAGES // BATCH
     commits = [0]
-    record(kind="start", import_s=t_import - t0)
+    record(kind="start", t_import=t_import, resume=resume,
+           rendezvous_s=rdv["sum"])
 
     @hvd.elastic.run
     def train(state):
@@ -3038,7 +3071,7 @@ def elastic_child() -> int:
                 if commits[0] in signals:
                     os.kill(os.getpid(), signals.pop(commits[0]))
                 if not commits[0]:
-                    record(kind="first_step", wall_s=time.time() - t0)
+                    record(kind="first_step", t=time.time())
                 x, y = batch["x"], batch["y"]
                 before = fused_scale_cast.launches
                 opt.zero_grad()
@@ -3068,28 +3101,46 @@ def elastic_child() -> int:
     return 0
 
 
-def _run_child(tmp: Path, name: str, gen: int, env: dict) -> dict:
-    log_path, out = tmp / f"{name}.jsonl", tmp / f"{name}.pt"
-    state_dir = tmp / f"state_{name}"
-    resume = committed_step(state_dir)
-    full = dict(os.environ)
-    for k in ("HVTPU_FAULT_SPEC", "HVT_USR1_AFTER", "HVT_TERM_AFTER"):
-        full.pop(k, None)
-    full.update({
-        "HVTPU_ELASTIC": "1", "HVTPU_ELASTIC_STATE_DIR": str(state_dir),
-        "HVTPU_ELASTIC_GENERATION": str(gen),
-        "HVTPU_CKPT_KEEP": str(ELASTIC_KEEP),
-        "CUBLAS_WORKSPACE_CONFIG": ":4096:8", "HVTPU_FLIGHT_DIR": str(tmp),
-        "HVT_LOG": str(log_path), "HVT_OUT": str(out),
-        "HVT_T0": repr(time.time())})
-    full.update(env)
-    proc = subprocess.run(
-        [sys.executable, str(Path(__file__).resolve()), "--elastic-child"],
-        env=full, cwd=str(tmp), capture_output=True, text=True,
-        timeout=ELASTIC_TIMEOUT_S)
-    return {"code": proc.returncode, "resume": resume,
-            "stderr": proc.stderr[-3000:], "log": log_path, "out": out,
-            "state_dir": state_dir}
+LAUNCHER = ("-m", "horovod_tpu_torch.runner")
+ELASTIC_POLL_S = 0.1      # the driver's discovery interval
+
+
+def _launch(argv, extra_env: dict, cwd: Path, timeout: float):
+    """``python -m horovod_tpu_torch.runner ARGV`` with this process's
+    env less ``MASTER_ADDR`` / ``MASTER_PORT`` (so the rendezvous can
+    only be the launcher's) plus ``extra_env``; returns the finished
+    process and its wall start."""
+    env = dict(os.environ)
+    for k in ("MASTER_ADDR", "MASTER_PORT", "HVTPU_FAULT_SPEC",
+              "HVT_USR1_AFTER", "HVT_TERM_AFTER"):
+        env.pop(k, None)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(REPO)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                       if p])
+    env.update(extra_env)
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, *LAUNCHER, *argv], env=env,
+                          cwd=str(cwd), capture_output=True, text=True,
+                          timeout=timeout)
+    return proc, t0
+
+
+def _child_env(tmp: Path, name: str) -> dict:
+    return {"HVTPU_ELASTIC_STATE_DIR": str(tmp / f"state_{name}"),
+            "HVTPU_CKPT_KEEP": str(ELASTIC_KEEP),
+            "CUBLAS_WORKSPACE_CONFIG": ":4096:8",
+            "HVTPU_FLIGHT_DIR": str(tmp),
+            "HVT_LOG": str(tmp / f"{name}.jsonl"),
+            "HVT_OUT": str(tmp / f"{name}.pt")}
+
+
+def _driver_ends(stderr: str) -> list:
+    """(outcome, exits, wall time) of every incarnation, from the
+    driver's ``--verbose`` lines."""
+    return [(m.group(1), json.loads(m.group(2)), float(m.group(3)))
+            for m in re.finditer(
+                r"generation \d+ ended: (\w+), exits (\[[^\]]*\]), at "
+                r"wall ([\d.]+)", stderr)]
 
 
 def committed_step(state_dir: Path) -> int:
@@ -3118,10 +3169,14 @@ def _median(xs):
 
 
 def elastic_phase(smi: str, tmp: Path) -> dict:
-    """The elastic path on the card in child processes: one uninterrupted
-    run of the 16 steps, then incarnations 0-3 of the same run (a kill,
-    a host update, a preemption drain, the end) on one state dir; the
-    gates of the module's docstring, and one ``elastic {...}`` line."""
+    """The elastic path on the card, every child started by the port's
+    launcher: one uninterrupted run of the 16 steps (a static ``-np 1``
+    launch), then incarnations 0-3 of the same run (a kill, a host
+    update, a preemption drain, the end) on one state dir under one
+    elastic driver (``--host-discovery-script`` printing
+    ``localhost:1``), which relaunches after each; the gates of the
+    module's docstring, and one ``elastic {...}`` line.  Returns it with
+    the driver's facts for the ``launcher`` line."""
     import torch
 
     from horovod_tpu_torch.core import durable
@@ -3130,18 +3185,39 @@ def elastic_phase(smi: str, tmp: Path) -> dict:
     torch.cuda.empty_cache()
     tmp = tmp / "elastic"
     tmp.mkdir()
-    plain = _run_child(tmp, "plain", 0, {})
-    check(plain["code"] == 0, f"elastic: the uninterrupted run exited "
-          f"{plain['code']}:\n{plain['stderr']}")
-    runs = []
-    for gen, (what, env, want, says) in enumerate(ELASTIC_GENS):
-        run = _run_child(tmp, "elastic", gen, env)
-        log(f"elastic: incarnation {gen} ({what}) resumed from commit "
-            f"{run['resume']}, exit {run['code']}")
-        check(run["code"] == want and says in run["stderr"],
-              f"elastic: incarnation {gen} ({what}) exited {run['code']}, "
-              f"expected {want} and {says!r}:\n{run['stderr']}")
-        runs.append(run)
+    child = ["--", sys.executable, str(Path(__file__).resolve()),
+             "--elastic-child"]
+    plain, plain_t0 = _launch(
+        ["-np", "1", *child],
+        dict(_child_env(tmp, "plain"), HVTPU_ELASTIC="1",
+             HVTPU_ELASTIC_GENERATION="0"), tmp, ELASTIC_TIMEOUT_S)
+    check(plain.returncode == 0, f"elastic: the uninterrupted run exited "
+          f"{plain.returncode}:\n{plain.stderr[-3000:]}")
+    discover = tmp / "discover.sh"
+    discover.write_text("#!/bin/sh\necho localhost:1\n")
+    discover.chmod(0o755)
+    driver, driver_t0 = _launch(
+        ["--host-discovery-script", str(discover), "--min-np", "1",
+         "--max-np", "1", "--verbose", *child],
+        dict(_child_env(tmp, "elastic"), HVT_BY_GENERATION="1",
+             HVTPU_ELASTIC_DISCOVERY_INTERVAL=str(ELASTIC_POLL_S)),
+        tmp, ELASTIC_TIMEOUT_S * len(ELASTIC_GENS))
+    ends = _driver_ends(driver.stderr)
+    want_ends = [("restart", [1]), ("reset", [73]), ("drain", [79]),
+                 ("done", [0])]
+    check(driver.returncode == 0 and [e[:2] for e in ends] == want_ends,
+          f"elastic: the driver exited {driver.returncode} after "
+          f"{[e[:2] for e in ends]}, expected 0 after {want_ends}:\n"
+          f"{driver.stderr[-4000:]}")
+    for gen, (what, _env, _code, says) in enumerate(ELASTIC_GENS):
+        check(says in driver.stderr, f"elastic: incarnation {gen} "
+              f"({what}) did not say {says!r}:\n{driver.stderr[-4000:]}")
+    charged = [int(n) for n in re.findall(
+        r"relaunch charged to the restart budget \((\d+) charged\)",
+        driver.stderr)]
+    # the kill is charged; the reset (exit 73, no crash beside it) and the
+    # drain (exit 79) are not
+    check(charged == [1], f"elastic: the driver charged {charged}")
 
     def records(path):
         with open(path) as f:
@@ -3149,9 +3225,10 @@ def elastic_phase(smi: str, tmp: Path) -> dict:
 
     spe = ELASTIC_IMAGES // BATCH
     total = spe * ELASTIC_EPOCHS
-    ref_recs, recs = records(plain["log"]), records(runs[0]["log"])
-    ref_final = torch.load(plain["out"])
-    final = torch.load(runs[-1]["out"])
+    ref_recs = records(tmp / "plain.jsonl")
+    recs = records(tmp / "elastic.jsonl")
+    ref_final = torch.load(tmp / "plain.pt")
+    final = torch.load(tmp / "elastic.pt")
     # final state bitwise the uninterrupted run's
     for k, t in ref_final["model"].items():
         check(torch.equal(final["model"][k], t),
@@ -3166,10 +3243,13 @@ def elastic_phase(smi: str, tmp: Path) -> dict:
                   f"ran {r['a1']} A1 launches, expected 4")
             check(r["device"] == ["cuda:0", "cuda:0"],
                   f"elastic: a batch on {r['device']}")
+    starts = {r["gen"]: r for r in recs if r["kind"] == "start"}
+    check(sorted(starts) == list(range(len(ELASTIC_GENS))),
+          f"elastic: incarnations {sorted(starts)} started")
     # each incarnation starts at the last verified commit
-    resumes = [run["resume"] for run in runs]
+    resumes = [starts[g]["resume"] for g in range(len(ELASTIC_GENS))]
     steps = {g: [r for r in recs if r["kind"] == "step" and r["gen"] == g]
-             for g in range(len(runs))}
+             for g in range(len(ELASTIC_GENS))}
     for g, resume in enumerate(resumes):
         check(steps[g] and steps[g][0]["step"] == resume + 1,
               f"elastic: incarnation {g} started at step "
@@ -3199,7 +3279,8 @@ def elastic_phase(smi: str, tmp: Path) -> dict:
         check(ids == epoch_permutation(ELASTIC_IMAGES, SEED, e).tolist(),
               f"elastic: epoch {e} samples are not its permutation once")
     # every snapshot on disk verifies; the retention holds
-    for d in (plain["state_dir"], runs[0]["state_dir"]):
+    for name in ("plain", "elastic"):
+        d = tmp / f"state_{name}"
         seqs = durable.list_snapshots(str(d))
         check(0 < len(seqs) <= ELASTIC_KEEP and committed_step(d) == total,
               f"elastic: snapshots {seqs} under {d.name}")
@@ -3210,12 +3291,26 @@ def elastic_phase(smi: str, tmp: Path) -> dict:
     def kind(rs, k, key="ms"):
         return [r[key] for r in rs if r["kind"] == k]
 
+    def first(rs, k):
+        return next(r for r in rs if r["kind"] == k)
+
+    # a child's seconds to its first step and to its imports, counted
+    # from its launcher's start (the uninterrupted run, incarnation 0)
+    # or from the wall time the driver saw the previous incarnation end
+    # (incarnations 1-3: the relaunch, at most one poll after the exit)
+    since = [plain_t0, driver_t0] + [e[2] for e in ends[:-1]]
+    children = [ref_recs] + [[r for r in recs if r["gen"] == g]
+                             for g in range(len(ELASTIC_GENS))]
+    first_step_s = [first(c, "first_step")["t"] - t0
+                    for c, t0 in zip(children, since)]
+    import_s = [first(c, "start")["t_import"] - t0
+                for c, t0 in zip(children, since)]
     every = ref_recs + recs
     saves = [r for r in every if r["kind"] == "save"]
     writes = kind(every, "write")
     result = {
         "card": smi,
-        "exits": [plain["code"]] + [r["code"] for r in runs],
+        "exits": [plain.returncode] + [e[1][0] for e in ends],
         "resumed_from": resumes,
         "steps_per_incarnation": [len(steps[g]) for g in steps],
         "notice": "SIGTERM sent by the child to itself before its first "
@@ -3223,6 +3318,11 @@ def elastic_phase(smi: str, tmp: Path) -> dict:
         "a1_launches_per_step": sorted({r["a1"] for r in every
                                         if r["kind"] == "step"}),
         "a1_launches": sum(kind(every, "step", "a1")),
+        # by entry point: the static launch (the uninterrupted run) and
+        # the elastic driver (incarnations 0-3)
+        "a1_launches_by_launcher": {
+            "static": sum(kind(ref_recs, "step", "a1")),
+            "driver": sum(kind(recs, "step", "a1"))},
         "memory_commit_ms": _median([r["memory_ms"] for r in saves]),
         # save() minus its in-memory snapshot: the copy to the host,
         # torch.save and the hand-over on the training thread; the last
@@ -3236,14 +3336,71 @@ def elastic_phase(smi: str, tmp: Path) -> dict:
         "commits": len(saves),
         "snapshot_bytes": _median(kind(every, "write", "bytes")),
         "sync_ms": kind([r for r in recs if r["gen"] > 0], "sync"),
-        "first_step_s": kind(ref_recs, "first_step", "wall_s")
-        + kind(recs, "first_step", "wall_s"),
-        "import_s": kind(ref_recs, "start", "import_s")
-        + kind(recs, "start", "import_s"),
+        "first_step_s": first_step_s,
+        "import_s": import_s,
         "losses": [r["loss"] for r in ref_recs if r["kind"] == "step"],
     }
     log("elastic " + json.dumps(result))
-    return result
+    return dict(result, launcher={
+        "rendezvous_s": first(ref_recs, "start")["rendezvous_s"],
+        "rendezvous_s_by_incarnation": [
+            first(c, "start")["rendezvous_s"] for c in children[1:]],
+        "relaunch_s": first_step_s[2:],
+        "driver_exits": [e[1] for e in ends],
+        "driver_outcomes": [e[0] for e in ends],
+        "charged_restarts": charged[-1],
+        "poll_s": ELASTIC_POLL_S})
+
+
+def launcher_check_build() -> dict:
+    """``python -m horovod_tpu_torch.runner --check-build`` after the
+    build: NCCL, gloo, CUDA and every kernel of ``csrc`` marked built."""
+    from horovod_tpu_torch.ops import _build
+
+    proc, _ = _launch(["--check-build"], {}, REPO, 120)
+    check(proc.returncode == 0, f"--check-build exited {proc.returncode}:"
+          f"\n{proc.stderr[-2000:]}")
+    flags = {m.group(2): m.group(1) == "X"
+             for m in re.finditer(r"\[([X ])\] (.+)", proc.stdout)}
+    want = ["NCCL", "gloo", "CUDA"] + [s.stem for s in _build.sources()]
+    check(all(flags.get(k) for k in want),
+          f"--check-build: {flags}, expected {want} built:\n{proc.stdout}")
+    return flags
+
+
+def launcher_negative_gate() -> dict:
+    """One more rank a host than cards: the launcher exits non-zero
+    within the start timeout, its output names the local rank that has
+    no card and the card count, and no worker is left behind."""
+    import torch
+
+    cards = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_np_") as d:
+        code = ("import os, sys; open(os.path.join(sys.argv[1], "
+                "os.environ['HVTPU_RANK']), 'w').write(str(os.getpid())); "
+                "import horovod_tpu_torch as hvd; hvd.init()")
+        proc, t0 = _launch(["-np", str(cards + 1), "--start-timeout", "120",
+                            "--", sys.executable, "-c", code, d],
+                           {"HVTPU_TERM_GRACE_SECONDS": "5"}, REPO, 300)
+        seconds = time.time() - t0
+        pids = [int(Path(d, f).read_text()) for f in os.listdir(d)]
+    alive = []
+    for pid in pids:
+        try:
+            os.kill(pid, 0)
+            alive.append(pid)
+        except ProcessLookupError:
+            pass
+    names = (f"local rank {cards})" in proc.stderr
+             and f"sees {cards} CUDA device" in proc.stderr)
+    check(proc.returncode != 0 and seconds < 120 and names and not alive
+          and len(pids) == cards + 1,
+          f"launcher: -np {cards + 1} on {cards} card(s) exited "
+          f"{proc.returncode} in {seconds:.1f} s, names the rank: {names}, "
+          f"workers {pids} left alive {alive}:\n{proc.stderr[-3000:]}")
+    return {"np": cards + 1, "cards": cards, "exit": proc.returncode,
+            "seconds": seconds, "names_rank_and_cards": names,
+            "left_alive": alive}
 
 
 def main() -> int:
@@ -3271,6 +3428,11 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"device: {kind}, torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
+    check_build = launcher_check_build()
+    negative = launcher_negative_gate()
+    log(f"launcher: --check-build {check_build}; -np {negative['np']} on "
+        f"{negative['cards']} card(s) exited {negative['exit']} in "
+        f"{negative['seconds']:.1f} s")
 
     # the flight recorder's postmortems go to a directory of this run
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
@@ -3306,6 +3468,11 @@ def main() -> int:
 
     log(f"{smi} | ResNet-50 bf16 batch {BATCH} {IMAGE}x{IMAGE}: "
         f"{train['images_per_s']:.1f} images/s")
+    log("launcher " + json.dumps({
+        "card": smi, "check_build": check_build,
+        **elastic["launcher"], "negative": negative,
+        "a1_launches": elastic["a1_launches"],
+        "a1_launches_per_step": elastic["a1_launches_per_step"]}))
     pre, post = kern["passes"]["pre"], kern["passes"]["post"]
     # A1: the grouped pre pass (scale_cast_pack) over the 161 gradients;
     # the post pass (unpack_cast_scale) beside it; library_ms is
@@ -3324,6 +3491,9 @@ def main() -> int:
         "obs_launches_per_step": {m: d["launches_per_step"]
                                   for m, d in obs["modes"].items()},
         "elastic_launches": elastic["a1_launches"],
+        # the elastic children by the launcher's entry point that
+        # started them
+        "launcher_launches": elastic["a1_launches_by_launcher"],
         "elastic_launches_per_step": elastic["a1_launches_per_step"],
         "max_abs_err": kern["max_abs_err"],
         "ms": pre["ms"],

@@ -17,6 +17,20 @@ semantics of ``horovod_tpu/comm/spmd.py`` ``allreduce``:
   decompresses; Min and Max reduce; Product gathers and multiplies; the
   postscale multiplies in the output's dtype.
 
+Under ``HVTPU_HIERARCHICAL_ALLREDUCE`` (the launcher's
+``--hierarchical-allreduce``) an allreduce over the global set takes
+two stages, under the reference's conditions
+(``horovod_tpu/comm/eager.py`` ``_hierarchical_mesh_or_none`` and
+``_allreduce_plan``): a launcher-certified uniform layout of more than
+one rank a host on more than one host covering the world
+(``core/topology.py``), no integer Average (it floor-divides per
+stage), and for Adasum a power-of-two host count.  Every op but Adasum
+reduces over the local group, then over the cross group, each stage
+the flat reduction (its codec and its Average, which divides by the
+stage's own group size); Adasum sums over the local group, then
+combines across hosts (``comm/adasum.py`` over the cross group).  A
+failed stage raises; it is never retried flat.
+
 Every op returns a new tensor.  Every op takes a process set (a
 ``ProcessSet``, its id, or None for the global set) and runs over the
 set's group: Average divides by the set's size, a broadcast root is a
@@ -296,10 +310,120 @@ def _gather(x: torch.Tensor, ps: ProcessSet) -> torch.Tensor:
     return out
 
 
+def hierarchical_groups(ps: ProcessSet, rop: ReduceOp, dtype: torch.dtype):
+    """``(local, cross)`` (``core/topology.GroupView``) when an allreduce
+    of ``rop`` on ``dtype`` over ``ps`` takes the hierarchical route,
+    else None: the reference's conditions (module docstring)."""
+    st = core_state.global_state()
+    if ps.process_set_id != 0 or st.topology is None:
+        return None
+    if rop == ReduceOp.AVERAGE and not (dtype.is_floating_point
+                                        or dtype.is_complex):
+        return None
+    if rop == ReduceOp.ADASUM and st.cross_size & (st.cross_size - 1):
+        return None
+    return st.topology.local, st.topology.cross
+
+
 def _reduce(x: torch.Tensor, rop: ReduceOp, compression,
             ps: ProcessSet) -> torch.Tensor:
-    """The reduction of ``spmd.allreduce`` over ``ps``; ``x`` is a
-    contiguous tensor the caller owns."""
+    """The reduction of ``spmd.allreduce`` over ``ps``, or of the
+    reference's two-stage programs (``allreduce_hier``,
+    ``allreduce_hier_adasum``) where the hierarchical route applies;
+    ``x`` is a contiguous tensor the caller owns.  The stages are
+    ordered by stream on the card: each is a synchronous op, which
+    leaves the current stream waiting on its NCCL stream, and the next
+    stage's NCCL stream waits on the current stream at its launch."""
+    hier = hierarchical_groups(ps, rop, x.dtype)
+    if hier is None:
+        return _reduce_flat(x, rop, compression, ps)
+    local, cross = hier
+    if rop == ReduceOp.ADASUM:
+        # as the reference: a Sum within the host (no codec), then the
+        # codec around Adasum across hosts
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=_group(local))
+        wire, ctx = compression.compress(x)
+        return compression.decompress(adasum_reduce(wire, cross), ctx)
+    out = _reduce_flat(x, rop, compression, local)
+    return _reduce_flat(out.contiguous(), rop, compression, cross)
+
+
+def bucket_allreduce(flat: torch.Tensor, ps: ProcessSet, rop: ReduceOp):
+    """The wire of a fused bucket (``torch/optimizer.GroupReduction``):
+    an asynchronous Sum of ``flat`` in place over ``ps``.  Returns the
+    pending work, for :func:`bucket_wait`, and the divisor an Average
+    applies after it (``ps.size``).  On the hierarchical route the Sum
+    runs over the local group, then over the cross group
+    (:class:`TwoStageWork`); an Average divides by the local size
+    between the stages and by the cross size after (the divisor
+    returned).  The launch never blocks the host."""
+    hier = hierarchical_groups(ps, rop, flat.dtype)
+    if hier is None:
+        return dist.all_reduce(flat, dist.ReduceOp.SUM, _group(ps),
+                               async_op=True), ps.size
+    local, cross = hier
+    work = dist.all_reduce(flat, dist.ReduceOp.SUM, _group(local),
+                           async_op=True)
+    return TwoStageWork(flat, work, rop, local, cross), cross.size
+
+
+class TwoStageWork:
+    """A hierarchical bucket in flight: the local stage's ``Work``
+    (``local``), and the cross stage, which reads what the local stage
+    wrote.  On the card the cross stage is launched at once: NCCL's
+    ``wait()`` on the local stage only makes the current stream wait,
+    and the cross stage's NCCL stream waits on the current stream when
+    it is launched.  Elsewhere (gloo, whose ``wait()`` blocks the host)
+    :func:`bucket_wait` launches it once the local stage is done, so the
+    launch never blocks and a dead peer in the local stage leaves the
+    caller in the watchdog's interruptible wait.  Either way every rank
+    launches its cross stages in its program's order (at the bucket's
+    launch, or at its wait), never at a time a poll happens to see."""
+
+    def __init__(self, flat: torch.Tensor, local_work, rop: ReduceOp,
+                 local, cross):
+        self.local = local_work
+        self._flat, self._rop = flat, rop
+        self._local_size, self._cross = local.size, cross
+        self.cross = None
+        if flat.is_cuda:
+            self.start_cross()
+
+    def start_cross(self):
+        """Launch the cross stage (once) and return its ``Work``; waits
+        for the local stage first."""
+        if self.cross is None:
+            self.local.wait()
+            if self._rop == ReduceOp.AVERAGE:
+                average_(self._flat, self._local_size)
+            self.cross = dist.all_reduce(self._flat, dist.ReduceOp.SUM,
+                                         _group(self._cross),
+                                         async_op=True)
+        return self.cross
+
+    def is_completed(self) -> bool:
+        """Whether both stages are done; never launches a stage."""
+        return self.cross is not None and self.cross.is_completed()
+
+    def wait(self):
+        return self.start_cross().wait()
+
+
+def bucket_wait(st, ps: ProcessSet, work, desc: Optional[str]) -> None:
+    """Wait for a bucket :func:`bucket_allreduce` launched, under the
+    watchdog's ``finish`` (``desc``, the bucket's descriptor): a
+    hierarchical bucket's local stage, then its cross stage."""
+    if isinstance(work, TwoStageWork):
+        stall.finish(st, ps, work.local, desc)
+        work = work.start_cross()
+    stall.finish(st, ps, work, desc)
+    work.wait()
+
+
+def _reduce_flat(x: torch.Tensor, rop: ReduceOp, compression,
+                 ps: ProcessSet) -> torch.Tensor:
+    """One flat reduction over ``ps`` (a process set, or a local or
+    cross group view)."""
     if rop in (ReduceOp.SUM, ReduceOp.AVERAGE):
         if _is_int8(compression) and x.is_floating_point():
             # int8 codes cannot be summed (per-rank scales, overflow):

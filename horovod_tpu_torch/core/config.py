@@ -4,12 +4,16 @@ Counterpart of ``horovod_tpu/core/config.py``: the same env names, read
 the same way (``HVTPU_<NAME>`` first, then the reference's
 ``HOROVOD_<NAME>``), for the fields this part of the port uses — the
 fusion threshold, the controller's cycle time and response-cache
-capacity, the timeline and the trace directory, the stall watchdog's
-settings, the fault-injection spec and seed, the rank, size and local
-rank the launcher sets, and the worker side of elastic training (the
-elastic flag, the preemption signal, notice file and drain grace).
-The elastic driver's fields (its timeout, discovery interval, restart
-budget, blacklist cooldowns) come with the launcher.
+capacity, the hierarchical allreduce and the launcher's layout
+certificate, the timeline and the trace directory, the stall watchdog's
+settings, the fault-injection spec and seed, the topology and the
+coordinator the launcher sets (rank, size, local and cross rank and
+size, address, port, start timeout), the launcher's CPU request, the
+log level, and elastic training (the elastic flag, the preemption
+signal, notice file and drain grace, and the timeout the elastic driver
+takes when ``--elastic-timeout`` is not given).  The elastic driver
+reads its discovery interval, restart budget and blacklist cooldowns
+from the env itself, as the reference's does.
 """
 
 from __future__ import annotations
@@ -58,6 +62,14 @@ class Config:
     cycle_time_ms: float = 1.0
     cache_capacity: int = 1024
 
+    # two-stage allreduce over the local and cross groups
+    # (core/topology.py; parity: HOROVOD_HIERARCHICAL_ALLREDUCE)
+    hierarchical_allreduce: bool = False
+    # set by the launcher when every host has the SAME slot count (0 =
+    # non-uniform or unknown); the hierarchical route requires it so
+    # all ranks agree on the (cross, local) grid
+    uniform_local_size: int = 0
+
     # --- timeline / tracing ---
     timeline_filename: Optional[str] = None
     timeline_mark_cycles: bool = False
@@ -84,14 +96,24 @@ class Config:
     fault_spec: Optional[str] = None
     fault_seed: int = 0
 
+    # --- process topology (set by the launcher, like HOROVOD_RANK/SIZE) ---
     rank: int = 0
     size: int = 1
     local_rank: int = 0
+    local_size: int = 1
+    cross_rank: int = 0
+    cross_size: int = 1
+
+    # --- rendezvous: the launcher's coordinator (a TCPStore that rank 0
+    # serves; core/state.py) ---
+    coordinator_addr: Optional[str] = None
+    coordinator_port: int = 0
+    # startup/rendezvous window (parity: horovodrun --start-timeout)
+    start_timeout: float = 600.0
 
     # --- elastic (elastic/, core/durable.py) ---
-    # the elastic driver's own fields (HVTPU_ELASTIC_TIMEOUT and the
-    # discovery settings) come with the launcher that reads them
     elastic: bool = False
+    elastic_timeout: float = 600.0
 
     # --- graceful preemption / drain (core/preempt.py) ---
     # signal interpreted as a preemption notice; a name that does not
@@ -104,6 +126,15 @@ class Config:
     # before force-exiting with the planned-departure code anyway
     drain_grace_seconds: float = 30.0
 
+    # the level of the package's loggers (parity: HOROVOD_LOG_LEVEL;
+    # trace|debug|info|warning|error|fatal)
+    log_level: str = "warning"
+
+    # --- the launcher's CPU request (``--cpu-devices N``): run this
+    # process on the CPU over gloo; the port keeps one device a
+    # process, so N above 1 is refused at init() ---
+    cpu_devices: int = 0
+
     @staticmethod
     def from_env() -> "Config":
         fusion_mb = _env_str("FUSION_THRESHOLD_MB")
@@ -115,6 +146,9 @@ class Config:
             fusion_threshold_bytes=fusion_bytes,
             cycle_time_ms=_env_float("CYCLE_TIME", 1.0),
             cache_capacity=_env_int("CACHE_CAPACITY", 1024),
+            hierarchical_allreduce=_env_bool("HIERARCHICAL_ALLREDUCE",
+                                             False),
+            uniform_local_size=_env_int("UNIFORM_LOCAL_SIZE", 0),
             timeline_filename=_env_str("TIMELINE"),
             timeline_mark_cycles=_env_bool("TIMELINE_MARK_CYCLES", False),
             trace_dir=_env_str("TRACE"),
@@ -132,8 +166,17 @@ class Config:
             rank=_env_int("RANK", 0),
             size=_env_int("SIZE", 1),
             local_rank=_env_int("LOCAL_RANK", 0),
+            local_size=_env_int("LOCAL_SIZE", 1),
+            cross_rank=_env_int("CROSS_RANK", 0),
+            cross_size=_env_int("CROSS_SIZE", 1),
+            coordinator_addr=_env_str("COORDINATOR_ADDR"),
+            coordinator_port=_env_int("COORDINATOR_PORT", 0),
+            start_timeout=_env_float("START_TIMEOUT", 600.0),
             elastic=_env_bool("ELASTIC", False),
+            elastic_timeout=_env_float("ELASTIC_TIMEOUT", 600.0),
             preempt_signal=_env_str("PREEMPT_SIGNAL", "SIGTERM"),
             preempt_notice_file=_env_str("PREEMPT_NOTICE_FILE"),
             drain_grace_seconds=_env_float("DRAIN_GRACE_SECONDS", 30.0),
+            log_level=_env_str("LOG_LEVEL", "warning"),
+            cpu_devices=_env_int("CPU_DEVICES", 0),
         )

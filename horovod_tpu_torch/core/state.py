@@ -6,11 +6,21 @@ the rank/size queries) over ``torch.distributed``:
 * ``init()`` runs on the card: NCCL on ``cuda:{local_rank}``.  It raises
   when CUDA is absent, unless the caller asks for the CPU with
   ``init(device="cpu")``, which uses gloo.
-* Rank and size come from the launcher env (``HVTPU_RANK`` /
-  ``HOROVOD_RANK``, ``..._SIZE``, ``..._LOCAL_RANK``).  A world of one
-  needs no launcher: its store is a ``TCPStore`` on localhost.  A larger
-  world rendezvouses through ``MASTER_ADDR`` / ``MASTER_PORT``
-  (``env://``).
+* Rank, size and the host layout come from the launcher env
+  (``HVTPU_RANK`` / ``HOROVOD_RANK``, ``..._SIZE``, ``..._LOCAL_RANK``,
+  ``..._LOCAL_SIZE``, ``..._CROSS_RANK``, ``..._CROSS_SIZE``).  Under the
+  port's launcher (``python -m horovod_tpu_torch.runner``) every rank
+  rendezvouses on its coordinator, ``HVTPU_COORDINATOR_ADDR`` /
+  ``HVTPU_COORDINATOR_PORT``: rank 0 serves a ``TCPStore`` there, the
+  others connect within ``HVTPU_START_TIMEOUT``, and the store is the
+  default group's.  Without a coordinator a world of one uses a
+  ``TCPStore`` on localhost, and a larger world rendezvouses through
+  ``MASTER_ADDR`` / ``MASTER_PORT`` (``env://``, as ``torchrun`` sets
+  them).
+* The device is ``cuda:{local_rank}``, checked against the cards this
+  process sees; ``HVTPU_CPU_DEVICES=1`` (the launcher's
+  ``--cpu-devices 1``) or ``init(device="cpu")`` asks for the CPU, and
+  an explicit ``device`` wins over the env.
 * A process that already called ``torch.distributed.init_process_group``
   keeps its group; ``init()`` adopts its rank and size.
 * ``init()`` makes the process-set table (the global set, id 0) and one
@@ -71,6 +81,7 @@ from .config import Config
 from .exceptions import NotInitializedError
 from .kv import StoreKV
 from .process_set import ProcessSet, ProcessSetTable, global_process_set
+from .topology import Topology, hierarchical_layout
 
 
 @dataclasses.dataclass
@@ -80,6 +91,9 @@ class GlobalState:
     rank: int = 0
     size: int = 1
     local_rank: int = 0
+    local_size: int = 1
+    cross_rank: int = 0
+    cross_size: int = 1
     device: Optional[torch.device] = None
     backend: str = ""
     # True when init() created the default group (shutdown destroys it)
@@ -101,12 +115,18 @@ class GlobalState:
     # the Chrome-trace timeline (obs/timeline.py), HVTPU_TIMELINE or
     # start_timeline
     timeline: Any = None
+    # the local and cross groups (core/topology.py)
+    topology: Any = None
 
 
 _state = GlobalState()
 _lock = threading.Lock()
 _atexit_registered = False
 logger = logging.getLogger("horovod_tpu_torch")
+# HVTPU_LOG_LEVEL's names, as the reference maps them onto ``logging``
+_LOG_LEVELS = {"trace": logging.DEBUG, "debug": logging.DEBUG,
+               "info": logging.INFO, "warning": logging.WARNING,
+               "error": logging.ERROR, "fatal": logging.CRITICAL}
 
 
 def global_state() -> GlobalState:
@@ -121,6 +141,9 @@ def _job_debug_state() -> dict:
         "rank": _state.rank,
         "size": _state.size,
         "local_rank": _state.local_rank,
+        "local_size": _state.local_size,
+        "cross_rank": _state.cross_rank,
+        "cross_size": _state.cross_size,
         "init_generation": _state.init_generation,
         "elastic_generation": int(
             os.environ.get("HVTPU_ELASTIC_GENERATION", "0") or 0),
@@ -195,22 +218,43 @@ def require_init(name: str = "this operation") -> GlobalState:
     return _state
 
 
+def _cuda_device(index: int, cfg: Config) -> torch.device:
+    """``cuda:{index}``, checked against the cards this process sees: a
+    launch of more ranks a host than cards would otherwise die in
+    ``set_device`` with CUDA's "invalid device ordinal", naming no rank,
+    while its peers wait in the rendezvous."""
+    count = torch.cuda.device_count()
+    if index >= count:
+        raise RuntimeError(
+            f"horovod_tpu_torch.init(): rank {cfg.rank} (local rank "
+            f"{cfg.local_rank}) needs cuda:{index}, but this process "
+            f"sees {count} CUDA device(s); launch at most {count} "
+            "rank(s) a host, or pass --cpu-devices 1 to run on the CPU")
+    return torch.device("cuda", index)
+
+
 def _resolve_device(device, cfg: Config) -> torch.device:
+    if cfg.cpu_devices > 1:
+        raise ValueError(
+            f"HVTPU_CPU_DEVICES={cfg.cpu_devices}: the port runs one "
+            "device a process; use --cpu-devices 1")
+    if device is None and cfg.cpu_devices == 1:
+        return torch.device("cpu")
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "horovod_tpu_torch.init(): CUDA is not available; pass "
-                "device='cpu' to run on the CPU over gloo")
-        return torch.device("cuda", cfg.local_rank)
+                "device='cpu' (or launch with --cpu-devices 1) to run on "
+                "the CPU over gloo")
+        return _cuda_device(cfg.local_rank, cfg)
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
                 f"horovod_tpu_torch.init(): device {dev} requested but "
                 "CUDA is not available")
-        if dev.index is None:
-            dev = torch.device("cuda", cfg.local_rank)
-        return dev
+        return _cuda_device(
+            cfg.local_rank if dev.index is None else dev.index, cfg)
     if dev.type == "cpu":
         return dev
     raise ValueError(f"unsupported device {dev!r}: use 'cuda' or 'cpu'")
@@ -240,6 +284,15 @@ def init(device=None) -> GlobalState:
         if _state.initialized:
             return _state
         cfg = Config.from_env()
+        logger.setLevel(_LOG_LEVELS.get(cfg.log_level.lower(),
+                                        logging.WARNING))
+        if cfg.elastic:
+            # before the (possibly long) rendezvous: a host update that
+            # arrives meanwhile sets the flag instead of killing the
+            # process with the default disposition
+            from ..elastic.worker import _install_sigusr1_handler
+
+            _install_sigusr1_handler()
         dev = _resolve_device(device, cfg)
         backend = "nccl" if dev.type == "cuda" else "gloo"
         if dev.type == "cuda":
@@ -251,7 +304,17 @@ def init(device=None) -> GlobalState:
             rank, size = dist.get_rank(), dist.get_world_size()
         else:
             rank, size = cfg.rank, cfg.size
-            if size == 1:
+            if cfg.coordinator_addr and cfg.coordinator_port:
+                # the launcher's coordinator: rank 0 serves the store
+                t_rdv = time.monotonic()
+                store = dist.TCPStore(
+                    cfg.coordinator_addr, cfg.coordinator_port, size,
+                    is_master=rank == 0,
+                    timeout=datetime.timedelta(seconds=cfg.start_timeout))
+                dist.init_process_group(backend, store=store, rank=rank,
+                                        world_size=size, timeout=timeout)
+                _observe_rendezvous(time.monotonic() - t_rdv)
+            elif size == 1:
                 store = dist.TCPStore("127.0.0.1", 0, 1, True)
                 dist.init_process_group(backend, store=store, rank=0,
                                         world_size=1, timeout=timeout)
@@ -261,26 +324,38 @@ def init(device=None) -> GlobalState:
                 if missing:
                     raise RuntimeError(
                         f"horovod_tpu_torch.init(): a world of {size} "
-                        f"ranks needs {' and '.join(missing)} in the env "
-                        "(or an initialized torch.distributed group)")
+                        "ranks needs a rendezvous: launch it with "
+                        "python -m horovod_tpu_torch.runner "
+                        "(HVTPU_COORDINATOR_ADDR / HVTPU_COORDINATOR_PORT)"
+                        f" or set {' and '.join(missing)} (or initialize "
+                        "a torch.distributed group first)")
                 t_rdv = time.monotonic()
                 dist.init_process_group(backend, init_method="env://",
                                         rank=rank, world_size=size,
                                         timeout=timeout)
-                obs_metrics.histogram(
-                    "hvtpu_rendezvous_seconds",
-                    "Coordination-service rendezvous duration at init "
-                    "(per incarnation; elastic restarts re-observe it).",
-                ).observe(time.monotonic() - t_rdv)
+                _observe_rendezvous(time.monotonic() - t_rdv)
             owns = True
         _state.config = cfg
         _state.rank, _state.size = rank, size
         _state.local_rank = cfg.local_rank
+        # the host layout comes from the launcher past one rank; a world
+        # of one is its own host (the reference's rule)
+        if size > 1:
+            _state.local_size = cfg.local_size
+            _state.cross_rank = cfg.cross_rank
+            _state.cross_size = cfg.cross_size
         _state.device, _state.backend = dev, backend
         _state.owns_group, _state.store = owns, store
         _state.group_timeout = timeout if owns else None
         _state.process_set_table = ProcessSetTable(size, global_process_set)
         _make_groups(global_process_set)
+        if hierarchical_layout(cfg, size, _state.local_size,
+                               _state.cross_size):
+            # the hierarchical route's groups, made here so that every
+            # rank creates them at the same point of its program
+            _state.topology = Topology(rank, _state.local_size,
+                                       _state.cross_size,
+                                       timeout=_state.group_timeout)
         _state.kv = StoreKV(dist.PrefixStore(
             "hvt_kv", dist.distributed_c10d._get_default_store()), size)
         _state.init_generation += 1
@@ -297,6 +372,14 @@ def init(device=None) -> GlobalState:
             _atexit_registered = True
         _state.initialized = True
         return _state
+
+
+def _observe_rendezvous(seconds: float) -> None:
+    obs_metrics.histogram(
+        "hvtpu_rendezvous_seconds",
+        "Coordination-service rendezvous duration at init "
+        "(per incarnation; elastic restarts re-observe it).",
+    ).observe(seconds)
 
 
 def _install_obs(cfg: Config) -> None:
@@ -441,6 +524,8 @@ def abort_group(group=None) -> None:
 
 
 def _teardown_groups() -> None:
+    if _state.topology is not None and dist.is_initialized():
+        _state.topology.destroy()
     for psid, ps in _state.process_set_table.items().items():
         if dist.is_initialized():
             _destroy_groups(ps)
@@ -568,6 +653,29 @@ def size() -> int:
 
 def local_rank() -> int:
     return require_init("local_rank()").local_rank
+
+
+def local_size() -> int:
+    return require_init("local_size()").local_size
+
+
+def cross_rank() -> int:
+    return require_init("cross_rank()").cross_rank
+
+
+def cross_size() -> int:
+    return require_init("cross_size()").cross_size
+
+
+def is_homogeneous() -> bool:
+    """True when every host runs the same number of ranks (parity:
+    ``hvd.is_homogeneous``, the reference's rule): a world of one host
+    is, and a world of several relies on the launcher's uniformity
+    certificate (``HVTPU_UNIFORM_LOCAL_SIZE``)."""
+    st = require_init("is_homogeneous()")
+    if st.size == 1 or st.cross_size == 1:
+        return True
+    return bool(st.config and st.config.uniform_local_size > 0)
 
 
 def device() -> torch.device:

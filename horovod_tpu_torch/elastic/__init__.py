@@ -18,10 +18,17 @@ Worker-side usage (the reference's shape)::
 
 ``HVTPU_ELASTIC=1`` arms the preemption watcher at ``init()``;
 ``HVTPU_ELASTIC_STATE_DIR`` names the durable commit directory and
-``HVTPU_ELASTIC_GENERATION`` the incarnation.  The launcher side (the
-elastic driver and host discovery) is not part of the port yet; a
-relaunch is any process that starts the script again with the next
-generation.  ``JaxState`` and ``ShardedJaxState`` are the JAX package's:
+``HVTPU_ELASTIC_GENERATION`` the incarnation.
+
+Launcher side (``driver.py``, ``discovery.py``)::
+
+    python -m horovod_tpu_torch.runner --host-discovery-script ./hosts.sh \
+        --min-np 2 --max-np 8 -- python train.py
+
+The driver polls the discovery script, relaunches the world on a fresh
+coordinator port after a crash (charged to ``--max-restarts``), a reset
+(exit 73, or SIGUSR1 it sends on a host update), a drain (exit 79) or a
+fence (exit 89), and exits 0 once an incarnation ends cleanly.  ``JaxState`` and ``ShardedJaxState`` are the JAX package's:
 ``TorchState`` and ``ElasticSampler`` (``horovod_tpu_torch.torch.elastic``,
 also exported here, so ``hvd.elastic`` is the same surface from the
 package root and from ``horovod_tpu_torch.torch``) and ``ObjectState``

@@ -5,6 +5,7 @@ Usage (the reference's shape)::
 
     import horovod_tpu_torch.torch as hvd
     hvd.init()                      # NCCL on cuda:{local_rank}
+    hvd.local_size(), hvd.cross_rank(), hvd.is_homogeneous()
     optimizer = hvd.DistributedOptimizer(
         torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
         named_parameters=model.named_parameters(),
@@ -68,13 +69,30 @@ from ..core.exceptions import (
     NotInitializedError,
     StallError,
 )
+from ..core.basics import (
+    ccl_built,
+    cuda_built,
+    ddl_built,
+    gloo_built,
+    gloo_enabled,
+    mpi_built,
+    mpi_enabled,
+    mpi_threads_supported,
+    nccl_built,
+    rocm_built,
+    xla_built,
+)
 from ..core.process_set import ProcessSet, global_process_set
 from ..core.state import (
     add_process_set,
+    cross_rank,
+    cross_size,
     device,
     init,
+    is_homogeneous,
     is_initialized,
     local_rank,
+    local_size,
     rank,
     remove_process_set,
     shutdown,
@@ -128,6 +146,10 @@ from . import elastic  # noqa: E402  (hvd.elastic.TorchState parity)
 
 __all__ = [
     "init", "shutdown", "is_initialized", "rank", "size", "local_rank",
+    "local_size", "cross_rank", "cross_size", "is_homogeneous",
+    "mpi_enabled", "mpi_built", "mpi_threads_supported", "gloo_enabled",
+    "gloo_built", "nccl_built", "ddl_built", "ccl_built", "cuda_built",
+    "rocm_built", "xla_built",
     "device", "ProcessSet", "global_process_set", "add_process_set",
     "remove_process_set", "start_timeline", "stop_timeline",
     "NotInitializedError", "HorovodInternalError",

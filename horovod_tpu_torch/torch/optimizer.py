@@ -15,7 +15,10 @@ One group's reduction follows the JAX engine's
 
 * a group of several tensors takes the staged fused path: prescale (only
   when it is not 1), wire compression, ``pack_flat``, one
-  ``all_reduce(SUM)`` launched with ``async_op=True``, then at finish
+  ``all_reduce(SUM)`` launched with ``async_op=True`` (on the
+  hierarchical route, ``HVTPU_HIERARCHICAL_ALLREDUCE``, a Sum over the
+  local group and then one over the cross group:
+  ``comm/eager.bucket_allreduce``), then at finish
   ``unpack_flat``, decompression and postscale (only when it is not 1).
   The order holds in a world of one too.  Where every tensor of the
   group is a contiguous float32/bfloat16/float16 and the codec is
@@ -51,7 +54,8 @@ Past one member the buckets run under the stall watchdog
 plan, byte count and wire dtype, the same on every rank under the
 deterministic plan) and launches its ``all_reduce`` through the
 watchdog's ``dispatch``; ``finish`` polls the collective's completion
-(its ``Work``, which on the card is its CUDA event) before it waits on
+(its ``Work``, which on the card is its CUDA event; on the hierarchical
+route each stage's, ``comm/eager.bucket_wait``) before it waits on
 it.  A rank that stops stepping is then named by the others instead of
 leaving them parked in the collective.
 
@@ -91,7 +95,6 @@ import warnings
 from typing import Callable, List, Optional, Sequence
 
 import torch
-import torch.distributed as dist
 
 from ..comm import eager, stall
 from ..comm.fusion import plan_buckets
@@ -128,6 +131,9 @@ class PendingGroup:
     # the gradients' trace names and the bucket's allreduce span
     names: Optional[List[str]] = None
     span: object = None
+    # what an Average divides by once ``work`` is done: the set's size,
+    # or the cross group's on the hierarchical route
+    divisor: int = 1
 
 
 def apply_scale(t: torch.Tensor, factor: float,
@@ -214,14 +220,13 @@ class GroupReduction:
         sdesc = stall.check(
             st, ps, f"bucket:{'-' if index is None else index}:"
             f"{flat.numel() * flat.element_size()}:{flat.dtype}")
-        work = stall.dispatch(
-            st, ps, dist.all_reduce, (flat, dist.ReduceOp.SUM,
-                                      eager._group(ps), True),
+        work, divisor = stall.dispatch(
+            st, ps, eager.bucket_allreduce, (flat, ps, self.op),
             owner="bucket", desc=sdesc)
         return PendingGroup(flat, specs, ctxs, work, grouped=grouped,
                             sdesc=sdesc,
                             names=None if names is None else list(names),
-                            span=span)
+                            span=span, divisor=divisor)
 
     def _per_tensor(self, tensors, names) -> List[torch.Tensor]:
         """A group of one tensor, or Adasum's: each tensor its own
@@ -252,12 +257,11 @@ class GroupReduction:
         if pending.outs is not None:
             return _into(outs, pending.outs)
         try:
-            stall.finish(core_state.global_state(), self.process_set,
-                         pending.work, pending.sdesc)
-            pending.work.wait()
+            eager.bucket_wait(core_state.global_state(), self.process_set,
+                              pending.work, pending.sdesc)
             flat = pending.flat
             if self.op == ReduceOp.AVERAGE:
-                eager.average_(flat, self.process_set.size)
+                eager.average_(flat, pending.divisor)
         except BaseException:
             if pending.span is not None:
                 pending.span.close()

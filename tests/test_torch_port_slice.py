@@ -223,7 +223,11 @@ def test_import_leaves_no_jax_or_reference_module():
             " horovod_tpu_torch.obs, horovod_tpu_torch.elastic,"
             " horovod_tpu_torch.torch.elastic, horovod_tpu_torch.data,"
             " horovod_tpu_torch.api.checkpoint, horovod_tpu_torch.core.audit,"
-            " horovod_tpu_torch.core.preempt, horovod_tpu_torch.core.durable;"
+            " horovod_tpu_torch.core.preempt, horovod_tpu_torch.core.durable,"
+            " horovod_tpu_torch.core.topology, horovod_tpu_torch.core.basics,"
+            " horovod_tpu_torch.runner, horovod_tpu_torch.runner.run_task,"
+            " horovod_tpu_torch.runner.nic, horovod_tpu_torch.elastic.driver,"
+            " horovod_tpu_torch.elastic.discovery;"
             " print('\\n'.join(sorted(sys.modules)))")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -248,7 +252,15 @@ def test_import_leaves_no_jax_or_reference_module():
             "horovod_tpu_torch.data.sources",
             "horovod_tpu_torch.api.checkpoint",
             "horovod_tpu_torch.core.audit", "horovod_tpu_torch.core.preempt",
-            "horovod_tpu_torch.core.durable"} <= set(out)
+            "horovod_tpu_torch.core.durable", "horovod_tpu_torch.core.topology",
+            "horovod_tpu_torch.core.basics", "horovod_tpu_torch.runner.launch",
+            "horovod_tpu_torch.runner.hosts",
+            "horovod_tpu_torch.runner.secret",
+            "horovod_tpu_torch.runner.safe_shell_exec",
+            "horovod_tpu_torch.runner.run_task",
+            "horovod_tpu_torch.runner.nic",
+            "horovod_tpu_torch.elastic.driver",
+            "horovod_tpu_torch.elastic.discovery"} <= set(out)
     assert [m for m in out if _forbidden(m)] == []
 
 
@@ -276,7 +288,12 @@ def test_ast_scan_finds_no_jax_or_reference_import():
                 "obs/stepprof.py", "core/durable.py", "core/audit.py",
                 "core/preempt.py", "data/loader.py", "data/sharder.py",
                 "data/sources.py", "api/checkpoint.py", "elastic/state.py",
-                "elastic/worker.py", "torch/elastic.py"):
+                "elastic/worker.py", "torch/elastic.py", "core/topology.py",
+                "core/basics.py", "runner/__init__.py", "runner/__main__.py",
+                "runner/hosts.py", "runner/secret.py", "runner/nic.py",
+                "runner/safe_shell_exec.py", "runner/launch.py",
+                "runner/run_task.py", "elastic/driver.py",
+                "elastic/discovery.py", "version.py"):
         assert REPO / "horovod_tpu_torch" / sub in files
     assert len(files) > 15
     bad = [(f.name, m) for f in files for m in _imports(f) if _forbidden(m)]

@@ -1201,6 +1201,27 @@ def test_two_rank_optimizer_names_the_rank_that_stopped(tmp_path):
     assert r0["age"] < abort + 2 * hb
 
 
+def test_hierarchical_optimizer_names_the_rank_that_stopped(tmp_path):
+    """Two ranks a host on two hosts under the hierarchical route: rank
+    1, rank 0's peer in its local group, stops stepping.  Rank 0 waits
+    on a bucket's local stage, which the watchdog's poll must abort in
+    its time, naming rank 1 (a launch that blocked on the stage would
+    park rank 0 in gloo's wait until the group's timeout)."""
+    abort, hb = 1.5, 0.2
+    codes, res = spawn_world(stall_worker, 4, tmp_path, "optimizer", {
+        WARN: "0.5", ABORT: str(abort), HB: str(hb),
+        "HVTPU_HIERARCHICAL_ALLREDUCE": "1",
+        "HVTPU_UNIFORM_LOCAL_SIZE": "2"}, timeout=60.0)
+    r0, r1 = res[:2]
+    assert r1["status"] == "stopped" and r1["hierarchical"], res
+    assert r0["status"] == "aborted" and r0["hierarchical"], res
+    assert "bucket:" in r0["msg"] and "[1]" in r0["msg"]
+    assert r0["age"] < abort + 2 * hb
+    # the other host's ranks wait on cross stages that ranks 0 and 1
+    # never finish: they abort too
+    assert [r["status"] for r in res[2:]] == ["aborted", "aborted"], res
+
+
 @pytest.mark.parametrize("stream", ["0", "1"], ids=["lockstep", "streamed"])
 def test_two_rank_controller_warns_then_aborts(tmp_path, stream):
     warn, abort = 0.3, 1.2

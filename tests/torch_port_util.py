@@ -53,34 +53,62 @@ def two_rank_worker(rank: int, world: int, store_path: str, out_dir: str,
     try:
         hvd.init(device="cpu")
         assert (hvd.rank(), hvd.size()) == (rank, world)
-        # every rank starts from its own init; broadcast makes them equal
-        model = narrow_resnet(seed=100 + rank)
-        hvd.broadcast_parameters(model.state_dict(), root_rank=0)
-        opt = hvd.DistributedOptimizer(
-            torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
-            named_parameters=model.named_parameters(),
-            gradient_predivide_factor=predivide)
-        hvd.broadcast_optimizer_state(opt, root_rank=0)
-        rng = np.random.RandomState(rank)   # different data per rank
-        x = torch.from_numpy(rng.randn(4, 32, 32, 3).astype(np.float32))
-        y = torch.from_numpy(rng.randint(0, 10, size=(4,)))
-        opt.zero_grad()
-        F.cross_entropy(model(x), y).backward()
-        local = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
-        opt.synchronize()
-        reduced = {n: p.grad.detach().clone()
-                   for n, p in model.named_parameters()}
-        params = {n: p.detach().clone() for n, p in model.named_parameters()}
-        summed = hvd.allreduce(torch.full((3,), float(rank + 1)),
-                               op=hvd.Sum)
-        np.savez(os.path.join(out_dir, f"rank{rank}.npz"),
-                 summed=summed.numpy(),
-                 **{f"local/{n}": t.numpy() for n, t in local.items()},
-                 **{f"reduced/{n}": t.numpy() for n, t in reduced.items()},
-                 **{f"param/{n}": t.numpy() for n, t in params.items()})
+        two_rank_step(hvd, rank, out_dir, predivide)
         hvd.shutdown()
     finally:
         dist.destroy_process_group()
+
+
+def two_rank_step(hvd, rank: int, out_dir: str, predivide: float) -> None:
+    """One optimizer step of the narrow ResNet from a broadcast init on
+    per-rank data, then an allreduce of ``rank + 1``; this rank's local
+    and reduced gradients, parameters and sum in
+    ``out_dir/rank<rank>.npz`` (with ``master_addr``: whether the env
+    named ``MASTER_ADDR``).  ``two_rank_worker`` and the launched
+    ``torch_port_launch_script.py resnet`` both run it."""
+    # every rank starts from its own init; broadcast makes them equal
+    model = narrow_resnet(seed=100 + rank)
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
+        named_parameters=model.named_parameters(),
+        gradient_predivide_factor=predivide)
+    hvd.broadcast_optimizer_state(opt, root_rank=0)
+    rng = np.random.RandomState(rank)   # different data per rank
+    x = torch.from_numpy(rng.randn(4, 32, 32, 3).astype(np.float32))
+    y = torch.from_numpy(rng.randint(0, 10, size=(4,)))
+    opt.zero_grad()
+    F.cross_entropy(model(x), y).backward()
+    local = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    opt.synchronize()
+    reduced = {n: p.grad.detach().clone()
+               for n, p in model.named_parameters()}
+    params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    summed = hvd.allreduce(torch.full((3,), float(rank + 1)), op=hvd.Sum)
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"),
+             summed=summed.numpy(),
+             master_addr=np.array("MASTER_ADDR" in os.environ),
+             **{f"local/{n}": t.numpy() for n, t in local.items()},
+             **{f"reduced/{n}": t.numpy() for n, t in reduced.items()},
+             **{f"param/{n}": t.numpy() for n, t in params.items()})
+
+
+def launched_rank_info(scale: float = 1.0) -> dict:
+    """A ``runner.run`` payload: init through the launcher's env, this
+    rank's placement and device, a Sum of ``scale * (rank + 1)``."""
+    torch.set_num_threads(1)
+    import horovod_tpu_torch as hvd
+
+    hvd.init()
+    try:
+        out = hvd.allreduce(torch.full((2,), scale * (hvd.rank() + 1)),
+                            op=hvd.Sum)
+        return {"rank": hvd.rank(), "size": hvd.size(),
+                "local_rank": hvd.local_rank(),
+                "device": str(hvd.device()), "sum": out.tolist(),
+                "master_addr": "MASTER_ADDR" in os.environ}
+    finally:
+        hvd.shutdown()
 
 
 # -- the collectives of the second slice, 2 ranks over gloo -------------------
@@ -847,15 +875,17 @@ def _stall_optimizer(hvd, rank: int, out_dir: str) -> dict:
         named_parameters=model.named_parameters())
     batches = synthetic_batches(4, batch=4, seed=20 + rank)
     train_steps(model, opt, batches[:2])
+    hierarchical = core_state.global_state().topology is not None
     if rank == 1:
-        return {"status": "stopped", "buckets": len(opt.buckets)}
+        return {"status": "stopped", "buckets": len(opt.buckets),
+                "hierarchical": hierarchical}
     insp = core_state.global_state().sync_stall
     try:
         train_steps(model, opt, batches[2:])
     except hvd.HorovodInternalError as e:
         return {"status": "aborted", "msg": str(e),
                 "age": time.monotonic() - insp._tracks["0"].t0,
-                "buckets": len(opt.buckets)}
+                "buckets": len(opt.buckets), "hierarchical": hierarchical}
     return {"status": "completed"}
 
 
@@ -904,13 +934,22 @@ STALL_SCENARIOS = {
 
 def stall_worker(rank: int, world: int, store_path: str, out_dir: str,
                  scenario: str, env: dict) -> None:
-    """One rank of a watchdog scenario: the env first, then gloo and
+    """One rank of a watchdog scenario: the env first (with
+    ``HVTPU_UNIFORM_LOCAL_SIZE`` set, also this rank's place in the
+    launcher's layout of that many ranks a host), then gloo and
     ``init(device="cpu")``, the scenario, its result as JSON.  The
     healthy scenario shuts down; the others leave a collective wedged on
     purpose, so every rank waits for the others' results and then
     rank 0 exits through ``shutdown()`` and the exit hook (a poisoned
     rank hard-exits with status 1) and the others with ``os._exit(0)``."""
     os.environ.update(env)
+    local = int(env.get("HVTPU_UNIFORM_LOCAL_SIZE", 0))
+    if local:
+        # the launcher's host-major layout of ``local`` ranks a host
+        os.environ.update(
+            HVTPU_LOCAL_RANK=str(rank % local), HVTPU_LOCAL_SIZE=str(local),
+            HVTPU_CROSS_RANK=str(rank // local),
+            HVTPU_CROSS_SIZE=str(world // local))
     torch.set_num_threads(1)
     import horovod_tpu_torch as hvd
 
