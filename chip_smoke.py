@@ -3,12 +3,16 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``horovod_tpu_torch/csrc`` and then:
+Builds the port's CUDA kernels from ``horovod_tpu_torch/csrc`` (nvcc)
+and, beside them, its C++ negotiation core from
+``horovod_tpu_torch/native/src`` (g++), and then:
 
 1. prints the card's name and power limit (``nvidia-smi``); runs the
    port's launcher (``python -m horovod_tpu_torch.runner``) with
-   ``--check-build`` (NCCL, gloo, CUDA and every kernel of ``csrc``
-   marked built) and with one rank a host more than the cards
+   ``--check-build`` (the native C++ core, NCCL, gloo, CUDA and every
+   kernel of ``csrc`` marked built), with ``--autotune`` and its four
+   settings (accepted, in the worker's env) and with one rank a host
+   more than the cards
    (``-np 2`` on one card): it exits non-zero within the start timeout,
    its output names the local rank that has no card and the card count,
    and no worker is left behind;
@@ -59,7 +63,17 @@ Builds the port's CUDA kernels from ``horovod_tpu_torch/csrc`` and then:
    name (and ``GroupReduction``'s under ``none``), two A1 launches a
    fused group of several tensors and none a tensor, the host ms and
    controller cycles of each burst beside ``GroupReduction.reduce``'s ms
-   on the same gradients; a
+   on the same gradients; the fp16 and none bursts on the C++
+   negotiation core (the default) and on ``PyController`` (a second
+   controller) in turns, 4 pairs a codec after an untimed burst each:
+   results bitwise equal across the cores and the plain composition,
+   the same groups and A1 launches, each burst's host ms and its
+   negotiation split (the core's drain, the exchange, the core's apply);
+   a third controller with an ``Autotuner`` (grid mode, 2 candidates,
+   one step a sample) over 4 fp16 bursts: the tuned threshold and cycle
+   time reach the controller, no prediction once tuned, every result
+   the plain composition of its group, and each compute's groups the
+   greedy split at the threshold in force; a
    process set {0} with its own NCCL groups; the BERT-base word
    embedding's sparse gradient through ``sparse_allreduce_async`` and a
    ``sparse_as_dense`` step; the other async ops against the sync ones;
@@ -156,17 +170,20 @@ Builds the port's CUDA kernels from ``horovod_tpu_torch/csrc`` and then:
    child, every batch on the card.
 
 Prints one ``int8_quantized_allreduce {...}`` line, one ``async_path
-{...}`` line (its ``zero_copy`` part the route's bursts), one ``adasum
+{...}`` line (its ``cores`` part the bursts on each negotiation core,
+its ``autotune`` part the tuned bursts, its ``zero_copy`` part the
+route's bursts), one ``adasum
 {...}`` line, one ``stall {...}`` line, one ``faults {...}`` line, one
 ``obs {...}`` line, one ``ring_path {...}`` line, one ``elastic {...}``
 line (the exits, the commits' ms in memory, on the training thread and
 on the writer, a snapshot's bytes, ``sync``'s ms, each child's seconds
 to its first step), one ``launcher {...}`` line (the ``--check-build``
-flags, the static launch's rendezvous seconds, each relaunch's seconds
+flags, the worker's ``HVTPU_AUTOTUNE*`` env, the static launch's rendezvous seconds, each relaunch's seconds
 from the driver seeing the exit to the next incarnation's first step,
 the driver's exits, outcomes and charged restarts, the negative gate),
 one ``{"kernels": [...]}`` line of 10 entries
-(A1's with ``stall_launches``, ``obs_launches_per_step``,
+(A1's with ``core_launches``, ``autotune_launches``,
+``stall_launches``, ``obs_launches_per_step``,
 ``elastic_launches`` and ``launcher_launches``, the last by the
 launcher's entry point) and, last,
 ``{"ok": true,
@@ -1208,13 +1225,14 @@ def _record_responses(ctrl):
 
 def _time_controller(ctrl):
     """Host seconds the controller spends negotiating (its core's drain,
-    the transport's exchange, the core's apply; idle cycles included)
-    and executing (the inputs' stream waits and each response's work,
-    both done before its futures resolve), summed into the returned dict
-    (wrappers on the instances)."""
-    spent = {"negotiate": 0.0, "execute": 0.0}
+    the transport's exchange, the core's apply; idle cycles included;
+    each also apart) and executing (the inputs' stream waits and each
+    response's work, both done before its futures resolve), summed into
+    the returned dict (wrappers on the instances)."""
+    spent = dict.fromkeys(("negotiate", "drain", "exchange", "apply",
+                           "execute"), 0.0)
 
-    def timed(obj, attr, key):
+    def timed(obj, attr, *keys):
         orig = getattr(obj, attr)
 
         def run(*args):
@@ -1222,12 +1240,13 @@ def _time_controller(ctrl):
             try:
                 return orig(*args)
             finally:
-                spent[key] += time.perf_counter() - t0
+                for key in keys:
+                    spent[key] += time.perf_counter() - t0
         setattr(obj, attr, run)
 
-    timed(ctrl._ctrl, "drain_requests", "negotiate")
-    timed(ctrl._transport, "exchange", "negotiate")
-    timed(ctrl._ctrl, "apply_responses", "negotiate")
+    timed(ctrl._ctrl, "drain_requests", "negotiate", "drain")
+    timed(ctrl._transport, "exchange", "negotiate", "exchange")
+    timed(ctrl._ctrl, "apply_responses", "negotiate", "apply")
     timed(ctrl, "_await_inputs", "execute")
     timed(ctrl, "_execute_one", "execute")
     return spent
@@ -1251,6 +1270,269 @@ def _plain_group(tensors, codec, pre: float, post: float):
     flat, specs = scale_cast_pack_plain(tensors, pre, codec)
     return unpack_cast_scale_plain(flat, specs, [t.dtype for t in tensors],
                                    post)
+
+
+def _check_burst(outs, groups, launches, by_name, codec, pre, post,
+                 what: str) -> int:
+    """Every result of a burst bitwise the plain composition of the group
+    the controller's responses name, the responses covering the burst
+    once, and two A1 launches a fused group of several tensors; returns
+    the count of such groups."""
+    check(sorted(n for g in groups for n in g) == sorted(by_name),
+          f"{what}: the responses do not cover the burst")
+    multi = sum(len(g) > 1 for g in groups)
+    check(launches == 2 * multi,
+          f"{what}: {launches} A1 launches for {multi} fused groups of "
+          "several tensors (want two a group)")
+    for g in groups:
+        want = _plain_group([by_name[t] for t in g], codec, pre, post)
+        for t, w in zip(g, want):
+            check(same_bits(outs[t], w), f"{what}: {t} is not the plain "
+                  "composition of its group")
+    return multi
+
+
+def _new_controller(python_core: bool, autotuner=None):
+    """A second controller of this process, made by ``get_controller``
+    as the first was (same config, process sets, timeline, device), on
+    the C++ core or on ``PyController``, with ``autotuner``; the state's
+    own controller and autotuner are left as they were."""
+    from horovod_tpu_torch.core import state as core_state
+    from horovod_tpu_torch.eager import get_controller
+
+    st = core_state.global_state()
+    saved = (st.controller, st.autotuner,
+             os.environ.pop("HVTPU_FORCE_PY_CONTROLLER", None))
+    if python_core:
+        os.environ["HVTPU_FORCE_PY_CONTROLLER"] = "1"
+    st.controller, st.autotuner = None, autotuner
+    try:
+        return get_controller()
+    finally:
+        st.controller, st.autotuner = saved[:2]
+        os.environ.pop("HVTPU_FORCE_PY_CONTROLLER", None)
+        if saved[2] is not None:
+            os.environ["HVTPU_FORCE_PY_CONTROLLER"] = saved[2]
+
+
+CORE_PAIRS = 4    # bursts a codec on each negotiation core, in turns
+CORE_ALONE_REPS = 20
+CORE_ALONE_OPS = (40, 80, 161)
+
+
+def _core_alone(by_name, python_core: bool) -> dict:
+    """One negotiation of the burst's float32 allreduces on a core alone
+    (rank 0 of a world of one, no controller, no other thread): the
+    enqueues, the drain, the exchange (ingest and compute) and the
+    apply, after 2 untimed rounds (the cache steady); host ms, medians
+    of ``CORE_ALONE_REPS``, at each count of ``CORE_ALONE_OPS`` (the
+    burst's first ops)."""
+    return {str(n): _core_alone_at(dict(list(by_name.items())[:n]),
+                                   python_core)
+            for n in CORE_ALONE_OPS}
+
+
+def _core_alone_at(by_name, python_core: bool) -> dict:
+    from horovod_tpu_torch.native import core as native_core
+    from horovod_tpu_torch.native import fallback, wire
+
+    cls = fallback.PyController if python_core else native_core.NativeController
+    c = cls(0, 1, 64 << 20)
+    f32 = wire.DTYPE_IDS["float32"]
+    parts = {k: [] for k in ("enqueue", "drain", "exchange", "apply")}
+    seq = 0
+    for rep in range(CORE_ALONE_REPS + 2):
+        t0 = time.perf_counter()
+        for n, g in by_name.items():
+            seq += 1
+            c.enqueue(seq, n, wire.ALLREDUCE, wire.RED_SUM, f32,
+                      tuple(g.shape))
+        t1 = time.perf_counter()
+        blob = c.drain_requests()
+        t2 = time.perf_counter()
+        c.ingest(blob)
+        resp = c.compute_responses()
+        t3 = time.perf_counter()
+        done = c.apply_responses(resp)
+        t4 = time.perf_counter()
+        check(len(done) == len(by_name), "cores alone: not every op done")
+        if rep >= 2:
+            for k, a, b in (("enqueue", t0, t1), ("drain", t1, t2),
+                            ("exchange", t2, t3), ("apply", t3, t4)):
+                parts[k].append((b - a) * 1e3)
+    c.close()
+    return {f"{k}_ms": statistics.median(v) for k, v in parts.items()}
+
+
+def core_turns(hvd, burst, by_name, groups, spent, surface, engine, pre,
+               post):
+    """The burst of ``allreduce_async_`` (fp16, then none) on the C++
+    core (the state's controller) and on a second controller on
+    ``PyController``, in turns (native first, then Python first), after
+    an untimed burst each: the results bitwise equal across the cores
+    and bitwise the plain composition, the same groups, the same A1
+    launches; each burst's host ms and its negotiation split; then one
+    negotiation of the same 161 ops on each core alone (``alone``)."""
+    from horovod_tpu_torch.core import state as core_state
+    from horovod_tpu_torch.native import core as native_core
+    from horovod_tpu_torch.native import fallback
+    from horovod_tpu_torch.obs import metrics as obs_metrics
+    from horovod_tpu_torch.ops import fused_scale_cast
+
+    st = core_state.global_state()
+    native = st.controller
+    py = _new_controller(python_core=True)
+    check(isinstance(native._ctrl, native_core.NativeController)
+          and isinstance(py._ctrl, fallback.PyController),
+          f"cores: {type(native._ctrl)} and {type(py._ctrl)}")
+    turns = {"native": (native, groups, spent),
+             "python": (py, _record_responses(py), _time_controller(py))}
+    out = {}
+    try:
+        for codec in ("fp16", "none"):
+            ref = None
+            rec = {k: [] for k in turns}
+            launches = {k: [] for k in turns}
+            for pair in range(-1, CORE_PAIRS):
+                order = (("native", "python") if pair % 2 == 0
+                         else ("python", "native"))
+                for k in order:
+                    ctrl, grp, spent = turns[k]
+                    st.controller = ctrl
+                    grp.clear()
+                    fused_scale_cast.launches = 0   # the path starts here
+                    outs, ms = burst(surface[codec], False, ctrl=ctrl,
+                                     groups=grp, spent=spent)
+                    n = fused_scale_cast.launches   # read just after it
+                    got = list(grp)
+                    _check_burst(outs, got, n, by_name, engine[codec], pre,
+                                 post, f"cores {codec} {k}")
+                    if ref is None:
+                        ref = (outs, got, n)
+                    check(got == ref[1] and n == ref[2],
+                          f"cores {codec}: {k} grouped or launched "
+                          "otherwise")
+                    check(all(same_bits(outs[t], ref[0][t]) for t in outs),
+                          f"cores {codec}: {k} differs from the first run")
+                    if pair >= 0:                   # the untimed one first
+                        rec[k].append(ms)
+                        launches[k].append(n)
+            out[codec] = {k: {
+                "timed": rec[k], "a1_launches": launches[k],
+                "fused_groups": len(ref[1]),
+                **{f"median_{m}": statistics.median(r[m] for r in rec[k])
+                   for m in ("ms", "negotiate_ms", "drain_ms",
+                             "exchange_ms", "apply_ms", "execute_ms")},
+                "negotiate_share": statistics.median(
+                    r["negotiate_ms"] / r["ms"] for r in rec[k])}
+                for k in turns}
+    finally:
+        st.controller = native
+        py.stop()
+        # the last controller stopped took the /debug provider with it
+        obs_metrics.register_debug_provider("controller", native.debug_state)
+    out["alone"] = {k: _core_alone(by_name, k == "python") for k in turns}
+    return out
+
+
+# (fusion threshold bytes, cycle ms): the first is the default threshold,
+# the second is applied from the first scored step on
+AUTOTUNE_GRID = ((64 << 20, 1.0), (8 << 20, 2.0))
+AUTOTUNE_BURSTS = 4
+
+
+def autotune_part(hvd, burst, by_name, surface, engine, pre, post):
+    """A third controller (C++ core) with an ``Autotuner`` in grid mode
+    over ``AUTOTUNE_GRID``, one step a sample, no warm-up, driven by the
+    fp16 burst: the tuned threshold and cycle time reach the controller
+    and prediction stays off; every result bitwise the plain composition
+    of its group; each compute's fused groups exactly the greedy split
+    of its (name-ordered) tensors at the threshold in force."""
+    from horovod_tpu_torch.core import state as core_state
+    from horovod_tpu_torch.core.config import Config
+    from horovod_tpu_torch.native import wire
+    from horovod_tpu_torch.obs import Autotuner
+    from horovod_tpu_torch.obs import metrics as obs_metrics
+    from horovod_tpu_torch.ops import fused_scale_cast
+
+    st = core_state.global_state()
+    native = st.controller
+    tuner = Autotuner(Config(autotune=True, autotune_warmup_samples=0,
+                             autotune_steps_per_sample=1),
+                      grid=list(AUTOTUNE_GRID))
+    ctrl = _new_controller(python_core=False, autotuner=tuner)
+    groups, spent = _record_responses(ctrl), _time_controller(ctrl)
+    computes = []
+    compute = ctrl._ctrl.compute_responses
+
+    def recorded():
+        thr = ctrl._ctrl.fusion_threshold
+        blob = compute()
+        rl = wire.parse_response_list(blob)
+        for r in rl.responses:     # bytes on the wire, as the core counts
+            nbytes.update({n: math.prod(s) * wire.DTYPE_SIZES[r.dtype]
+                           for n, s in zip(r.tensor_names, r.tensor_shapes)})
+        if rl.responses:
+            computes.append((thr, [(list(r.tensor_names), r.total_bytes)
+                                   for r in rl.responses]))
+        return blob
+
+    ctrl._ctrl.compute_responses = recorded
+    nbytes = {}
+    bursts = []
+    try:
+        st.controller = ctrl
+        for _ in range(AUTOTUNE_BURSTS):
+            groups.clear()
+            computes.clear()
+            fused_scale_cast.launches = 0       # the path starts here
+            outs, ms = burst(surface["fp16"], False, ctrl=ctrl,
+                             groups=groups, spent=spent)
+            launches = fused_scale_cast.launches  # read just after it
+            _check_burst(outs, list(groups), launches, by_name,
+                         engine["fp16"], pre, post, "autotune")
+            greedy = 0
+            for thr, rs in computes:
+                names = [n for ns, _ in rs for n in ns]
+                for ns, total in rs:
+                    check(total == sum(nbytes[n] for n in ns)
+                          and all(nbytes[n] == 2 * by_name[n].numel()
+                                  for n in ns)
+                          and (len(ns) == 1 or total <= thr),
+                          f"autotune: a group of {total} bytes at a "
+                          f"threshold of {thr}")
+                if names == sorted(names):      # one burst unit: greedy
+                    greedy += 1
+                    for (_, a), (ns, _) in zip(rs, rs[1:]):
+                        check(a + nbytes[ns[0]] > thr, "autotune: a group "
+                              f"closed at {a} bytes below {thr}")
+            check(greedy > 0, "autotune: no compute held one burst unit")
+            bursts.append({"thresholds": sorted({c[0] for c in computes}),
+                           "group_sizes": [len(ns) for _, rs in computes
+                                           for ns, _ in rs],
+                           "a1_launches": launches, "ms": ms["ms"],
+                           "greedy_checked": greedy,
+                           "cycle_ms": ctrl.cycle_time_s * 1e3,
+                           "tuner_done": tuner.done})
+        thr, cyc_ms = tuner.current
+        check(tuner.done and ctrl._ctrl.fusion_threshold == thr
+              and ctrl.cycle_time_s == cyc_ms / 1e3,
+              f"autotune: tuner {tuner.current} done {tuner.done}, the "
+              f"controller at {ctrl._ctrl.fusion_threshold} bytes and "
+              f"{ctrl.cycle_time_s * 1e3} ms")
+        seen = {t for b in bursts for t in b["thresholds"]}
+        check(seen >= {g[0] for g in AUTOTUNE_GRID},
+              f"autotune: thresholds in force {sorted(seen)}")
+        check(ctrl._tuned_seen and ctrl.predicted_bursts == 0,
+              "autotune: prediction after tuning")
+    finally:
+        st.controller = native
+        ctrl.stop()
+        obs_metrics.register_debug_provider("controller", native.debug_state)
+    return {"grid": [list(g) for g in AUTOTUNE_GRID],
+            "pinned": list(tuner.current), "bursts": bursts,
+            "plane": "streamed" if ctrl._stream else "lockstep",
+            "predicted_bursts": ctrl.predicted_bursts}
 
 
 ZC_LEARN = 3       # untimed bursts that learn the pack plan
@@ -1302,7 +1584,7 @@ def zero_copy_phase(hvd, ctrl, by_name, groups, spent, staged):
         inputs = {n: g * (1.0 + 0.125 * k) for n, g in names.items()}
         tensors = {n: t.clone() for n, t in inputs.items()}
         torch.cuda.synchronize()
-        spent.update(negotiate=0.0, execute=0.0)
+        spent.update(dict.fromkeys(spent, 0.0))
         zc0, st0 = ctrl.zero_copy_ops, ctrl.staged_copies
         pr0, cy0 = ctrl.predicted_bursts, ctrl._cycle
         groups.clear()
@@ -1424,14 +1706,16 @@ def async_phase(hvd, device, model, opt, x, y, smi: str):
     by_name = {f"allreduce.{n}": g for n, g in grads}
     result = {"card": smi, "grads": len(grads), "elements": n_elems}
 
-    def burst(codec, grouped: bool):
-        """One pass of the traffic; returns {name: result} and its host
-        ms: from the first enqueue to the last synchronize, to the last
-        enqueue, and the controller's negotiation and execution; with
-        the controller cycles and the allreduce responses of the pass."""
+    def burst(codec, grouped: bool, ctrl=ctrl, groups=groups, spent=spent):
+        """One pass of the traffic through ``ctrl`` (the controller the
+        ops reach); returns {name: result} and its host ms: from the
+        first enqueue to the last synchronize, to the last enqueue, and
+        the controller's negotiation (its drain, exchange and apply
+        apart) and execution; with the controller cycles and the
+        allreduce responses of the pass."""
         tensors = {n: g.clone() for n, g in by_name.items()}
         torch.cuda.synchronize()
-        spent.update(negotiate=0.0, execute=0.0)
+        spent.update(dict.fromkeys(spent, 0.0))
         cycles0, groups0 = ctrl._cycle, len(groups)
         t0 = time.perf_counter()
         if grouped:
@@ -1452,8 +1736,7 @@ def async_phase(hvd, device, model, opt, x, y, smi: str):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         return outs, {"ms": (t1 - t0) * 1e3, "enqueue_ms": (t_enq - t0) * 1e3,
-                      "negotiate_ms": spent["negotiate"] * 1e3,
-                      "execute_ms": spent["execute"] * 1e3,
+                      **{f"{k}_ms": v * 1e3 for k, v in spent.items()},
                       "cycles": ctrl._cycle - cycles0,
                       "groups": len(groups) - groups0}
 
@@ -1469,20 +1752,9 @@ def async_phase(hvd, device, model, opt, x, y, smi: str):
             outs, first_ms = burst(surface[codec], grouped)
             launches = fused_scale_cast.launches   # read just after it
             first = list(groups)
-            check(sorted(n for g in first for n in g) == sorted(by_name),
-                  f"async {key}: the responses do not cover the burst")
-            multi = sum(len(g) > 1 for g in first)
-            check(launches == 2 * multi,
-                  f"async {key}: {launches} A1 launches for {multi} fused "
-                  "groups of several tensors (want two a group)")
-            n = 0
-            for g in first:
-                want = _plain_group([by_name[t] for t in g], engine[codec],
-                                    pre, post)
-                for t, w in zip(g, want):
-                    check(same_bits(outs[t], w), f"async {key}: {t} is not "
-                          "the plain composition of its group")
-                    n += 1
+            multi = _check_burst(outs, first, launches, by_name,
+                                 engine[codec], pre, post, f"async {key}")
+            n = len(by_name)
             if codec == "none":
                 # the optimizer's GroupReduction over its bucket plan
                 for bucket in opt.buckets:
@@ -1503,6 +1775,10 @@ def async_phase(hvd, device, model, opt, x, y, smi: str):
                 "a1_launches": launches, "checked": n}
     result["runs"] = runs
     result["a1_launches"] = runs["fp16_burst"]["a1_launches"]
+    result["cores"] = core_turns(hvd, burst, by_name, groups, spent,
+                                 surface, engine, pre, post)
+    result["autotune"] = autotune_part(hvd, burst, by_name, surface,
+                                       engine, pre, post)
     result["zero_copy"] = zero_copy_phase(
         hvd, ctrl, by_name, groups, spent,
         dataclasses.replace(none_red, op=hvd.Average, prescale=1.0,
@@ -3354,7 +3630,8 @@ def elastic_phase(smi: str, tmp: Path) -> dict:
 
 def launcher_check_build() -> dict:
     """``python -m horovod_tpu_torch.runner --check-build`` after the
-    build: NCCL, gloo, CUDA and every kernel of ``csrc`` marked built."""
+    build: the native C++ core, NCCL, gloo, CUDA and every kernel of
+    ``csrc`` marked built."""
     from horovod_tpu_torch.ops import _build
 
     proc, _ = _launch(["--check-build"], {}, REPO, 120)
@@ -3362,10 +3639,33 @@ def launcher_check_build() -> dict:
           f"\n{proc.stderr[-2000:]}")
     flags = {m.group(2): m.group(1) == "X"
              for m in re.finditer(r"\[([X ])\] (.+)", proc.stdout)}
-    want = ["NCCL", "gloo", "CUDA"] + [s.stem for s in _build.sources()]
+    want = (["native C++ core", "NCCL", "gloo", "CUDA"]
+            + [s.stem for s in _build.sources()])
     check(all(flags.get(k) for k in want),
           f"--check-build: {flags}, expected {want} built:\n{proc.stdout}")
     return flags
+
+
+def launcher_autotune() -> dict:
+    """``--autotune`` and its settings are accepted by the launcher and
+    reach the worker's env (the worker prints its ``HVTPU_AUTOTUNE*``)."""
+    code = ("import json, os; print('ENV ' + json.dumps({k: v for k, v in "
+            "os.environ.items() if k.startswith('HVTPU_AUTOTUNE')}))")
+    proc, _ = _launch(["-np", "1", "--autotune", "--autotune-log",
+                       "/dev/null", "--autotune-warmup-samples", "0",
+                       "--autotune-steps-per-sample", "2",
+                       "--autotune-bayes-opt-max-samples", "6", "--",
+                       sys.executable, "-c", code], {}, REPO, 120)
+    env = [json.loads(line.split("ENV ", 1)[1])
+           for line in proc.stdout.splitlines() if "ENV {" in line]
+    want = {"HVTPU_AUTOTUNE": "1", "HVTPU_AUTOTUNE_LOG": "/dev/null",
+            "HVTPU_AUTOTUNE_WARMUP_SAMPLES": "0",
+            "HVTPU_AUTOTUNE_STEPS_PER_SAMPLE": "2",
+            "HVTPU_AUTOTUNE_GP_SAMPLES": "6"}
+    check(proc.returncode == 0 and env == [want],
+          f"--autotune: exit {proc.returncode}, worker env {env}:\n"
+          f"{proc.stderr[-2000:]}")
+    return env[0]
 
 
 def launcher_negative_gate() -> dict:
@@ -3416,19 +3716,41 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     if sys.argv[1:] == ["--elastic-child"]:
         return elastic_child()
+    import threading
+
     import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.native import core as native_core
     from horovod_tpu_torch.ops import _build
 
+    # the C++ negotiation core (g++) builds beside the kernels (nvcc)
+    core_build = {}
+
+    def build_core():
+        t = time.perf_counter()
+        try:
+            core_build["path"] = native_core.build()
+        except RuntimeError as e:
+            core_build["error"] = e
+        core_build["s"] = time.perf_counter() - t
+
+    builder = threading.Thread(target=build_core)
     t0 = time.perf_counter()
+    builder.start()
     libs = _build.build_all()
+    t_kernels = time.perf_counter() - t0
+    builder.join()
+    if "error" in core_build:
+        raise SmokeFailure(f"native core: {core_build['error']}")
     log(f"build: {', '.join(p.name for p in libs.values())} in "
-        f"{time.perf_counter() - t0:.1f} s (sm_90a)")
+        f"{t_kernels:.1f} s (sm_90a); {Path(core_build['path']).name} in "
+        f"{core_build['s']:.1f} s (g++)")
     smi = nvidia_smi_line()
     log(smi)
     kind = torch.cuda.get_device_name(0)
     log(f"device: {kind}, torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
     check_build = launcher_check_build()
+    autotune_env = launcher_autotune()
     negative = launcher_negative_gate()
     log(f"launcher: --check-build {check_build}; -np {negative['np']} on "
         f"{negative['cards']} card(s) exited {negative['exit']} in "
@@ -3470,6 +3792,7 @@ def main() -> int:
         f"{train['images_per_s']:.1f} images/s")
     log("launcher " + json.dumps({
         "card": smi, "check_build": check_build,
+        "autotune_env": autotune_env,
         **elastic["launcher"], "negative": negative,
         "a1_launches": elastic["a1_launches"],
         "a1_launches_per_step": elastic["a1_launches_per_step"]}))
@@ -3486,6 +3809,12 @@ def main() -> int:
         "replaces": "horovod_tpu/ops/pallas_ops.py:101",
         "launches": train["launches"],
         "async_launches": async_path["a1_launches"],
+        # the fp16 burst on each negotiation core (the first timed burst),
+        # and under the autotuner (each burst)
+        "core_launches": {k: v["a1_launches"][0] for k, v
+                          in async_path["cores"]["fp16"].items()},
+        "autotune_launches": [b["a1_launches"] for b
+                              in async_path["autotune"]["bursts"]],
         "zero_copy_launches": async_path["zero_copy"]["a1_launches_on"],
         "stall_launches": stall_line["stall_launches"],
         "obs_launches_per_step": {m: d["launches_per_step"]

@@ -96,6 +96,16 @@ class Config:
     fault_spec: Optional[str] = None
     fault_seed: int = 0
 
+    # --- autotune (obs/autotune.py) ---
+    autotune: bool = False
+    autotune_log: Optional[str] = None
+    autotune_warmup_samples: int = 3
+    autotune_steps_per_sample: int = 10
+    # samples the GP (Bayesian) tuner takes before pinning the best
+    autotune_gp_samples: int = 12
+    # "gp" (Bayesian, reference parity) | "grid" (deterministic sweep)
+    autotune_mode: str = "gp"
+
     # --- process topology (set by the launcher, like HOROVOD_RANK/SIZE) ---
     rank: int = 0
     size: int = 1
@@ -163,6 +173,13 @@ class Config:
                 "STALL_HEARTBEAT_SECONDS", 0.5),
             fault_spec=_env_str("FAULT_SPEC"),
             fault_seed=_env_int("FAULT_SEED", 0),
+            autotune=_env_bool("AUTOTUNE", False),
+            autotune_log=_env_str("AUTOTUNE_LOG"),
+            autotune_warmup_samples=_env_int("AUTOTUNE_WARMUP_SAMPLES", 3),
+            autotune_steps_per_sample=_env_int("AUTOTUNE_STEPS_PER_SAMPLE",
+                                               10),
+            autotune_gp_samples=_env_int("AUTOTUNE_GP_SAMPLES", 12),
+            autotune_mode=_env_str("AUTOTUNE_MODE", "gp"),
             rank=_env_int("RANK", 0),
             size=_env_int("SIZE", 1),
             local_rank=_env_int("LOCAL_RANK", 0),

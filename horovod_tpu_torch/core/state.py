@@ -102,6 +102,9 @@ class GlobalState:
     process_set_table: Optional[ProcessSetTable] = None
     # the async controller (horovod_tpu_torch.eager), started lazily
     controller: Any = None
+    # the autotuner (obs/autotune.py) when HVTPU_AUTOTUNE is set; the
+    # controller scores its cycles with it
+    autotuner: Any = None
     # the coordination client over the default group's store (core/kv.py)
     kv: Any = None
     # the sync-path stall inspector (comm/stall.py), made at the first
@@ -366,6 +369,10 @@ def init(device=None) -> GlobalState:
         _install_obs(cfg)
         if cfg.elastic:
             _install_preempt(cfg)
+        if cfg.autotune:
+            from ..obs.autotune import Autotuner
+
+            _state.autotuner = Autotuner(cfg)
         global _atexit_registered
         if not _atexit_registered:
             atexit.register(_shutdown_at_exit)

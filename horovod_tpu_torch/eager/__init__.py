@@ -26,8 +26,8 @@ _init_lock = threading.Lock()
 def get_controller() -> EagerController:
     """The process-wide controller, started lazily on first use (parity:
     InitializeHorovodOnce starting the background thread), with the
-    process sets of the table and the state's timeline.  Thread-safe: concurrent first calls
-    create exactly one controller."""
+    process sets of the table, the state's timeline and its autotuner.
+    Thread-safe: concurrent first calls create exactly one controller."""
     st = core_state.require_init("async collectives")
     if st.controller is not None:
         return st.controller
@@ -47,6 +47,7 @@ def get_controller() -> EagerController:
                 process_sets=process_sets,
                 device=st.device,
                 timeline=st.timeline,
+                autotuner=st.autotuner,
             )
             controller.start()
             st.controller = controller

@@ -11,7 +11,8 @@ Division of labor, as in the reference:
 
 - decisions (queueing, readiness, fusion, the response cache, burst
   units, schedule prediction) live in the negotiation core,
-  ``horovod_tpu_torch.native`` (``PyController``);
+  ``horovod_tpu_torch.native``: the C++ core (``NativeController``), or
+  ``PyController`` under ``HVTPU_FORCE_PY_CONTROLLER``;
 - this module owns the threads, the transport of the wire-v5 blobs
   between ranks, and the executor that runs the agreed responses through
   ``comm/eager.py`` and resolves each op's ``OpFuture``.
@@ -57,7 +58,7 @@ dtypes A1 reads); everything else stays staged.
 
 Stall inspection (parity: ``stall_inspector.cc``): rank 0 names every
 op some rank announced that others have not, from the negotiation
-core's message table (``PyController.check_stalls``), warns once per op
+core's message table (``check_stalls``), warns once per op
 past ``stall_warn_s`` and fails the controller past ``stall_abort_s``;
 the other ranks watch the age of their own pending ops.  The lockstep
 plane inspects every 256 cycles, the streamed plane on a time cadence
@@ -83,8 +84,13 @@ stall abort.
 
 While a drain is pending (``core/preempt.py``) ``_try_predict`` makes no
 new prediction and ``_gate_burst`` drains at once, as the reference's
-gates do.  Not part of the port: the autotuner (so ``_try_predict``'s
-autotuner gate is always open) and the C++ negotiation core.
+gates do.
+
+With an autotuner (``obs/autotune.py``, ``HVTPU_AUTOTUNE``), rank 0
+scores each cycle's bytes and publishes the tuner's fusion threshold and
+cycle time in its ResponseLists; every rank applies them from there, and
+once tuning is in play ``_try_predict`` predicts nothing (a tuned
+threshold could reach the ranks at different times).
 """
 
 from __future__ import annotations
@@ -618,6 +624,7 @@ class EagerController:
     ``hvtpu_fusion_*`` and ``hvtpu_controller_*`` families count
     process-wide (``debug_state`` reports them).  ``timeline``: the
     state's timeline (``hvd.start_timeline`` replaces it).
+    ``autotuner``: the state's ``Autotuner``, scored by rank 0.
     """
 
     def __init__(self, rank: int, size: int, *,
@@ -630,9 +637,11 @@ class EagerController:
                  process_sets: Optional[Dict[int, List[int]]] = None,
                  device: Optional[torch.device] = None,
                  timeline=None,
+                 autotuner=None,
                  manual: bool = False):
         self.rank, self.size = rank, size
         self._timeline = timeline
+        self._autotuner = autotuner
         # manual=True: no background thread; tests drive run_cycle_once.
         self.manual = manual
         self.device = torch.device("cpu") if device is None else device
@@ -700,6 +709,8 @@ class EagerController:
         self._resp_idx = 0            # rank 0's response stream head
         self._resp_gc = 0
         self._svc_dirty = False
+        # the tuned pair rank 0 last posted: a change is not trivial
+        self._last_tuned = (-1, -1)
         self._local_resp: "collections.deque" = collections.deque()
         self._local_resp_ev = threading.Event()
         # Schedule prediction (see _try_predict): names enqueued since
@@ -722,6 +733,8 @@ class EagerController:
         # verified once, and the FIFO of first occurrences awaiting that
         self._verified_bits: set = set()
         self._observe: "collections.deque" = collections.deque()
+        # set once a ResponseList carried tuned values: prediction off
+        self._tuned_seen = False
         # on unless "0" (the reference's "auto")
         self._predict_on = (
             os.environ.get("HVTPU_EAGER_PREDICT", "auto") != "0")
@@ -895,8 +908,14 @@ class EagerController:
         for f in joins:
             f.set_error(HorovodInternalError(
                 "controller shut down with pending ops"))
-        if not thread_exited:
-            logger.warning("controller threads did not exit within 30s")
+        if thread_exited:
+            self._ctrl.close()
+        else:
+            # A thread may still be blocked in a transport call holding
+            # a reference to the core; leaking the native handle beats a
+            # use-after-free when the call finally returns.
+            logger.warning("controller threads did not exit within 30s; "
+                           "leaking the negotiation core's handle")
 
     # ---- enqueue API ----
     def _auto_name(self, kind: str) -> str:
@@ -1330,9 +1349,12 @@ class EagerController:
         ResponseList is a function of state replicated on every rank —
         the response cache and the fusion threshold — executes NOW; the
         real response is verified and skipped when it streams in.  The
-        gates (the reference's, without its autotuner gate):
+        gates (the reference's):
 
         - a bypass blob only (all cache hits, no join/shutdown flags);
+        - no autotuner and no tuned value ever applied (a tuned
+          threshold could reach ranks at different times and change
+          the fusion split);
         - the burst size steady for >= 2 drains;
         - the cache below capacity (no eviction ever, so bit ids cannot
           have been reused while this rank's stream lags);
@@ -1354,6 +1376,8 @@ class EagerController:
             # A coordinated drain is in flight: no NEW speculation —
             # everything from here to the emergency commit runs fully
             # negotiated (quiesce handles predictions already made).
+            return False
+        if self._autotuner is not None or self._tuned_seen:
             return False
         if self._burst_stable < 2:
             return False
@@ -1407,10 +1431,15 @@ class EagerController:
         """Coordinator only: feed the per-op arrival spreads the core
         recorded into the straggler metrics, an ``arrival_skew`` trace
         instant and the anomaly plane (which names the offending rank);
-        the latest 64 stay for ``debug_state``."""
+        the latest 64 stay for ``debug_state``.  The C++ core does not
+        record them (as in the reference): getattr-guarded, the metrics
+        stay 0."""
         if self.rank != 0:
             return
-        for name, skew, last in self._ctrl.take_arrival_skew():
+        take = getattr(self._ctrl, "take_arrival_skew", None)
+        if take is None:
+            return
+        for name, skew, last in take():
             self._arrival_skew.append((name, skew, last))
             _M_ARRIVAL_SKEW.observe(skew)
             _M_LAST_ARRIVER.inc(rank=str(last))
@@ -1433,12 +1462,15 @@ class EagerController:
         resp = self._ctrl.compute_responses()
         self._drain_arrival_skew()
         rl = wire.parse_response_list(resp)
+        tuned = (rl.tuned_fusion_threshold, rl.tuned_cycle_time_us)
         # confirm hashes are not trivial: every predictor's FIFO waits
         # on them
         trivial = (not rl.responses and not rl.confirm_hashes
                    and rl.join_last_rank < 0
-                   and not rl.shutdown and not rl.cache_resync_needed)
+                   and not rl.shutdown and not rl.cache_resync_needed
+                   and tuned == self._last_tuned)
         if not trivial:
+            self._last_tuned = tuned
             self._transport.post_response(self._resp_idx, resp)
             self._resp_idx += 1
             self._local_resp.append(resp)
@@ -1677,6 +1709,21 @@ class EagerController:
                             break
             else:
                 self._execute(rl)
+        if rl.responses and self._autotuner is not None and self.rank == 0:
+            # Parity: ParameterManager.Update — the coordinator scores
+            # each cycle by the bytes it moved and publishes the tuner's
+            # current (fusion threshold, cycle time) in the next
+            # ResponseList, so every rank applies the same values.
+            self._autotuner.record_step(
+                sum(rs.total_bytes for rs in rl.responses))
+            thr, cyc_ms = self._autotuner.current
+            self._ctrl.set_tuned(int(thr), int(cyc_ms * 1000.0))
+        if rl.tuned_fusion_threshold >= 0:
+            self._ctrl.set_fusion_threshold(int(rl.tuned_fusion_threshold))
+            self._tuned_seen = True  # tuning in play: prediction off
+        if rl.tuned_cycle_time_us >= 0:
+            self.cycle_time_s = rl.tuned_cycle_time_us / 1e6
+            self._tuned_seen = True
         if rl.shutdown:
             self._shutdown_seen.set()
         with self._lock:
@@ -1822,7 +1869,10 @@ class EagerController:
             fusion_pool=self._fusion_pool.stats(),
         )
         if self.rank == 0:
-            out["pending_coordination"] = self._ctrl.pending_summary()
+            # the Python core's alone, as in the reference
+            ps = getattr(self._ctrl, "pending_summary", None)
+            if callable(ps):
+                out["pending_coordination"] = ps()
             out["arrival_skew"] = [list(s) for s in self._arrival_skew]
         return out
 

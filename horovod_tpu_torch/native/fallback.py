@@ -2,13 +2,15 @@
 ``horovod_tpu/native/fallback.py`` ``PyController``, copied so the port
 imports nothing of the JAX package).
 
-It implements the protocol of the JAX package's C++ core
-(``horovod_tpu/native/src/controller.cc``): the same wire bytes through
+It implements the protocol of the C++ core (``native/src/controller.cc``,
+the port's copy of the JAX package's): the same wire bytes through
 :mod:`horovod_tpu_torch.native.wire`, the same ordering, fusion, response
-cache, burst units and stall bookkeeping.
+cache, burst units and stall bookkeeping.  ``make_controller`` returns it
+under ``HVTPU_FORCE_PY_CONTROLLER``.
 ``tests/test_torch_port_negotiation.py`` runs it beside the JAX
-package's twin cycle by cycle and compares every request and response
-blob byte for byte.  Parity anchors as in controller.h.
+package's twin and the C++ core cycle by cycle and compares every
+request and response blob byte for byte.  Parity anchors as in
+controller.h.
 """
 
 from __future__ import annotations

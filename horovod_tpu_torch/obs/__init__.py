@@ -1,11 +1,8 @@
 """Observability planes of the PyTorch port (counterpart of
 ``horovod_tpu/obs``): the metrics registry and its HTTP endpoint, the
 timeline, cross-rank tracing, the flight recorder, anomaly detection,
-the device-trace reader and the step profiler.
-
-The autotuner (``horovod_tpu/obs/autotune.py``, ``gaussian_process.py``)
-is not ported yet: it calls the native negotiation core, which comes
-with it.
+the device-trace reader, the step profiler and the autotuner (with its
+Gaussian process, whose math runs in the native core).
 """
 
 from . import anomaly
@@ -15,12 +12,14 @@ from . import profile
 from . import stepprof
 from . import timeline
 from . import tracing
+from .autotune import Autotuner
 from .metrics import REGISTRY as metrics_registry
 from .profile import (device_time_ms, load_profile, op_summary,
                       plane_names, trace)
 from .timeline import Timeline, start_torch_profiler, stop_torch_profiler
 
 __all__ = [
+    "Autotuner",
     "Timeline",
     "start_torch_profiler",
     "stop_torch_profiler",

@@ -577,14 +577,7 @@ def launch_workers(
 # launched with one would silently run without it, so the launcher
 # refuses it before any spawn.  (flag attribute, env name after the
 # HVTPU_ / HOROVOD_ prefix, values that ask for nothing, what brings it)
-_AUTOTUNER = ("the autotuner comes with the C++ negotiation core "
-              "(ROADMAP Queue A item 2)")
 UNPORTED = (
-    ("autotune", "AUTOTUNE", ("", "0", "false", "no", "off"), _AUTOTUNER),
-    ("autotune_log", None, (), _AUTOTUNER),
-    ("autotune_warmup_samples", None, (), _AUTOTUNER),
-    ("autotune_steps_per_sample", None, (), _AUTOTUNER),
-    ("autotune_bayes_opt_max_samples", None, (), _AUTOTUNER),
     ("compression", "COMPRESSION", ("", "none"),
      "a job-wide codec is not applied by the port: pass compression= "
      "to DistributedOptimizer or the op (ROADMAP Queue A, what is left "
@@ -626,9 +619,12 @@ def kernels_built() -> Dict[str, bool]:
 
 def _check_build() -> int:
     """Parity: horovodrun -cb (check_build in the reference's
-    launch.py): print version + available capabilities and exit."""
+    launch.py): print version + available capabilities and exit.  The
+    native core is marked when it builds (``native/_build.py``) and
+    loads."""
     from .. import version as _version
     from ..core import basics
+    from ..native import native_available
 
     print(f"{PROG} (horovod_tpu_torch) v{_version.__version__}")
 
@@ -638,7 +634,7 @@ def _check_build() -> int:
     print("Available frameworks:")
     print(f"    {mark(True)} PyTorch")
     print("Available controllers:")
-    print(f"    {mark(False)} native C++ core")
+    print(f"    {mark(native_available())} native C++ core")
     print(f"    {mark(True)} Python controller")
     print("Available tensor operations:")
     print(f"    {mark(bool(basics.nccl_built()))} NCCL")

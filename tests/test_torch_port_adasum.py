@@ -8,7 +8,8 @@
   (the dot products sum in another order), the 16-bit dtypes within one
   unit in their last place.  Identical inputs give the input and
   orthogonal ones their sum, bitwise.
-* One 4-rank gloo spawn: ``adasum_reduce`` (whole buffer and a segment a
+* One 4-rank gloo spawn (and one more on the Python negotiation core,
+  bitwise the first): ``adasum_reduce`` (whole buffer and a segment a
   tensor) and ``allreduce(op=Adasum)`` sync, async and through the
   optimizer, over the world of 4 and over the set {1, 3}, against the
   JAX package's ``spmd.allreduce(op=ADASUM)`` on 4 and 2 of the 8
@@ -146,12 +147,11 @@ def _jax_allreduce(rows, segments=None, compression=JaxCompression.none):
 
 # -- 4 ranks over gloo --------------------------------------------------------
 
-@pytest.fixture(scope="module")
-def four_ranks(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("adasum4")
+def _four_ranks(tmp, python_core: bool):
     ctx = multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=adasum_worker,
-                         args=(r, 4, str(tmp / "store"), str(tmp)))
+                         args=(r, 4, str(tmp / "store"), str(tmp),
+                               python_core))
              for r in range(4)]
     for p in procs:
         p.start()
@@ -166,7 +166,30 @@ def four_ranks(tmp_path_factory):
     for r in range(4):
         with open(tmp / f"adasum{r}.pkl", "rb") as f:
             out.append(pickle.load(f))
+    want = "PyController" if python_core else "NativeController"
+    assert [o["core"] for o in out] == [want] * 4
     return out
+
+
+@pytest.fixture(scope="module")
+def four_ranks(tmp_path_factory):
+    """The 4 ranks on the default negotiation core (C++)."""
+    return _four_ranks(tmp_path_factory.mktemp("adasum4"), False)
+
+
+@pytest.fixture(scope="module")
+def four_ranks_py(tmp_path_factory):
+    """The same 4 ranks on the Python core."""
+    return _four_ranks(tmp_path_factory.mktemp("adasum4py"), True)
+
+
+def test_four_ranks_python_core_is_bitwise_the_native_core(four_ranks,
+                                                            four_ranks_py):
+    for native, py in zip(four_ranks, four_ranks_py):
+        assert native["errors"] == py["errors"]
+        assert sorted(native["res"]) == sorted(py["res"])
+        for k, v in native["res"].items():
+            assert v.tobytes() == py["res"][k].tobytes(), k
 
 
 @pytest.mark.parametrize("key", ["world", "pair"])
@@ -252,7 +275,6 @@ def both(tmp_path_factory):
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("HVTPU_FLIGHT_DIR", str(tmp_path_factory.mktemp("flight")))
         mp.setenv("HVTPU_PALLAS_INTERPRET", "1")
-        mp.setenv("HVTPU_FORCE_PY_CONTROLLER", "1")
         hvd.init(device="cpu")
         ref_hvd.init()
         try:

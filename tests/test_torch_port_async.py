@@ -13,8 +13,9 @@ process sets, on the CPU.
   arguments), the handle errors, and ``DistributedOptimizer`` with
   ``sparse_as_dense``, with sparse gradients and after
   ``set_backward_passes_per_step(2)``.
-* 2 and 3 ranks over gloo (one spawn each, ``async_worker``; the
-  default plane there is the streamed one): enqueue
+* 2 and 3 ranks over gloo (one spawn each and negotiation core,
+  ``async_worker``: the default C++ core, and ``PyController`` in the
+  ``-py`` cases; the default plane there is the streamed one): enqueue
   orders that differ across ranks resolve; a partial submission waits;
   the fused path, allgather, broadcast, reducescatter, alltoall, the
   grouped allgather and the sparse allreduce give the numpy results,
@@ -57,7 +58,6 @@ def both(tmp_path_factory):
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("HVTPU_FLIGHT_DIR", str(tmp_path_factory.mktemp("flight")))
         mp.setenv("HVTPU_PALLAS_INTERPRET", "1")
-        mp.setenv("HVTPU_FORCE_PY_CONTROLLER", "1")
         hvd.init(device="cpu")
         ref_hvd.init()
         try:
@@ -415,13 +415,17 @@ def test_optimizer_refuses_predivide_with_sparse_gradients(both):
 
 # -- 2 and 3 ranks over gloo ---------------------------------------------------
 
-@pytest.fixture(scope="module", params=[2, 3])
+@pytest.fixture(scope="module", params=[2, 3, "2-py", "3-py"])
 def world(request, tmp_path_factory):
-    n = request.param
-    tmp = tmp_path_factory.mktemp(f"async{n}")
+    """2 and 3 ranks on the default negotiation core (C++), and on the
+    Python core ("-py")."""
+    n = int(str(request.param).split("-")[0])
+    python_core = str(request.param).endswith("-py")
+    tmp = tmp_path_factory.mktemp(f"async{request.param}")
     ctx = multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=async_worker,
-                         args=(r, n, str(tmp / "store"), str(tmp)))
+                         args=(r, n, str(tmp / "store"), str(tmp),
+                               python_core))
              for r in range(n)]
     for p in procs:
         p.start()
@@ -436,6 +440,8 @@ def world(request, tmp_path_factory):
     for r in range(n):
         with open(tmp / f"async{r}.pkl", "rb") as f:
             out.append(pickle.load(f))
+    want = "PyController" if python_core else "NativeController"
+    assert [o["core"] for o in out] == [want] * n
     return n, out
 
 

@@ -487,7 +487,8 @@ def _fake_controller(**kw):
                          _lock=threading.Lock(), _burst_hint=0,
                          _expected_burst=0, _undrained=1,
                          _last_enqueue_t=time.monotonic(),
-                         _stop=threading.Event(), cycle_time_s=10.0)
+                         _stop=threading.Event(), cycle_time_s=10.0,
+                         _autotuner=None, _tuned_seen=False)
     ns.__dict__.update(kw)
     return ns
 

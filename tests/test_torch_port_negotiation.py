@@ -1,9 +1,10 @@
-"""The port's negotiation core (``horovod_tpu_torch/native/fallback.py``
-``PyController``) against the JAX package's (``horovod_tpu/native/
+"""The port's negotiation cores (``horovod_tpu_torch/native/fallback.py``
+``PyController`` and the C++ core, ``native/core.py``
+``NativeController``) against the JAX package's (``horovod_tpu/native/
 fallback.py``), cycle by cycle, with no data plane.
 
-Each scenario simulates 2, 3 and 4 ranks in one process: one port core
-and one reference core a rank, driven by the same calls.  At every cycle
+Each scenario simulates 2, 3 and 4 ranks in one process: the port's two
+cores and one reference core a rank, driven by the same calls.  At every cycle
 each rank's ``drain_requests`` blob, the coordinator's
 ``compute_responses`` blob (rank 0 ingests every rank's blob in rank
 order) and each rank's ``apply_responses`` result are compared byte for
@@ -21,14 +22,15 @@ import numpy as np
 import pytest
 
 from horovod_tpu.native import fallback as ref_fallback
-from horovod_tpu_torch.native import fallback, wire
+from horovod_tpu_torch.native import core, fallback, wire
 
 F32 = wire.DTYPE_IDS["float32"]
 F16 = wire.DTYPE_IDS["float16"]
 
 
 class Twins:
-    """One port core and one reference core a rank, driven together."""
+    """The port's two cores and one reference core a rank, driven
+    together."""
 
     def __init__(self, size: int, threshold: int = 1 << 20,
                  resync_every: int = 64):
@@ -39,6 +41,9 @@ class Twins:
         self.ref = [ref_fallback.PyController(r, size, threshold, 1024,
                                               resync_every=resync_every)
                     for r in range(size)]
+        self.native = [core.NativeController(r, size, threshold, 1024,
+                                              resync_every=resync_every)
+                       for r in range(size)]
         self.seq = [0] * size
         self.requests = []    # every cycle's parsed request lists
         self.responses = []   # every cycle's parsed response list
@@ -46,7 +51,9 @@ class Twins:
     def call(self, rank: int, method: str, *args):
         a = getattr(self.port[rank], method)(*args)
         b = getattr(self.ref[rank], method)(*args)
+        c = getattr(self.native[rank], method)(*args)
         assert a == b, (rank, method, args)
+        assert c == a, ("native", rank, method, args)
         return a
 
     def enqueue(self, rank: int, name: str, shape=(4,), dtype=F32,
@@ -66,6 +73,7 @@ class Twins:
         for b in blobs:
             self.port[0].ingest(b)
             self.ref[0].ingest(b)
+            self.native[0].ingest(b)
         resp = self.call(0, "compute_responses")
         for r in range(self.size):
             self.call(r, "apply_responses", resp)

@@ -21,13 +21,18 @@ fusion plane of the port's async controller
   (``horovod_tpu.native.fallback.PyController``): every response blob
   byte for byte.
 * The response stream is garbage-collected on a store that deletes.
+* The in-process tests run on the default negotiation core (C++); those
+  parametrized by size run on the Python core too (ids ``<size>-py``),
+  and ``test_on_the_python_core`` runs the others there.
 * A 2-process gloo world on the default plane (streamed) runs bursts of
   ``allreduce_async_`` and an fp16 grouped burst: bitwise the same run
   on the lockstep plane (``HVTPU_EAGER_STREAM=0``) and the plain
   composition, with predictions and zero-copy ops on the streamed run.
 """
 
+import inspect
 import multiprocessing
+import os
 import pickle
 import threading
 import time
@@ -50,6 +55,15 @@ from horovod_tpu_torch.native import wire
 from torch_port_util import STREAM_STEPS, stream_inputs, stream_worker
 
 SIZES = [2, 3, 4]
+# the sizes on both negotiation cores: "<size>-py" runs the Python core
+BOTH_CORES = SIZES + [pytest.param(s, id=f"{s}-py") for s in SIZES]
+
+
+@pytest.fixture(autouse=True)
+def _core(request, monkeypatch):
+    """``HVTPU_FORCE_PY_CONTROLLER=1`` for the ``-py`` cases."""
+    if request.node.name.endswith("-py]"):
+        monkeypatch.setenv("HVTPU_FORCE_PY_CONTROLLER", "1")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -97,7 +111,7 @@ def quiesce_all(ctrls):
 
 # -- prediction (the reference's TestPredictedSchedules) ----------------------
 
-@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("size", BOTH_CORES)
 def test_streamed_plane_predicts_confirms_and_drains(size):
     ctrls = make_world(size)
     try:
@@ -114,7 +128,7 @@ def test_streamed_plane_predicts_confirms_and_drains(size):
         stop_world(ctrls)
 
 
-@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("size", BOTH_CORES)
 def test_injected_mispredict_forces_resync_and_converges(size):
     ctrls = make_world(size)
     try:
@@ -130,7 +144,7 @@ def test_injected_mispredict_forces_resync_and_converges(size):
         stop_world(ctrls)
 
 
-@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("size", BOTH_CORES)
 def test_a_deviating_rank_forces_a_mispredict_and_converges(size):
     """After a steady pattern, the last rank enqueues a new name before
     the steady pair: its capped drain is no bypass blob and splits the
@@ -203,7 +217,8 @@ def test_quiesce_rolls_back_unconfirmed_predictions():
         assert not ctrl._predicted
         assert "q1" in ctrl._mispredict_names
         # the rollback re-anchors: the next drain is a full resync frame
-        assert ctrl._ctrl._resync_flush
+        assert wire.parse_request_list(
+            ctrl._ctrl.drain_requests()).cache_resync
     finally:
         ctrl.stop()
 
@@ -329,7 +344,7 @@ def test_stale_grouping_releases_pack_and_stages():
         ctrl.stop()
 
 
-@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("size", BOTH_CORES)
 def test_predicted_streamed_goes_zero_copy(size):
     ctrls = make_world(size)
     try:
@@ -393,7 +408,7 @@ def test_nonsteady_enqueue_prepack_is_under_5us():
 
 # -- replay through the reference core, and the stream's GC -------------------
 
-@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("size", BOTH_CORES)
 def test_coordinator_streamed_blobs_replay_through_the_reference_core(size):
     from horovod_tpu.native.fallback import PyController
 
@@ -505,3 +520,42 @@ def test_two_rank_streamed_plane_is_bitwise_the_lockstep_plane(
             want = (f16[0] + f16[1]).astype(np.float32) * np.float32(2.0)
             assert streamed[f"g/{i}"].tobytes() == want.tobytes()
             assert lockstep[f"g/{i}"].tobytes() == want.tobytes()
+
+
+# -- the Python core ------------------------------------------------------------
+
+PY_CORE_TESTS = [
+    test_reset_across_cache_resync_and_membership_change,
+    test_quiesce_rolls_back_unconfirmed_predictions,
+    test_burst_hint_and_burst_cap_knob,
+    test_predict_off_and_lockstep_knobs,
+    test_predicted_lockstep_packs_at_enqueue,
+    test_mispredicted_lockstep_falls_back_staged,
+    test_stale_grouping_releases_pack_and_stages,
+    test_mispredicted_streamed_re_anchors_and_recovers,
+    test_quiesce_returns_pooled_buffers,
+    test_response_stream_is_garbage_collected,
+]
+
+
+@pytest.mark.parametrize("test", PY_CORE_TESTS, ids=lambda f: f.__name__)
+def test_on_the_python_core(test, request, monkeypatch):
+    """The in-process tests above that take no size, on the Python
+    core."""
+    from horovod_tpu_torch.native import fallback
+
+    monkeypatch.setenv("HVTPU_FORCE_PY_CONTROLLER", "1")
+    probe = EagerController(0, 1, manual=True)
+    probe.stop()
+    assert isinstance(probe._ctrl, fallback.PyController)
+    test(**{name: request.getfixturevalue(name)
+            for name in inspect.signature(test).parameters})
+
+
+def test_default_core_is_the_native_core():
+    from horovod_tpu_torch.native import core
+
+    assert "HVTPU_FORCE_PY_CONTROLLER" not in os.environ
+    ctrl = EagerController(0, 1, manual=True)
+    ctrl.stop()
+    assert isinstance(ctrl._ctrl, core.NativeController)

@@ -356,21 +356,25 @@ def async_process_set(world: int):
 
 
 def async_worker(rank: int, world: int, store_path: str,
-                 out_dir: str) -> None:
+                 out_dir: str, python_core: bool = False) -> None:
     """The async plane at ``world`` ranks: out-of-order enqueue, a
     partial submission, the grouped fused path, the other async ops, a
     process set (members and a non-member), its removal, and shutdown
     with an op in flight.  Rank 0 records every call its negotiation
     core's coordinator side takes, for a replay through the JAX
-    package's core."""
+    package's core.  ``python_core``: ``PyController`` instead of the
+    default C++ core."""
     import pickle
     import threading
     import time
 
     torch.set_num_threads(1)
+    if python_core:
+        os.environ["HVTPU_FORCE_PY_CONTROLLER"] = "1"
     import horovod_tpu_torch as hvd
-    from horovod_tpu_torch.native import fallback
+    from horovod_tpu_torch.native import core, fallback
 
+    cls = fallback.PyController if python_core else core.NativeController
     log = []
     if rank == 0:
         # the streamed plane calls the core from two threads: a call and
@@ -378,14 +382,14 @@ def async_worker(rank: int, world: int, store_path: str,
         log_lock = threading.Lock()
         for method in ("ingest", "compute_responses", "apply_responses",
                        "declare_group", "register_process_set"):
-            orig = getattr(fallback.PyController, method)
+            orig = getattr(cls, method)
 
             def wrapped(self, *args, _orig=orig, _m=method):
                 with log_lock:
                     out = _orig(self, *args)
                     log.append((_m, args, out))
                 return out
-            setattr(fallback.PyController, method, wrapped)
+            setattr(cls, method, wrapped)
 
     dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
                             rank=rank, world_size=world)
@@ -399,6 +403,9 @@ def async_worker(rank: int, world: int, store_path: str,
                    for n in order}
         for n in ASYNC_NAMES:
             res[f"ooo_{n}"] = hvd.synchronize(handles[n])
+        from horovod_tpu_torch.eager import get_controller
+
+        core_name = type(get_controller()._ctrl).__name__
         # a partial submission waits for the last rank, which enqueues
         # only once rank 0 has polled its handle after some cycles
         store = dist.PrefixStore(
@@ -502,7 +509,7 @@ def async_worker(rank: int, world: int, store_path: str,
         dist.destroy_process_group()
     with open(os.path.join(out_dir, f"async{rank}.pkl"), "wb") as f:
         pickle.dump({"res": {k: np.asarray(v) for k, v in res.items()},
-                     "errors": errors, "log": log}, f)
+                     "errors": errors, "log": log, "core": core_name}, f)
 
 
 # -- the streamed plane, 2 ranks over gloo ------------------------------------
@@ -590,14 +597,18 @@ def adasum_inputs(rank: int) -> list:
 
 
 def adasum_worker(rank: int, world: int, store_path: str,
-                  out_dir: str) -> None:
+                  out_dir: str, python_core: bool = False) -> None:
     """``adasum_reduce`` and ``allreduce(op=Adasum)`` (sync, async and
     the optimizer) over the world of 4, over a set of 2 ({1, 3}), and the
-    refusal over a set of 3 ({0, 1, 2})."""
+    refusal over a set of 3 ({0, 1, 2}).  ``python_core``: the async
+    ops negotiate on ``PyController`` instead of the default C++ core."""
     import pickle
 
     torch.set_num_threads(1)
+    if python_core:
+        os.environ["HVTPU_FORCE_PY_CONTROLLER"] = "1"
     import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.eager import get_controller
     from horovod_tpu_torch.comm.adasum import adasum_reduce
 
     dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
@@ -664,12 +675,13 @@ def adasum_worker(rank: int, world: int, store_path: str,
         for ps in sets.values():
             if ps is not None:
                 hvd.remove_process_set(ps)
+        core_name = type(get_controller()._ctrl).__name__
         hvd.shutdown()
     finally:
         dist.destroy_process_group()
     with open(os.path.join(out_dir, f"adasum{rank}.pkl"), "wb") as f:
         pickle.dump({"res": {k: v.numpy() for k, v in res.items()},
-                     "errors": errors}, f)
+                     "errors": errors, "core": core_name}, f)
 
 
 # -- the stall watchdog, faults and retry, 2 ranks over gloo ------------------
@@ -1458,3 +1470,49 @@ def audit_rank(rank: int, world: int, store_path: str, out_dir: str) -> None:
     hvd.shutdown()
     dist.destroy_process_group()
     _write_result(out_dir, rank, result)
+
+
+# -- broadcast_parameters (F7), 2 ranks over gloo ------------------------------
+
+def bp_state(rank: int) -> dict:
+    """A state dict of rank ``rank``'s own values: contiguous CPU tensors
+    of several dtypes (one 0-d), and a non-contiguous one."""
+    rng = np.random.RandomState(70 + rank)
+    return {
+        "conv.weight": torch.from_numpy(rng.randn(4, 3, 3, 3).astype(
+            np.float32)),
+        "conv.bias": torch.from_numpy(rng.randn(4).astype(np.float32)),
+        "bn.running_mean": torch.from_numpy(rng.randn(7).astype(
+            np.float32)).to(torch.bfloat16),
+        "bn.num_batches_tracked": torch.tensor(int(rng.randint(1000))),
+        "fc.weight_t": torch.from_numpy(rng.randn(5, 6).astype(
+            np.float32)).t(),
+    }
+
+
+def bp_worker(rank: int, world: int, store_path: str, out_dir: str) -> None:
+    """``broadcast_parameters`` from rank 0: the stall descriptors of the
+    broadcasts it issues and every tensor's bytes after it, as JSON."""
+    torch.set_num_threads(1)
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.comm import stall
+
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    descs = []
+    check = stall.check
+
+    def recorded(st, ps, desc, *args, **kw):
+        descs.append(desc)
+        return check(st, ps, desc, *args, **kw)
+
+    stall.check = recorded
+    hvd.init(device="cpu")
+    state = bp_state(rank)
+    hvd.broadcast_parameters(state, root_rank=0)
+    res = {"descs": descs,
+           "bytes": {n: t.contiguous().view(-1).view(torch.uint8)
+                     .numpy().tobytes().hex() for n, t in state.items()}}
+    hvd.shutdown()
+    dist.destroy_process_group()
+    _write_result(out_dir, rank, res)
