@@ -140,6 +140,19 @@ and, beside them, its C++ negotiation core from
    that fill one output and every rank's (the 12-rank kernels at half a
    bucket a rank, and a call's time at 1,000,003), and the last timed
    call checked again;
+   then the rings with one rank a process (``--ring-ipc-child``): 2,
+   then 3 processes on cuda:0 in a gloo group over a ``TCPStore`` on
+   localhost, each rank's ``ProcessRing`` (its slots and flags a
+   ``cudaMalloc`` of its own, its neighbours' mapped through CUDA IPC
+   handles, epoch flags at system scope) running A5 Sum and Average,
+   A6 and A4 three times each in a row on new inputs with no host
+   barrier in between, at 2 x 25,557,032 (the packed ResNet-50
+   gradients a rank) and at 2 and 3 x 1,000,003, every result bitwise
+   the plain version over every rank's inputs, then
+   ``quantized_allreduce`` under ``HVTPU_QUANTIZED_RING=1`` bitwise the
+   plain A6; the launches counted in each child (A5 7, A6 4, A4 3 a
+   size); the times are time-sliced unless an MPS daemon serves the
+   card;
 8. checks a narrow float32 ResNet trained 2 steps on the card against the
    same steps computed on the CPU with plain PyTorch;
 9. drives the elastic path in child processes (``chip_smoke.py
@@ -174,14 +187,17 @@ Prints one ``int8_quantized_allreduce {...}`` line, one ``async_path
 its ``autotune`` part the tuned bursts, its ``zero_copy`` part the
 route's bursts), one ``adasum
 {...}`` line, one ``stall {...}`` line, one ``faults {...}`` line, one
-``obs {...}`` line, one ``ring_path {...}`` line, one ``elastic {...}``
+``obs {...}`` line, one ``ring_path {...}`` line, one ``ring_ipc {...}``
+line (the launches, each rank's ms a call, B, the bytes a rank holds
+and maps, the epochs, the slice policy), one ``elastic {...}``
 line (the exits, the commits' ms in memory, on the training thread and
 on the writer, a snapshot's bytes, ``sync``'s ms, each child's seconds
 to its first step), one ``launcher {...}`` line (the ``--check-build``
 flags, the worker's ``HVTPU_AUTOTUNE*`` env, the static launch's rendezvous seconds, each relaunch's seconds
 from the driver seeing the exit to the next incarnation's first step,
 the driver's exits, outcomes and charged restarts, the negative gate),
-one ``{"kernels": [...]}`` line of 10 entries
+one ``{"kernels": [...]}`` line of 13 entries (the last three the
+ring kernels with one rank a process, ``time_sliced`` beside their ms)
 (A1's with ``core_launches``, ``autotune_launches``,
 ``stall_launches``, ``obs_launches_per_step``,
 ``elastic_launches`` and ``launcher_launches``, the last by the
@@ -2760,7 +2776,7 @@ def ring_buckets(model, x, y, ranks: int):
 
 
 RING_KERNELS = ("A4_cluster", "A5_cluster", "A6_cluster", "A4_global",
-                "A5_global", "A6_global")
+                "A5_global", "A6_global", "A4_ipc", "A5_ipc", "A6_ipc")
 
 
 def _ring_counts():
@@ -2771,7 +2787,10 @@ def _ring_counts():
             "A6_cluster": ring_allreduce.quantized_cluster_launches,
             "A4_global": ring_allgather_2d.launches,
             "A5_global": ring_allreduce.launches,
-            "A6_global": ring_allreduce.quantized_launches}
+            "A6_global": ring_allreduce.quantized_launches,
+            "A4_ipc": ring_allgather_2d.ipc_launches,
+            "A5_ipc": ring_allreduce.ipc_launches,
+            "A6_ipc": ring_allreduce.quantized_ipc_launches}
 
 
 def _set_ring_counts(counts) -> None:
@@ -2783,6 +2802,9 @@ def _set_ring_counts(counts) -> None:
     ring_allgather_2d.launches = counts["A4_global"]
     ring_allreduce.launches = counts["A5_global"]
     ring_allreduce.quantized_launches = counts["A6_global"]
+    ring_allgather_2d.ipc_launches = counts["A4_ipc"]
+    ring_allreduce.ipc_launches = counts["A5_ipc"]
+    ring_allreduce.quantized_ipc_launches = counts["A6_ipc"]
 
 
 def _ring_key(kind: str, n: int) -> str:
@@ -3142,6 +3164,235 @@ def ring_phase(buckets, reps: int):
                   A4_cluster=a4c, A5_cluster=a5c, A6_cluster=a6c,
                   A4_global=a4g, A5_global=a5g, A6_global=a6g)
     log("ring_path " + json.dumps(result))
+    return result
+
+
+# -- phase 7b: the rings one rank a process, processes sharing the card ------
+
+RING_IPC_FULL = 25_557_032   # the packed ResNet-50 gradients a rank
+RING_IPC_SIZES = {2: (RING_IPC_FULL, RING_SMALL), 3: (RING_SMALL,)}
+RING_IPC_REPS = 3            # back-to-back calls a kind, new inputs each
+RING_IPC_TIMEOUT_S = 150
+RING_IPC_KINDS = ("A5_sum", "A5_average", "A6", "A4")
+
+
+def _ipc_size(ring, world: int, rank: int, size: int, dev) -> dict:
+    """One size of the child: each kind RING_IPC_REPS times in a row on
+    this rank's card tensor (new inputs each call, no host barrier in
+    between), every result held bitwise against the plain version over
+    every rank's inputs, then the HVTPU_QUANTIZED_RING route; the ms of
+    a call (CUDA events over the calls in a row), the plain version's
+    and the library call's."""
+    import torch
+
+    from horovod_tpu_torch.comm.quantized import quantized_allreduce
+    from horovod_tpu_torch.ops import (
+        ring_allgather_2d_plain,
+        ring_allreduce_plain,
+    )
+    from horovod_tpu_torch.ops.ring import chunk_elems
+
+    gen = torch.Generator(device=dev)
+    e = chunk_elems(size, world)
+    rows = e // 128
+
+    def every_rank(rep):
+        """Every rank's input of call ``rep``, the same in every child."""
+        gen.manual_seed(SEED + 1000 * world + 100 * rep + size % 97)
+        return [spread_values(size, torch.float32, dev, gen)
+                for _ in range(world)]
+
+    xs = [every_rank(rep) for rep in range(RING_IPC_REPS)]
+    blocks = [[torch.nn.functional.pad(x, (0, world * e - size))[
+        r * e:(r + 1) * e].reshape(rows, 128) for r, x in enumerate(per)]
+        for per in xs]
+    calls = {"A5_sum": lambda k: ring.allreduce(xs[k][rank]),
+             "A5_average": lambda k: ring.allreduce(xs[k][rank],
+                                                    average=True),
+             "A6": lambda k: ring.allreduce(xs[k][rank], quantized=True),
+             "A4": lambda k: ring.allgather_2d(blocks[k][rank])}
+    plains = {"A5_sum": lambda k: ring_allreduce_plain(xs[k]),
+              "A5_average": lambda k: ring_allreduce_plain(
+                  xs[k], average=True),
+              "A6": lambda k: ring_allreduce_plain(xs[k], quantized=True),
+              "A4": lambda k: ring_allgather_2d_plain(blocks[k])}
+    # the buffers grow at the first call of the largest size (a device
+    # sync and a barrier): one call outside the timed calls
+    ring.allreduce(xs[0][rank])
+    torch.cuda.synchronize()
+    out = {"ms": {}, "max_abs_err": {}}
+    for kind in RING_IPC_KINDS:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        got = [calls[kind](k) for k in range(RING_IPC_REPS)]
+        end.record()
+        end.synchronize()
+        out["ms"][kind] = start.elapsed_time(end) / RING_IPC_REPS
+        err = 0.0
+        for k, g in enumerate(got):
+            want = plains[kind](k)[rank]
+            check(same_bits(g, want),
+                  f"ring_ipc: {world} processes, {size} elements, {kind} "
+                  f"call {k}: rank {rank} differs from the plain version")
+            err = max(err, max_abs_diff(g, want))
+        out["max_abs_err"][kind] = err
+        del got
+    # the route: quantized_allreduce over the gloo group on card tensors
+    os.environ["HVTPU_QUANTIZED_RING"] = "1"
+    try:
+        routed = quantized_allreduce(xs[1][rank])
+    finally:
+        del os.environ["HVTPU_QUANTIZED_RING"]
+    check(same_bits(routed, ring_allreduce_plain(xs[1], quantized=True)[0]),
+          f"ring_ipc: {world} processes, {size} elements: rank {rank}'s "
+          "HVTPU_QUANTIZED_RING route differs from the plain A6")
+    if rank == 0:
+        stacked = torch.stack(xs[0])
+        out["plain_ms"] = {k: time_cuda(lambda: plains[k](0), 2, 1)
+                           for k in RING_IPC_KINDS}
+        out["library_ms"] = {"A5_sum": time_cuda(lambda: stacked.sum(0), 5),
+                             "A4": time_cuda(lambda: torch.cat(blocks[0]),
+                                             5)}
+    return out
+
+
+def ring_ipc_child(argv) -> int:
+    """``chip_smoke.py --ring-ipc-child WORLD RANK PORT OUT``: one rank of
+    the ring_ipc phase on cuda:0, in a gloo group over a TCPStore on
+    localhost; writes its result as JSON to OUT."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.core import state as core_state
+
+    world, rank, port = (int(a) for a in argv[:3])
+    torch.cuda.set_device(0)
+    store = dist.TCPStore("127.0.0.1", port, world, rank == 0,
+                          timeout=datetime.timedelta(seconds=60))
+    dist.init_process_group("gloo", store=store, rank=rank,
+                            world_size=world)
+    result = {"sizes": {}}
+    try:
+        ring = core_state.process_ring(None)
+        for size in RING_IPC_SIZES[world]:
+            _set_ring_counts(dict.fromkeys(RING_KERNELS, 0))
+            part = _ipc_size(ring, world, rank, size,
+                             torch.device("cuda", 0))
+            torch.cuda.synchronize()
+            part["launches"] = {k: v for k, v in _ring_counts().items()
+                                if v}
+            result["sizes"][str(size)] = part
+        result.update(blocks=ring.blocks, nbytes=ring.nbytes,
+                      mapped_bytes=ring.mapped_bytes, epoch=ring.epoch,
+                      nslices=ring.nslices)
+        core_state.close_rings()
+    finally:
+        dist.destroy_process_group()
+    with open(argv[3], "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def _slice_policy() -> dict:
+    """How processes share the card: its compute mode and whether an MPS
+    daemon serves it (its control pipe)."""
+    q = subprocess.run(["nvidia-smi", "-q", "-d", "COMPUTE"],
+                       capture_output=True, text=True, timeout=60).stdout
+    mode = re.search(r"Compute Mode\s*:\s*(.+)", q)
+    pipe = Path(os.environ.get("CUDA_MPS_PIPE_DIRECTORY", "/tmp/nvidia-mps"))
+    return {"compute_mode": mode.group(1).strip() if mode else None,
+            "mps_control": shutil.which("nvidia-cuda-mps-control"),
+            "mps_served": (pipe / "control").exists()}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def ring_ipc_phase(smi: str, tmp: Path) -> dict:
+    """A4, A5 and A6 with one rank a process: 2, then 3 processes on
+    cuda:0 (``--ring-ipc-child``), each rank's card tensors through its
+    ``ProcessRing`` over a gloo group.  A child that fails, traps or
+    times out fails the smoke, naming its rank."""
+    policy = _slice_policy()
+    worlds = {}
+    for world in sorted(RING_IPC_SIZES):
+        port = _free_port()
+        outs = [tmp / f"ring_ipc_{world}_{r}.json" for r in range(world)]
+        env = dict(os.environ)
+        env.pop("HVTPU_QUANTIZED_RING", None)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(REPO / "chip_smoke.py"), "--ring-ipc-child",
+             str(world), str(r), str(port), str(outs[r])], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(world)]
+        logs = []
+        try:
+            for r, p in enumerate(procs):
+                left = RING_IPC_TIMEOUT_S - (time.perf_counter() - t0)
+                try:
+                    logs.append(p.communicate(timeout=max(left, 1))[0])
+                except subprocess.TimeoutExpired:
+                    raise SmokeFailure(
+                        f"ring_ipc: rank {r} of {world} processes timed out "
+                        f"after {RING_IPC_TIMEOUT_S} s")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                raise SmokeFailure(
+                    f"ring_ipc: rank {r} of {world} processes exited "
+                    f"{p.returncode}:\n{logs[r][-3000:]}")
+        worlds[world] = dict(
+            seconds=time.perf_counter() - t0,
+            ranks=[json.loads(o.read_text()) for o in outs])
+    # every rank launched each kernel once a call of its size
+    want = {"A5_ipc": 2 * RING_IPC_REPS + 1, "A6_ipc": RING_IPC_REPS + 1,
+            "A4_ipc": RING_IPC_REPS}
+    launches = {}
+    for world, w in worlds.items():
+        for r, res in enumerate(w["ranks"]):
+            for size, part in res["sizes"].items():
+                check(part["launches"] == want,
+                      f"ring_ipc: {world} processes, {size} elements, rank "
+                      f"{r} launched {part['launches']}, expected {want}")
+        launches[world] = {size: part["launches"] for size, part
+                           in w["ranks"][0]["sizes"].items()}
+    full = worlds[2]["ranks"][0]["sizes"][str(RING_IPC_FULL)]
+    result = {
+        "card": smi, "policy": policy,
+        "time_sliced": not policy["mps_served"],
+        "sizes": {w: list(RING_IPC_SIZES[w]) for w in RING_IPC_SIZES},
+        "reps": RING_IPC_REPS, "launches": launches,
+        "blocks": {w: [r["blocks"] for r in v["ranks"]]
+                   for w, v in worlds.items()},
+        "nbytes": {w: [r["nbytes"] for r in v["ranks"]]
+                   for w, v in worlds.items()},
+        "mapped_bytes": {w: [r["mapped_bytes"] for r in v["ranks"]]
+                         for w, v in worlds.items()},
+        "epoch": {w: [r["epoch"] for r in v["ranks"]]
+                  for w, v in worlds.items()},
+        "ms": {w: {size: [r["sizes"][size]["ms"] for r in v["ranks"]]
+                   for size in v["ranks"][0]["sizes"]}
+               for w, v in worlds.items()},
+        "max_abs_err": {w: max(max(p["max_abs_err"].values())
+                               for r in v["ranks"]
+                               for p in r["sizes"].values())
+                        for w, v in worlds.items()},
+        "seconds": {w: v["seconds"] for w, v in worlds.items()},
+        "full": full}
+    log("ring_ipc " + json.dumps(result))
     return result
 
 
@@ -3716,6 +3967,8 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     if sys.argv[1:] == ["--elastic-child"]:
         return elastic_child()
+    if sys.argv[1:2] == ["--ring-ipc-child"]:
+        return ring_ipc_child(sys.argv[2:])
     import threading
 
     import horovod_tpu_torch as hvd
@@ -3781,6 +4034,7 @@ def main() -> int:
         faults_phase(hvd, device, model, opt, x, y, smi)
         obs = obs_phase(hvd, device, model, opt, x, y, smi, tmp)
         ring = ring_phase(ring_buckets(model, x, y, RING_RANKS), reps=10)
+        ring_ipc = ring_ipc_phase(smi, tmp)
         del model, opt, x, y
         reference_phase(hvd, device)
         elastic = elastic_phase(smi, tmp)
@@ -3897,6 +4151,36 @@ def main() -> int:
             "bound_by": ring[key]["bound_by"],
             "library_ms": ring[key]["library_ms"],
             "library_all_ranks_ms": ring[key]["library_all_ranks_ms"],
+        })
+    # the same kernels with one rank a process: 2 processes time-sliced
+    # on this card at full width (ring_ipc phase); ms a call of a rank,
+    # plain_ms the plain version over both ranks' inputs, library_ms
+    # x.sum(0) / torch.cat of both ranks' inputs, the bound the card's
+    # least time for both ranks' work
+    from horovod_tpu_torch.ops.ring import chunk_elems
+
+    full = ring_ipc["full"]
+    b4, b5 = _ring_bounds(2, RING_IPC_FULL, chunk_elems(RING_IPC_FULL, 2))
+    bounds = {"A4": b4, "A5_sum": b5, "A6": _a6_bound(2, RING_IPC_FULL)}
+    for key, call, name, line in (
+            ("A4_ipc", "A4", "ring_allgather_2d (a rank a process)", 94),
+            ("A5_ipc", "A5_sum", "ring_allreduce (a rank a process)", 180),
+            ("A6_ipc", "A6", "ring_allreduce (quantized, a rank a process)",
+             296)):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "horovod_tpu_torch/csrc/ring.cu",
+            "replaces": f"horovod_tpu/ops/ring.py:{line}",
+            "launches": full["launches"][key],
+            "max_abs_err": max(full["max_abs_err"][k] for k in full[
+                "max_abs_err"] if k.startswith(call[:2])),
+            "ms": full["ms"][call],
+            "plain_ms": full["plain_ms"][call],
+            "bound_ms": bounds[call]["bound_ms"],
+            "bound_by": bounds[call]["bound_by"],
+            "library_ms": full["library_ms"].get(call),
+            "time_sliced": ring_ipc["time_sliced"],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -29,10 +29,22 @@ Stochastic rounding draws
 key folded from the rank and the payload's bits (the reference's
 ``_dither_key``), computed on the device, so the same inputs give the
 same result on the CPU and on the card.
+
+``HVTPU_QUANTIZED_RING=1`` (read at every call, as the reference reads
+it) sends a deterministic call over more than one rank through the
+per-hop requantizing ring A6 instead: the group's
+``ops.ring.ProcessRing`` (one a group, ``core.state.process_ring``)
+with ``quantized=True`` and the caller's ``average``, its kernel on card
+tensors and its plain version, the same ring over the group's
+point-to-point ops, on CPU tensors.  It returns the input's shape and
+dtype.  ``stochastic=True`` keeps the two-phase path (the ring rounds
+deterministically, and the reference's unbiased-dither semantics win
+over the opt-in), and so does a group of one rank.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -92,8 +104,15 @@ def quantized_allreduce(tensor: torch.Tensor, *, group=None,
                         stochastic: bool = False) -> torch.Tensor:
     """int8-wire allreduce of a float tensor over ``group`` (default: the
     default group).  Returns float32 for a float32 input, else the
-    input's floating dtype (the caller casts back)."""
+    input's floating dtype (the caller casts back); on the
+    ``HVTPU_QUANTIZED_RING`` route the input's dtype."""
     n_ranks = dist.get_world_size(group)
+    if (os.environ.get("HVTPU_QUANTIZED_RING", "0") == "1"
+            and n_ranks > 1 and not stochastic):
+        from ..core.state import process_ring
+
+        return process_ring(group).allreduce(tensor, average=average,
+                                             quantized=True)
     rank = dist.get_rank(group)
     orig_shape, orig_dtype = tensor.shape, tensor.dtype
     flat = tensor.reshape(-1).to(torch.float32)

@@ -69,7 +69,7 @@ import logging
 import os
 import threading
 import time
-from typing import Any, Optional
+from typing import Any, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -124,6 +124,12 @@ class GlobalState:
 
 _state = GlobalState()
 _lock = threading.Lock()
+# the ring communicators (ops/ring.py ProcessRing) of the
+# HVTPU_QUANTIZED_RING route, one a torch.distributed group, in the order
+# made; apart from GlobalState because the route serves groups made
+# without init() too
+_rings: List[Tuple[Any, Any]] = []
+_rings_lock = threading.Lock()
 _atexit_registered = False
 logger = logging.getLogger("horovod_tpu_torch")
 # HVTPU_LOG_LEVEL's names, as the reference maps them onto ``logging``
@@ -474,6 +480,41 @@ def _uninstall_obs() -> None:
             pass
 
 
+def process_ring(group=None):
+    """The ``ProcessRing`` of ``group`` (None: the default group), made at
+    its first use.  A process set, and the hierarchical route's local and
+    cross views, each get the ring of the group they pass."""
+    from ..ops.ring import ProcessRing
+
+    with _rings_lock:
+        for g, ring in _rings:
+            if g is group:
+                return ring
+        ring = ProcessRing(group)
+        _rings.append((group, ring))
+        return ring
+
+
+def close_rings(groups=None, abandon: bool = False) -> None:
+    """Close the rings of ``groups`` (None: every ring) in the order they
+    were made, before their groups go away: each unmaps its neighbours'
+    memory, then frees its own (collective over its group).  ``abandon``,
+    past a wedged collective: forget them without touching the card; the
+    process's exit frees the memory."""
+    with _rings_lock:
+        gone = [(g, r) for g, r in _rings
+                if groups is None or any(g is x for x in groups)]
+        _rings[:] = [e for e in _rings if e not in gone]
+    if abandon:
+        return
+    for _, ring in gone:
+        try:
+            ring.close()
+        except Exception:  # noqa: BLE001 — teardown goes on
+            logger.warning("closing a ring communicator failed",
+                           exc_info=True)
+
+
 def _make_groups(ps: ProcessSet) -> None:
     """The set's groups: the sync ops' (the default group for the global
     set) and the controller's.  ``new_group`` is collective: every rank
@@ -517,6 +558,7 @@ def remove_process_set(ps) -> bool:
         removed = st.process_set_table.remove(psid)
     except ValueError:
         return False
+    close_rings([removed.group, removed.controller_group])
     _destroy_groups(removed)
     removed._unbind()
     return True
@@ -531,6 +573,7 @@ def abort_group(group=None) -> None:
 
 
 def _teardown_groups() -> None:
+    close_rings()
     if _state.topology is not None and dist.is_initialized():
         _state.topology.destroy()
     for psid, ps in _state.process_set_table.items().items():
@@ -544,7 +587,10 @@ def _teardown_groups() -> None:
 def _abandon_groups() -> None:
     """Teardown past a wedged collective: abort the NCCL communicators
     first; a gloo group's destruction runs on a daemon thread that gets
-    15 s, as the reference bounds its distributed shutdown."""
+    15 s, as the reference bounds its distributed shutdown.  The ring
+    communicators are forgotten, not closed (a close syncs the card and
+    waits on the group)."""
+    close_rings(abandon=True)
     if _state.backend == "nccl" and dist.is_initialized():
         try:
             abort_group()

@@ -1,16 +1,23 @@
-"""Ring collectives over the virtual ranks of one card: the all-gather
-(A4), the allreduce (A5) and the per-hop requantizing int8 allreduce
-(A6).
+"""Ring collectives: the all-gather (A4), the allreduce (A5) and the
+per-hop requantizing int8 allreduce (A6), over the virtual ranks of one
+card or over one rank a process.
 
 Counterpart of ``horovod_tpu/ops/ring.py`` (Pallas bodies
 ``_allgather_kernel``, ``_allreduce_kernel`` and
 ``_quantized_allreduce_kernel``).  The JAX functions run once per rank
-inside ``shard_map``; these take one tensor per rank and return one
-output per rank, the counterpart of a ``shard_map`` body over an
-``n``-rank axis.  CPU tensors take the plain versions beside them, which
-walk the same ring hop by hop with the same arithmetic.  On CUDA tensors
-every rank's buffers sit in one card's memory and one launch runs every
-rank; :func:`kernel_route` picks the kernel from ``n`` alone:
+inside ``shard_map``, each device one rank.  The port has two
+counterparts:
+
+* :func:`ring_allreduce` / :func:`ring_allgather_2d` take one tensor per
+  rank, every rank in this process, and return one output per rank;
+* :class:`ProcessRing` is a communicator of one rank a process over a
+  ``torch.distributed`` group: each process passes its own tensor and
+  gets its own output, as a ``shard_map`` body does.
+
+CPU tensors take the plain versions, which walk the same ring hop by hop
+with the same arithmetic (:class:`ProcessRing`'s over the group's
+point-to-point ops).  CUDA tensors take a kernel; :func:`kernel_route`
+picks it for the ranks of one process from ``n`` alone:
 
 * ``"cluster"`` (A4, A5 and A6 at ``2 <= n <= 8``):
   ``csrc/ring_cluster.cu``, one thread block cluster of ``n`` CTAs a
@@ -23,17 +30,24 @@ rank; :func:`kernel_route` picks the kernel from ``n`` alone:
   ``ring_allreduce.cluster_launches`` (A5) and
   ``ring_allreduce.quantized_cluster_launches`` (A6).
 * ``"global"`` (A4, A5 and A6 at ``n > 8``): ``csrc/ring.cu``, one
-  cooperative launch through the reference's protocol: double-buffered
-  slots per phase in device memory, per-slot receive flags and ACK
-  backpressure.  Counted in ``ring_allgather_2d.launches``,
-  ``ring_allreduce.launches`` (A5) and
-  ``ring_allreduce.quantized_launches`` (A6).  These are the kernels to
-  extend across cards.
+  cooperative launch of every rank through the reference's protocol:
+  double-buffered slots per phase in device memory, per-slot receive
+  flags and ACK backpressure, on fresh flags every call.  Counted in
+  ``ring_allgather_2d.launches``, ``ring_allreduce.launches`` (A5) and
+  ``ring_allreduce.quantized_launches`` (A6).
+
+:class:`ProcessRing` on a card runs the same ``csrc/ring.cu`` kernels
+with one rank a launch: each process's slots and flags are its own
+``cudaMalloc``, mapped by its neighbours through CUDA IPC handles, the
+flags carry an epoch in place of zeroing, at system scope, so a peer may
+be another process on the same card or another card.  Counted in
+``ring_allgather_2d.ipc_launches``, ``ring_allreduce.ipc_launches`` (A5)
+and ``ring_allreduce.quantized_ipc_launches`` (A6).
 
 There is no other path: CUDA tensors a kernel cannot take raise, a
-launch that fails raises, and ranks on more than one card raise
-``NotImplementedError`` (peer-mapped memory across cards is later
-work).
+launch or an IPC call that fails raises with the CUDA error, and a list
+of ranks on more than one card raises ``NotImplementedError``: such
+ranks run one a process, through :class:`ProcessRing`.
 
 Arithmetic, as the reference computes it on the CPU (float32 subnormals
 count as 0):
@@ -55,9 +69,10 @@ count as 0):
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from . import _build
 from .quantize import QBLOCK, block_scale_inv, flush, fma_f32, round_codes
@@ -103,8 +118,9 @@ def _ranks(tensors: Sequence[torch.Tensor], what: str
     if len(devices) > 1:
         if all(d.type == "cuda" for d in devices):
             raise NotImplementedError(
-                f"{what}: ranks on more than one card need peer-mapped "
-                "memory, not ported yet (ROADMAP Queue A item 4)")
+                f"{what}: ranks on more than one card run one a process, "
+                "through ProcessRing(group); a process drives one card "
+                "until ROADMAP Queue A item 9")
         raise ValueError(
             f"{what}: ranks on mixed devices {sorted(map(str, devices))}")
     device = devices.pop()
@@ -227,8 +243,9 @@ def ring_allgather_2d_plain(blocks: Sequence[torch.Tensor]
 
 # -- the kernels --------------------------------------------------------------
 
-def _kernels():
-    lib = _build.load("ring")
+def bind_global(lib: ctypes.CDLL):
+    """The one-launch all-gather (A4) and allreduce (A5/A6) functions of
+    a loaded ``ring`` library, their C signatures set."""
     fns = (lib.hvtpu_ring_allgather, lib.hvtpu_ring_allreduce)
     if fns[0].argtypes is None:
         for fn in fns:
@@ -238,6 +255,10 @@ def _kernels():
                            ctypes.c_void_p]
             fn.restype = ctypes.c_int
     return fns
+
+
+def _kernels():
+    return bind_global(_build.load("ring"))
 
 
 def bind_cluster(lib: ctypes.CDLL):
@@ -372,24 +393,36 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _launch(fn, what: str, xs, outs, slot_bytes: int, scale_slot_bytes: int,
-            size: int, e: int, quantized: bool) -> None:
+# what csrc/ring.cu keeps for each slice of a chunk: 4 slots of SLICE
+# float32 (A6's codes in the first quarter), 4 scale slots of SLICE/1024
+# float32 (A6), 8 flag words of 64 bits; and one 64-bit word a block
+SLOT_BYTES = 4 * SLICE
+SCALE_SLOT_BYTES = 4 * (SLICE // QBLOCK)
+FLAG_BYTES = 8 * 8
+DONE_BYTES = 8
+
+
+def _launch(fn, what: str, xs, outs, size: int, e: int,
+            quantized: bool) -> None:
     """One cooperative launch over every rank.  Per rank the pointer table
-    holds (input, output, 4 slots, 4 scale slots, flags); slots and
-    flags of all ranks come from one allocation each.  The flags start
-    at 0 on the launch stream: on one card stream order then rules out a
-    stale flag from the previous call (ranks in separate processes will
-    need epochs instead)."""
+    holds (input, output, slots, scale slots, flags, done words); slots
+    and flags of all ranks come from one allocation each.  The flags and
+    done words start at 0 on the launch stream, and the kernel runs at
+    epoch 1: stream order rules out a flag of an earlier call."""
     n, device = len(xs), xs[0].device
     nslices = -(-e // SLICE)
-    slots = torch.empty((n, 4 * slot_bytes + 4 * scale_slot_bytes + 16),
+    slot_bytes = nslices * 4 * SLOT_BYTES
+    scale_bytes = nslices * 4 * SCALE_SLOT_BYTES if quantized else 0
+    slots = torch.empty((n, slot_bytes + scale_bytes + 16),
                         dtype=torch.uint8, device=device)
-    flags = torch.zeros((n, nslices * 8), dtype=torch.int32, device=device)
+    # per slice 8 flag words, then a done word a block (B <= nslices)
+    flags = torch.zeros((n, nslices * 9), dtype=torch.int64, device=device)
     rows = []
     for r in range(n):
         base = (slots[r].data_ptr() + 15) // 16 * 16
+        f = flags[r].data_ptr()
         rows.append([xs[r].data_ptr(), outs[r].data_ptr(), base,
-                     base + 4 * slot_bytes, flags[r].data_ptr()])
+                     base + slot_bytes, f, f + nslices * FLAG_BYTES])
     table = torch.tensor(rows, dtype=torch.int64).to(device)
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
@@ -411,10 +444,7 @@ def global_allreduce(xs: Sequence[torch.Tensor], quantized: bool
     e = chunk_elems(size, n)
     outs = [torch.empty(size, dtype=torch.float32, device=x.device)
             for x in xs]
-    slot = e if quantized else 4 * e             # int8 codes or float32
-    scale_slot = 4 * (e // QBLOCK) if quantized else 0
-    _launch(_kernels()[1], "ring_allreduce", xs, outs, slot, scale_slot,
-            size, e, quantized)
+    _launch(_kernels()[1], "ring_allreduce", xs, outs, size, e, quantized)
     if quantized:
         ring_allreduce.quantized_launches += 1
     else:
@@ -451,8 +481,7 @@ def _allgather_kernel(blocks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     outs = [torch.empty((n * ch, LANES), dtype=torch.float32,
                         device=xs[0].device) for _ in range(n)]
     e = ch * LANES
-    _launch(_kernels()[0], "ring_allgather_2d", xs, outs, 4 * e, 0, e, e,
-            False)
+    _launch(_kernels()[0], "ring_allgather_2d", xs, outs, e, e, False)
     ring_allgather_2d.launches += 1
     return outs
 
@@ -468,9 +497,330 @@ def ring_allgather_2d(blocks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     return _allgather_kernel(blocks)
 
 
+# -- one rank a process -------------------------------------------------------
+
+def _ipc_lib():
+    """The ``ring`` library with the C signatures of its per-process
+    entry points set."""
+    lib = _build.load("ring")
+    if lib.hvtpu_ring_allreduce_rank.argtypes is None:
+        # rows, n, rank, blocks, epoch, size, chunk, slice, quantized,
+        # stream
+        rank_args = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_int, ctypes.c_uint64, ctypes.c_int64,
+                     ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                     ctypes.c_void_p]
+        ptr_out = ctypes.POINTER(ctypes.c_void_p)
+        for fn, args in (
+                (lib.hvtpu_ring_allreduce_rank, rank_args),
+                (lib.hvtpu_ring_allgather_rank, rank_args),
+                (lib.hvtpu_ring_ipc_blocks, [ctypes.POINTER(ctypes.c_int)]),
+                (lib.hvtpu_ring_ipc_alloc,
+                 [ctypes.c_int64, ptr_out, ctypes.c_void_p]),
+                (lib.hvtpu_ring_ipc_open, [ctypes.c_void_p, ptr_out]),
+                (lib.hvtpu_ring_ipc_close, [ctypes.c_void_p]),
+                (lib.hvtpu_ring_ipc_free, [ctypes.c_void_p])):
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+        lib.hvtpu_ring_error_name.argtypes = [ctypes.c_int]
+        lib.hvtpu_ring_error_name.restype = ctypes.c_char_p
+    return lib
+
+
+IPC_HANDLE_BYTES = 64     # cudaIpcMemHandle_t
+
+
+class ProcessRing:
+    """A4, A5 and A6 with one rank a process, over the ``torch.distributed``
+    group ``group`` (None: the default group), in its rank order: the
+    counterpart of the reference's rings inside ``shard_map``.
+
+    Every member calls each method with the same arguments (shape,
+    dtype, flags), as with any collective.  CPU tensors take the plain
+    versions: the same ring hop by hop over the group's point-to-point
+    ops, sending per hop what the kernel sends (float32 for A4/A5, int8
+    codes and a float32 scale a 1024 elements for A6); their results are
+    bitwise those of :func:`ring_allreduce_plain` /
+    :func:`ring_allgather_2d_plain` over the stacked ranks.  CUDA tensors
+    launch this rank's blocks of ``csrc/ring.cu``.
+
+    On the card the ring holds, from the first call on, one ``cudaMalloc``
+    of its own (slots, scale slots, flags and done words for
+    ``nslices`` slices of the largest chunk so far; :attr:`nbytes`),
+    zeroed once; its left and right neighbours' allocations are mapped
+    through CUDA IPC handles (:attr:`mapped_bytes`).  The handles and the
+    blocks a rank (B, the least over the ranks, agreed once) travel as
+    CPU objects through the group's ``all_gather_object``, so a gloo
+    group serves as well as NCCL.  The epoch grows by one a call; a call
+    that needs more slices grows the buffers on every rank in the same
+    call (every rank passes the same size), after a device sync and a
+    barrier, and starts the epochs again on fresh flags.  :meth:`close`
+    (collective, no call in flight) unmaps the neighbours' memory, then
+    frees its own.
+    """
+
+    def __init__(self, group=None):
+        self.group = group
+        self.n = dist.get_world_size(group)
+        self.rank = dist.get_rank(group)
+        ranks = dist.get_process_group_ranks(
+            group if group is not None else dist.group.WORLD)
+        self._left_peer = ranks[(self.rank - 1) % self.n]
+        self._right_peer = ranks[(self.rank + 1) % self.n]
+        self.device = None
+        self.blocks = None        # B, agreed at the first card call
+        self.epoch = 0            # of the last call on the buffers
+        self.nslices = 0          # the buffers' capacity, in slices
+        self.nbytes = 0
+        self._own = None          # this rank's allocation
+        self._peers: Dict[int, Tuple[int, int]] = {}   # rank: (ptr, bytes)
+
+    # -- the collectives ------------------------------------------------------
+
+    def allreduce(self, x: torch.Tensor, *, average: bool = False,
+                  quantized: bool = False) -> torch.Tensor:
+        """This rank's share of the ring allreduce: the reduction over the
+        group, of ``x``'s shape and dtype (A5; A6 when ``quantized``)."""
+        device = x.device
+        if device.type not in ("cpu", "cuda"):
+            raise ValueError(f"ProcessRing.allreduce: unsupported device "
+                             f"{device}")
+        n, shape, dtype = self.n, x.shape, x.dtype
+        if not dtype.is_floating_point:
+            # integers: the exact sum in their own dtype (the reference's
+            # psum), never the float32 ring; Average floor-divides
+            out = x.clone()
+            dist.all_reduce(out, group=self.group)
+            return out.floor_divide(n) if average else out
+        if n == 1:
+            return x.to(torch.float32).to(dtype).clone()
+        flat = x.reshape(-1).to(torch.float32)
+        if flat.numel() == 0:
+            out = flat.clone()
+        elif device.type == "cpu":
+            out = self._sum_plain(flat, quantized)
+        else:
+            out = self._sum_kernel(flat, quantized)
+        if average:
+            recip = torch.tensor(1.0 / n, dtype=torch.float32, device=device)
+            out = flush(out.mul_(recip))
+        return out.reshape(shape).to(dtype)
+
+    def allgather_2d(self, block: torch.Tensor) -> torch.Tensor:
+        """The ``(n*CH, 128)`` concatenation of every rank's float32
+        ``(CH, 128)`` block in rank order (A4)."""
+        (block,), device = _check_blocks([block], "ProcessRing.allgather_2d")
+        n, ch = self.n, block.shape[0]
+        if device.type == "cpu":
+            return self._gather_plain(block)
+        if n == 1 or ch == 0:
+            return block.repeat(n, 1)                  # nothing to send
+        return self._gather_kernel(block)
+
+    @property
+    def mapped_bytes(self) -> int:
+        """Bytes of the neighbours' allocations mapped into this process."""
+        return sum(b for _, b in self._peers.values())
+
+    # -- plain versions -------------------------------------------------------
+
+    def _exchange(self, *tensors: torch.Tensor) -> List[torch.Tensor]:
+        """One hop: send ``tensors`` to the right neighbour, receive the
+        same shapes from the left one (one tag a tensor)."""
+        recvs = [torch.empty_like(t) for t in tensors]
+        ops = []
+        for tag, (t, r) in enumerate(zip(tensors, recvs)):
+            ops.append(dist.P2POp(dist.isend, t.contiguous(),
+                                  self._right_peer, self.group, tag))
+            ops.append(dist.P2POp(dist.irecv, r, self._left_peer,
+                                  self.group, tag))
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        return recvs
+
+    def _sum_plain(self, flat: torch.Tensor, quantized: bool
+                   ) -> torch.Tensor:
+        """The kernel's walk from this rank: at reduce-scatter step i it
+        receives the running sum of chunk ``me-i-1`` and adds its own; it
+        then owns chunk ``me+1`` and relays the reduced chunks."""
+        n, me, size = self.n, self.rank, flat.numel()
+        e = chunk_elems(size, n)
+        x = flat.new_zeros(n * e)
+        x[:size] = flat
+        x = flush(x).reshape(n, e)
+        acc = x[me]
+        for i in range(n - 1):
+            c = (me - i - 1) % n
+            if quantized:
+                q, s = _quantize_chunks(acc[None])
+                q, s = self._exchange(q[0], s[0])
+                acc = flush(fma_f32(q.reshape(-1, QBLOCK), s,
+                                    x[c].reshape(-1, QBLOCK)).reshape(e))
+            else:
+                (r,) = self._exchange(acc)
+                acc = flush(r + x[c])
+        out = x.new_empty((n, e))
+        held = _quantize_chunks(acc[None]) if quantized else (acc,)
+        for i in range(n):
+            c = (me + 1 - i) % n                      # owned by rank me-i
+            if i:
+                held = self._exchange(*held)
+            out[c] = (_dequantize_chunks(*held)[0] if quantized
+                      else held[0])
+        return out.reshape(-1)[:size]
+
+    def _gather_plain(self, block: torch.Tensor) -> torch.Tensor:
+        n, me, ch = self.n, self.rank, block.shape[0]
+        out = block.new_empty((n * ch, LANES))
+        out[me * ch:(me + 1) * ch] = block
+        held = block
+        for i in range(n - 1):
+            (held,) = self._exchange(held)
+            src = (me - i - 1) % n
+            out[src * ch:(src + 1) * ch] = held
+        return out
+
+    # -- the card -------------------------------------------------------------
+
+    def _sum_kernel(self, flat: torch.Tensor, quantized: bool
+                    ) -> torch.Tensor:
+        size = flat.numel()
+        e = chunk_elems(size, self.n)
+        x = _aligned(flat)
+        out = torch.empty(size, dtype=torch.float32, device=flat.device)
+        self._launch(_ipc_lib().hvtpu_ring_allreduce_rank,
+                     "ProcessRing.allreduce", x, out, size, e, quantized)
+        if quantized:
+            ring_allreduce.quantized_ipc_launches += 1
+        else:
+            ring_allreduce.ipc_launches += 1
+        return out
+
+    def _gather_kernel(self, block: torch.Tensor) -> torch.Tensor:
+        ch = block.shape[0]
+        x = _aligned(block)
+        out = torch.empty((self.n * ch, LANES), dtype=torch.float32,
+                          device=block.device)
+        e = ch * LANES
+        self._launch(_ipc_lib().hvtpu_ring_allgather_rank,
+                     "ProcessRing.allgather_2d", x, out, e, e, False)
+        ring_allgather_2d.ipc_launches += 1
+        return out
+
+    def _fail(self, what: str, err: int):
+        name = _ipc_lib().hvtpu_ring_error_name(err)
+        raise RuntimeError(
+            f"{what}: rank {self.rank} of {self.n} failed with cudaError "
+            f"{err} ({name.decode() if name else 'unknown'})")
+
+    def _call(self, what: str, fn, *args) -> None:
+        err = fn(*args)
+        if err != 0:
+            self._fail(what, err)
+
+    @staticmethod
+    def _layout(nslices: int) -> Tuple[int, int, int]:
+        """Byte offsets of the scale slots, flags and done words in an
+        allocation of ``nslices`` slices (the same on every rank)."""
+        scale = nslices * 4 * SLOT_BYTES
+        flags = scale + nslices * 4 * SCALE_SLOT_BYTES
+        return scale, flags, flags + nslices * FLAG_BYTES
+
+    def _reserve(self, device: torch.device, nslices: int) -> None:
+        """Buffers for ``nslices`` slices on every rank: allocate (the
+        first call, or a call that needs more), exchange the handles,
+        map the neighbours'."""
+        lib = _ipc_lib()
+        if self.device is None:
+            self.device = device
+        elif device != self.device:
+            raise ValueError(f"ProcessRing: rank {self.rank} holds buffers "
+                             f"on {self.device}, got a tensor on {device}")
+        if nslices <= self.nslices:
+            return
+        self._release()
+        b = ctypes.c_int(0)
+        self._call("ProcessRing: blocks", lib.hvtpu_ring_ipc_blocks,
+                   ctypes.byref(b))
+        nbytes = self._layout(nslices)[2] + b.value * DONE_BYTES
+        ptr = ctypes.c_void_p()
+        handle = ctypes.create_string_buffer(IPC_HANDLE_BYTES)
+        self._call("ProcessRing: cudaMalloc of the ring's buffers",
+                   lib.hvtpu_ring_ipc_alloc, nbytes, ctypes.byref(ptr),
+                   handle)
+        self._own, self.nbytes, self.nslices = ptr.value, nbytes, nslices
+        shared = [None] * self.n
+        dist.all_gather_object(shared, (b.value, nbytes, handle.raw),
+                               group=self.group)
+        if self.blocks is None:
+            self.blocks = min(s[0] for s in shared)
+        for r in {(self.rank - 1) % self.n, (self.rank + 1) % self.n}:
+            peer = ctypes.c_void_p()
+            self._call(f"ProcessRing: opening rank {r}'s IPC handle",
+                       lib.hvtpu_ring_ipc_open,
+                       ctypes.create_string_buffer(shared[r][2],
+                                                   IPC_HANDLE_BYTES),
+                       ctypes.byref(peer))
+            self._peers[r] = (peer.value, shared[r][1])
+        self.epoch = 0
+
+    def _release(self) -> None:
+        """Unmap the neighbours' memory, then free this rank's, once no
+        rank has a call in flight (a device sync, then a barrier)."""
+        if self._own is None:
+            return
+        lib = _ipc_lib()
+        torch.cuda.synchronize(self.device)
+        dist.barrier(group=self.group)
+        for r, (ptr, _) in sorted(self._peers.items()):
+            self._call(f"ProcessRing: closing rank {r}'s IPC mapping",
+                       lib.hvtpu_ring_ipc_close, ptr)
+        self._peers = {}
+        own, self._own, self.nslices, self.nbytes = self._own, None, 0, 0
+        self._call("ProcessRing: cudaFree of the ring's buffers",
+                   lib.hvtpu_ring_ipc_free, own)
+
+    def _rows(self, x: torch.Tensor, out: torch.Tensor) -> List[int]:
+        """The kernel's left, self and right rows (input, output, slots,
+        scale slots, flags, done words; a neighbour's input and output 0)."""
+        scale, flags, done = self._layout(self.nslices)
+
+        def row(base, xp=0, op=0):
+            return [xp, op, base, base + scale, base + flags, base + done]
+
+        left = self._peers[(self.rank - 1) % self.n][0]
+        right = self._peers[(self.rank + 1) % self.n][0]
+        return (row(left) + row(self._own, x.data_ptr(), out.data_ptr())
+                + row(right))
+
+    def _launch(self, fn, what: str, x: torch.Tensor, out: torch.Tensor,
+                size: int, e: int, quantized: bool) -> None:
+        device = x.device
+        with torch.cuda.device(device):
+            self._reserve(device, -(-e // SLICE))
+            self.epoch += 1
+            rows = (ctypes.c_int64 * 18)(*self._rows(x, out))
+            stream = torch.cuda.current_stream(device).cuda_stream
+            self._call(what, fn, rows, self.n, self.rank, self.blocks,
+                       self.epoch, size, e, SLICE, int(quantized), stream)
+
+    def close(self) -> None:
+        """Collective: every rank closes, with no call in flight.  Unmaps
+        the neighbours' memory, then frees this rank's; the ring can be
+        used again (it allocates anew)."""
+        if self._own is not None:
+            with torch.cuda.device(self.device):
+                self._release()
+        self.device = None
+        self.epoch = 0
+
+
 ring_allgather_2d.launches = 0            # csrc/ring.cu, n > 8
 ring_allgather_2d.cluster_launches = 0    # csrc/ring_cluster.cu, n <= 8
 ring_allreduce.launches = 0               # A5, csrc/ring.cu, n > 8
 ring_allreduce.cluster_launches = 0       # A5, csrc/ring_cluster.cu
 ring_allreduce.quantized_launches = 0     # A6, csrc/ring.cu, n > 8
 ring_allreduce.quantized_cluster_launches = 0   # A6, csrc/ring_cluster.cu
+ring_allgather_2d.ipc_launches = 0        # ProcessRing, csrc/ring.cu
+ring_allreduce.ipc_launches = 0           # A5, ProcessRing
+ring_allreduce.quantized_ipc_launches = 0   # A6, ProcessRing

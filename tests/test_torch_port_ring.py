@@ -264,14 +264,15 @@ def test_inputs_the_ring_cannot_take_raise():
         ring_allgather_2d([torch.zeros(8, 64)] * 2)
     with pytest.raises(ValueError, match="float32"):
         ring_allgather_2d([torch.zeros(8, 128, dtype=torch.float16)] * 2)
-    # ranks on two cards: peer memory across cards is not ported; the
-    # check comes before any tensor is touched, so stand-ins serve here
+    # ranks on two cards in one process: such ranks run one a process
+    # (ProcessRing); the check comes before any tensor is touched, so
+    # stand-ins serve here
     cards = [types.SimpleNamespace(shape=(16,), dtype=torch.float32,
                                    device=torch.device("cuda", i))
              for i in range(2)]
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
+    with pytest.raises(NotImplementedError, match="ProcessRing"):
         ring_allreduce(cards)
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
+    with pytest.raises(NotImplementedError, match="ProcessRing"):
         ring_mod._ranks(cards, "ring_allgather_2d")
 
 

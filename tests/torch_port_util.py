@@ -684,6 +684,126 @@ def adasum_worker(rank: int, world: int, store_path: str,
                      "errors": errors, "core": core_name}, f)
 
 
+# -- the ring collectives one rank a process, 2 and 3 ranks over gloo ---------
+
+RING_IPC_CASES = {2: (1024, 3001), 3: (4000,)}
+RING_IPC_MODES = {"sum": {}, "average": {"average": True},
+                  "quantized": {"quantized": True}}
+
+
+def ring_ipc_inputs(n: int, per_rank: int) -> np.ndarray:
+    """``(n, per_rank)`` float32, rank r's input in row r: the inputs of
+    ``tests/test_torch_port_ring.py`` ``_inputs`` (subnormals and a sum
+    that cancels below FLT_MIN included)."""
+    rng = np.random.RandomState(per_rank + n)
+    x = rng.randn(n, per_rank).astype(np.float32)
+    if per_rank >= 100:
+        x[:, :10] = 3e-39
+        x[:, 20] = 0.0
+        x[0, 20], x[1, 20] = 1.5e-38, -1.4e-38
+    return x
+
+
+def ring_ipc_blocks(n: int) -> np.ndarray:
+    """``(n*16, 128)`` float32: rank r's A4 block is rows 16r..16r+15."""
+    return np.random.RandomState(30 + n).randn(n * 16, 128).astype(
+        np.float32)
+
+
+def ring_ipc_ints(n: int) -> np.ndarray:
+    return (np.arange(n * 64, dtype=np.int32).reshape(n, 64) * 7919
+            - 2000)
+
+
+def ring_ipc_route_input(rank: int) -> np.ndarray:
+    """Rank r's input of the ``HVTPU_QUANTIZED_RING`` route: (3, 700),
+    not a multiple of a chunk."""
+    return (np.random.RandomState(50 + rank).randn(3, 700)
+            * (1 + rank)).astype(np.float32)
+
+
+def ring_ipc_worker(rank: int, world: int, store_path: str,
+                    out_dir: str) -> None:
+    """``ProcessRing``'s plain versions at every case of
+    ``RING_IPC_CASES[world]``, A4 and int32; at 2 ranks also the
+    ``HVTPU_QUANTIZED_RING`` route through the engine's allreduce, with
+    a spy on the ring's plain reduction."""
+    torch.set_num_threads(1)
+    os.environ.pop("HVTPU_QUANTIZED_RING", None)
+    from horovod_tpu_torch.ops import ring as ring_mod
+    from horovod_tpu_torch.ops import ring_allgather_2d, ring_allreduce
+
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    try:
+        ring = ring_mod.ProcessRing()
+        res = {}
+        for per_rank in RING_IPC_CASES[world]:
+            x = torch.from_numpy(ring_ipc_inputs(world, per_rank)[rank])
+            for mode, kw in RING_IPC_MODES.items():
+                res[f"{mode}_{per_rank}"] = ring.allreduce(x, **kw)
+            # the input is not written
+            assert torch.equal(x, torch.from_numpy(
+                ring_ipc_inputs(world, per_rank)[rank]))
+        res["gather"] = ring.allgather_2d(torch.from_numpy(
+            ring_ipc_blocks(world)[16 * rank:16 * (rank + 1)].copy()))
+        ints = torch.from_numpy(ring_ipc_ints(world)[rank].copy())
+        res["int_sum"] = ring.allreduce(ints)
+        res["int_avg"] = ring.allreduce(ints, average=True)
+        res["launches"] = np.array([
+            ring_allgather_2d.ipc_launches, ring_allreduce.ipc_launches,
+            ring_allreduce.quantized_ipc_launches])
+        if world == 2:
+            res.update(_ring_route(rank, world, ring_mod))
+        np.savez(os.path.join(out_dir, f"ring_ipc{rank}.npz"),
+                 **{k: v.numpy() if isinstance(v, torch.Tensor) else v
+                    for k, v in res.items()})
+    finally:
+        dist.destroy_process_group()
+
+
+def _ring_route(rank: int, world: int, ring_mod) -> dict:
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.comm import eager
+    from horovod_tpu_torch.comm.compression import Compression
+    from horovod_tpu_torch.comm.quantized import quantized_allreduce
+
+    calls = []
+    plain = ring_mod.ProcessRing._sum_plain
+
+    def spy(self, flat, quantized):
+        calls.append(quantized)
+        return plain(self, flat, quantized)
+
+    ring_mod.ProcessRing._sum_plain = spy
+    hvd.init(device="cpu")
+    solo = [dist.new_group([r]) for r in range(world)][rank]
+    x = torch.from_numpy(ring_ipc_route_input(rank))
+    res = {}
+
+    def run(tag):
+        start = len(calls)
+        for name, op in (("sum", hvd.Sum), ("avg", hvd.Average)):
+            res[f"{tag}_{name}"] = eager.allreduce(
+                x, op=op, compression=Compression.int8)
+        after_ring = len(calls)
+        res[f"{tag}_stoch"] = eager.allreduce(
+            x, op=hvd.Sum, compression=Compression.int8_stochastic)
+        res[f"{tag}_solo"] = quantized_allreduce(x, group=solo)
+        return [after_ring - start, len(calls) - after_ring]
+
+    os.environ["HVTPU_QUANTIZED_RING"] = "1"
+    try:
+        on = run("on")
+    finally:
+        del os.environ["HVTPU_QUANTIZED_RING"]
+    off = run("off")
+    res["ring_calls"] = np.array(on + off)
+    res["ring_quantized"] = np.array(calls, dtype=bool)
+    hvd.shutdown()
+    return res
+
+
 # -- the stall watchdog, faults and retry, 2 ranks over gloo ------------------
 
 def spawn_world(target, world: int, tmp_path, *args, timeout: float = 60.0):

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""The cluster ring kernels (A4, A5, A6) at each CTA shape, on one GPU.
+"""The cluster ring kernels (A4, A5, A6) at each CTA shape, on one GPU;
+with ``--kernels global`` the global-slot ones at each occupancy.
 
     python3 torch_port_ring_sweep.py [--elements 25557032] [--ranks 8]
                                      [--reps 20] [--ptxas]
-                                     [--kernels all|A4A5|A6]
+                                     [--kernels all|A4A5|A6|global]
 
 ``horovod_tpu_torch/csrc/ring_cluster.cu`` is compiled at one CTA shape
 a kernel: A4/A5 at 128 threads of 16 elements each (a slice of 2048),
@@ -35,6 +36,15 @@ events, the copies taken in turns, forwards and then backwards, beside
 the bound (each input read once, each output written once), the library
 calls that fill one output and every rank's (A4/A5) and the global-slot
 A6 of ``ring.cu`` at the same ranks (A6).
+
+``--kernels global`` copies ``horovod_tpu_torch/csrc/ring.cu`` instead
+(``build/ring_sweep_global/c<n>/``) with its floor of CTAs an SM,
+``kCtasPerSm``, at 1 (no register cap), 2 and 3 (the shipped one),
+holds each copy's one-launch A4/A5/A6 bitwise against the plain
+versions at 9 and 12 ranks and at full width, and times them in turns
+at ``--ranks`` ranks of ``--elements`` (default 12 x 12,778,516, the
+size ``chip_smoke.py`` times them at): ``sweep_global {...}`` lines and
+a ``best_global {...}`` line.
 
 Prints the card's name and power limit, one ``variant {...}`` line a
 copy, one ``sweep {...}`` / ``sweep_a6 {...}`` line a copy and pass, and
@@ -72,6 +82,10 @@ A6_LEVERS = {
                     "v[k] = __ldcs(reinterpret_cast<const float4*>(x + block"},
 }
 SMALL_RINGS = [(2, 5000), (3, 4000), (5, 3001), (8, 40000)]
+# ring.cu: its floor of CTAs an SM (the register cap) and the copies'
+KCTAS = "constexpr int kCtasPerSm = 3;"
+GLOBAL_CTAS = (1, 2, 3)
+GLOBAL_RINGS = [(9, 5000), (12, 3001)]
 
 
 def _a6_name(shape) -> str:
@@ -254,17 +268,84 @@ def sweep_a6(ring_mod, use, xs, reps, device) -> None:
         **bound, config=infos[best])))
 
 
+def build_global_copies(ptxas: bool) -> dict:
+    """{name: (library path, ptxas lines)}: a copy of ring.cu at each
+    floor of CTAs an SM, compiled in parallel."""
+    from horovod_tpu_torch.ops import _build
+
+    built = _build.build_copies(
+        "ring", {f"c{c}": {KCTAS: f"constexpr int kCtasPerSm = {c};"}
+                 for c in GLOBAL_CTAS},
+        _build.BUILD_DIR.parent / "ring_sweep_global",
+        ["-Xptxas", "-v"] if ptxas else [])
+    return {name: (path, [ln.strip() for ln in out.splitlines()
+                          if "ptxas info" in ln
+                          and ("Used" in ln or "spill" in ln
+                               or "Compiling" in ln)])
+            for name, (path, out) in built.items()}
+
+
+def sweep_global(ring_mod, use, xs, reps, device) -> None:
+    """Each copy of ring.cu's one-launch A4/A5/A6 checked on small rings
+    and at full width, then timed in turns, forwards and backwards."""
+    import torch
+
+    n, size = len(xs), xs[0].numel()
+    gen = torch.Generator(device=device).manual_seed(12)
+    rings = [[torch.randn(m, generator=gen, device=device)
+              for _ in range(k)] for k, m in GLOBAL_RINGS] + [xs]
+    names = [f"c{c}" for c in GLOBAL_CTAS]
+    for name in names:
+        use(name)
+        for ring in rings:
+            blocks = chip_smoke._rank_blocks(ring)
+            for q in (False, True):
+                want = ring_mod.ring_allreduce_plain(ring, quantized=q)[0]
+                got = ring_mod.global_allreduce(ring, q)
+                check(all(same_bits(g, want) for g in got),
+                      f"global {name} n={len(ring)} quantized={q}")
+            want = ring_mod.ring_allgather_2d_plain(blocks)[0]
+            check(all(same_bits(g, want)
+                      for g in ring_mod._allgather_kernel(blocks)),
+                  f"global {name} A4 n={len(ring)}")
+        log("variant " + json.dumps(dict(kernel="global", copy=name,
+                                         rings=[len(r) for r in rings])))
+    blocks = chip_smoke._rank_blocks(xs)
+    calls = {"A5": lambda: ring_mod.global_allreduce(xs, False),
+             "A6": lambda: ring_mod.global_allreduce(xs, True),
+             "A4": lambda: ring_mod._allgather_kernel(blocks)}
+    times = {name: {k: [] for k in calls} for name in names}
+    for order in (names, names[::-1]):
+        for name in order:
+            use(name)
+            for kind, fn in calls.items():
+                times[name][kind].append(time_cuda(fn, reps))
+            log("sweep_global " + json.dumps(dict(
+                copy=name, ranks=n, elements=size,
+                **{f"{k}_ms": v[-1] for k, v in times[name].items()})))
+    torch.cuda.synchronize()
+    log("best_global " + json.dumps({
+        kind: dict(copy=min(names, key=lambda m: min(times[m][kind])),
+                   ms=min(min(times[m][kind]) for m in names))
+        for kind in calls}))
+
+
 def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--elements", type=int, default=25_557_032)
-    ap.add_argument("--ranks", type=int, default=8)
+    ap.add_argument("--elements", type=int)
+    ap.add_argument("--ranks", type=int)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--ptxas", action="store_true")
-    ap.add_argument("--kernels", choices=("all", "A4A5", "A6"),
+    ap.add_argument("--kernels", choices=("all", "A4A5", "A6", "global"),
                     default="all")
     args = ap.parse_args()
+    wide = args.kernels == "global"
+    if args.elements is None:
+        args.elements = 12_778_516 if wide else 25_557_032
+    if args.ranks is None:
+        args.ranks = 12 if wide else 8
     if not torch.cuda.is_available():
         print("torch_port_ring_sweep: CUDA is not available",
               file=sys.stderr)
@@ -273,21 +354,28 @@ def main() -> int:
     from horovod_tpu_torch.ops import ring as ring_mod
 
     kinds = ("A4A5", "A6") if args.kernels == "all" else (args.kernels,)
-    built = build_copies(args.ptxas, kinds)
+    built = (build_global_copies(args.ptxas) if wide
+             else build_copies(args.ptxas, kinds))
     log(chip_smoke.nvidia_smi_line())
     kernels = {}
+    bind = ring_mod.bind_global if wide else ring_mod.bind_cluster
     for name, (path, lines) in built.items():
-        kernels[name] = ring_mod.bind_cluster(ctypes.CDLL(str(path)))
+        kernels[name] = bind(ctypes.CDLL(str(path)))
         for line in lines:
             log(f"ptxas {name} {line}")
 
     def use(name):
-        ring_mod._cluster_kernels = lambda: kernels[name]
+        if wide:
+            ring_mod._kernels = lambda: kernels[name]
+        else:
+            ring_mod._cluster_kernels = lambda: kernels[name]
 
     device = torch.device("cuda", 0)
     gen = torch.Generator(device=device).manual_seed(chip_smoke.SEED)
     xs = [torch.randn(args.elements, generator=gen, device=device)
           for _ in range(args.ranks)]
+    if wide:
+        sweep_global(ring_mod, use, xs, args.reps, device)
     if "A4A5" in kinds:
         sweep_a4a5(ring_mod, use, xs, args.reps, device)
     if "A6" in kinds:
