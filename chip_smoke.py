@@ -88,6 +88,23 @@ and, beside them, its C++ negotiation core from
    Adasum: ``pairwise_adasum`` over two batches' 161 gradients (float32,
    a segment a tensor) against the float64 reference, and a ResNet-50
    step with ``op=Adasum`` bitwise the ``op=Sum`` step;
+   the meshes and the collectives over a mesh axis: ``world_mesh()``,
+   ``hierarchical_mesh()`` (1 x 1), the proc mesh and ``mesh(("dp",
+   "tp"), (1, 1))`` on the card; every ``comm/spmd.py`` function over the
+   one-rank world axis on card tensors (float32, bfloat16, int32; pre-
+   and postscale, Average, Min/Max/Product, Adasum, the fp16, int8 and
+   int8_stochastic codecs) bitwise the same call over a one-rank gloo
+   mesh on CPU copies; phase 3's 161 gradients, a dict keyed by
+   parameter name, through ``allreduce_gradients`` on the eager plan, on
+   the eager plan under an ``Autotuner`` (its threshold in force,
+   ``record_step`` seen) and along the world axis, all bitwise the
+   optimizer's ``GroupReduction.reduce`` (Average, no codec), with each
+   path's host ms, 4 turns; ``ShardedDistributedOptimizer(SGD, momentum
+   0.9)`` bitwise ``torch.optim.SGD`` over 3 steps, its state's bytes and
+   ms a step; ``_SyncBatchNormFn`` on ResNet-50's first BatchNorm shape
+   (64, 64, 112, 112) bfloat16, forward and backward, within 2^-7 of
+   ``F.batch_norm`` on the float32 input, and a ResNet-50 training step
+   with ``SyncBatchNorm`` in place of every BatchNorm;
    the stall watchdog: two of the port's amortized inspectors over one
    ``HashStore`` (ranks 0 and 1 of a set {0, 1}; heartbeat 0.05 s, warn
    0.3 s, abort 1.0 s), rank 0 running the optimizer's group reduction
@@ -149,9 +166,11 @@ and, beside them, its C++ negotiation core from
    barrier in between, at 2 x 25,557,032 (the packed ResNet-50
    gradients a rank) and at 2 and 3 x 1,000,003, every result bitwise
    the plain version over every rank's inputs, then
-   ``quantized_allreduce`` under ``HVTPU_QUANTIZED_RING=1`` bitwise the
-   plain A6; the launches counted in each child (A5 7, A6 4, A4 3 a
-   size); the times are time-sliced unless an MPS daemon serves the
+   ``quantized_allreduce`` and ``spmd.allreduce(compression=int8)`` along
+   the axis of a ``DeviceMesh`` over the children's gloo world, both
+   under ``HVTPU_QUANTIZED_RING=1`` and bitwise the plain A6; the
+   launches counted in each child (A5 7, A6 5, A4 3 a size; one A6 the
+   spmd call); the times are time-sliced unless an MPS daemon serves the
    card;
 8. checks a narrow float32 ResNet trained 2 steps on the card against the
    same steps computed on the CPU with plain PyTorch;
@@ -186,7 +205,10 @@ Prints one ``int8_quantized_allreduce {...}`` line, one ``async_path
 {...}`` line (its ``cores`` part the bursts on each negotiation core,
 its ``autotune`` part the tuned bursts, its ``zero_copy`` part the
 route's bursts), one ``adasum
-{...}`` line, one ``stall {...}`` line, one ``faults {...}`` line, one
+{...}`` line, one ``spmd {...}`` line (the functions held, the gradient
+paths' host ms, the sharded optimizer's state bytes and ms a step,
+``SyncBatchNorm``'s errors and ms, the card's name and power limit),
+one ``stall {...}`` line, one ``faults {...}`` line, one
 ``obs {...}`` line, one ``ring_path {...}`` line, one ``ring_ipc {...}``
 line (the launches, each rank's ms a call, B, the bytes a rank holds
 and maps, the epochs, the slice policy), one ``elastic {...}``
@@ -197,7 +219,8 @@ flags, the worker's ``HVTPU_AUTOTUNE*`` env, the static launch's rendezvous seco
 from the driver seeing the exit to the next incarnation's first step,
 the driver's exits, outcomes and charged restarts, the negative gate),
 one ``{"kernels": [...]}`` line of 13 entries (the last three the
-ring kernels with one rank a process, ``time_sliced`` beside their ms)
+ring kernels with one rank a process, ``time_sliced`` beside their ms,
+A6's with ``spmd_launches``)
 (A1's with ``core_launches``, ``autotune_launches``,
 ``stall_launches``, ``obs_launches_per_step``,
 ``elastic_launches`` and ``launcher_launches``, the last by the
@@ -2403,6 +2426,286 @@ def faults_phase(hvd, device, model, opt, x, y, smi: str):
     return result
 
 
+# -- phase 6c: the meshes and the collectives over a mesh axis --------------
+
+SPMD_N = 17 * 241        # a card tensor of the one-rank axis checks
+SPMD_TURNS = 4            # timed turns of each gradient path
+SBN_SHAPE = (BATCH, 64, IMAGE // 2, IMAGE // 2)   # ResNet-50's first BN
+# _SyncBatchNormFn against F.batch_norm on the float32 input: both compute
+# in float32 and the port rounds to bfloat16 once, so each element is
+# within a bfloat16 rounding (2^-9 relative) of the other plus their
+# float32 statistics' difference; checked at 2^-7 of each element plus
+# 2^-7 of the largest magnitude
+SBN_RTOL = SBN_ATOL = 2.0 ** -7
+
+
+def _host_ms(fn) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _spmd_cases(spmd, R, Compression, x, b, i, bools):
+    """Every ``spmd`` function of the one-rank axis checks on inputs
+    ``x`` (float32), ``b`` (bfloat16), ``i`` (int32): name -> call of a
+    mesh."""
+    W = dict(axis_name="world")
+    return {
+        "sum_f32": lambda m: spmd.allreduce(x, op=R.SUM, mesh=m, **W),
+        "avg_bf16": lambda m: spmd.allreduce(b, op=R.AVERAGE, mesh=m, **W),
+        "avg_i32": lambda m: spmd.allreduce(i, op=R.AVERAGE, mesh=m, **W),
+        "scaled_f32": lambda m: spmd.allreduce(
+            x, op=R.SUM, prescale_factor=0.5, postscale_factor=3.0, mesh=m,
+            **W),
+        "scaled_bf16": lambda m: spmd.allreduce(
+            b, op=R.AVERAGE, prescale_factor=1 / 3, postscale_factor=7.0,
+            mesh=m, **W),
+        "min": lambda m: spmd.allreduce(x, op=R.MIN, mesh=m, **W),
+        "max_i32": lambda m: spmd.allreduce(i, op=R.MAX, mesh=m, **W),
+        "prod": lambda m: spmd.allreduce(b, op=R.PRODUCT, mesh=m, **W),
+        "adasum": lambda m: spmd.allreduce(x, op=R.ADASUM, mesh=m, **W),
+        "fp16_wire": lambda m: spmd.allreduce(
+            x, op=R.SUM, compression=Compression.fp16, mesh=m, **W),
+        "int8_sum": lambda m: spmd.allreduce(
+            x, op=R.SUM, compression=Compression.int8, mesh=m, **W),
+        "int8_avg_bf16": lambda m: spmd.allreduce(
+            b, op=R.AVERAGE, compression=Compression.int8, mesh=m, **W),
+        "int8_stochastic": lambda m: spmd.allreduce(
+            x, op=R.SUM, compression=Compression.int8_stochastic, mesh=m,
+            **W),
+        "grouped_0": lambda m: spmd.grouped_allreduce(
+            [x, b], op=R.AVERAGE, mesh=m, **W)[0],
+        "grouped_1": lambda m: spmd.grouped_allreduce(
+            [x, b], op=R.AVERAGE, mesh=m, **W)[1],
+        "allgather": lambda m: spmd.allgather(b, mesh=m, **W),
+        "broadcast": lambda m: spmd.broadcast(i, root_rank=0, mesh=m, **W),
+        "broadcast_bool": lambda m: spmd.broadcast(bools, root_rank=0,
+                                                   mesh=m, **W),
+        "alltoall": lambda m: spmd.alltoall(x.reshape(-1, 17), mesh=m, **W),
+        "reducescatter": lambda m: spmd.reducescatter(
+            b.reshape(-1, 17), op=R.AVERAGE, mesh=m, **W),
+        "barrier": lambda m: spmd.barrier("world", mesh=m),
+    }
+
+
+def spmd_phase(hvd, device, model, opt, x, y, smi: str) -> dict:
+    """The meshes, the collectives over a one-rank mesh axis on card
+    tensors against the same calls over a one-rank gloo mesh on CPU
+    copies, ``allreduce_gradients`` over the 161 gradients (the eager
+    plan, the eager plan under an autotuner, the world axis) against the
+    optimizer's ``GroupReduction``, ``ShardedDistributedOptimizer``
+    against ``torch.optim.SGD``, and ``SyncBatchNorm``."""
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from horovod_tpu_torch.comm import spmd
+    from horovod_tpu_torch.comm.compression import Compression, NoneCompressor
+    from horovod_tpu_torch.comm.reduce_ops import ReduceOp as R
+    from horovod_tpu_torch.core import state as core_state
+    from horovod_tpu_torch.obs.autotune import Autotuner
+    from horovod_tpu_torch.torch.sync_batch_norm import _SyncBatchNormFn
+
+    t_phase = time.perf_counter()
+    out = {"card": smi}
+    # the meshes, on the card
+    wm = hvd.world_mesh()
+    hm = hvd.hierarchical_mesh()
+    pm = core_state.global_state().meshes.proc_mesh()
+    nd = hvd.mesh(("dp", "tp"), (1, 1))
+    for m, names in ((wm, ("world",)), (hm, ("dcn", "ici")),
+                     (pm, ("proc",)), (nd, ("dp", "tp"))):
+        check(m.device_type == "cuda" and m.mesh_dim_names == names,
+              f"spmd: mesh {names} is {m.device_type} {m.mesh_dim_names}")
+    check(hvd.num_devices() == 1 and hvd.local_devices() == [device],
+          f"spmd: {hvd.num_devices()} devices, {hvd.local_devices()}")
+    check(wm is hvd.world_mesh(), "spmd: the world mesh was made twice")
+
+    # the collectives over the one-rank axis: card against CPU copies
+    gen = torch.Generator(device=device).manual_seed(SEED + 16)
+    xs = spread_values(SPMD_N, torch.float32, device, gen)
+    bs = torch.randn(xs.numel(), generator=gen, device=device).to(
+        torch.bfloat16)
+    ints = torch.randint(-1000, 1000, (xs.numel(),), generator=gen,
+                         device=device, dtype=torch.int32)
+    bools = torch.rand(33, generator=gen, device=device) < 0.5
+    cpu_group = dist.new_group([0], backend="gloo")
+    cpu_mesh = DeviceMesh.from_group(cpu_group, "cpu",
+                                     mesh_dim_names=("world",))
+    card = _spmd_cases(spmd, R, Compression, xs, bs, ints, bools)
+    host = _spmd_cases(spmd, R, Compression, xs.cpu(), bs.cpu(), ints.cpu(),
+                       bools.cpu())
+    held = []
+    for name, call in card.items():
+        got = call(wm)
+        want = host[name](cpu_mesh)
+        check(got.device == device, f"spmd {name}: result on {got.device}")
+        check(same_bits(got.cpu(), want),
+              f"spmd {name}: the card's result is not the CPU's")
+        held.append(name)
+    for axis, m in (("dcn", hm), ("ici", hm), ("tp", nd), ("dp", nd)):
+        check(same_bits(spmd.allreduce(xs, axis_name=axis, mesh=m),
+                        card["sum_f32"](wm)),
+              f"spmd: the sum over axis {axis} is not the world's")
+    dist.destroy_process_group(cpu_group)
+    out["held_bitwise"] = held
+
+    # allreduce_gradients over the 161 gradients of one backward
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    loss = F.cross_entropy(model(x), y)
+    gs = torch.autograd.grad(loss, [p for _, p in named])
+    grads = {n: g.contiguous() for (n, _), g in zip(named, gs)}
+    by_param = {p: grads[n] for n, p in named}
+    buckets = [[by_param[p] for p in bucket] for bucket in opt.buckets]
+    red = dataclasses.replace(opt.reduction, op=R.AVERAGE, prescale=1.0,
+                              postscale=1.0, compression=NoneCompressor)
+    names_of = {id(by_param[p]): n for n, p in named}
+    st = core_state.global_state()
+    tuner = Autotuner(st.config)
+    recorded = []
+
+    def with_tuner():
+        st.autotuner = tuner
+        real = tuner.record_step
+        tuner.record_step = lambda n: (recorded.append(n), real(n))[1]
+        try:
+            return hvd.allreduce_gradients(grads, op=R.AVERAGE)
+        finally:
+            tuner.record_step = real
+            st.autotuner = None
+
+    paths = {
+        "eager": lambda: hvd.allreduce_gradients(grads, op=R.AVERAGE),
+        "eager_autotune": with_tuner,
+        "axis": lambda: hvd.allreduce_gradients(grads, axis_name="world",
+                                                op=R.AVERAGE),
+        "group_reduction": lambda: {
+            names_of[id(g)]: o for b in buckets
+            for g, o in zip(b, red.reduce(b))},
+    }
+    results = {k: fn() for k, fn in paths.items()}
+    check(recorded == [sum(g.numel() * g.element_size()
+                           for g in grads.values())],
+          f"spmd: the autotuner recorded {recorded}")
+    for k, res in results.items():
+        check(list(res) == list(grads) if k != "group_reduction"
+              else set(res) == set(grads), f"spmd: {k} lost the structure")
+        for n in grads:
+            check(same_bits(res[n], results["group_reduction"][n]),
+                  f"spmd: {k} differs from GroupReduction.reduce at {n}")
+    ms = {k: [] for k in paths}
+    for turn in range(SPMD_TURNS):
+        order = list(paths) if turn % 2 == 0 else list(paths)[::-1]
+        for k in order:
+            ms[k].append(_host_ms(paths[k]))
+    out["gradients"] = {
+        "tensors": len(grads), "bytes": recorded[0],
+        "autotune_threshold": tuner.current[0],
+        "host_ms_median": {k: statistics.median(v) for k, v in ms.items()},
+        "host_ms": ms}
+
+    # ShardedDistributedOptimizer against torch.optim.SGD, 3 steps
+    gen2 = torch.Generator().manual_seed(SEED + 17)
+    ps = [p for _, p in named]
+    a = [torch.nn.Parameter(p.detach().clone()) for p in ps]
+    b2 = [torch.nn.Parameter(p.detach().clone()) for p in ps]
+    sharded = hvd.ShardedDistributedOptimizer(
+        torch.optim.SGD, a, axis_name="world", lr=0.1, momentum=0.9)
+    plain = torch.optim.SGD(b2, lr=0.1, momentum=0.9)
+    step_ms = []
+    for step in range(3):
+        scale = float(torch.rand((), generator=gen2)) + 0.5
+        for pa, pb, g in zip(a, b2, gs):
+            pa.grad = g * scale
+            pb.grad = pa.grad.clone()
+        step_ms.append(_host_ms(sharded.step))
+        plain.step()
+        for pa, pb in zip(a, b2):
+            check(same_bits(pa.detach(), pb.detach()),
+                  f"spmd: ShardedDistributedOptimizer step {step} differs "
+                  "from torch.optim.SGD")
+    inner = sharded.inner.state[sharded.shard]["momentum_buffer"]
+    out["sharded"] = {
+        "steps": 3, "step_ms": step_ms,
+        "state_bytes": inner.numel() * inner.element_size(),
+        "params": sum(p.numel() for p in ps)}
+    del a, b2, sharded, plain
+
+    # SyncBatchNorm: the function on ResNet-50's first BN shape, then a
+    # training step with SyncBatchNorm in place of every BatchNorm
+    xb = torch.randn(SBN_SHAPE, generator=gen, device=device).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    wb = torch.randn(SBN_SHAPE[1], generator=gen, device=device)
+    bb = torch.randn(SBN_SHAPE[1], generator=gen, device=device)
+    dy = torch.randn(SBN_SHAPE, generator=gen, device=device).to(
+        torch.bfloat16)
+    errs = {}
+    for tag, fn in (
+            ("port", lambda xi, w, bi: _SyncBatchNormFn.apply(
+                xi, w, bi, None, None, 1e-5, 0.1, None)),
+            ("plain", lambda xi, w, bi: F.batch_norm(
+                xi.float(), None, None, w, bi, True, 0.1, 1e-5))):
+        def fwd_bwd():
+            xi = xb.detach().clone().requires_grad_(True)
+            w = wb.clone().requires_grad_(True)
+            bi = bb.clone().requires_grad_(True)
+            yo = fn(xi, w, bi)
+            yo.backward(dy.to(yo.dtype))
+            return yo, xi, w, bi
+
+        fwd_bwd()                                  # warm-up
+        times = [_host_ms(fwd_bwd) for _ in range(3)]
+        yo, xi, w, bi = fwd_bwd()
+        errs[tag] = (yo.detach().float(), xi.grad.float(), w.grad, bi.grad,
+                     statistics.median(times))
+    sbn = {}
+    for k, (got, want) in zip(("out", "dx", "dw", "db"),
+                              zip(errs["port"][:4], errs["plain"][:4])):
+        diff = (got - want).abs()
+        bound = SBN_RTOL * want.abs() + SBN_ATOL * want.abs().max()
+        check(bool((diff <= bound).all()),
+              f"spmd: _SyncBatchNormFn {k} off F.batch_norm by "
+              f"{float(diff.max())}")
+        sbn[f"max_abs_err_{k}"] = float(diff.max())
+    sbn["ms"] = errs["port"][4]
+    sbn["plain_ms"] = errs["plain"][4]
+    sbn["shape"] = list(SBN_SHAPE)
+    from horovod_tpu_torch.models import ResNet
+    from horovod_tpu_torch.models.resnet import BatchNorm
+
+    net = ResNet([3, 4, 6, 3], dtype=torch.bfloat16, device=device,
+                 generator=torch.Generator().manual_seed(SEED))
+    swapped = 0
+    for parent in list(net.modules()):
+        for cname, child in list(parent.named_children()):
+            if isinstance(child, BatchNorm):
+                new = hvd.SyncBatchNorm(child.scale.numel()).to(device)
+                with torch.no_grad():
+                    new.weight.copy_(child.scale)
+                    new.bias.copy_(child.bias)
+                setattr(parent, cname, new)
+                swapped += 1
+    net_opt = make_optimizer(hvd, net, hvd.Compression.fp16)
+    net_opt.zero_grad()
+    sloss = F.cross_entropy(net(x), y)
+    sloss.backward()
+    net_opt.step()
+    torch.cuda.synchronize()
+    loss_value = float(sloss.detach())
+    check(math.isfinite(loss_value), f"spmd: SyncBatchNorm loss {loss_value}")
+    sbn.update(swapped=swapped, loss=loss_value)
+    out["sync_batch_norm"] = sbn
+    del net, net_opt, xb, dy
+    out["seconds"] = time.perf_counter() - t_phase
+    log("spmd " + json.dumps(out))
+    return out
+
+
 # -- phase 7: the ring collectives A4/A5/A6 over 8 virtual ranks -----------
 
 # -- the observability planes on the training step --------------------------
@@ -3247,6 +3550,9 @@ def _ipc_size(ring, world: int, rank: int, size: int, dev) -> dict:
     check(same_bits(routed, ring_allreduce_plain(xs[1], quantized=True)[0]),
           f"ring_ipc: {world} processes, {size} elements: rank {rank}'s "
           "HVTPU_QUANTIZED_RING route differs from the plain A6")
+    # the same route through the collectives over a mesh axis: int8 over
+    # the axis of a mesh over this gloo world, on card tensors
+    out["spmd"] = _spmd_route(xs[1], rank, dev)
     if rank == 0:
         stacked = torch.stack(xs[0])
         out["plain_ms"] = {k: time_cuda(lambda: plains[k](0), 2, 1)
@@ -3255,6 +3561,35 @@ def _ipc_size(ring, world: int, rank: int, size: int, dev) -> dict:
                              "A4": time_cuda(lambda: torch.cat(blocks[0]),
                                              5)}
     return out
+
+
+def _spmd_route(xs, rank: int, dev) -> dict:
+    """``spmd.allreduce(compression=int8)`` along the axis of a
+    ``DeviceMesh`` over this process's gloo world under
+    ``HVTPU_QUANTIZED_RING=1``: bitwise the plain A6 over every rank's
+    inputs; the A6 launches it made."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from horovod_tpu_torch.comm import spmd
+    from horovod_tpu_torch.comm.compression import Compression
+    from horovod_tpu_torch.comm.reduce_ops import ReduceOp
+    from horovod_tpu_torch.ops import ring_allreduce_plain
+
+    mesh = DeviceMesh.from_group(dist.group.WORLD, dev.type,
+                                 mesh_dim_names=("world",))
+    before = _ring_counts()["A6_ipc"]
+    os.environ["HVTPU_QUANTIZED_RING"] = "1"
+    try:
+        got = spmd.allreduce(xs[rank], axis_name="world", mesh=mesh,
+                             op=ReduceOp.SUM, compression=Compression.int8)
+    finally:
+        del os.environ["HVTPU_QUANTIZED_RING"]
+    check(same_bits(got, ring_allreduce_plain(xs, quantized=True)[rank]),
+          f"ring_ipc: rank {rank}'s spmd.allreduce(int8) over the mesh "
+          "differs from the plain A6")
+    return {"a6_launches": _ring_counts()["A6_ipc"] - before,
+            "mesh": [mesh.device_type, list(mesh.mesh_dim_names)]}
 
 
 def ring_ipc_child(argv) -> int:
@@ -3358,7 +3693,7 @@ def ring_ipc_phase(smi: str, tmp: Path) -> dict:
             seconds=time.perf_counter() - t0,
             ranks=[json.loads(o.read_text()) for o in outs])
     # every rank launched each kernel once a call of its size
-    want = {"A5_ipc": 2 * RING_IPC_REPS + 1, "A6_ipc": RING_IPC_REPS + 1,
+    want = {"A5_ipc": 2 * RING_IPC_REPS + 1, "A6_ipc": RING_IPC_REPS + 2,
             "A4_ipc": RING_IPC_REPS}
     launches = {}
     for world, w in worlds.items():
@@ -3367,6 +3702,10 @@ def ring_ipc_phase(smi: str, tmp: Path) -> dict:
                 check(part["launches"] == want,
                       f"ring_ipc: {world} processes, {size} elements, rank "
                       f"{r} launched {part['launches']}, expected {want}")
+                check(part["spmd"]["a6_launches"] == 1,
+                      f"ring_ipc: {world} processes, {size} elements, rank "
+                      f"{r}: spmd.allreduce(int8) launched A6 "
+                      f"{part['spmd']['a6_launches']} times")
         launches[world] = {size: part["launches"] for size, part
                            in w["ranks"][0]["sizes"].items()}
     full = worlds[2]["ranks"][0]["sizes"][str(RING_IPC_FULL)]
@@ -4030,6 +4369,7 @@ def main() -> int:
         surface_autograd_phase(hvd, device)
         async_path = async_phase(hvd, device, model, opt, x, y, smi)
         adasum_phase(hvd, device, model, x, y)
+        spmd_phase(hvd, device, model, opt, x, y, smi)
         stall_line = stall_phase(hvd, device, model, opt, x, y, smi, tmp)
         faults_phase(hvd, device, model, opt, x, y, smi)
         obs = obs_phase(hvd, device, model, opt, x, y, smi, tmp)
@@ -4182,6 +4522,9 @@ def main() -> int:
             "library_ms": full["library_ms"].get(call),
             "time_sliced": ring_ipc["time_sliced"],
         })
+    # A6's launches through spmd.allreduce(compression=int8) over a mesh
+    # axis (the ring_ipc children, one a size a rank)
+    kernels[-1]["spmd_launches"] = full["spmd"]["a6_launches"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -69,14 +69,13 @@ def adasum_reduce(x: torch.Tensor, process_set,
     calls it with a tensor of one shape and dtype); returns the combined
     tensor, the same on every member.  ``segments`` as in
     :func:`pairwise_adasum`."""
-    from ..core import state as core_state
     from .eager import _group
 
     n = int(process_set.size)
     if n & (n - 1):
         raise ValueError(
             f"Adasum requires a power-of-two world size, got {n}")
-    me = process_set.rank_in_set(core_state.global_state().rank)
+    me = process_set.rank_in_set(dist.get_rank())
     group = _group(process_set)
     v = x.contiguous()
     step = 1

@@ -69,3 +69,8 @@ def rocm_built() -> bool:
 
 def xla_built() -> bool:
     return False
+
+
+def ici_built() -> bool:
+    """The TPU's interconnect: never on this package's devices."""
+    return False

@@ -15,8 +15,10 @@ and one group over the world, made at ``init()``, for the second.  Both
 are made by ``core/state.py`` (``init``, ``add_process_set``): creating
 a group is collective, so every rank adds its sets in the same order.
 
-The JAX package's sub-mesh members (``proc_mesh``, ``device_groups``)
-have no counterpart: a group is what a set is here.
+The JAX package's per-set ``proc_mesh`` has no counterpart: a group is
+what a set is here.  ``device_groups`` is the set as a partition of the
+world mesh's axis, for the collectives over a mesh axis
+(``comm/spmd.py``).
 """
 
 from __future__ import annotations
@@ -96,6 +98,29 @@ class ProcessSet:
 
             global_rank = _state.require_init("ProcessSet.included").rank
         return self.rank_in_set(global_rank) >= 0
+
+    def device_groups(self) -> Optional[List[List[int]]]:
+        """The set as a partition of the world mesh's axis (the
+        reference's ``axis_index_groups``; a device is a rank here): the
+        members form one group, the other ranks equal groups of the
+        members' count where that divides them, singletons otherwise
+        (which Sum, Average, Min and Max accept, and the gather- and
+        scatter-shaped collectives refuse).  None for the global set."""
+        from . import state as _state
+
+        st = _state.require_init("ProcessSet.device_groups")
+        if self.ranks is None:
+            raise ValueError("process set is not bound; call init() first")
+        if len(self.ranks) == st.size:
+            return None
+        member = list(self.ranks)
+        others = [r for r in range(st.size) if r not in member]
+        m = len(member)
+        if m and len(others) % m == 0:
+            rest = [others[i:i + m] for i in range(0, len(others), m)]
+        else:
+            rest = [[r] for r in others]
+        return [member] + rest
 
     def __repr__(self):
         return f"ProcessSet(id={self.process_set_id}, ranks={self.ranks})"

@@ -23,8 +23,11 @@ the rank/size queries) over ``torch.distributed``:
   an explicit ``device`` wins over the env.
 * A process that already called ``torch.distributed.init_process_group``
   keeps its group; ``init()`` adopts its rank and size.
-* ``init()`` makes the process-set table (the global set, id 0) and one
-  group over the world for the async controller;
+* ``init()`` makes the process-set table (the global set, id 0), one
+  group over the world for the async controller, and the mesh factory
+  (``core/topology.Meshes``: ``world_mesh()``, ``hierarchical_mesh()``,
+  ``mesh(axis_names, shape)``, each made at its first use; ``shutdown()``
+  destroys their groups);
   ``add_process_set`` / ``remove_process_set`` add and remove sets.  The
   controller itself (``horovod_tpu_torch.eager``) starts at the first
   async op, and ``shutdown()`` stops it before it destroys any group.
@@ -81,7 +84,7 @@ from .config import Config
 from .exceptions import NotInitializedError
 from .kv import StoreKV
 from .process_set import ProcessSet, ProcessSetTable, global_process_set
-from .topology import Topology, hierarchical_layout
+from .topology import Meshes, Topology, hierarchical_layout
 
 
 @dataclasses.dataclass
@@ -120,6 +123,8 @@ class GlobalState:
     timeline: Any = None
     # the local and cross groups (core/topology.py)
     topology: Any = None
+    # the meshes (core/topology.Meshes), each made at its first use
+    meshes: Any = None
 
 
 _state = GlobalState()
@@ -246,7 +251,10 @@ def _resolve_device(device, cfg: Config) -> torch.device:
     if cfg.cpu_devices > 1:
         raise ValueError(
             f"HVTPU_CPU_DEVICES={cfg.cpu_devices}: the port runs one "
-            "device a process; use --cpu-devices 1")
+            "device a process (NCCL takes one rank of a communicator a "
+            "card); use --cpu-devices 1 and a rank a device, and the "
+            "meshes (world_mesh(), mesh(axis_names, shape)) over the "
+            "ranks")
     if device is None and cfg.cpu_devices == 1:
         return torch.device("cpu")
     if device is None:
@@ -365,6 +373,10 @@ def init(device=None) -> GlobalState:
             _state.topology = Topology(rank, _state.local_size,
                                        _state.cross_size,
                                        timeout=_state.group_timeout)
+        _state.meshes = Meshes(dev.type, rank, size, _state.local_rank,
+                               _state.local_size, _state.cross_rank,
+                               _state.cross_size, _state.topology,
+                               timeout=_state.group_timeout)
         _state.kv = StoreKV(dist.PrefixStore(
             "hvt_kv", dist.distributed_c10d._get_default_store()), size)
         _state.init_generation += 1
@@ -486,6 +498,8 @@ def process_ring(group=None):
     cross views, each get the ring of the group they pass."""
     from ..ops.ring import ProcessRing
 
+    if group is not None and group is dist.group.WORLD:
+        group = None          # the default group by its own name
     with _rings_lock:
         for g, ring in _rings:
             if g is group:
@@ -574,6 +588,8 @@ def abort_group(group=None) -> None:
 
 def _teardown_groups() -> None:
     close_rings()
+    if _state.meshes is not None and dist.is_initialized():
+        _state.meshes.destroy()
     if _state.topology is not None and dist.is_initialized():
         _state.topology.destroy()
     for psid, ps in _state.process_set_table.items().items():
@@ -729,6 +745,32 @@ def is_homogeneous() -> bool:
     if st.size == 1 or st.cross_size == 1:
         return True
     return bool(st.config and st.config.uniform_local_size > 0)
+
+
+def num_devices() -> int:
+    """Devices in the job: one a rank (``size()``)."""
+    return require_init("num_devices()").meshes.num_devices
+
+
+def local_devices() -> List[torch.device]:
+    """This process's devices: its one device."""
+    return [require_init("local_devices()").device]
+
+
+def world_mesh():
+    """The 1-D ``DeviceMesh`` (axis ``world``) over every rank."""
+    return require_init("world_mesh()").meshes.world_mesh()
+
+
+def hierarchical_mesh():
+    """The ``(dcn, ici)`` ``DeviceMesh``: hosts x ranks of a host."""
+    return require_init("hierarchical_mesh()").meshes.hierarchical_mesh()
+
+
+def mesh(axis_names, shape):
+    """An N-D ``DeviceMesh``, e.g. ``mesh(("dp", "tp"), (4, 2))``."""
+    return require_init("mesh()").meshes.nd_mesh(tuple(axis_names),
+                                                 tuple(shape))
 
 
 def device() -> torch.device:

@@ -137,6 +137,7 @@ from .mpi_ops import (
     synchronize,
 )
 from .optimizer import DistributedOptimizer
+from .sync_batch_norm import SyncBatchNorm
 from ..api.checkpoint import (
     Checkpointer,
     restore_checkpoint,
@@ -167,5 +168,6 @@ __all__ = [
     "SparseAllreduceHandle", "synchronize", "poll", "join",
     "broadcast_parameters", "broadcast_optimizer_state",
     "broadcast_object", "allgather_object", "DistributedOptimizer",
+    "SyncBatchNorm",
     "Checkpointer", "save_checkpoint", "restore_checkpoint",
 ]

@@ -51,6 +51,7 @@ from torch_port_util import (
     narrow_resnet,
     synthetic_batches,
 )
+from torch_port_util import no_leaked_reference  # noqa: F401  (autouse)
 
 RTOL, ATOL = 1e-5, 1e-6
 DTYPES = {

@@ -47,6 +47,7 @@ from torch_port_util import (
     async_weights,
     async_worker,
 )
+from torch_port_util import no_leaked_reference  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -36,6 +36,7 @@ from horovod_tpu_torch.eager.controller import EagerController, KVTransport
 from horovod_tpu_torch.obs import Autotuner
 from horovod_tpu_torch.runner import hosts as port_hosts
 from horovod_tpu_torch.runner import launch as port_launch
+from torch_port_util import no_leaked_reference  # noqa: F401  (autouse)
 
 CORES = ["native", "py"]
 

@@ -27,6 +27,7 @@ from horovod_tpu.comm import spmd as jax_spmd
 from horovod_tpu.comm.quantized import quantized_allreduce as jax_quantized
 from horovod_tpu.comm.reduce_ops import ReduceOp as JaxReduceOp
 from torch_port_util import average_inputs, average_worker
+from torch_port_util import no_leaked_reference  # noqa: F401  (autouse)
 
 RANKS = 3
 

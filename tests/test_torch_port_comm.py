@@ -25,6 +25,7 @@ from horovod_tpu_torch.comm import eager, fusion, packing, reduce_ops
 from horovod_tpu_torch.core.config import Config
 from horovod_tpu_torch.models import ResNet50
 from horovod_tpu_torch.torch import compression
+from torch_port_util import no_leaked_reference  # noqa: F401  (autouse)
 
 _TORCH_TO_JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16,
                  torch.float16: jnp.float16, torch.int32: jnp.int32}

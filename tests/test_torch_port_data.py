@@ -23,6 +23,7 @@ from horovod_tpu import data as ref_data
 from horovod_tpu.core import faults as ref_faults
 from horovod_tpu_torch import data as port_data
 from torch_port_util import data_rank, spawn_world
+from torch_port_util import no_leaked_reference  # noqa: F401  (autouse)
 
 CASES = [  # (samples, batch, world, seed, shuffle)
     (37, 4, 1, 0, True), (37, 4, 3, 5, True), (64, 8, 2, 11, True),

@@ -33,6 +33,7 @@ import torch
 
 from torch_port_util import ELASTIC_EPOCHS, ELASTIC_IMAGES, \
     ELASTIC_BATCH, committed_step
+from torch_port_util import no_leaked_reference  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 TESTS = REPO / "tests"

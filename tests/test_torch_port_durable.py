@@ -24,6 +24,7 @@ from horovod_tpu.core import durable as ref_durable
 from horovod_tpu.core import faults as ref_faults
 from horovod_tpu_torch.core import durable as port_durable
 from horovod_tpu_torch.core import faults as port_faults
+from torch_port_util import no_leaked_reference  # noqa: F401  (autouse)
 
 PKGS = {"ref": (ref_durable, ref_faults), "port": (port_durable, port_faults)}
 

@@ -59,6 +59,7 @@ from torch_port_util import (ELASTIC_EPOCHS, ELASTIC_IMAGES, ELASTIC_BATCH,
                              audit_rank, committed_step, committed_steps,
                              elastic_rank,
                              read_steps, run_incarnation, spawn_world)
+from torch_port_util import no_leaked_reference  # noqa: F401  (autouse)
 
 SPE = ELASTIC_IMAGES // ELASTIC_BATCH
 

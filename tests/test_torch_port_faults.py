@@ -26,6 +26,7 @@ import torch
 from horovod_tpu.core import faults as ref_faults
 from horovod_tpu_torch.core import faults
 from horovod_tpu_torch.core.config import Config
+from torch_port_util import no_leaked_reference  # noqa: F401  (autouse)
 
 
 @pytest.fixture(autouse=True)

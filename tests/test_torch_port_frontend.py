@@ -31,6 +31,7 @@ import torch
 
 import horovod_tpu_torch as hvd
 from torch_port_util import narrow_resnet, synthetic_batches, train_steps
+from torch_port_util import no_leaked_reference  # noqa: F401  (autouse)
 
 STEPS = 3
 GROUP_CYCLE_MS = 5000     # the burst gate waits up to 8 x 5 s

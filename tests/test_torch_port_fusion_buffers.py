@@ -34,6 +34,7 @@ from horovod_tpu.eager.controller import _GroupUnpack as JaxGroupUnpack
 from horovod_tpu.eager.controller import _LazyPiece as JaxLazyPiece
 from horovod_tpu_torch.comm import packing
 from horovod_tpu_torch.eager.controller import _GroupUnpack, _LazyPiece
+from torch_port_util import no_leaked_reference  # noqa: F401  (autouse)
 
 DTYPES = [
     (torch.float64, np.float64), (torch.float32, np.float32),

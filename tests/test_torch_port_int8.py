@@ -61,6 +61,7 @@ from torch_port_util import (
     collective_inputs,
     collectives_worker,
 )
+from torch_port_util import no_leaked_reference  # noqa: F401  (autouse)
 
 DTYPES = {
     "f32": (torch.float32, jnp.float32),

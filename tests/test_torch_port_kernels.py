@@ -17,6 +17,7 @@ import torch
 from horovod_tpu.ops import fused_scale_cast as jax_fused_scale_cast
 from horovod_tpu_torch.ops import _build
 from horovod_tpu_torch.ops import fused_scale_cast, fused_scale_cast_plain
+from torch_port_util import no_leaked_reference  # noqa: F401  (autouse)
 
 DTYPES = {
     "f32": (torch.float32, jnp.float32, np.uint32, torch.int32),

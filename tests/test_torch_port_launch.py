@@ -39,6 +39,7 @@ import torch
 
 from torch_port_util import launched_rank_info, spawn_world, two_rank_worker
 from torch_port_launch_script import HIER_PREDIVIDE, hier_inputs
+from torch_port_util import no_leaked_reference  # noqa: F401  (autouse)
 
 pytestmark = pytest.mark.multiprocess
 

@@ -54,6 +54,7 @@ from torch_port_util import (
     mpi_ops_inputs,
     mpi_ops_worker,
 )
+from torch_port_util import no_leaked_reference  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

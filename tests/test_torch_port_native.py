@@ -40,6 +40,7 @@ from horovod_tpu.native import core as jax_core
 from horovod_tpu_torch import native
 from horovod_tpu_torch.native import _build, core, fallback, wire
 from torch_port_util import bp_state, bp_worker, spawn_world
+from torch_port_util import no_leaked_reference  # noqa: F401  (autouse)
 
 IMPLS = {
     "port_native": core.NativeController,

@@ -23,6 +23,7 @@ import pytest
 
 from horovod_tpu.native import fallback as ref_fallback
 from horovod_tpu_torch.native import core, fallback, wire
+from torch_port_util import no_leaked_reference  # noqa: F401  (autouse)
 
 F32 = wire.DTYPE_IDS["float32"]
 F16 = wire.DTYPE_IDS["float16"]

@@ -49,6 +49,7 @@ from horovod_tpu_torch.obs import stepprof as port_stepprof
 from horovod_tpu_torch.obs import timeline as port_timeline
 from horovod_tpu_torch.obs import tracing as port_tracing
 from tools import hvtputrace
+from torch_port_util import no_leaked_reference  # noqa: F401  (autouse)
 
 
 class FakeTime:

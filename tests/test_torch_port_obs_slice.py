@@ -40,6 +40,7 @@ from torch_port_util import (OBS_KINDS, narrow_resnet, obs_worker,
                              spawn_world, synthetic_batches,
                              timeline_span_names, trace_span_names,
                              train_steps)
+from torch_port_util import no_leaked_reference  # noqa: F401  (autouse)
 
 STEPS = 2
 GROUP_CYCLE_MS = 5000

@@ -25,6 +25,7 @@ from horovod_tpu.models.resnet import ResNet as FlaxResNet
 from horovod_tpu_torch.models import ResNet
 from horovod_tpu_torch.models.resnet import _same_pads
 from horovod_tpu_torch.weights import resnet_params_from_jax
+from torch_port_util import no_leaked_reference  # noqa: F401  (autouse)
 
 RTOL, ATOL = 1e-4, 1e-5
 NUM_CLASSES = 10

@@ -31,6 +31,7 @@ from horovod_tpu.core import journal as ref_journal
 from horovod_tpu.core import retry as ref_retry
 from horovod_tpu_torch.core import clock, faults, journal, retry
 from horovod_tpu_torch.core.kv import StoreKV
+from torch_port_util import no_leaked_reference  # noqa: F401  (autouse)
 
 PAIRS = [(ref_retry, ref_faults, ref_clock), (retry, faults, clock)]
 

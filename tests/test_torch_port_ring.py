@@ -46,6 +46,7 @@ from horovod_tpu_torch.ops import (
     ring_allreduce,
     ring_allreduce_plain,
 )
+from torch_port_util import no_leaked_reference  # noqa: F401  (autouse)
 
 AXIS = "x"
 CASES = [(8, 1024), (8, 4000), (8, 5), (3, 4000), (2, 1024), (5, 3001)]

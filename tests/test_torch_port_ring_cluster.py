@@ -19,6 +19,7 @@ import torch
 
 from horovod_tpu_torch.ops import ring as ring_mod
 from horovod_tpu_torch.ops import ring_allgather_2d, ring_allreduce
+from torch_port_util import no_leaked_reference  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize("n", range(2, 17))

@@ -56,6 +56,7 @@ from torch_port_util import (
     ring_ipc_worker,
     spawn_world,
 )
+from torch_port_util import no_leaked_reference  # noqa: F401  (autouse)
 
 AXIS = "x"
 

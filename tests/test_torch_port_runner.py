@@ -50,6 +50,7 @@ from horovod_tpu_torch.runner import launch as port_launch
 from horovod_tpu_torch.runner import nic as port_nic
 from horovod_tpu_torch.runner import safe_shell_exec as port_exec
 from horovod_tpu_torch.runner import secret as port_secret
+from torch_port_util import no_leaked_reference  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 PKGS = {"ref": (ref_hosts, ref_launch, ref_nic, ref_exec, ref_secret),

@@ -55,6 +55,7 @@ from horovod_tpu_torch.ops import (
 )
 from horovod_tpu_torch.torch.optimizer import GroupReduction
 from torch_port_util import narrow_resnet
+from torch_port_util import no_leaked_reference  # noqa: F401  (autouse)
 
 DTYPES = {
     "f32": (torch.float32, jnp.float32, np.uint32, torch.int32),

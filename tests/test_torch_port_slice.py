@@ -37,6 +37,7 @@ from torch_port_util import (
     train_steps,
     two_rank_worker,
 )
+from torch_port_util import no_leaked_reference  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 STEPS = 3

@@ -45,6 +45,7 @@ from horovod_tpu_torch.core import clock, faults
 from horovod_tpu_torch.core.exceptions import HorovodInternalError
 from horovod_tpu_torch.core.kv import StoreKV
 from torch_port_util import spawn_world, stall_worker
+from torch_port_util import no_leaked_reference  # noqa: F401  (autouse)
 
 
 @pytest.fixture(autouse=True)

@@ -53,6 +53,7 @@ from horovod_tpu_torch.eager.controller import (
 )
 from horovod_tpu_torch.native import wire
 from torch_port_util import STREAM_STEPS, stream_inputs, stream_worker
+from torch_port_util import no_leaked_reference  # noqa: F401  (autouse)
 
 SIZES = [2, 3, 4]
 # the sizes on both negotiation cores: "<size>-py" runs the Python core

@@ -22,6 +22,7 @@ from hypothesis import given, settings, strategies as st
 
 from horovod_tpu.native import wire as ref
 from horovod_tpu_torch.native import wire as port
+from torch_port_util import no_leaked_reference  # noqa: F401  (autouse)
 
 U32 = st.integers(0, 2 ** 32 - 1)
 U64 = st.integers(0, 2 ** 64 - 1)

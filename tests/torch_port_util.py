@@ -6,11 +6,28 @@ without JAX."""
 from __future__ import annotations
 
 import os
+import sys
 
 import numpy as np
+import pytest
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+
+
+@pytest.fixture(scope="module", autouse=True)
+def no_leaked_reference():
+    """Shut down the JAX reference when an earlier test file of this
+    worker left it initialized (``tests/test_integrity.py``'s
+    ``TestNonfiniteGuard`` inits it and never shuts it down).  A leaked
+    reference answers the rank and size of a world of one to the code
+    that reads them, and its ``init()`` returns at once, so a test that
+    compares with it, or a later test that inits it, would see the
+    leaked state.  Each port test module imports this autouse fixture."""
+    ref_state = sys.modules.get("horovod_tpu.core.state")
+    if ref_state is not None and ref_state.global_state().initialized:
+        sys.modules["horovod_tpu"].shutdown()
+    yield
 
 
 def narrow_resnet(seed: int = 0):
@@ -1636,3 +1653,386 @@ def bp_worker(rank: int, world: int, store_path: str, out_dir: str) -> None:
     hvd.shutdown()
     dist.destroy_process_group()
     _write_result(out_dir, rank, res)
+
+
+# -- the collectives over a mesh axis (comm/spmd.py), 2 and 3 ranks ------------
+
+SPMD_N = 1300          # the int8 and Adasum payload: not a multiple of 512
+SPMD_THRESHOLD = 40    # fused_tree_allreduce's buckets: a few tensors each
+SPMD_SEGMENTS = [(0, 700), (700, SPMD_N - 700)]
+
+
+def spmd_inputs(rank: int, world: int) -> dict:
+    """Per-rank inputs of ``spmd_worker``.  The float inputs of the plain
+    reductions are eighths of small integers, so every partial sum is
+    exact in float32, bfloat16 and float16, and gloo's summation order
+    at 3 ranks gives XLA's bits; ``pos`` holds powers of two, whose
+    products are exact."""
+    rng = np.random.RandomState(90 + rank)
+    f32 = np.float32
+
+    def eighths(*shape):
+        return (rng.randint(-64, 65, size=shape) * 0.125).astype(f32)
+
+    return dict(
+        exact=eighths(5, 7),
+        small=eighths(3),
+        ints=rng.randint(-100, 100, size=(5, 7)).astype(np.int32),
+        pos=(2.0 ** rng.randint(-3, 4, size=(5, 7))).astype(f32),
+        wide=(rng.randn(SPMD_N) * (1 + rank)).astype(f32),
+        bools=rng.rand(9) < 0.5,
+        a2a=eighths(2 * world, 3),
+        rs=eighths(4 * world, 5),
+        tree_a=eighths(4, 3),
+        tree_b=eighths(7),
+        tree_c=eighths(11),
+    )
+
+
+def spmd_tree(x: dict) -> dict:
+    """The dict of ``fused_tree_allreduce``: keys out of sorted order,
+    one bfloat16 tensor among float32 ones."""
+    return {"b": x["tree_b"].to(torch.bfloat16), "a": x["tree_a"],
+            "c": x["tree_c"]}
+
+
+def spmd_layout(rank: int, world: int) -> dict:
+    """The host layout of the spmd worlds: 2 ranks on 2 hosts of one
+    rank; 3 ranks on a host of 2 and a host of 1 (unequal)."""
+    hosts = [[0], [1]] if world == 2 else [[0, 1], [2]]
+    host = next(h for h, rs in enumerate(hosts) if rank in rs)
+    return {"HVTPU_LOCAL_RANK": str(hosts[host].index(rank)),
+            "HVTPU_LOCAL_SIZE": str(len(hosts[host])),
+            "HVTPU_CROSS_RANK": str(host),
+            "HVTPU_CROSS_SIZE": str(len(hosts))}
+
+
+def _error(fn) -> str:
+    try:
+        fn()
+    except (ValueError, NotImplementedError) as e:
+        return f"{type(e).__name__}: {e}"
+    return ""
+
+
+def spmd_worker(rank: int, world: int, store_path: str,
+                out_dir: str) -> None:
+    """One rank of the spmd checks over gloo: every function of
+    ``comm/spmd.py`` on this rank's inputs, over the world mesh, a mesh
+    axis, partitions of the axis and a process set's device groups; the
+    meshes; ``fused_tree_allreduce``; at 2 ranks Adasum and the int8
+    route through the ring A6.  Tensors to ``spmd{rank}.npz``, the rest
+    (sizes, error messages, ring calls) to ``rank{rank}.json``."""
+    torch.set_num_threads(1)
+    os.environ.update(spmd_layout(rank, world))
+    os.environ.pop("HVTPU_QUANTIZED_RING", None)
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.comm import spmd
+    from horovod_tpu_torch.comm.compression import Compression
+    from horovod_tpu_torch.comm.fusion import fused_tree_allreduce
+    from horovod_tpu_torch.ops import ring as ring_mod
+
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    hvd.init(device="cpu")
+    x = {k: torch.from_numpy(np.ascontiguousarray(v))
+         for k, v in spmd_inputs(rank, world).items()}
+    R = hvd.ReduceOp
+    W = dict(axis_name="world")
+    res, info = {}, {}
+    res["sum_f32"] = spmd.allreduce(x["exact"], op=R.SUM, **W)
+    res["avg_f32"] = spmd.allreduce(x["exact"], op=R.AVERAGE, **W)
+    res["avg_bf16"] = spmd.allreduce(x["exact"].to(torch.bfloat16),
+                                     op=R.AVERAGE, **W)
+    res["sum_f16"] = spmd.allreduce(x["exact"].half(), op=R.SUM, **W)
+    res["sum_i32"] = spmd.allreduce(x["ints"], op=R.SUM, **W)
+    res["avg_i32"] = spmd.allreduce(x["ints"], op=R.AVERAGE, **W)
+    res["min"] = spmd.allreduce(x["exact"], op=R.MIN, **W)
+    res["max"] = spmd.allreduce(x["exact"], op=R.MAX, **W)
+    res["prod"] = spmd.allreduce(x["pos"], op=R.PRODUCT, **W)
+    res["scaled"] = spmd.allreduce(x["exact"], op=R.SUM, prescale_factor=0.5,
+                                   postscale_factor=3.0, **W)
+    res["scaled_i32"] = spmd.allreduce(x["ints"], average=False,
+                                       prescale_factor=2.0,
+                                       postscale_factor=0.5, **W)
+    res["fp16_wire"] = spmd.allreduce(x["exact"], op=R.SUM,
+                                      compression=Compression.fp16, **W)
+    res["bf16_wire"] = spmd.allreduce(x["exact"], op=R.AVERAGE,
+                                      compression=Compression.bf16, **W)
+    res["int8_sum"] = spmd.allreduce(x["wide"], op=R.SUM,
+                                     compression=Compression.int8, **W)
+    res["int8_avg"] = spmd.allreduce(x["wide"], op=R.AVERAGE,
+                                     compression=Compression.int8, **W)
+    res["stoch"] = spmd.allreduce(x["wide"], op=R.SUM,
+                                  compression=Compression.int8_stochastic,
+                                  **W)
+    outs = spmd.grouped_allreduce([x["exact"], x["small"].to(torch.bfloat16)],
+                                  op=R.AVERAGE, **W)
+    res["grouped_avg_0"], res["grouped_avg_1"] = outs
+    outs = spmd.grouped_allreduce([x["exact"], x["ints"]], op=R.MAX, **W)
+    res["grouped_max_0"], res["grouped_max_1"] = outs
+    res["gather_f32"] = spmd.allgather(x["exact"], **W)
+    res["gather_i32"] = spmd.allgather(x["ints"], **W)
+    res["bcast_f32"] = spmd.broadcast(x["exact"], root_rank=1, **W)
+    res["bcast_bool"] = spmd.broadcast(x["bools"], root_rank=world - 1, **W)
+    res["a2a"] = spmd.alltoall(x["a2a"], **W)
+    res["rs_sum"] = spmd.reducescatter(x["rs"], op=R.SUM, **W)
+    res["rs_avg"] = spmd.reducescatter(x["rs"], op=R.AVERAGE, **W)
+    res["barrier"] = spmd.barrier("world")
+    info["axis"] = [spmd.axis_size("world"), spmd.rank("world")]
+    info["a2a_indivisible"] = _error(
+        lambda: spmd.alltoall(x["a2a"][:-1], **W))
+    info["rs_min"] = _error(
+        lambda: spmd.reducescatter(x["rs"], op=R.MIN, **W))
+
+    # partitions of the axis: [[0], [1]] at 2 ranks; at 3 a process set's
+    # device groups, the members [0, 2] and the singleton [1]
+    if world == 2:
+        groups = [[0], [1]]
+    else:
+        groups = hvd.add_process_set([0, 2]).device_groups()
+    info["groups"] = groups
+    res["g_sum"] = spmd.allreduce(x["exact"], op=R.SUM, groups=groups, **W)
+    res["g_avg"] = spmd.allreduce(x["exact"], op=R.AVERAGE, groups=groups,
+                                  **W)
+    res["g_min"] = spmd.allreduce(x["exact"], op=R.MIN, groups=groups, **W)
+    info["g_gather"] = _error(
+        lambda: res.__setitem__("g_gather", spmd.allgather(
+            x["exact"], groups=groups, **W)))
+    info["g_int8"] = _error(lambda: spmd.allreduce(
+        x["wide"], compression=Compression.int8, groups=groups, **W))
+    info["g_adasum"] = _error(lambda: spmd.allreduce(
+        x["wide"], op=R.ADASUM, groups=groups, **W))
+
+    tree = spmd_tree(x)
+    for name, op in (("sum", R.SUM), ("avg", R.AVERAGE)):
+        out = fused_tree_allreduce(tree, threshold_bytes=SPMD_THRESHOLD,
+                                   op=op, **W)
+        info[f"tree_{name}_keys"] = list(out)
+        res.update({f"tree_{name}_{k}": v for k, v in out.items()})
+    if world == 2:
+        res["adasum"] = spmd.allreduce(x["wide"], op=R.ADASUM, **W)
+        res["adasum_seg"] = spmd.allreduce(
+            x["wide"], op=R.ADASUM, adasum_segments=SPMD_SEGMENTS, **W)
+        out = fused_tree_allreduce(tree, threshold_bytes=SPMD_THRESHOLD,
+                                   op=R.ADASUM, **W)
+        res.update({f"tree_adasum_{k}": v for k, v in out.items()})
+    else:
+        info["adasum"] = _error(
+            lambda: spmd.allreduce(x["wide"], op=R.ADASUM, **W))
+
+    # the meshes
+    wm = hvd.world_mesh()
+    info["world_mesh"] = [list(wm.mesh_dim_names), wm.mesh.tolist(),
+                          wm is hvd.world_mesh()]
+    info["num_devices"] = hvd.num_devices()
+    info["local_devices"] = [str(d) for d in hvd.local_devices()]
+    nd = hvd.mesh(("dp", "tp"), (1, world))
+    res["nd_tp_sum"] = spmd.allreduce(x["exact"], op=R.SUM, axis_name="tp",
+                                      mesh=nd)
+    nd2 = hvd.mesh(("dp", "tp"), (world, 1))
+    res["nd_tp_solo"] = spmd.allreduce(x["exact"], op=R.SUM, axis_name="tp",
+                                       mesh=nd2)
+    info["nd"] = [nd.mesh.tolist(), nd2.mesh.tolist(),
+                  spmd.axis_size("tp", mesh=nd), spmd.rank("tp", mesh=nd),
+                  spmd.axis_size("dp", mesh=nd2), spmd.rank("dp", mesh=nd2)]
+    info["nd_bad"] = _error(lambda: hvd.mesh(("a", "b"), (2, 2)))
+    if world == 2:
+        hm = hvd.hierarchical_mesh()
+        info["hier"] = [list(hm.mesh_dim_names), hm.mesh.tolist(),
+                        spmd.axis_size("dcn", mesh=hm),
+                        spmd.axis_size("ici", mesh=hm),
+                        spmd.rank("dcn", mesh=hm), spmd.rank("ici", mesh=hm)]
+        res["hier_dcn_sum"] = spmd.allreduce(x["exact"], op=R.SUM,
+                                             axis_name="dcn", mesh=hm)
+        # stochastic rounding's key folds the axis index, not the global
+        # rank: over the one-rank "ici" axis both ranks are index 0, so
+        # the same payload rounds alike on both
+        same = torch.from_numpy(spmd_inputs(0, world)["wide"])
+        res["stoch_ici"] = spmd.allreduce(
+            same, op=R.SUM, compression=Compression.int8_stochastic,
+            axis_name="ici", mesh=hm)
+        # the int8 route through the ring A6 (its plain version on CPU
+        # tensors), and without the variable the two-phase codec
+        calls = []
+        real = ring_mod.ProcessRing.allreduce
+
+        def spy(self, *a, **kw):
+            calls.append(bool(kw.get("quantized")))
+            return real(self, *a, **kw)
+
+        ring_mod.ProcessRing.allreduce = spy
+        os.environ["HVTPU_QUANTIZED_RING"] = "1"
+        try:
+            res["ring_sum"] = spmd.allreduce(
+                x["wide"], op=R.SUM, compression=Compression.int8, **W)
+            res["ring_avg"] = spmd.allreduce(
+                x["wide"], op=R.AVERAGE, compression=Compression.int8, **W)
+            res["ring_stoch"] = spmd.allreduce(
+                x["wide"], op=R.SUM,
+                compression=Compression.int8_stochastic, **W)
+        finally:
+            del os.environ["HVTPU_QUANTIZED_RING"]
+            ring_mod.ProcessRing.allreduce = real
+        info["ring_calls"] = calls
+    else:
+        info["hier"] = _error(hvd.hierarchical_mesh)
+    hvd.shutdown()
+    dist.destroy_process_group()
+    np.savez(os.path.join(out_dir, f"spmd{rank}.npz"),
+             **{k: (v.float() if v.dtype in (torch.bfloat16, torch.float16)
+                    else v).numpy() for k, v in res.items()})
+    _write_result(out_dir, rank, info)
+
+
+# -- allreduce_gradients and ShardedDistributedOptimizer, 2 and 3 ranks -------
+
+OPT_LR = 0.1
+OPT_STEPS = 3
+OPT_THRESHOLD = 64     # allreduce_gradients' buckets: a few tensors each
+
+
+def opt_grads(rank: int, step: int = 0) -> dict:
+    """A rank's gradients at ``step``: eighths of small integers (exact
+    sums), keys out of sorted order, one bfloat16 tensor."""
+    rng = np.random.RandomState(110 + 10 * step + rank)
+
+    def eighths(*shape):
+        return (rng.randint(-64, 65, size=shape) * 0.125).astype(np.float32)
+
+    return {"w": eighths(6, 5), "b": eighths(5), "e": eighths(4),
+            "k": eighths(3, 3)}
+
+
+def opt_params() -> dict:
+    """The parameters of the sharded optimizer, the same on every rank
+    (the gradients' shapes, float32), in sorted-key order so the port's
+    packing order is the reference's tree order."""
+    rng = np.random.RandomState(7)
+    shapes = {k: v.shape for k, v in opt_grads(0).items()}
+    return {k: rng.randn(*shapes[k]).astype(np.float32)
+            for k in sorted(shapes)}
+
+
+def _torch_grads(rank: int, step: int = 0) -> dict:
+    g = {k: torch.from_numpy(v) for k, v in opt_grads(rank, step).items()}
+    g["e"] = g["e"].to(torch.bfloat16)
+    return g
+
+
+def opt_worker(rank: int, world: int, store_path: str, out_dir: str) -> None:
+    """One rank of the optimizer checks over gloo: ``allreduce_gradients``
+    along the world axis (whole, and scoped by a process set's device
+    groups at 3 ranks) and on the eager plan, and 3 steps of
+    ``ShardedDistributedOptimizer(SGD, momentum 0.9)`` with this rank's
+    gradients (the parameters and this rank's momentum shard after each
+    step).  Tensors to ``opt{rank}.npz``."""
+    torch.set_num_threads(1)
+    import horovod_tpu_torch as hvd
+
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    hvd.init(device="cpu")
+    res = {}
+
+    def keep(prefix, tree):
+        res.update({f"{prefix}_{k}": v.float() if v.dtype == torch.bfloat16
+                    else v for k, v in tree.items()})
+
+    g = _torch_grads(rank)
+    for name, op in (("sum", hvd.Sum), ("avg", hvd.Average)):
+        keep(f"axis_{name}", hvd.allreduce_gradients(
+            g, axis_name="world", op=op, prescale_factor=0.5,
+            fusion_threshold_bytes=OPT_THRESHOLD))
+        keep(f"eager_{name}", hvd.allreduce_gradients(
+            g, op=op, prescale_factor=0.5,
+            fusion_threshold_bytes=OPT_THRESHOLD))
+    if world == 3:
+        ps = hvd.add_process_set([0, 2])
+        keep("set_avg", hvd.allreduce_gradients(
+            g, axis_name="world", op=hvd.Average, process_set=ps,
+            fusion_threshold_bytes=OPT_THRESHOLD))
+
+    params = [torch.nn.Parameter(torch.from_numpy(v.copy()))
+              for v in opt_params().values()]
+    opt = hvd.ShardedDistributedOptimizer(
+        torch.optim.SGD, params, axis_name="world", lr=OPT_LR,
+        momentum=0.9)
+    for step in range(OPT_STEPS):
+        grads = opt_grads(rank, step)
+        for p, k in zip(params, opt_params()):
+            p.grad = torch.from_numpy(grads[k])
+        opt.step()
+        res[f"params_{step}"] = torch.cat([p.detach().reshape(-1)
+                                           for p in params])
+        res[f"momentum_{step}"] = opt.inner.state[opt.shard][
+            "momentum_buffer"].clone()
+    opt.zero_grad()
+    res["zeroed"] = torch.tensor([p.grad is None or not p.grad.any()
+                                  for p in params])
+    hvd.shutdown()
+    dist.destroy_process_group()
+    np.savez(os.path.join(out_dir, f"opt{rank}.npz"),
+             **{k: v.numpy() for k, v in res.items()})
+    _write_result(out_dir, rank, {"ok": True})
+
+
+# -- SyncBatchNorm, 2 ranks ------------------------------------------------------
+
+SBN_SHAPE = (3, 4, 5, 6)   # a rank's batch: N, C, H, W
+SBN_STEPS = 2
+
+
+def sbn_inputs(rank: int, step: int) -> dict:
+    """A rank's batch at ``step`` and the weights of the weighted sum
+    whose backward drives the gradients."""
+    rng = np.random.RandomState(130 + 10 * step + rank)
+    return {"x": (rng.randn(*SBN_SHAPE) * 2 + 0.5).astype(np.float32),
+            "w": rng.randn(*SBN_SHAPE).astype(np.float32)}
+
+
+SBN_VARIANTS = {"default": {}, "no_affine": {"affine": False},
+                "cumulative": {"momentum": None}}
+
+
+def sbn_worker(rank: int, world: int, store_path: str, out_dir: str) -> None:
+    """One rank of the SyncBatchNorm checks over gloo: for each variant,
+    ``SBN_STEPS`` training steps (output and input gradient each step),
+    then the summed weight and bias gradients of the last step and the
+    running statistics; and an eval-mode forward."""
+    torch.set_num_threads(1)
+    import horovod_tpu_torch as hvd
+
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    hvd.init(device="cpu")
+    res = {}
+    for name, kw in SBN_VARIANTS.items():
+        torch.manual_seed(0)
+        bn = hvd.SyncBatchNorm(SBN_SHAPE[1], **kw)
+        if bn.weight is not None:
+            with torch.no_grad():
+                bn.weight.uniform_(0.5, 1.5)
+                bn.bias.uniform_(-0.5, 0.5)
+        for step in range(SBN_STEPS):
+            inp = {k: torch.from_numpy(v)
+                   for k, v in sbn_inputs(rank, step).items()}
+            x = inp["x"].clone().requires_grad_(True)
+            bn.zero_grad()
+            out = bn(x)
+            (out * inp["w"]).sum().backward()
+            res[f"{name}_out_{step}"] = out.detach()
+            res[f"{name}_dx_{step}"] = x.grad
+        if bn.weight is not None:
+            res[f"{name}_dw"] = hvd.allreduce(bn.weight.grad, op=hvd.Sum)
+            res[f"{name}_db"] = hvd.allreduce(bn.bias.grad, op=hvd.Sum)
+        res[f"{name}_mean"] = bn.running_mean.clone()
+        res[f"{name}_var"] = bn.running_var.clone()
+        bn.eval()
+        res[f"{name}_eval"] = bn(torch.from_numpy(
+            sbn_inputs(rank, 0)["x"])).detach()
+    hvd.shutdown()
+    dist.destroy_process_group()
+    np.savez(os.path.join(out_dir, f"sbn{rank}.npz"),
+             **{k: v.numpy() for k, v in res.items()})
+    _write_result(out_dir, rank, {"ok": True})
