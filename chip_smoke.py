@@ -105,6 +105,23 @@ and, beside them, its C++ negotiation core from
    (64, 64, 112, 112) bfloat16, forward and backward, within 2^-7 of
    ``F.batch_norm`` on the float32 input, and a ResNet-50 training step
    with ``SyncBatchNorm`` in place of every BatchNorm;
+   the hybrid-parallel transformer (``parallel/*``,
+   ``models/transformer.py``) at the full width of the reference's
+   ``TransformerConfig()`` (vocab 32000, d_model 512, 8 heads, 8 layers,
+   d_ff 2048, max_seq 2048, bfloat16, ``megatron_sp``; 42,627,584
+   parameters from seed 0) over ``make_layout()`` (every axis of size 1):
+   ``make_train_step`` with ``torch.optim.Adam(lr=3e-3)`` on one fixed
+   batch of 8 x 2049 tokens, 2 warm-up and 5 timed steps, the loss
+   finite at every step and lower at the last than at the first; one
+   step's FLOPs by ``FlopCounterMode`` against the card's peak (where its
+   time goes: ``torch_port_profile.py --model transformer``); one step
+   each, finite, of ring and Ulysses attention (a dedicated sp axis of
+   1) and of the Switch MoE (8 experts, capacity factor 2.0) on the same
+   batch; then, at 2 layers in float32 with TF32 off and a batch of 2,
+   each of the four modes' loss and gradients on the card against the
+   same call on the CPU: the loss within 1e-5 relative, each gradient's
+   largest difference within 1e-3 of its largest magnitude.  No TPU
+   kernel lies on this path (the reference computes it in XLA);
    the stall watchdog: two of the port's amortized inspectors over one
    ``HashStore`` (ranks 0 and 1 of a set {0, 1}; heartbeat 0.05 s, warn
    0.3 s, abort 1.0 s), rank 0 running the optimizer's group reduction
@@ -208,6 +225,9 @@ route's bursts), one ``adasum
 {...}`` line, one ``spmd {...}`` line (the functions held, the gradient
 paths' host ms, the sharded optimizer's state bytes and ms a step,
 ``SyncBatchNorm``'s errors and ms, the card's name and power limit),
+one ``transformer {...}`` line (the step's ms, tokens/s, FLOPs and their
+share of the card's peak, peak memory and the losses; each other mode's
+loss, ms and peak memory; the card-against-CPU errors),
 one ``stall {...}`` line, one ``faults {...}`` line, one
 ``obs {...}`` line, one ``ring_path {...}`` line, one ``ring_ipc {...}``
 line (the launches, each rank's ms a call, B, the bytes a rank holds
@@ -2706,6 +2726,185 @@ def spmd_phase(hvd, device, model, opt, x, y, smi: str) -> dict:
     return out
 
 
+# -- the hybrid-parallel transformer (parallel/*, models/transformer.py) ---
+
+TFM_BATCH = 8             # sequences of max_seq + 1 = 2049 tokens a step
+TFM_LR = 3e-3
+TFM_CHECK_LAYERS = 2      # card against CPU: 2 layers, full width, float32
+TFM_CHECK_BATCH = 2
+TFM_LOSS_RTOL = 1e-5      # |card - cpu| / |cpu| of the loss
+TFM_GRAD_RTOL = 1e-3      # max |card - cpu| / max |cpu|, each gradient
+TFM_MODES = (
+    # name, config keywords, make_layout keywords (sp 1: a dedicated axis)
+    ("megatron_sp", {}, {}),
+    ("ring", {"attn_mode": "ring"}, {"sp": 1}),
+    ("ulysses", {"attn_mode": "ulysses"}, {"sp": 1}),
+    ("moe", {"n_experts": 8, "capacity_factor": 2.0}, {}),
+)
+
+
+def _seeded(seed: int):
+    import torch
+
+    return torch.Generator().manual_seed(seed)
+
+
+def _tfm_tokens(cfg, batch: int, device):
+    import torch
+
+    return torch.randint(0, cfg.vocab_size, (batch, cfg.max_seq + 1),
+                         generator=_seeded(SEED + 17)).to(device)
+
+
+def _tfm_relative_errors(card, cpu) -> dict:
+    """max |card - cpu| / max |cpu| of every parameter's gradient."""
+    cpu_grads = dict(cpu.named_parameters())
+    out = {}
+    for name, p in card.named_parameters():
+        want = cpu_grads[name].grad
+        got = p.grad.cpu()
+        scale = float(want.abs().max())
+        out[name] = float((got - want).abs().max()) / max(scale, 1e-30)
+    return out
+
+
+def transformer_phase(hvd, device, smi: str) -> dict:
+    """The hybrid-parallel transformer at the full width of the
+    reference's ``TransformerConfig()`` in the one-rank world: the dense
+    ``megatron_sp`` model trained ``WARMUP_STEPS + TIMED_STEPS`` steps on
+    one fixed batch by ``make_train_step`` (Adam), its loss finite and
+    falling; one step's FLOPs by ``FlopCounterMode``; one step each of
+    ring and Ulysses attention (a dedicated sp axis of 1) and of the
+    Switch MoE; then, at 2 layers in float32 with TF32 off, each mode's
+    loss and gradients on the card against the same call on the CPU."""
+    import dataclasses as dc
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from horovod_tpu_torch import parallel as par
+    from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.obs import stepprof
+
+    t_phase = time.perf_counter()
+    out = {"card": smi, "tpu_kernels_on_path": []}
+    cfg = tfm.TransformerConfig()
+    layout = par.make_layout()
+    check(layout.mesh.device_type == device.type
+          and layout.shape == {"pp": 1, "dp": 1, "tp": 1},
+          f"transformer: layout {layout.mesh.device_type} {layout.shape}")
+    model = tfm.Transformer(cfg, layout, generator=_seeded(SEED),
+                            device=device)
+    check(all(p.device == device for p in model.parameters()),
+          "transformer: a parameter is off the card")
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = torch.optim.Adam(model.parameters(), lr=TFM_LR)
+    step = tfm.make_train_step(cfg, layout, opt)
+    toks = _tfm_tokens(cfg, TFM_BATCH, device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(WARMUP_STEPS + TIMED_STEPS):
+        t = time.perf_counter()
+        loss = step(model, toks)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(loss))
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(v) for v in losses),
+          f"transformer: loss {losses}")
+    check(losses[-1] < losses[0], f"transformer: loss did not fall {losses}")
+    step_ms = statistics.median(times[WARMUP_STEPS:])
+    tokens = TFM_BATCH * cfg.max_seq
+    with FlopCounterMode(display=False) as counter:
+        step(model, toks)
+        torch.cuda.synchronize()
+    flops = counter.get_total_flops()
+    peak_flops = stepprof.peak_flops()
+    out["dense"] = {
+        "config": {k: str(v) if k == "dtype" else v
+                   for k, v in dc.asdict(cfg).items()},
+        "params": n_params, "batch": TFM_BATCH,
+        "tokens_per_step": tokens, "losses": losses,
+        "step_ms": times, "step_ms_median": step_ms,
+        "tokens_per_s": tokens / (step_ms / 1e3),
+        "flops_per_step": flops, "peak_tflops": peak_flops / 1e12,
+        "flop_share": flops / (step_ms / 1e3) / peak_flops,
+        "bound_ms": flops / peak_flops * 1e3,
+        "peak_memory_bytes": peak,
+    }
+    del model, opt, step, loss
+    torch.cuda.empty_cache()
+
+    # the other modes at full width, one step each
+    out["modes"] = {}
+    for name, cfg_kw, lay_kw in TFM_MODES[1:]:
+        mcfg = dc.replace(cfg, **cfg_kw)
+        lay = par.make_layout(**lay_kw)
+        m = tfm.Transformer(mcfg, lay, generator=_seeded(SEED),
+                            device=device)
+        mopt = torch.optim.Adam(m.parameters(), lr=TFM_LR)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        loss = float(tfm.make_train_step(mcfg, lay, mopt)(m, toks))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        check(math.isfinite(loss), f"transformer: {name} loss {loss}")
+        out["modes"][name] = {"loss": loss, "step_ms": ms,
+                              "layout": lay.shape,
+                              "peak_memory_bytes":
+                                  torch.cuda.max_memory_allocated()}
+        del m, mopt
+        torch.cuda.empty_cache()
+
+    # card against CPU: 2 layers, full width otherwise, float32, no TF32
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out["card_vs_cpu"] = {"layers": TFM_CHECK_LAYERS,
+                          "batch": TFM_CHECK_BATCH,
+                          "loss_rtol": TFM_LOSS_RTOL,
+                          "grad_rtol": TFM_GRAD_RTOL}
+    try:
+        for name, cfg_kw, lay_kw in TFM_MODES:
+            ccfg = dc.replace(cfg, n_layers=TFM_CHECK_LAYERS,
+                              dtype=torch.float32, **cfg_kw)
+            lay = par.make_layout(**lay_kw)
+            params = tfm.init_params(ccfg, _seeded(SEED + 1))
+            ctoks = toks[:TFM_CHECK_BATCH]
+            runs = []
+            for dev in (device, torch.device("cpu")):
+                m = tfm.Transformer(ccfg, lay, params=params, device=dev)
+                loss = m(ctoks.to(dev))
+                loss.backward()
+                tfm.reduce_gradients(m)
+                runs.append((m, float(loss.detach())))
+            (card, card_loss), (cpu, cpu_loss) = runs
+            errs = _tfm_relative_errors(card, cpu)
+            loss_err = abs(card_loss - cpu_loss) / abs(cpu_loss)
+            worst = max(errs, key=errs.get)
+            out["card_vs_cpu"][name] = {
+                "loss": card_loss, "cpu_loss": cpu_loss,
+                "loss_rel_err": loss_err, "grad_rel_err": errs[worst],
+                "worst_grad": worst}
+            check(loss_err <= TFM_LOSS_RTOL,
+                  f"transformer: {name} loss on the card {card_loss} vs "
+                  f"CPU {cpu_loss} (rel {loss_err:.3g})")
+            check(errs[worst] <= TFM_GRAD_RTOL,
+                  f"transformer: {name} gradient {worst} rel err "
+                  f"{errs[worst]:.3g} on the card vs the CPU")
+            del card, cpu, runs
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log("transformer " + json.dumps(out))
+    return out
+
+
 # -- phase 7: the ring collectives A4/A5/A6 over 8 virtual ranks -----------
 
 # -- the observability planes on the training step --------------------------
@@ -4370,6 +4569,7 @@ def main() -> int:
         async_path = async_phase(hvd, device, model, opt, x, y, smi)
         adasum_phase(hvd, device, model, x, y)
         spmd_phase(hvd, device, model, opt, x, y, smi)
+        transformer_phase(hvd, device, smi)
         stall_line = stall_phase(hvd, device, model, opt, x, y, smi, tmp)
         faults_phase(hvd, device, model, opt, x, y, smi)
         obs = obs_phase(hvd, device, model, opt, x, y, smi, tmp)

@@ -1,4 +1,4 @@
-"""Carry ResNet weights from the flax model to the PyTorch port.
+"""Carry weights from the JAX models to the PyTorch port.
 
 ``resnet_params_from_jax(params, batch_stats)`` takes the flax
 ``params`` and ``batch_stats`` trees of ``horovod_tpu.models.ResNet`` as
@@ -6,7 +6,14 @@ nested dicts of numpy arrays and returns a ``state_dict`` for
 ``horovod_tpu_torch.models.ResNet``: conv kernels HWIO -> OIHW, the Dense
 kernel (in, out) -> (out, in), BatchNorm scale/bias/mean/var as they
 are.  The module names are the same on both sides, so the mapping is one
-to one.  The arrays are plain numpy: nothing of JAX is imported here.
+to one.
+
+``transformer_params_from_jax(params, cfg, layout)`` takes the global
+parameter tree of ``horovod_tpu.models.transformer`` and returns this
+rank's ``state_dict`` for ``horovod_tpu_torch.models.Transformer``: each
+array sliced by the model's own ``shard_params`` (the reference's
+``param_specs``) and cast to ``cfg.dtype`` (the router ``gate`` stays
+float32).  The arrays are plain numpy: nothing of JAX is imported here.
 """
 
 from __future__ import annotations
@@ -52,4 +59,15 @@ def resnet_params_from_jax(params: Mapping[str, Any],
         if leaf not in ("mean", "var"):
             raise ValueError(f"unexpected flax batch stat {path}")
         state[path] = _tensor(np.asarray(value))
+    return state
+
+
+def transformer_params_from_jax(params: Mapping[str, Any], cfg,
+                                layout) -> Dict[str, torch.Tensor]:
+    from .models.transformer import shard_params
+
+    state = {}
+    for name, a in shard_params(params, cfg, layout).items():
+        dtype = torch.float32 if name == "blocks.gate" else cfg.dtype
+        state[name] = _tensor(np.asarray(a, dtype=np.float32)).to(dtype)
     return state

@@ -28,6 +28,25 @@ DIFFERENT = {
 }
 
 
+# names of the reference's models that the port's models lack, and why
+MODELS_MISSING = {
+    name: "not ported yet (ROADMAP Queue A item 10, the other models)"
+    for name in ("InceptionV3", "VGG", "VGG16", "VGG19", "MLP", "ResNet18",
+                 "ResNet34", "ResNet101", "ResNet152")
+}
+
+
+def test_every_reference_models_name_is_exported_but_the_exceptions():
+    import horovod_tpu.models as ref_models
+    import horovod_tpu_torch.models as port_models
+
+    assert (set(ref_models.__all__) - set(port_models.__all__)
+            == set(MODELS_MISSING))
+    for name in port_models.__all__:
+        assert hasattr(port_models, name), name
+    assert len(port_models.__all__) == len(set(port_models.__all__))
+
+
 def test_every_reference_root_name_is_exported_but_the_exceptions():
     assert set(ref.__all__) - set(port.__all__) == set(MISSING)
     for name in set(ref.__all__) - set(MISSING):

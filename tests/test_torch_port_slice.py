@@ -228,7 +228,9 @@ def test_import_leaves_no_jax_or_reference_module():
             " horovod_tpu_torch.core.topology, horovod_tpu_torch.core.basics,"
             " horovod_tpu_torch.runner, horovod_tpu_torch.runner.run_task,"
             " horovod_tpu_torch.runner.nic, horovod_tpu_torch.elastic.driver,"
-            " horovod_tpu_torch.elastic.discovery;"
+            " horovod_tpu_torch.elastic.discovery,"
+            " horovod_tpu_torch.parallel,"
+            " horovod_tpu_torch.models.transformer;"
             " print('\\n'.join(sorted(sys.modules)))")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -261,7 +263,15 @@ def test_import_leaves_no_jax_or_reference_module():
             "horovod_tpu_torch.runner.run_task",
             "horovod_tpu_torch.runner.nic",
             "horovod_tpu_torch.elastic.driver",
-            "horovod_tpu_torch.elastic.discovery"} <= set(out)
+            "horovod_tpu_torch.elastic.discovery",
+            "horovod_tpu_torch.parallel._collectives",
+            "horovod_tpu_torch.parallel.mesh",
+            "horovod_tpu_torch.parallel.tp",
+            "horovod_tpu_torch.parallel.ulysses",
+            "horovod_tpu_torch.parallel.ring",
+            "horovod_tpu_torch.parallel.pipeline",
+            "horovod_tpu_torch.parallel.moe",
+            "horovod_tpu_torch.models.transformer"} <= set(out)
     assert [m for m in out if _forbidden(m)] == []
 
 
@@ -294,7 +304,11 @@ def test_ast_scan_finds_no_jax_or_reference_import():
                 "runner/hosts.py", "runner/secret.py", "runner/nic.py",
                 "runner/safe_shell_exec.py", "runner/launch.py",
                 "runner/run_task.py", "elastic/driver.py",
-                "elastic/discovery.py", "version.py"):
+                "elastic/discovery.py", "version.py",
+                "parallel/__init__.py", "parallel/_collectives.py",
+                "parallel/mesh.py", "parallel/tp.py", "parallel/ulysses.py",
+                "parallel/ring.py", "parallel/pipeline.py",
+                "parallel/moe.py", "models/transformer.py"):
         assert REPO / "horovod_tpu_torch" / sub in files
     assert len(files) > 15
     bad = [(f.name, m) for f in files for m in _imports(f) if _forbidden(m)]

@@ -828,7 +828,13 @@ def spawn_world(target, world: int, tmp_path, *args, timeout: float = 60.0):
     spawned processes (``HVTPU_FLIGHT_DIR`` set to ``tmp_path``), join
     them under ``timeout`` (killing any still alive) and return
     ``(exit codes, [rank r's JSON result or None])``."""
-    import json
+    return join_world(start_world(target, world, tmp_path, *args),
+                      timeout=timeout)
+
+
+def start_world(target, world: int, tmp_path, *args):
+    """Start the processes of :func:`spawn_world` and return the handle
+    :func:`join_world` takes, so the caller works while they run."""
     import multiprocessing
     import time
 
@@ -848,7 +854,18 @@ def spawn_world(target, world: int, tmp_path, *args, timeout: float = 60.0):
             os.environ.pop("HVTPU_FLIGHT_DIR", None)
         else:
             os.environ["HVTPU_FLIGHT_DIR"] = saved
-    deadline = time.monotonic() + timeout
+    return procs, world, tmp_path, time.monotonic()
+
+
+def join_world(handle, timeout: float = 60.0):
+    """Join the processes of :func:`start_world` under ``timeout`` (from
+    their start; killing any still alive) and return ``(exit codes,
+    [rank r's JSON result or None])``."""
+    import json
+    import time
+
+    procs, world, tmp_path, started = handle
+    deadline = started + timeout
     for p in procs:
         p.join(timeout=max(0.0, deadline - time.monotonic()))
     for p in procs:
@@ -2036,3 +2053,322 @@ def sbn_worker(rank: int, world: int, store_path: str, out_dir: str) -> None:
     np.savez(os.path.join(out_dir, f"sbn{rank}.npz"),
              **{k: v.numpy() for k, v in res.items()})
     _write_result(out_dir, rank, {"ok": True})
+
+
+# -- the parallel layers, 2 and 3 ranks ----------------------------------------
+
+PAR_MICRO = (1, 2, 4)      # pipeline_apply's microbatch counts
+PAR_D = 8                  # feature width of the layer inputs
+
+
+def par_inputs(rank: int, world: int) -> dict:
+    """A rank's inputs and cotangents of ``parallel_worker``.  The
+    collectives' inputs are eighths of small integers (exact sums in any
+    order); the layers' are normal draws.  Replicated inputs (``rep_*``)
+    are the same on every rank."""
+    rng = np.random.RandomState(150 + rank)
+    rep = np.random.RandomState(149)
+    f32 = np.float32
+
+    def eighths(*shape):
+        return (rng.randint(-64, 65, size=shape) * 0.125).astype(f32)
+
+    def normal(*shape, r=rng):
+        return np.asarray(r.randn(*shape), dtype=f32)
+
+    n, d = world, PAR_D
+    e = 2 * n
+    out = dict(
+        psum=eighths(5, 7), psum_ct=eighths(5, 7),
+        ag=eighths(3, 4), ag_ct=eighths(3, 4 * n), ag_u_ct=eighths(3, n, 4),
+        rs=eighths(3, 2 * n), rs_ct=eighths(3, 2),
+        rs_u=eighths(n, 5), rs_u_ct=eighths(5),
+        a2a=eighths(2 * n, 3), a2a_ct=eighths(2, 3 * n),
+        a2a_u=eighths(n, 4), a2a_u_ct=eighths(4, n),
+        perm=eighths(4, 3), perm_ct=eighths(4, 3),
+        # column -> row: x and b2 replicated, w1/b1/w2 this rank's shards
+        tp_x=normal(4, d, r=rep), tp_w1=normal(d, 6), tp_b1=normal(6),
+        tp_w2=normal(6, 5), tp_b2=normal(5, r=rep), tp_ct=normal(4, 5),
+        # attention: [B, T_local, H, D] (ulysses), [B, H, T_local, D] (ring)
+        uly_q=normal(2, 4, 2 * n, d), uly_k=normal(2, 4, 2 * n, d),
+        uly_v=normal(2, 4, 2 * n, d), uly_ct=normal(2, 4, 2 * n, d),
+        ring_q=normal(2, 2, 4, d), ring_k=normal(2, 2, 4, d),
+        ring_v=normal(2, 2, 4, d), ring_ct=normal(2, 2, 4, d),
+        # pipeline: this stage's (w, b), microbatches replicated
+        pp_w=(normal(d, d) / np.sqrt(d)).astype(f32), pp_b=normal(d),
+        pp_aux_ct=normal(),
+        # MoE: E = 2 * world experts, 2 a rank; capacity factor 0.5 makes
+        # tokens overflow
+        moe_x=normal(16, d), moe_gate=normal(d, e, r=rep),
+        moe_w1=(normal(2, d, 6) / np.sqrt(d)).astype(f32),
+        moe_w2=(normal(2, 6, d) / np.sqrt(6)).astype(f32),
+        moe_ct=normal(16, d), moe_aux_ct=normal(),
+    )
+    for m in PAR_MICRO:
+        out[f"pp_mb{m}"] = normal(m, 3, d, r=np.random.RandomState(148 + m))
+        out[f"pp_ct{m}"] = normal(m, 3, d)
+    return out
+
+
+def par_ring_perm(n: int):
+    return [(i, (i + 1) % n) for i in range(n)]
+
+
+def par_partial_perm(n: int):
+    """One pair and a rank that receives nothing: zeros."""
+    return [(0, n - 1), (n - 1, 1 % n)] if n > 2 else [(0, 1)]
+
+
+def _par_stage(params, x, with_aux):
+    w, b = params
+    y = torch.tanh(x @ w + b)
+    return (y, (y * y).mean()) if with_aux else y
+
+
+def _par_expert(params, tok):
+    w1, w2 = params
+    return torch.tanh(tok @ w1) @ w2
+
+
+def parallel_worker(rank: int, world: int, store_path: str,
+                    out_dir: str) -> None:
+    """One rank of the parallel-layer checks over gloo, on a 1-D mesh
+    (axis ``i``) over the world: each collective of
+    ``parallel/_collectives.py`` and each layer on this rank's inputs,
+    forward and the gradients of ``<output, cotangent>``; the layouts
+    and the refusals of ``parallel/mesh.py``.  Tensors to
+    ``par{rank}.npz``, the rest to ``rank{rank}.json``."""
+    torch.set_num_threads(1)
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import parallel as par
+    from horovod_tpu_torch.parallel import _collectives as C
+
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    hvd.init(device="cpu")
+    mesh = hvd.mesh(("i",), (world,))
+    x = {k: torch.from_numpy(np.array(v))
+         for k, v in par_inputs(rank, world).items()}
+    res, info = {}, {}
+
+    def run(name, fn, inputs, cts):
+        ins = [x[k].clone().requires_grad_(True) for k in inputs]
+        outs = fn(*ins)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        for i, o in enumerate(outs):
+            res[f"{name}/out{i}"] = o.detach()
+        torch.autograd.backward(list(outs), [x[k] for k in cts])
+        for k, t in zip(inputs, ins):
+            res[f"{name}/d_{k}"] = t.grad
+
+    I = dict(mesh=mesh)
+    run("psum", lambda a: C.psum(a, "i", **I), ["psum"], ["psum_ct"])
+    run("all_gather", lambda a: C.all_gather(a, "i", dim=1, tiled=True, **I),
+        ["ag"], ["ag_ct"])
+    run("all_gather_untiled",
+        lambda a: C.all_gather(a, "i", dim=1, tiled=False, **I),
+        ["ag"], ["ag_u_ct"])
+    run("psum_scatter", lambda a: C.psum_scatter(
+        a, "i", scatter_dimension=1, tiled=True, **I), ["rs"], ["rs_ct"])
+    run("psum_scatter_untiled", lambda a: C.psum_scatter(
+        a, "i", scatter_dimension=0, tiled=False, **I), ["rs_u"],
+        ["rs_u_ct"])
+    run("all_to_all", lambda a: C.all_to_all(a, "i", 0, 1, tiled=True, **I),
+        ["a2a"], ["a2a_ct"])
+    run("all_to_all_untiled",
+        lambda a: C.all_to_all(a, "i", 0, 1, tiled=False, **I),
+        ["a2a_u"], ["a2a_u_ct"])
+    run("ppermute_ring",
+        lambda a: C.ppermute(a, "i", par_ring_perm(world), **I),
+        ["perm"], ["perm_ct"])
+    run("ppermute_partial",
+        lambda a: C.ppermute(a, "i", par_partial_perm(world), **I),
+        ["perm"], ["perm_ct"])
+    info["axis"] = [C.axis_index("i", **I), C.axis_size("i", **I)]
+
+    run("tp", lambda a, w1, b1, w2, b2: par.row_parallel(
+        par.column_parallel(a, w1, b1), w2, "i", b2, **I),
+        ["tp_x", "tp_w1", "tp_b1", "tp_w2", "tp_b2"], ["tp_ct"])
+    for causal in (False, True):
+        tag = "causal" if causal else "full"
+        run(f"ulysses_{tag}", lambda q, k, v: par.ulysses_attention(
+            q, k, v, "i", causal=causal, **I),
+            ["uly_q", "uly_k", "uly_v"], ["uly_ct"])
+        run(f"ring_{tag}", lambda q, k, v: par.ring_attention(
+            q, k, v, "i", causal=causal, **I),
+            ["ring_q", "ring_k", "ring_v"], ["ring_ct"])
+    for m in PAR_MICRO:
+        run(f"pipeline_m{m}", lambda w, b, mb: par.pipeline_apply(
+            lambda p, h: _par_stage(p, h, False), (w, b), mb, "i", **I),
+            ["pp_w", "pp_b", f"pp_mb{m}"], [f"pp_ct{m}"])
+        run(f"pipeline_aux_m{m}", lambda w, b, mb: par.pipeline_apply(
+            lambda p, h: _par_stage(p, h, True), (w, b), mb, "i",
+            with_aux=True, **I),
+            ["pp_w", "pp_b", f"pp_mb{m}"], [f"pp_ct{m}", "pp_aux_ct"])
+    run("moe", lambda a, g, w1, w2: par.expert_parallel_moe(
+        a, g, (w1, w2), _par_expert, "i", num_experts=2 * world,
+        capacity_factor=0.5, **I),
+        ["moe_x", "moe_gate", "moe_w1", "moe_w2"], ["moe_ct", "moe_aux_ct"])
+    dispatch, combine, aux = par.switch_route(
+        x["moe_x"], x["moe_gate"], 2 * world, 3)
+    res["route/dispatch"], res["route/combine"] = dispatch, combine
+    res["route/aux"] = aux
+
+    info["errors"] = {
+        "ulysses_heads": _error(lambda: par.ulysses_attention(
+            x["uly_q"][:, :, :1], x["uly_k"][:, :, :1], x["uly_v"][:, :, :1],
+            "i", **I)),
+        "moe_experts": _error(lambda: par.expert_parallel_moe(
+            x["moe_x"], x["moe_gate"][:, :world + 1], (), _par_expert, "i",
+            num_experts=world + 1, **I)),
+    }
+    info["errors"]["subset"] = _error(lambda: par.make_layout(devices=[0]))
+    info["layouts"] = {name: _par_layout(par, kw)
+                       for name, kw in par_layout_cases(world).items()}
+    info["auto"] = _par_layout(par, None)
+    hvd.shutdown()
+    dist.destroy_process_group()
+    np.savez(os.path.join(out_dir, f"par{rank}.npz"),
+             **{k: v.numpy() for k, v in res.items()})
+    _write_result(out_dir, rank, info)
+
+
+def par_layout_cases(world: int) -> dict:
+    """``make_layout`` keywords at ``world`` ranks: layouts and refusals."""
+    cases = {"default": {}, "tp": {"tp": world}, "pp": {"pp": world},
+             "sp": {"sp": world}, "ep": {"ep": world},
+             "not_divisible": {"tp": world + 1},
+             "wrong_size": {"dp": 2, "tp": world}}
+    if world == 2:
+        cases["mixed"] = {"dp": 1, "pp": 1, "tp": 1, "sp": 2}
+    else:
+        cases["mixed"] = {"dp": 1, "pp": 3, "sp": 1, "ep": 1}
+    return cases
+
+
+def _par_layout(par, kw) -> dict:
+    """A layout's mesh shape (in order), logical -> physical map and this
+    rank's coordinates; or the error it raises."""
+    try:
+        lay = par.auto_layout() if kw is None else par.make_layout(**kw)
+    except ValueError as e:
+        return {"error": str(e)}
+    m = lay.mesh
+    return {"shape": [[a, n] for a, n in lay.shape.items()],
+            "map": lay.logical_to_physical,
+            "sizes": {a: lay.axis_size(a) for a in ("dp", "tp", "pp",
+                                                    "sp", "ep")},
+            "coords": [m.get_local_rank(a) for a in m.mesh_dim_names]}
+
+
+# -- the hybrid-parallel transformer, 1, 2 and 8 ranks -------------------------
+
+TFM_BATCH = 16             # divisible by dp x microbatches of every layout
+TFM_TOKENS = 17
+TFM_TINY = dict(vocab_size=64, d_model=32, n_heads=4, n_layers=4, d_ff=64,
+                max_seq=32, num_microbatches=2)
+# name -> (world, config keywords, make_layout keywords)
+TFM_CASES = {
+    "megatron_1x1x1": (1, {}, dict(dp=1, tp=1, pp=1)),
+    "megatron_2x1x1": (2, {}, dict(dp=2, tp=1, pp=1)),
+    "megatron_1x2x1": (2, {}, dict(dp=1, tp=2, pp=1)),
+    "megatron_1x1x2": (2, {}, dict(dp=1, tp=1, pp=2)),
+    "megatron_2x2x2": (8, {}, dict(dp=2, tp=2, pp=2)),
+    "ring_sp2": (8, {"attn_mode": "ring"}, dict(dp=2, tp=2, pp=1, sp=2)),
+    "ulysses_sp2": (8, {"attn_mode": "ulysses"},
+                    dict(dp=2, tp=2, pp=1, sp=2)),
+    "moe_dp2": (2, {"n_experts": 4, "n_layers": 2}, dict(dp=2, tp=1, pp=1)),
+}
+TFM_TRAIN = (8, {}, dict(dp=2, tp=2, pp=2))
+TFM_TRAIN_STEPS = 3
+TFM_LR = 1e-2
+TFM_WORLDS = (1, 2, 8)
+
+
+def tfm_params_key(cfg_kw: dict) -> str:
+    """The file of the reference's global parameters for a config."""
+    return "moe" if cfg_kw.get("n_experts") else "dense"
+
+
+def tfm_tokens() -> np.ndarray:
+    return np.random.RandomState(0).randint(
+        0, TFM_TINY["vocab_size"], size=(TFM_BATCH, TFM_TOKENS)
+    ).astype(np.int32)
+
+
+def _tfm_model(tfm, par, weights, cfg_kw, lay_kw, out_dir):
+    cfg = tfm.TransformerConfig(**{**TFM_TINY, **cfg_kw}, dtype=torch.float32)
+    lay = par.make_layout(**lay_kw)
+    flat = np.load(os.path.join(out_dir,
+                                f"params_{tfm_params_key(cfg_kw)}.npz"))
+    model = tfm.Transformer(cfg, lay, device="cpu")
+    model.load_state_dict(weights.transformer_params_from_jax(
+        tfm.unflatten(dict(flat)), cfg, lay))
+    dp = lay.shape[lay.dp]
+    i = lay.mesh.get_local_rank(lay.dp)
+    b = TFM_BATCH // dp
+    toks = torch.from_numpy(tfm_tokens()[i * b:(i + 1) * b]).long()
+    return cfg, lay, model, toks
+
+
+def transformer_worker(rank: int, world: int, store_path: str,
+                       out_dir: str) -> None:
+    """One rank of the transformer checks over gloo: for each case of
+    ``TFM_CASES`` at this world size, the reference's parameters carried
+    across by ``transformer_params_from_jax``, the loss and this rank's
+    reduced gradients (``loss / world`` back-propagated, then
+    ``reduce_gradients``); at ``TFM_TRAIN``'s world, ``make_train_step``
+    with ``torch.optim.Adam`` for ``TFM_TRAIN_STEPS`` steps; in a world
+    of one, the model's own seeded init.  Tensors to ``tfm{rank}.npz``,
+    the rest to ``rank{rank}.json``."""
+    torch.set_num_threads(1)
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import parallel as par
+    from horovod_tpu_torch import weights
+    from horovod_tpu_torch.models import transformer as tfm
+
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    hvd.init(device="cpu")
+    res, info = {}, {}
+    for name, (w, cfg_kw, lay_kw) in TFM_CASES.items():
+        if w != world:
+            continue
+        cfg, lay, model, toks = _tfm_model(tfm, par, weights, cfg_kw,
+                                           lay_kw, out_dir)
+        loss = model(toks)
+        (loss / world).backward()
+        tfm.reduce_gradients(model)
+        res[f"{name}/loss"] = loss.detach()
+        for n, p in model.named_parameters():
+            res[f"{name}/{n}"] = p.grad
+    if TFM_TRAIN[0] == world:
+        cfg, lay, model, toks = _tfm_model(tfm, par, weights, *TFM_TRAIN[1:],
+                                           out_dir)
+        opt = torch.optim.Adam(model.parameters(), lr=TFM_LR)
+        step = tfm.make_train_step(cfg, lay, opt)
+        res["train/losses"] = torch.stack(
+            [step(model, toks) for _ in range(TFM_TRAIN_STEPS)])
+        for n, p in model.named_parameters():
+            res[f"train/{n}"] = p.detach()
+    if world == 1:
+        info["init"] = {}
+        for key, cfg_kw in (("dense", {}), ("moe", {"n_experts": 4})):
+            cfg = tfm.TransformerConfig(**{**TFM_TINY, **cfg_kw})   # bfloat16
+            tree = tfm.init_params(cfg, torch.Generator().manual_seed(0))
+            model = tfm.Transformer(cfg, par.make_layout(),
+                                    generator=torch.Generator().manual_seed(0),
+                                    device="cpu")
+            same = all(torch.equal(p, tfm.flatten(tree)[n])
+                       for n, p in model.named_parameters())
+            loss = model(torch.from_numpy(tfm_tokens()).long())
+            info["init"][key] = {
+                "tree": {n: [list(t.shape), str(t.dtype).split(".")[-1]]
+                         for n, t in tfm.flatten(tree).items()},
+                "module_is_the_tree": same,
+                "loss": float(loss)}
+    hvd.shutdown()
+    dist.destroy_process_group()
+    np.savez(os.path.join(out_dir, f"tfm{rank}.npz"),
+             **{k: v.numpy() for k, v in res.items()})
+    _write_result(out_dir, rank, info)

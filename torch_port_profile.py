@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
-"""Where the time of the port's ResNet-50 training step goes, on one GPU.
+"""Where the time of the port's training steps goes, on one GPU.
 
-    python3 torch_port_profile.py [--steps 3] [--out .profile_out]
+    python3 torch_port_profile.py [--model resnet50|transformer]
+                                  [--steps 3] [--out .profile_out]
 
-Builds the same step as ``chip_smoke.py`` (ResNet-50 bf16, NHWC 224x224,
-batch 64, ``DistributedOptimizer`` with fp16 wire and predivide 2.0),
-runs its 7 steps as warm-up, then traces ``--steps`` steps with
-``torch.profiler`` and prints one JSON line: step wall time, the card's
-busy and idle share over the traced steps (the union of kernel intervals
-against the steps' wall clock), and device time by kernel group
-(the ``fused_scale_cast`` kernel, NCCL, convolution, everything else),
-plus the top kernels by device time.  The chrome trace goes to ``--out``.
-Needs one card; imports nothing of JAX.
+Builds the same step as ``chip_smoke.py``: ``resnet50`` (the default;
+ResNet-50 bf16, NHWC 224x224, batch 64, ``DistributedOptimizer`` with
+fp16 wire and predivide 2.0) or ``transformer`` (the reference's
+``TransformerConfig()``, bf16, ``megatron_sp``, batch 8 x 2049,
+``make_train_step`` with Adam 3e-3); runs its 7 steps as warm-up, then
+traces ``--steps`` steps with ``torch.profiler`` and prints one JSON
+line: step wall time, the card's busy and idle share over the traced
+steps (the union of kernel intervals against the steps' wall clock), and
+device time by kernel group (ResNet-50: the ``fused_scale_cast`` kernel,
+NCCL, convolution; the transformer: GEMMs, softmax, elementwise,
+reductions; everything else), plus the top kernels by device time.  The
+chrome trace goes to ``--out``.  Needs one card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -26,12 +30,21 @@ from pathlib import Path
 
 import chip_smoke
 
-GROUPS = [
-    ("fused_scale_cast", re.compile(r"scale_cast_table_kernel")),
-    ("nccl", re.compile(r"nccl", re.I)),
-    ("conv", re.compile(r"conv|cudnn|xmma|implicit_gemm|dgrad|wgrad|"
-                        r"sm90_", re.I)),
-]
+GROUPS = {
+    "resnet50": [
+        ("fused_scale_cast", re.compile(r"scale_cast_table_kernel")),
+        ("nccl", re.compile(r"nccl", re.I)),
+        ("conv", re.compile(r"conv|cudnn|xmma|implicit_gemm|dgrad|wgrad|"
+                            r"sm90_", re.I)),
+    ],
+    "transformer": [
+        ("nccl", re.compile(r"nccl", re.I)),
+        ("gemm", re.compile(r"nvjet|gemm|cutlass|sm90_", re.I)),
+        ("softmax", re.compile(r"softmax", re.I)),
+        ("elementwise", re.compile(r"elementwise", re.I)),
+        ("reduce", re.compile(r"reduce_kernel", re.I)),
+    ],
+}
 
 
 def _union_us(intervals):
@@ -44,12 +57,54 @@ def _union_us(intervals):
     return total
 
 
-def main() -> int:
+def _resnet50_step(hvd):
+    """chip_smoke's train phase: it builds the step and runs 7 steps."""
     import torch
     import torch.nn.functional as F
+
+    torch.backends.cudnn.benchmark = True
+    model, opt, x, y, _ = chip_smoke.train_phase(
+        hvd, hvd.device(), chip_smoke.BATCH, chip_smoke.IMAGE, [3, 4, 6, 3])
+
+    def step():
+        opt.zero_grad()
+        F.cross_entropy(model(x), y).backward()
+        opt.step()
+
+    return step
+
+
+def _transformer_step(hvd):
+    """chip_smoke's transformer step, run 7 times."""
+    import torch
+
+    from horovod_tpu_torch import parallel as par
+    from horovod_tpu_torch.models import transformer as tfm
+
+    cfg = tfm.TransformerConfig()
+    layout = par.make_layout()
+    model = tfm.Transformer(cfg, layout,
+                            generator=chip_smoke._seeded(chip_smoke.SEED))
+    train = tfm.make_train_step(
+        cfg, layout, torch.optim.Adam(model.parameters(),
+                                      lr=chip_smoke.TFM_LR))
+    toks = chip_smoke._tfm_tokens(cfg, chip_smoke.TFM_BATCH, hvd.device())
+
+    def step():
+        train(model, toks)
+
+    for _ in range(chip_smoke.WARMUP_STEPS + chip_smoke.TIMED_STEPS):
+        step()
+    torch.cuda.synchronize()
+    return step
+
+
+def main() -> int:
+    import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
     ap = argparse.ArgumentParser()
+    ap.add_argument("--model", choices=sorted(GROUPS), default="resnet50")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--out", default=".profile_out")
     args = ap.parse_args()
@@ -60,16 +115,8 @@ def main() -> int:
     import horovod_tpu_torch as hvd
 
     hvd.init()
-    torch.backends.cudnn.benchmark = True
-    # chip_smoke's train phase builds the step and runs 7 steps: warm-up
-    model, opt, x, y, _ = chip_smoke.train_phase(
-        hvd, hvd.device(), chip_smoke.BATCH, chip_smoke.IMAGE, [3, 4, 6, 3])
-
-    def step():
-        opt.zero_grad()
-        F.cross_entropy(model(x), y).backward()
-        opt.step()
-
+    step = {"resnet50": _resnet50_step,
+            "transformer": _transformer_step}[args.model](hvd)
     windows = []
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -81,7 +128,7 @@ def main() -> int:
             windows.append(time.perf_counter() - t0)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    trace_path = out / "resnet50_step_trace.json.gz"
+    trace_path = out / f"{args.model}_step_trace.json.gz"
     prof.export_chrome_trace(str(trace_path))
     hvd.shutdown()
 
@@ -92,17 +139,19 @@ def main() -> int:
              and e.get("cat") == "user_annotation"]
     wall_us = sum(e["dur"] for e in steps)
     busy_us = _union_us([(k["ts"], k["ts"] + k["dur"]) for k in kernels])
-    by_group = {name: 0.0 for name, _ in GROUPS}
+    groups = GROUPS[args.model]
+    by_group = {name: 0.0 for name, _ in groups}
     by_group["other"] = 0.0
     by_name = {}
     for k in kernels:
-        group = next((g for g, rx in GROUPS if rx.search(k["name"])), "other")
+        group = next((g for g, rx in groups if rx.search(k["name"])), "other")
         by_group[group] += k["dur"]
         by_name[k["name"]] = by_name.get(k["name"], 0.0) + k["dur"]
     n = max(len(steps), 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     result = {
         "device": torch.cuda.get_device_name(0),
+        "model": args.model,
         "steps": len(steps),
         "step_ms_host": [w * 1e3 for w in windows],
         "step_ms_traced": wall_us / n / 1e3,
