@@ -122,6 +122,38 @@ and, beside them, its C++ negotiation core from
    same call on the CPU: the loss within 1e-5 relative, each gradient's
    largest difference within 1e-3 of its largest magnitude.  No TPU
    kernel lies on this path (the reference computes it in XLA);
+   the reference's benchmark trio at full width, uncut (``bench.py:46-48``,
+   lr ``:297``): ResNet-101 224x224 batch 128, Inception V3 299x299 batch
+   128, VGG-16 224x224 batch 64 (lr 0.01), bf16, synthetic data from the
+   seed, through ``hvd.DistributedOptimizer(SGD momentum 0.9,
+   Compression.fp16, gradient_predivide_factor=2.0)``, 2 warm-up and 5
+   timed steps: step ms, images/s, FLOPs by ``FlopCounterMode`` and their
+   share of the card's peak, peak memory, buckets and A1 launches a step
+   (2 a multi-tensor bucket, counted from 0 over each model's run), the
+   loss finite and falling (a batch that does not fit is halved and the
+   cut printed); one finite step each of ResNet-18/34/152, the MLP and
+   ResNet-50 with ``stem="s2d"`` and with ``remat=True``; ResNet-50's peak
+   memory with and without ``remat`` at batch 64, in turns (remat lower,
+   the first loss equal); then, with TF32 off and cuDNN's deterministic
+   heuristics, ResNet-18, ResNet-101, ResNet-50 (s2d, remat) and the MLP
+   trained one step at a small batch in float32, VGG-16 in float64 (its
+   float32 errors printed beside, not gated), Inception V3 through its
+   running stats at 75x75 and its train-mode logits at 299x299, on the
+   card against the CPU: the loss within 1e-4 relative (the logits 1e-3),
+   each gradient within 1e-2 of its largest magnitude; and the input
+   gradient of the port's 3x3/1 ``SAME`` average pool on a channels-last
+   tensor within 1e-6 (``avg_pool2d``'s own ``padding`` printed beside:
+   its CUDA backward is wrong there);
+   the sharded checkpoint: ``TransformerConfig()`` uncut with its Adam
+   state after one step, as DTensors over ``make_layout()`` at one rank
+   (``models.transformer.global_params``): ``ShardedTorchState.commit``
+   (ms on the training thread, bytes on disk), ``verify_step``, a fresh
+   state's ``sync`` (every leaf bitwise, on the card), and
+   ``ShardedCheckpointer.save`` / ``restore`` alone; then 2 processes on
+   cuda:0 (``--sharded-ckpt-child``, gloo over a ``TCPStore``) save the
+   transformer at tp=2, each writing only its shards (its files and bytes
+   printed; the pieces hold each array once), and this process restores
+   their step onto its own layout, bitwise the global arrays;
    the stall watchdog: two of the port's amortized inspectors over one
    ``HashStore`` (ranks 0 and 1 of a set {0, 1}; heartbeat 0.05 s, warn
    0.3 s, abort 1.0 s), rank 0 running the optimizer's group reduction
@@ -227,7 +259,12 @@ paths' host ms, the sharded optimizer's state bytes and ms a step,
 ``SyncBatchNorm``'s errors and ms, the card's name and power limit),
 one ``transformer {...}`` line (the step's ms, tokens/s, FLOPs and their
 share of the card's peak, peak memory and the losses; each other mode's
-loss, ms and peak memory; the card-against-CPU errors),
+loss, ms and peak memory; the card-against-CPU errors), one ``models
+{...}`` line (each trio model's step ms, images/s, FLOPs, FLOP share,
+peak memory, buckets, A1 launches and losses; the small models' steps;
+remat's turns; the card-against-CPU errors), one ``sharded_ckpt {...}``
+line (commit, verify, sync, save and restore ms and bytes; each child's
+files and bytes),
 one ``stall {...}`` line, one ``faults {...}`` line, one
 ``obs {...}`` line, one ``ring_path {...}`` line, one ``ring_ipc {...}``
 line (the launches, each rank's ms a call, B, the bytes a rank holds
@@ -243,6 +280,7 @@ ring kernels with one rank a process, ``time_sliced`` beside their ms,
 A6's with ``spmd_launches``)
 (A1's with ``core_launches``, ``autotune_launches``,
 ``stall_launches``, ``obs_launches_per_step``,
+``models_launches_per_step``,
 ``elastic_launches`` and ``launcher_launches``, the last by the
 launcher's entry point) and, last,
 ``{"ok": true,
@@ -2905,6 +2943,631 @@ def transformer_phase(hvd, device, smi: str) -> dict:
     return out
 
 
+# -- the reference's other models: the benchmark trio at full width ----------
+
+# name, input side, batch, SGD lr: bench.py:46-48 (the BENCH_MODELS trio)
+# and :297 (VGG's lr)
+MODEL_TRIO = (
+    ("ResNet101", 224, 128, 0.1),
+    ("InceptionV3", 299, 128, 0.1),
+    ("VGG16", 224, 64, 0.01),
+)
+# one finite step each at a small batch: name, constructor keywords, side
+MODEL_SMALL = (
+    ("ResNet18", "ResNet18", {}, 224),
+    ("ResNet34", "ResNet34", {}, 224),
+    ("ResNet152", "ResNet152", {}, 224),
+    ("MLP", "MLP", {}, 28),
+    ("ResNet50_s2d", "ResNet50", {"stem": "s2d"}, 224),
+    ("ResNet50_remat", "ResNet50", {"remat": True}, 224),
+)
+MODEL_SMALL_BATCH = 8
+REMAT_BATCH = 64          # ResNet-50's peak memory with and without remat
+# card against CPU, TF32 off: label, keywords, side, batch, mode, dtype
+MODEL_CHECKS = (
+    ("ResNet18", {}, 64, 4, "train", "float32"),
+    ("ResNet101", {}, 64, 4, "train", "float32"),
+    ("ResNet50_s2d_remat", {"stem": "s2d", "remat": True}, 64, 4, "train",
+     "float32"),
+    # VGG-16 at init passes a vanishing signal: its float32 gradients are
+    # 4% off float64's even on the CPU, so it is held in float64
+    ("VGG16", {"image_size": 64}, 64, 2, "train", "float64"),
+    ("MLP", {}, 28, 8, "train", "float32"),
+    # train-mode gradients of Inception are no function of the inputs in
+    # float32 (tests/test_torch_port_models_inception.py): its gradients
+    # are held through the running stats at 75x75, its train-mode logits
+    # at 299x299 (at 75x75 its last norms see 2 values a channel)
+    ("InceptionV3", {}, 75, 2, "eval", "float32"),
+    ("InceptionV3", {}, 299, 2, "train_forward", "float32"),
+)
+MODEL_LOSS_RTOL = 1e-4    # |card - cpu| / |cpu| of the loss
+MODEL_LOGITS_RTOL = 1e-3  # max |card - cpu| / max |cpu| of the logits
+# max |card - cpu| / max |cpu| of each gradient: two float32 runs of a
+# ReLU net differ where an activation within rounding of zero takes the
+# other side of the kink (ResNet-50 s2d: 1.6e-3, block 0's projection);
+# a wrong op shows at ~1 (PyTorch's channels-last avg_pool2d backward,
+# models/_layers.py avg_pool_same)
+MODEL_GRAD_RTOL = 1e-2
+POOL_SHAPE = (2, 64, 9, 9)   # an Inception branch pool's input, NCHW
+
+
+def _sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _peak_reset(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def _peak(device) -> int:
+    import torch
+
+    return (torch.cuda.max_memory_allocated(device)
+            if device.type == "cuda" else 0)
+
+
+def _make_model(name: str, dtype, device, gen, **kw):
+    from horovod_tpu_torch import models
+
+    if name == "MLP":
+        return models.MLP(device=device, generator=gen)
+    return getattr(models, name)(dtype=dtype, device=device, generator=gen,
+                                 **kw)
+
+
+def _model_batch(name: str, side: int, batch: int, device, seed: int):
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    ch = 1 if name == "MLP" else 3
+    classes = 10 if name == "MLP" else 1000
+    x = torch.randn(batch, side, side, ch, generator=gen, device=device)
+    y = torch.randint(0, classes, (batch,), generator=gen, device=device)
+    return x, y
+
+
+def model_step(hvd, device, name: str, side: int, batch: int, lr: float,
+               ctor_kw=None):
+    """(step, model, optimizer): one training step of the model in bf16
+    on one fixed synthetic batch through ``hvd.DistributedOptimizer(SGD
+    momentum 0.9, Compression.fp16, gradient_predivide_factor=2.0)``;
+    ``step()`` returns the loss."""
+    import torch
+    import torch.nn.functional as F
+
+    kw = dict(ctor_kw or {})
+    if name.startswith("VGG"):
+        kw["image_size"] = side
+    model = _make_model(name, torch.bfloat16, device, _seeded(SEED), **kw)
+    x, y = _model_batch(name, side, batch, device, SEED)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=lr, momentum=0.9),
+        named_parameters=model.named_parameters(),
+        compression=hvd.Compression.fp16,
+        gradient_predivide_factor=PREDIVIDE)
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    model.train()
+
+    def step():
+        opt.zero_grad()
+        loss = F.cross_entropy(model(x), y)
+        loss.backward()
+        opt.step()
+        return loss
+
+    return step, model, opt
+
+
+def _train_model(hvd, device, name: str, side: int, batch: int, lr: float,
+                 steps: int, ctor_kw=None, flops: bool = True) -> dict:
+    """``steps`` steps of ``model_step``, each synchronized; A1's launches
+    counted from 0 over those steps, then one more step under
+    ``FlopCounterMode``."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from horovod_tpu_torch.ops import fused_scale_cast
+
+    step, model, opt = model_step(hvd, device, name, side, batch, lr,
+                                  ctor_kw)
+    multi = sum(len(b) > 1 for b in opt.buckets)
+
+    _peak_reset(device)
+    losses, times = [], []
+    fused_scale_cast.launches = 0         # the model's run starts here
+    for _ in range(steps):
+        t = time.perf_counter()
+        loss = step()
+        _sync(device)
+        times.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(loss.detach()))
+    launches = fused_scale_cast.launches  # read just after it
+    peak = _peak(device)
+    check(all(math.isfinite(v) for v in losses),
+          f"models: {name} loss {losses}")
+    check(launches == steps * 2 * multi,
+          f"models: {name} {launches} A1 launches in {steps} steps, "
+          f"expected {2 * multi} a step")
+    out = {"batch": batch, "image": side, "lr": lr,
+           "params": sum(p.numel() for p in model.parameters()),
+           "losses": losses, "step_ms": times,
+           "buckets": len(opt.buckets), "multi_tensor_buckets": multi,
+           "a1_launches": launches, "a1_launches_per_step": launches // steps,
+           "peak_memory_bytes": peak}
+    if flops:
+        with FlopCounterMode(display=False) as counter:
+            step()
+            _sync(device)
+        out["flops_per_step"] = counter.get_total_flops()
+    del model, opt, step
+    return out
+
+
+def _trio_model(hvd, device, name, side, batch, lr) -> dict:
+    """The model at its benchmark batch, halved while it does not fit."""
+    import torch
+
+    from horovod_tpu_torch.obs import stepprof
+
+    cuts = []
+    while True:
+        try:
+            r = _train_model(hvd, device, name, side, batch, lr,
+                             WARMUP_STEPS + TIMED_STEPS)
+            break
+        except torch.cuda.OutOfMemoryError:
+            check(batch > 1, f"models: {name} does not fit at batch 1")
+            cuts.append(batch)
+            log(f"models: {name} batch {batch} does not fit; halved")
+            batch //= 2
+            _peak_reset(device)
+    check(r["losses"][-1] < r["losses"][0],
+          f"models: {name} loss did not fall {r['losses']}")
+    step_ms = statistics.median(r["step_ms"][WARMUP_STEPS:])
+    peak_flops = stepprof.peak_flops()
+    r.update(cut_from=cuts, step_ms_median=step_ms,
+             images_per_s=batch * len(r["step_ms"][WARMUP_STEPS:])
+             / (sum(r["step_ms"][WARMUP_STEPS:]) / 1e3),
+             peak_tflops=peak_flops / 1e12,
+             flop_share=r["flops_per_step"] / (step_ms / 1e3) / peak_flops,
+             bound_ms=r["flops_per_step"] / peak_flops * 1e3)
+    return r
+
+
+def _model_grads(model, x, y, mode: str):
+    """(loss or logits, {name: gradient}) of one call on ``model``."""
+    import torch
+    import torch.nn.functional as F
+
+    model.zero_grad()
+    if mode == "train_forward":
+        model.train()
+        with torch.no_grad():
+            return model(x).float(), {}
+    model.train(mode == "train")
+    loss = F.cross_entropy(model(x), y)
+    loss.backward()
+    return loss.detach(), {n: p.grad.detach().cpu()
+                           for n, p in model.named_parameters()}
+
+
+def _card_vs_cpu_errors(device, checks) -> dict:
+    """Each of ``checks`` in float32 from the same seeded weights on the
+    card and on the CPU: the loss (or the logits) and every gradient, as
+    max |card - cpu| / max |cpu|."""
+    import torch
+
+    out = {}
+    for label, kw, side, batch, mode, dtype in checks:
+        name = label.split("_")[0]
+        x, y = _model_batch(name, side, batch, torch.device("cpu"), SEED + 1)
+        runs = []
+        for dev in (device, torch.device("cpu")):
+            m = _make_model(name, getattr(torch, dtype), dev,
+                            _seeded(SEED + 1), **kw)
+            runs.append(_model_grads(m, x.to(dev), y.to(dev), mode))
+            del m
+        (card, card_g), (cpu, cpu_g) = runs
+        card = card.cpu()
+        errs = {n: float((card_g[n] - g).abs().max()
+                         / g.abs().max().clamp_min(1e-30))
+                for n, g in cpu_g.items()}
+        worst = max(errs, key=errs.get) if errs else None
+        out[f"{label}_{mode}"] = {
+            "side": side, "batch": batch, "mode": mode, "dtype": dtype,
+            "loss_rel_err": float((card - cpu).abs().max()
+                                  / cpu.abs().max().clamp_min(1e-30)),
+            "grad_rel_err": errs.get(worst, 0.0), "worst_grad": worst}
+    return out
+
+
+def _card_vs_cpu(device) -> dict:
+    """The gate: ``MODEL_CHECKS`` with TF32 off and cuDNN's heuristics
+    picking deterministic algorithms; beside it, VGG-16's float32 errors,
+    not gated."""
+    import torch
+
+    cudnn = torch.backends.cudnn
+    saved = (torch.backends.cuda.matmul.allow_tf32, cudnn.allow_tf32,
+             cudnn.benchmark, cudnn.deterministic)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cudnn.allow_tf32 = False
+    cudnn.benchmark, cudnn.deterministic = False, True
+    out = {"loss_rtol": MODEL_LOSS_RTOL, "logits_rtol": MODEL_LOGITS_RTOL,
+           "grad_rtol": MODEL_GRAD_RTOL}
+    try:
+        out["gate"] = _card_vs_cpu_errors(device, MODEL_CHECKS)
+        out["channels_last_pool_grad"] = _pool_errors(device)
+        out["vgg_float32"] = _card_vs_cpu_errors(
+            device, [c[:5] + ("float32",) for c in MODEL_CHECKS
+                     if c[0] == "VGG16"])
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32, cudnn.allow_tf32,
+         cudnn.benchmark, cudnn.deterministic) = saved
+    return out
+
+
+def _pool_errors(device) -> dict:
+    """The input gradient of a 3x3/1 ``SAME`` average pool on a
+    channels-last tensor, card against CPU: PyTorch's ``avg_pool2d`` with
+    ``padding=1`` (not gated; wrong on the card in torch 2.11) and the
+    port's ``avg_pool_same`` (explicit ``F.pad``; gated bitwise-close)."""
+    import torch
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.models import _layers
+
+    x = torch.randn(POOL_SHAPE, generator=_seeded(SEED))
+    w = torch.randn(POOL_SHAPE, generator=_seeded(SEED + 1))
+    out = {}
+    for label, fn in (
+            ("torch_padding", lambda t: F.avg_pool2d(
+                t, 3, 1, padding=1, count_include_pad=True)),
+            ("avg_pool_same", _layers.avg_pool_same)):
+        grads = []
+        for dev in (device, torch.device("cpu")):
+            t = x.to(dev).contiguous(memory_format=torch.channels_last)
+            t.requires_grad_(True)
+            (fn(t) * w.to(dev)).sum().backward()
+            grads.append(t.grad.cpu())
+        out[label] = float((grads[0] - grads[1]).abs().max()
+                           / grads[1].abs().max())
+    return out
+
+
+def _check_card_vs_cpu(gate: dict) -> None:
+    for key, r in gate.items():
+        bound = (MODEL_LOGITS_RTOL if r["mode"] == "train_forward"
+                 else MODEL_LOSS_RTOL)
+        check(r["loss_rel_err"] <= bound,
+              f"models: {key} loss/logits on the card off the CPU's by "
+              f"{r['loss_rel_err']:.3g}")
+        check(r["grad_rel_err"] <= MODEL_GRAD_RTOL,
+              f"models: {key} gradient {r['worst_grad']} rel err "
+              f"{r['grad_rel_err']:.3g} on the card vs the CPU")
+
+
+def models_phase(hvd, device, smi: str) -> dict:
+    """The reference's benchmark trio at full width, uncut, one card
+    (``bench.py:46-48``, lr ``:297``): ResNet-101 224x224 batch 128,
+    Inception V3 299x299 batch 128, VGG-16 224x224 batch 64, bf16,
+    synthetic data from the seed, ``WARMUP_STEPS + TIMED_STEPS`` steps
+    through ``hvd.DistributedOptimizer`` (A1 on every multi-tensor
+    bucket); then one finite step of each ``MODEL_SMALL``, ResNet-50's
+    peak memory with and without ``remat`` at batch 64, and the
+    card-against-CPU gate."""
+    import torch
+
+    t_phase = time.perf_counter()
+    out = {"card": smi, "trio": {}, "small": {}}
+    for name, side, batch, lr in MODEL_TRIO:
+        out["trio"][name] = _trio_model(hvd, device, name, side, batch, lr)
+        _peak_reset(device)
+    for label, name, kw, side in MODEL_SMALL:
+        r = _train_model(hvd, device, name, side,
+                         64 if name == "MLP" else MODEL_SMALL_BATCH, 0.1, 1,
+                         ctor_kw=kw, flops=False)
+        out["small"][label] = {k: r[k] for k in (
+            "batch", "image", "params", "losses", "step_ms",
+            "a1_launches", "a1_launches_per_step", "peak_memory_bytes")}
+        _peak_reset(device)
+    remat = {}
+    for on in (False, True, False, True):
+        r = _train_model(hvd, device, "ResNet50", 224, REMAT_BATCH, 0.1, 2,
+                         ctor_kw={"remat": on}, flops=False)
+        remat.setdefault(str(on).lower(), []).append(
+            {"peak_memory_bytes": r["peak_memory_bytes"],
+             "step_ms": r["step_ms"][-1], "losses": r["losses"]})
+        _peak_reset(device)
+    out["remat"] = {"batch": REMAT_BATCH, "turns": remat}
+    check(all(t["peak_memory_bytes"] < f["peak_memory_bytes"]
+              for t, f in zip(remat["true"], remat["false"])),
+          f"models: remat did not lower the peak memory {remat}")
+    # bitwise on the CPU (tests/test_torch_port_models.py); here cuDNN's
+    # weight-gradient algorithms need not be deterministic, so the first
+    # step's loss is held exact and the second within 1e-3
+    check(all(t["losses"][0] == f["losses"][0]
+              and abs(t["losses"][1] - f["losses"][1])
+              <= 1e-3 * abs(f["losses"][1])
+              for t, f in zip(remat["true"], remat["false"])),
+          f"models: remat changed the losses {remat}")
+    out["card_vs_cpu"] = _card_vs_cpu(device)
+    out["seconds"] = time.perf_counter() - t_phase
+    log("models " + json.dumps(out))
+    _check_card_vs_cpu(out["card_vs_cpu"]["gate"])
+    pool = out["card_vs_cpu"]["channels_last_pool_grad"]["avg_pool_same"]
+    check(pool <= 1e-6, f"models: avg_pool_same's gradient on the card off "
+          f"the CPU's by {pool:.3g}")
+    return out
+
+
+# -- the sharded checkpoint: the transformer's shards and Adam's state --------
+
+SHARDED_CHILD_WORLD = 2
+SHARDED_TIMEOUT_S = 180
+
+
+def _dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*")
+               if f.is_file())
+
+
+def _tree_same_bits(got, want) -> bool:
+    from horovod_tpu_torch.api.sharded_checkpoint import (
+        _is_dtensor,
+        leaves_with_path,
+    )
+
+    g, w = dict(leaves_with_path(got)), dict(leaves_with_path(want))
+    if g.keys() != w.keys():
+        return False
+    local = lambda t: t.to_local() if _is_dtensor(t) else t  # noqa: E731
+    return all(same_bits(local(g[k]).cpu(), local(w[k]).cpu()) for k in w)
+
+
+def _tfm_state(cfg, layout, model, opt):
+    """The model's parameters and Adam's state as trees of DTensors (the
+    step counts as host leaves)."""
+    from horovod_tpu_torch.models import transformer as tfm
+
+    named = dict(model.named_parameters())
+    moments = {k: tfm.global_params(
+        {n: opt.state[p][k] for n, p in named.items()}, cfg, layout)
+        for k in ("exp_avg", "exp_avg_sq")}
+    moments["step"] = {n: opt.state[p]["step"] for n, p in named.items()}
+    return tfm.global_params(model.state_dict(), cfg, layout), moments
+
+
+def _zeros_like_tree(tree):
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from horovod_tpu_torch.api.sharded_checkpoint import (
+        _is_dtensor,
+        map_with_path,
+    )
+
+    def leaf(_p, x):
+        if _is_dtensor(x):
+            return DTensor.from_local(torch.zeros_like(x.to_local()),
+                                      x.device_mesh, x.placements,
+                                      run_check=False, shape=x.shape,
+                                      stride=x.stride())
+        return torch.zeros_like(x)
+
+    return map_with_path(leaf, tree)
+
+
+def sharded_rank_save(world: int, rank: int, directory: str,
+                      device) -> dict:
+    """This rank's part of the multi-process save: the transformer's
+    global init from the seed, this rank's shards at ``tp=world`` on
+    ``device`` wrapped as DTensors, saved by ``ShardedCheckpointer``; the
+    files and bytes this rank wrote."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import parallel as par
+    from horovod_tpu_torch.models import transformer as tfm
+
+    cfg = tfm.TransformerConfig()
+    layout = par.make_layout(tp=world)
+    glob = tfm.init_params(cfg, _seeded(SEED))
+    local = {n: t.to(device) for n, t in
+             tfm.shard_params(glob, cfg, layout).items()}
+    tree = {"params": tfm.global_params(local, cfg, layout)}
+    ckpt = hvd.ShardedCheckpointer(directory)
+    t = time.perf_counter()
+    ckpt.save(1, tree)
+    save_ms = (time.perf_counter() - t) * 1e3
+    mpath = Path(ckpt._step_dir(1)) / f"manifest_p{rank}.json"
+    manifest = json.loads(mpath.read_text())
+    return {"rank": rank, "save_ms": save_ms,
+            "files": sum(len(es) for es in manifest.values()),
+            "piece_bytes": sum(e["bytes"] for es in manifest.values()
+                               for e in es),
+            "manifest_bytes": mpath.stat().st_size,
+            "device": str(tfm.flatten(tree["params"])["embed"].device)}
+
+
+def sharded_child(argv) -> int:
+    """``chip_smoke.py --sharded-ckpt-child WORLD RANK PORT DIR OUT``: one
+    rank of the multi-process save on cuda:0, in a gloo group over a
+    TCPStore on localhost (``sharded_rank_save``); its JSON to OUT."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+
+    world, rank, port = (int(a) for a in argv[:3])
+    torch.cuda.set_device(0)
+    store = dist.TCPStore("127.0.0.1", port, world, rank == 0,
+                          timeout=datetime.timedelta(seconds=60))
+    dist.init_process_group("gloo", store=store, rank=rank,
+                            world_size=world)
+    hvd.init(device="cuda:0")
+    try:
+        result = sharded_rank_save(world, rank, argv[3],
+                                   torch.device("cuda", 0))
+    finally:
+        hvd.shutdown()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    with open(argv[4], "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def _sharded_children(tmp: Path) -> dict:
+    """The 2-process save at tp=2 on cuda:0; each child's JSON."""
+    directory = tmp / "sharded_tp2"
+    port = _free_port()
+    outs = [tmp / f"sharded_{r}.json" for r in range(SHARDED_CHILD_WORLD)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(REPO / "chip_smoke.py"), "--sharded-ckpt-child",
+         str(SHARDED_CHILD_WORLD), str(r), str(port), str(directory),
+         str(outs[r])], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(SHARDED_CHILD_WORLD)]
+    logs = []
+    try:
+        for r, p in enumerate(procs):
+            left = SHARDED_TIMEOUT_S - (time.perf_counter() - t0)
+            try:
+                logs.append(p.communicate(timeout=max(left, 1))[0])
+            except subprocess.TimeoutExpired:
+                raise SmokeFailure(f"sharded_ckpt: child {r} timed out")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        check(p.returncode == 0, f"sharded_ckpt: child {r} exited "
+              f"{p.returncode}:\n{logs[r][-3000:]}")
+    return {"dir": directory, "seconds": time.perf_counter() - t0,
+            "ranks": [json.loads(o.read_text()) for o in outs]}
+
+
+def sharded_ckpt_phase(hvd, device, smi: str, tmp: Path) -> dict:
+    """``TransformerConfig()`` uncut (bf16) with its Adam state after one
+    step, as DTensors over ``make_layout()`` at one rank:
+    ``ShardedTorchState.commit`` (ms, bytes), ``verify_step``, a fresh
+    state's ``sync`` (every leaf bitwise), ``ShardedCheckpointer.save`` /
+    ``restore`` alone; then 2 processes on cuda:0 save the transformer at
+    tp=2, each writing only its shards, and this process restores their
+    step onto its own layout, bitwise the global arrays."""
+    import torch
+
+    from horovod_tpu_torch import parallel as par
+    from horovod_tpu_torch.models import transformer as tfm
+
+    t_phase = time.perf_counter()
+    out = {"card": smi}
+    cfg = tfm.TransformerConfig()
+    layout = par.make_layout()
+    model = tfm.Transformer(cfg, layout, generator=_seeded(SEED),
+                            device=device)
+    opt = torch.optim.Adam(model.parameters(), lr=TFM_LR)
+    step = tfm.make_train_step(cfg, layout, opt)
+    float(step(model, _tfm_tokens(cfg, 2, device)))
+    params, adam = _tfm_state(cfg, layout, model, opt)
+    out["params"] = sum(p.numel() for p in model.parameters())
+
+    saved_env = os.environ.get("HVTPU_ELASTIC_STATE_DIR")
+    state_dir = tmp / "sharded_state"
+    os.environ["HVTPU_ELASTIC_STATE_DIR"] = str(state_dir)
+    try:
+        state = hvd.elastic.ShardedTorchState(params=params, adam=adam,
+                                              epoch=1)
+        _sync(device)
+        t = time.perf_counter()
+        state.commit()
+        out["commit_ms"] = (time.perf_counter() - t) * 1e3
+        out["commit_bytes"] = _dir_bytes(state_dir)
+        ckpt = hvd.ShardedCheckpointer(str(state_dir / "sharded"))
+        t = time.perf_counter()
+        ok = ckpt.verify_step(1)
+        out["verify_ms"] = (time.perf_counter() - t) * 1e3
+        check(ok, "sharded_ckpt: the commit does not verify")
+        fresh = hvd.elastic.ShardedTorchState(
+            params=_zeros_like_tree(params), adam=_zeros_like_tree(adam),
+            epoch=0)
+        _sync(device)
+        t = time.perf_counter()
+        fresh.sync()
+        _sync(device)
+        out["sync_ms"] = (time.perf_counter() - t) * 1e3
+        check(fresh.epoch == 1 and _tree_same_bits(fresh.params, params)
+              and _tree_same_bits(fresh.adam, adam),
+              "sharded_ckpt: sync did not restore every leaf bitwise")
+        check(all(t.to_local().device == device
+                  for t in tfm.flatten(fresh.params).values()),
+              "sharded_ckpt: a restored shard is off the card")
+    finally:
+        if saved_env is None:
+            os.environ.pop("HVTPU_ELASTIC_STATE_DIR", None)
+        else:
+            os.environ["HVTPU_ELASTIC_STATE_DIR"] = saved_env
+
+    tree = {"params": params, "adam": adam}
+    alone = hvd.ShardedCheckpointer(str(tmp / "sharded_alone"))
+    _sync(device)
+    t = time.perf_counter()
+    alone.save(1, tree)
+    out["save_ms"] = (time.perf_counter() - t) * 1e3
+    out["save_bytes"] = _dir_bytes(tmp / "sharded_alone")
+    template = _zeros_like_tree(tree)
+    _sync(device)
+    t = time.perf_counter()
+    got = alone.restore(template, step=1)
+    _sync(device)
+    out["restore_ms"] = (time.perf_counter() - t) * 1e3
+    check(_tree_same_bits(got, tree),
+          "sharded_ckpt: restore is not bitwise the saved tree")
+    del model, opt, step, state, fresh, got, template, tree, params, adam
+    torch.cuda.empty_cache()
+
+    children = _sharded_children(tmp)
+    ranks = children["ranks"]
+    check(all(r["device"].startswith("cuda") for r in ranks),
+          f"sharded_ckpt: a child's shards are off the card {ranks}")
+    glob = tfm.init_params(cfg, _seeded(SEED))
+    like = tfm.global_params({n: torch.zeros_like(t, device=device)
+                              for n, t in tfm.flatten(glob).items()},
+                             cfg, layout)
+    t = time.perf_counter()
+    back = hvd.ShardedCheckpointer(str(children["dir"])).restore(
+        {"params": like}, step=1)["params"]
+    _sync(device)
+    restore_ms = (time.perf_counter() - t) * 1e3
+    got = tfm.local_params(back)
+    check(all(same_bits(got[n].cpu(), t)
+              for n, t in tfm.flatten(glob).items()),
+          "sharded_ckpt: the tp=2 step restored at one rank is not the "
+          "global arrays")
+    total = sum(r["piece_bytes"] for r in ranks)
+    want = sum(t.numel() * t.element_size()
+               for t in tfm.flatten(glob).values())
+    out["tp2"] = {"ranks": ranks, "seconds": children["seconds"],
+                  "piece_bytes_total": total, "array_bytes": want,
+                  "restore_one_rank_ms": restore_ms}
+    # each replica once: the pieces hold the arrays and .npy headers alone
+    check(want <= total < want + 256 * sum(r["files"] for r in ranks),
+          f"sharded_ckpt: the ranks wrote {total} bytes of pieces for "
+          f"{want} bytes of arrays")
+    out["seconds"] = time.perf_counter() - t_phase
+    log("sharded_ckpt " + json.dumps(out))
+    return out
+
+
 # -- phase 7: the ring collectives A4/A5/A6 over 8 virtual ranks -----------
 
 # -- the observability planes on the training step --------------------------
@@ -4507,6 +5170,8 @@ def main() -> int:
         return elastic_child()
     if sys.argv[1:2] == ["--ring-ipc-child"]:
         return ring_ipc_child(sys.argv[2:])
+    if sys.argv[1:2] == ["--sharded-ckpt-child"]:
+        return sharded_child(sys.argv[2:])
     import threading
 
     import horovod_tpu_torch as hvd
@@ -4570,6 +5235,8 @@ def main() -> int:
         adasum_phase(hvd, device, model, x, y)
         spmd_phase(hvd, device, model, opt, x, y, smi)
         transformer_phase(hvd, device, smi)
+        models = models_phase(hvd, device, smi)
+        sharded_ckpt_phase(hvd, device, smi, tmp)
         stall_line = stall_phase(hvd, device, model, opt, x, y, smi, tmp)
         faults_phase(hvd, device, model, opt, x, y, smi)
         obs = obs_phase(hvd, device, model, opt, x, y, smi, tmp)
@@ -4618,6 +5285,11 @@ def main() -> int:
         # started them
         "launcher_launches": elastic["a1_launches_by_launcher"],
         "elastic_launches_per_step": elastic["a1_launches_per_step"],
+        # the models phase: each model's A1 launches a step
+        "models_launches_per_step": {
+            name: r["a1_launches_per_step"] for name, r in
+            list(models["trio"].items()) + list(models["small"].items())
+            if "a1_launches_per_step" in r},
         "max_abs_err": kern["max_abs_err"],
         "ms": pre["ms"],
         "plain_ms": pre["plain_ms"],

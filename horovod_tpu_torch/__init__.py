@@ -10,7 +10,9 @@ The package root is the ``hvd`` surface (the names of
 ``horovod_tpu_torch.torch``) and the names of the reference's root that
 are not torch's: the meshes (one device a rank), the collectives over a
 mesh axis (``spmd``), ``allreduce_gradients``,
-``ShardedDistributedOptimizer``, ``Config``, ``ReduceOp`` and ``data``::
+``ShardedDistributedOptimizer``, ``ShardedCheckpointer`` (every process
+writes its shards of a tree of ``DTensor``s), ``Config``, ``ReduceOp``
+and ``data``::
 
     import horovod_tpu_torch as hvd
     hvd.init()
@@ -31,6 +33,7 @@ from .torch import *  # noqa: F401,F403
 from .torch import __all__ as _torch_all
 from . import comm, core, data, elastic  # noqa: F401  (hvd.elastic)
 from .api.optimizer import ShardedDistributedOptimizer, allreduce_gradients
+from .api.sharded_checkpoint import ShardedCheckpointer
 from .comm import spmd  # noqa: F401
 from .comm.reduce_ops import ReduceOp
 from .core.basics import ici_built
@@ -49,6 +52,7 @@ __all__ = _torch_all + [
     "__version__",
     "num_devices", "local_devices", "world_mesh", "hierarchical_mesh",
     "mesh", "spmd", "allreduce_gradients", "ShardedDistributedOptimizer",
+    "ShardedCheckpointer",
     "ReduceOp", "Config", "HorovodTpuError", "ici_built",
     "comm", "core", "data",
 ]

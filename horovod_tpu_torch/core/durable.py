@@ -306,6 +306,13 @@ def verify_snapshot(path: str) -> bool:
     return True
 
 
+def note_verify_failure() -> None:
+    """Count an integrity rejection found outside this module (the
+    sharded checkpointer verifies its own piece manifests) in the same
+    ``hvtpu_ckpt_verify_failures_total`` family."""
+    _M_VERIFY_FAIL.inc()
+
+
 def latest_verified(root: str) -> Optional[int]:
     """Highest seq under ``root`` that passes full verification —
     walking DOWN through damaged/torn commits to the last good one."""

@@ -32,7 +32,17 @@ fence (exit 89), and exits 0 once an incarnation ends cleanly.  ``JaxState`` and
 ``TorchState`` and ``ElasticSampler`` (``horovod_tpu_torch.torch.elastic``,
 also exported here, so ``hvd.elastic`` is the same surface from the
 package root and from ``horovod_tpu_torch.torch``) and ``ObjectState``
-carry tensors here.
+carry tensors here, and ``ShardedTorchState`` carries global arrays
+sharded across processes (``DTensor``s), committed by every process
+through ``api/sharded_checkpoint.py`` and resharded onto the new world's
+layouts at ``sync()``::
+
+    from horovod_tpu_torch.models import transformer as tfm
+
+    state = hvd.elastic.ShardedTorchState(
+        params=tfm.global_params(model.state_dict(), cfg, layout), step=0)
+    state.sync()                # after a restart: onto this layout
+    model.load_state_dict(tfm.local_params(state.params))
 """
 
 from ..core.exceptions import (  # noqa: F401
@@ -40,11 +50,12 @@ from ..core.exceptions import (  # noqa: F401
     HorovodInternalError,
     HostsUpdatedInterrupt,
 )
-from .state import ObjectState, State  # noqa: F401
+from .state import ObjectState, ShardedTorchState, State  # noqa: F401
 from .worker import RESET_EXIT_CODE, run  # noqa: F401
 
 __all__ = [
-    "State", "ObjectState", "TorchState", "ElasticSampler", "run",
+    "State", "ObjectState", "TorchState", "ShardedTorchState",
+    "ElasticSampler", "run",
     "RESET_EXIT_CODE", "HorovodInternalError", "HostsUpdatedInterrupt",
     "DrainInterrupt",
 ]

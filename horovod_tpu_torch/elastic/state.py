@@ -278,8 +278,11 @@ class ObjectState(State):
             if hasattr(v, "hvtpu_state_dict"):
                 out[k] = copy.deepcopy(v.hvtpu_state_dict())
             else:
-                out[k] = copy.deepcopy(v)
+                out[k] = self._copy(v)
         return out
+
+    #: How a tracked value is copied into a snapshot.
+    _copy = staticmethod(copy.deepcopy)
 
     def _apply(self, payload: Dict[str, Any]):
         for k, v in payload.items():
@@ -407,3 +410,192 @@ class ObjectState(State):
 
     def _from_disk_payload(self, payload):
         self._apply(payload)
+
+
+def _holds_dtensor(tree) -> bool:
+    from ..api.sharded_checkpoint import _is_dtensor, leaves_with_path
+
+    return any(_is_dtensor(leaf) for _, leaf in leaves_with_path(tree))
+
+
+def _copy_tree(tree):
+    """A private copy of ``tree``: each DTensor's local block cloned where
+    it lies (``copy.deepcopy`` of a DTensor over a view of a larger
+    storage fails), any other leaf deep-copied."""
+    from torch.distributed.tensor import DTensor
+
+    from ..api.sharded_checkpoint import _is_dtensor, map_with_path
+
+    def leaf(_path, x):
+        if _is_dtensor(x):
+            return DTensor.from_local(
+                x.to_local().detach().clone(), x.device_mesh, x.placements,
+                run_check=False, shape=x.shape, stride=x.stride())
+        return copy.deepcopy(x)
+
+    return map_with_path(leaf, tree)
+
+
+#: Payload file of a sharded commit's replicated half.
+SHARDED_REST_FILE = "sharded_rest.pt"
+
+
+class ShardedTorchState(ObjectState):
+    """Elastic state whose tracked attributes may hold GLOBAL arrays
+    sharded across processes: trees (dicts, lists, tuples) of
+    ``DTensor``s, e.g. the transformer's shards as
+    ``models.transformer.global_params`` wraps them.
+
+    Counterpart of the reference's ``ShardedJaxState``.  ``ObjectState``'s
+    durable path pickles rank 0's values, which would overwrite every
+    other rank's shards with rank 0's; here the durable commit of an
+    attribute holding a DTensor rides
+    :class:`~horovod_tpu_torch.api.sharded_checkpoint.ShardedCheckpointer`
+    (every process writes its own shards), and ``sync()`` after a
+    restart reassembles each leaf onto the NEW world's meshes and
+    placements, taken from the freshly made attribute values, which serve
+    as the restore template.  Other attributes keep the rank-0 payload
+    and broadcast.
+
+    The commit is collective (every rank commits at the same boundary,
+    the elastic contract already); the newest ``HVTPU_CKPT_KEEP``
+    commits are kept.
+    """
+
+    # every process writes its shards: the durable save is collective,
+    # so the commit policy may not promote it at a pending resize (the
+    # SIGUSR1 flag is not rank-synchronous)
+    _DURABLE_IS_COLLECTIVE = True
+
+    _copy = staticmethod(_copy_tree)
+
+    def _sharded_dir(self) -> Optional[str]:
+        d = _state_dir()
+        return os.path.join(d, "sharded") if d else None
+
+    def _split(self, payload: Dict[str, Any]):
+        """(array_attrs, plain_attrs): an attribute whose tree holds a
+        DTensor goes through the sharded checkpointer (its host-leaf
+        path covers mixed trees); the rest ride rank 0's payload."""
+        arrays, rest = {}, {}
+        for k, v in payload.items():
+            (arrays if _holds_dtensor(v) else rest)[k] = v
+        return arrays, rest
+
+    def save(self):
+        from ..api.sharded_checkpoint import ShardedCheckpointer
+        from ..torch import functions
+
+        self.save_to_memory()
+        d = self._sharded_dir()
+        if not d:
+            return
+        st = core_state.require_init("elastic sharded commit")
+        # split the snapshot save_to_memory already copied: a second
+        # _capture() would duplicate every shard at the boundary (the
+        # checkpointer only reads, so sharing the snapshot is safe)
+        arrays, rest = self._split(self._saved)
+        ckpt = ShardedCheckpointer(d)
+        # rank 0 ALONE picks the step and broadcasts it: a per-rank
+        # latest_step() is a directory listing of a shared filesystem,
+        # which can differ across hosts, and shards would then land in
+        # different step directories
+        step = (ckpt.latest_step() or 0) + 1 if st.rank == 0 else None
+        if st.size > 1:
+            step = functions.broadcast_object(step, root_rank=0)
+        ckpt.save(step, arrays)
+        if st.rank == 0:
+            # the replicated half commits through the durable protocol as
+            # snapshot seq == step; its manifest-last rename is what makes
+            # step N restorable (the shard write above already ended in a
+            # barrier, so this commit is never ahead of its pieces)
+            payload = api_checkpoint.dumps({
+                "step": step, "rest": api_checkpoint.to_host(rest),
+                "array_attrs": sorted(arrays)})
+            core_durable.write_snapshot(_state_dir(), step,
+                                        {SHARDED_REST_FILE: payload})
+            # retention: drop shard steps beyond the HVTPU_CKPT_KEEP
+            # window (write_snapshot already collected the rest commits)
+            import shutil
+
+            for s in ckpt.all_steps()[:-core_durable._keep()]:
+                shutil.rmtree(ckpt._step_dir(s), ignore_errors=True)
+
+    def _local_best_sharded(self, d: str) -> Optional[int]:
+        """Highest step whose replicated commit AND this rank's view of
+        the shards both verify: each rank vouches for what it can read,
+        which is what the quorum needs to agree on a step restorable
+        everywhere."""
+        from ..api.sharded_checkpoint import ShardedCheckpointer
+
+        ckpt = ShardedCheckpointer(d)
+        root = _state_dir()
+        for seq in reversed(core_durable.list_snapshots(root)):
+            if not core_durable.verify_snapshot(
+                    core_durable.snapshot_path(root, seq)):
+                continue
+            if ckpt.verify_step(seq):
+                return seq
+        return None
+
+    def sync(self):
+        from ..api.sharded_checkpoint import ShardedCheckpointer
+
+        st = core_state.require_init("elastic state sync")
+        d = self._sharded_dir()
+        # every rank verifies its own view and votes; rank 0 ALONE loads
+        # the agreed step and broadcasts the decision, so no rank takes
+        # a branch its peers do not (the restore is collective-free, but
+        # the broadcast below is not)
+        agreed = None
+        if d and not self._synced:
+            _flush_durable_writes()
+            agreed = self._quorum_agree(self._local_best_sharded(d))
+        disk = None
+        if st.rank == 0 and agreed is not None:
+            files = core_durable.read_snapshot(_state_dir(), agreed)
+            disk = api_checkpoint.loads(files[SHARDED_REST_FILE], "cpu")
+        msg = _broadcast({"disk": disk})
+        disk = msg["disk"]
+        if disk is not None:
+            self._apply(api_checkpoint.to_device(disk["rest"], st.device))
+            # the current attribute values carry the NEW world's
+            # layouts: they are the restore template
+            arrays, _ = self._split(self._capture())
+            # every array attribute the saver committed must have a
+            # template, or it would silently keep its fresh values
+            missing = set(disk.get("array_attrs", [])) - set(arrays)
+            if missing:
+                raise ValueError(
+                    "ShardedTorchState.sync: committed array attributes "
+                    f"{sorted(missing)} have no DTensor template in the "
+                    "restarted state; construct them (DTensor.from_local "
+                    "on the new mesh) before sync()")
+            self._apply(ShardedCheckpointer(d).restore(
+                arrays, step=disk["step"]))
+        else:
+            # no durable commit: the plain attributes from rank 0; the
+            # global arrays are the same by SPMD construction
+            _, rest = self._split(self._capture())
+            self._apply(_broadcast(rest))
+        self.save_to_memory()
+        self._synced = True
+
+    def rebroadcast(self):
+        """Plain attributes only: a DTensor's shards differ by rank, and
+        a reset callback that rebuilt one did so collectively."""
+        core_state.require_init("elastic state rebroadcast")
+        _, rest = self._split(self._capture())
+        self._apply(_broadcast(rest))
+        self.save_to_memory()
+
+    def audit(self, label: str = "elastic.state") -> Optional[dict]:
+        """Audit the REPLICATED half only: each rank legitimately holds a
+        different shard of a global array, so cross-rank digests of
+        shards would be a false divergence."""
+        from ..core import audit as core_audit
+
+        if core_audit.audit_every() <= 0:
+            return None
+        _, rest = self._split(self._capture())
+        return core_audit.verify(rest, label)

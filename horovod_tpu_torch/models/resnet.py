@@ -1,27 +1,33 @@
-"""ResNet v1.5 (bottleneck) in PyTorch.
+"""ResNet v1.5 in PyTorch.
 
 Counterpart of ``horovod_tpu/models/resnet.py`` (``ResNet`` with
-``BottleneckBlock``) and ``horovod_tpu/models/tpu_norm.py``
-(``TpuBatchNorm``), computing the same function:
+``BasicBlock`` or ``BottleneckBlock``, ResNet-18/34/50/101/152), computing
+the same function:
 
 * The public input is NHWC, as in JAX; inside, activations are NCHW views
-  in channels-last memory.
-* ``padding="SAME"`` is flax's: the total padding ``(out-1)*s + k - in``
-  splits as ``(total//2, total - total//2)``, so the 7x7/2 stem on 224
-  pads (2, 3) and a 3x3/2 conv on an even size pads (0, 1); max-pool pads
-  with -inf.  PyTorch's symmetric padding computes a different function,
-  so asymmetric cases pad explicitly.
-* ``BatchNorm`` is ``TpuBatchNorm``: float32 statistics over the
-  flattened (N*H*W, C) view, the running variance from the *biased*
-  batch variance, momentum 0.9 in the flax sense, then ``x*a + b`` in
-  the compute dtype with (a, b) folded in float32.
-* Parameters are float32 and cast to ``dtype`` per call (explicit casts,
-  not autocast, so bfloat16 rounds where JAX rounds); the Dense layer
+  in channels-last memory.  Convolutions pad flax's ``SAME``
+  (``models/_layers.py``): the 7x7/2 stem on 224 pads (2, 3), a 3x3/2
+  conv on an even size (0, 1); the stem's max pool pads with -inf.
+* The norm is ``TpuBatchNorm`` (``models/tpu_norm.py``) at momentum 0.9,
+  epsilon 1e-5; the last norm scale of each block starts at zero.
+  ``bn_axis_name`` (with ``mesh=``) synchronizes its moments over that
+  axis in training.
+* ``stem="s2d"``: space-to-depth of 2x2 blocks (12 channels), then a
+  4x4/1 conv in place of the 7x7/2 one (``_space_to_depth``).
+* ``remat=True``: each block runs under ``torch.utils.checkpoint`` with a
+  selective policy that saves the convolutions' outputs and recomputes
+  everything else (the norms, the ReLUs, the sums) in the backward pass:
+  the reference's ``save_only_these_names("conv_out")``.  No convolution
+  runs twice; the recomputation leaves the running stats alone; the
+  function and its gradients are bitwise those of ``remat=False``.  As
+  in flax, whose ``nn.remat`` renames the block class, the blocks are
+  then named ``CheckpointBottleneckBlock_k`` / ``CheckpointBasicBlock_k``.
+* Parameters are float32 and cast to ``dtype`` per call; the Dense layer
   and the logits are float32.
-* The last BatchNorm scale of each block starts at zero.
-* Submodule names follow the flax scope names (``conv_init``,
-  ``BottleneckBlock_3.Conv_1``, ``TpuBatchNorm_2``, ``Dense_0``...), so
-  ``weights.resnet_params_from_jax`` maps parameters one to one.
+* Submodule names follow the flax scope names (``conv_init``, ``bn_init``,
+  ``BottleneckBlock_3.Conv_1``, ``BasicBlock_0.TpuBatchNorm_1``,
+  ``Dense_0``...), so ``weights.params_from_jax`` maps parameters one to
+  one.
 
 Convolutions are cuDNN calls, as XLA computed them outside any Pallas
 kernel in the JAX package.
@@ -30,186 +36,211 @@ kernel in the JAX package.
 from __future__ import annotations
 
 import functools
-import math
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-# flax lecun_normal: truncated normal at +-2 std, rescaled to unit variance
-_TRUNC_STD = 0.87962566103423978
+from ._layers import (  # noqa: F401  (same_pads: the tests' name)
+    Conv,
+    Dense,
+    max_pool,
+    nhwc_to_nchw,
+    reset_all,
+    same_pads as _same_pads,
+)
+from .tpu_norm import BatchNorm, TpuBatchNorm  # noqa: F401
+
 # the flax ResNet's BatchNorm settings (horovod_tpu/models/resnet.py:135)
 BN_MOMENTUM = 0.9
 BN_EPSILON = 1e-5
 
 
-def _same_pads(size: int, k: int, s: int) -> Tuple[int, int]:
-    out = -(-size // s)
-    total = max((out - 1) * s + k - size, 0)
-    return total // 2, total - total // 2
+def _space_to_depth(x: torch.Tensor, block: int = 2) -> torch.Tensor:
+    """NHWC space-to-depth: (N, H, W, C) -> (N, H/b, W/b, C*b*b), the
+    channels in (row in block, column in block, channel) order."""
+    n, h, w, c = x.shape
+    x = x.reshape(n, h // block, block, w // block, block, c)
+    x = x.permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(n, h // block, w // block, c * block * block)
 
 
-def _lecun_normal_(w: torch.Tensor, fan_in: int,
-                   generator: Optional[torch.Generator]) -> None:
-    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
-    cpu = torch.empty(w.shape, dtype=torch.float32)
-    nn.init.trunc_normal_(cpu, std=std, a=-2 * std, b=2 * std,
-                          generator=generator)
-    with torch.no_grad():
-        w.copy_(cpu)
+class _Block(nn.Module):
+    """What both blocks share: the norm factory and the projection."""
 
-
-class Conv(nn.Module):
-    """Bias-free conv with flax ``padding="SAME"``; float32 OIHW weight
-    cast to ``dtype`` per call."""
-
-    def __init__(self, in_ch: int, out_ch: int, kernel: int,
-                 stride: int = 1, dtype: torch.dtype = torch.bfloat16,
-                 device=None):
+    def __init__(self, dtype, device, norm_kw):
         super().__init__()
-        self.kernel, self.stride, self.dtype = kernel, stride, dtype
-        self.weight = nn.Parameter(torch.empty(
-            out_ch, in_ch, kernel, kernel, dtype=torch.float32,
-            device=device))
+        self._kw = dict(dtype=dtype, device=device)
+        self._norm_kw = norm_kw
 
-    def reset_parameters(self, generator=None):
-        fan_in = self.weight.shape[1] * self.kernel * self.kernel
-        _lecun_normal_(self.weight, fan_in, generator)
+    def _norm(self, features: int, zero_init: bool = False) -> TpuBatchNorm:
+        return TpuBatchNorm(features, zero_init, **self._kw, **self._norm_kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        k, s = self.kernel, self.stride
-        h0, h1 = _same_pads(x.shape[2], k, s)
-        w0, w1 = _same_pads(x.shape[3], k, s)
-        w = self.weight.to(self.dtype)
-        if h0 == h1 and w0 == w1:
-            return F.conv2d(x, w, stride=s, padding=(h0, w0))
-        return F.conv2d(F.pad(x, (w0, w1, h0, h1)), w, stride=s)
-
-
-class BatchNorm(nn.Module):
-    """``TpuBatchNorm`` over the channel axis of an NCHW tensor."""
-
-    def __init__(self, features: int, zero_init: bool = False,
-                 dtype: torch.dtype = torch.bfloat16, device=None):
-        super().__init__()
-        self.dtype, self.zero_init = dtype, zero_init
-        f32 = dict(dtype=torch.float32, device=device)
-        self.scale = nn.Parameter(torch.empty(features, **f32))
-        self.bias = nn.Parameter(torch.empty(features, **f32))
-        self.register_buffer("mean", torch.zeros(features, **f32))
-        self.register_buffer("var", torch.ones(features, **f32))
-
-    def reset_parameters(self, generator=None):
-        del generator
-        with torch.no_grad():
-            self.scale.fill_(0.0 if self.zero_init else 1.0)
-            self.bias.zero_()
-            self.mean.zero_()
-            self.var.fill_(1.0)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        c = x.shape[1]
-        if self.training:
-            x2 = x.permute(0, 2, 3, 1).reshape(-1, c)
-            mean = x2.mean(dim=0, dtype=torch.float32)
-            mean_sq = x2.float().square().mean(dim=0)
-            var = torch.clamp(mean_sq - mean.square(), min=0.0)
-            with torch.no_grad():
-                m = BN_MOMENTUM
-                self.mean.copy_(m * self.mean + (1.0 - m) * mean)
-                self.var.copy_(m * self.var + (1.0 - m) * var)
-        else:
-            mean, var = self.mean, self.var
-        inv = torch.rsqrt(var + BN_EPSILON) * self.scale
-        shift = -mean * inv + self.bias
-        a = inv.to(self.dtype).view(1, c, 1, 1)
-        b = shift.to(self.dtype).view(1, c, 1, 1)
-        return (x * a + b).to(self.dtype)
-
-
-class BottleneckBlock(nn.Module):
-    """ResNet v1.5 bottleneck (stride on the 3x3, as in torchvision)."""
-
-    def __init__(self, in_ch: int, filters: int, stride: int,
-                 dtype: torch.dtype = torch.bfloat16, device=None):
-        super().__init__()
-        kw = dict(dtype=dtype, device=device)
-        self.Conv_0 = Conv(in_ch, filters, 1, **kw)
-        self.TpuBatchNorm_0 = BatchNorm(filters, **kw)
-        self.Conv_1 = Conv(filters, filters, 3, stride, **kw)
-        self.TpuBatchNorm_1 = BatchNorm(filters, **kw)
-        self.Conv_2 = Conv(filters, filters * 4, 1, **kw)
-        self.TpuBatchNorm_2 = BatchNorm(filters * 4, zero_init=True, **kw)
-        if stride != 1 or in_ch != filters * 4:
-            self.conv_proj = Conv(in_ch, filters * 4, 1, stride, **kw)
-            self.norm_proj = BatchNorm(filters * 4, **kw)
+    def _project(self, in_ch: int, out_ch: int, stride: int) -> None:
+        if stride != 1 or in_ch != out_ch:
+            self.conv_proj = Conv(in_ch, out_ch, 1, stride, **self._kw)
+            self.norm_proj = self._norm(out_ch)
         else:
             self.conv_proj = self.norm_proj = None
+
+    def _residual(self, x: torch.Tensor) -> torch.Tensor:
+        if self.conv_proj is None:
+            return x
+        return self.norm_proj(self.conv_proj(x))
+
+
+class BottleneckBlock(_Block):
+    """ResNet v1.5 bottleneck (stride on the 3x3, as in torchvision)."""
+
+    expansion = 4
+
+    def __init__(self, in_ch: int, filters: int, stride: int,
+                 dtype: torch.dtype = torch.bfloat16, device=None,
+                 norm_kw: Optional[dict] = None):
+        super().__init__(dtype, device, norm_kw or {})
+        kw = self._kw
+        self.Conv_0 = Conv(in_ch, filters, 1, **kw)
+        self.TpuBatchNorm_0 = self._norm(filters)
+        self.Conv_1 = Conv(filters, filters, 3, stride, **kw)
+        self.TpuBatchNorm_1 = self._norm(filters)
+        self.Conv_2 = Conv(filters, filters * 4, 1, **kw)
+        self.TpuBatchNorm_2 = self._norm(filters * 4, zero_init=True)
+        self._project(in_ch, filters * 4, stride)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.relu(self.TpuBatchNorm_0(self.Conv_0(x)))
         y = F.relu(self.TpuBatchNorm_1(self.Conv_1(y)))
         y = self.TpuBatchNorm_2(self.Conv_2(y))
-        residual = x
-        if self.conv_proj is not None:
-            residual = self.norm_proj(self.conv_proj(x))
-        return F.relu(residual + y)
+        return F.relu(self._residual(x) + y)
 
 
-def _max_pool_same(x: torch.Tensor, k: int = 3, s: int = 2) -> torch.Tensor:
-    h0, h1 = _same_pads(x.shape[2], k, s)
-    w0, w1 = _same_pads(x.shape[3], k, s)
-    if h0 or h1 or w0 or w1:
-        x = F.pad(x, (w0, w1, h0, h1), value=float("-inf"))
-    return F.max_pool2d(x, k, s)
+class BasicBlock(_Block):
+    """ResNet basic block: two 3x3 convs (stride on the first)."""
+
+    expansion = 1
+
+    def __init__(self, in_ch: int, filters: int, stride: int,
+                 dtype: torch.dtype = torch.bfloat16, device=None,
+                 norm_kw: Optional[dict] = None):
+        super().__init__(dtype, device, norm_kw or {})
+        kw = self._kw
+        self.Conv_0 = Conv(in_ch, filters, 3, stride, **kw)
+        self.TpuBatchNorm_0 = self._norm(filters)
+        self.Conv_1 = Conv(filters, filters, 3, **kw)
+        self.TpuBatchNorm_1 = self._norm(filters, zero_init=True)
+        self._project(in_ch, filters, stride)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(self.TpuBatchNorm_0(self.Conv_0(x)))
+        y = self.TpuBatchNorm_1(self.Conv_1(y))
+        return F.relu(self._residual(x) + y)
+
+
+def _conv_out_policy(ctx, op, *args, **kwargs):
+    """Save what a convolution returns, recompute the rest."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op is torch.ops.aten.convolution.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_block(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``block(x)`` under the ``conv_out`` policy.  The running stats are
+    updated by the first run only: the recomputation in the backward pass
+    runs the block again."""
+    from torch.utils.checkpoint import (
+        checkpoint,
+        create_selective_checkpoint_contexts,
+    )
+
+    norms = [m for m in block.modules() if isinstance(m, TpuBatchNorm)]
+    runs = [0]
+
+    def run(inp):
+        first = runs[0] == 0
+        runs[0] += 1
+        for m in norms:
+            m.update_running = first
+        try:
+            return block(inp)
+        finally:
+            for m in norms:
+                m.update_running = True
+
+    return checkpoint(run, x, use_reentrant=False,
+                      context_fn=functools.partial(
+                          create_selective_checkpoint_contexts,
+                          _conv_out_policy))
 
 
 class ResNet(nn.Module):
-    """ResNet v1.5 with bottleneck blocks; input NHWC, logits float32."""
+    """ResNet v1.5; input NHWC, logits float32.
+
+    ``block_cls`` is :class:`BottleneckBlock` (the default) or
+    :class:`BasicBlock`; ``stem`` ``"conv7"`` or ``"s2d"``; ``remat``
+    recomputes the norm and activation chain from saved conv outputs;
+    ``bn_axis_name`` (with ``mesh``) synchronizes BatchNorm over that
+    mesh axis in training.  ``device="meta"`` makes the shapes alone.
+    """
 
     def __init__(self, stage_sizes: Sequence[int], num_classes: int = 1000,
                  num_filters: int = 64, dtype: torch.dtype = torch.bfloat16,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 device=None, generator: Optional[torch.Generator] = None,
+                 *, block_cls=BottleneckBlock, stem: str = "conv7",
+                 remat: bool = False, bn_axis_name: Optional[str] = None,
+                 mesh=None):
         super().__init__()
-        self.dtype = dtype
+        if stem not in ("conv7", "s2d"):
+            raise ValueError(f"stem {stem!r}: 'conv7' or 's2d'")
+        self.dtype, self.stem, self.remat = dtype, stem, remat
         kw = dict(dtype=dtype, device=device)
-        self.conv_init = Conv(3, num_filters, 7, 2, **kw)
-        self.bn_init = BatchNorm(num_filters, **kw)
+        norm_kw = dict(momentum=BN_MOMENTUM, epsilon=BN_EPSILON,
+                       axis_name=bn_axis_name, mesh=mesh)
+        if stem == "s2d":
+            self.conv_init = Conv(12, num_filters, 4, 1, **kw)
+        else:
+            self.conv_init = Conv(3, num_filters, 7, 2, **kw)
+        self.bn_init = TpuBatchNorm(num_filters, **kw, **norm_kw)
         self.block_names = []
+        # flax's nn.remat names its class Checkpoint<Block>, and the
+        # blocks' scopes with it
+        prefix = "Checkpoint" if remat else ""
         in_ch = num_filters
         for i, block_size in enumerate(stage_sizes):
             filters = num_filters * 2 ** i
             for j in range(block_size):
                 stride = 2 if i > 0 and j == 0 else 1
-                name = f"BottleneckBlock_{len(self.block_names)}"
-                self.add_module(name, BottleneckBlock(in_ch, filters,
-                                                      stride, **kw))
+                name = f"{prefix}{block_cls.__name__}_{len(self.block_names)}"
+                self.add_module(name, block_cls(in_ch, filters, stride,
+                                                norm_kw=norm_kw, **kw))
                 self.block_names.append(name)
-                in_ch = filters * 4
-        self.Dense_0 = nn.Linear(in_ch, num_classes, dtype=torch.float32,
-                                 device=device)
+                in_ch = filters * block_cls.expansion
+        self.Dense_0 = Dense(in_ch, num_classes, device=device)
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        for m in self.modules():
-            if isinstance(m, (Conv, BatchNorm)):
-                m.reset_parameters(generator)
-        _lecun_normal_(self.Dense_0.weight, self.Dense_0.in_features,
-                       generator)
-        with torch.no_grad():
-            self.Dense_0.bias.zero_()
+        reset_all(self, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # NHWC -> an NCHW view in channels-last memory
-        x = x.to(self.dtype).permute(0, 3, 1, 2)
-        x = x.contiguous(memory_format=torch.channels_last)
+        if self.stem == "s2d":
+            x = _space_to_depth(x, 2)
+        x = nhwc_to_nchw(x, self.dtype)
         x = F.relu(self.bn_init(self.conv_init(x)))
-        x = _max_pool_same(x)
+        x = max_pool(x, 3, 2, "SAME")
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for name in self.block_names:
-            x = getattr(self, name)(x)
+            block = getattr(self, name)
+            x = _remat_block(block, x) if remat else block(x)
         x = x.mean(dim=(2, 3), dtype=torch.float32).to(self.dtype)
-        return self.Dense_0(x.float())
+        return self.Dense_0(x)
 
 
+ResNet18 = functools.partial(ResNet, stage_sizes=[2, 2, 2, 2],
+                             block_cls=BasicBlock)
+ResNet34 = functools.partial(ResNet, stage_sizes=[3, 4, 6, 3],
+                             block_cls=BasicBlock)
 ResNet50 = functools.partial(ResNet, stage_sizes=[3, 4, 6, 3])
+ResNet101 = functools.partial(ResNet, stage_sizes=[3, 4, 23, 3])
+ResNet152 = functools.partial(ResNet, stage_sizes=[3, 8, 36, 3])

@@ -44,6 +44,10 @@ the float32-softmax one, whose rounding the reference fixes.
 :func:`make_train_step` does the three.  One helper slices a global
 tree by the specs (:func:`shard_params`): the model's initialisation,
 ``weights.transformer_params_from_jax`` and the tests use it.
+:func:`global_params` wraps this rank's shards as ``DTensor``s of the
+global arrays by the same specs (the tree that the sharded checkpoint
+commits, every process its own shards), and :func:`local_params` takes
+the blocks back.
 """
 
 from __future__ import annotations
@@ -205,6 +209,52 @@ def shard_params(params: Tree, cfg: TransformerConfig,
     specs = flatten(param_specs(cfg, layout))
     return {name: _local_slice(x, specs[name], layout)
             for name, x in flatten(params).items()}
+
+
+def _placements(spec, layout: MeshLayout):
+    """``spec`` as DTensor placements, one a mesh dim: ``Shard(d)`` where
+    dim ``d`` names the axis, else ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    out = []
+    for axis in layout.shape:
+        dims = [d for d, a in enumerate(spec)
+                if a == axis or (isinstance(a, tuple) and axis in a)]
+        out.append(Shard(dims[0]) if dims else Replicate())
+    return out
+
+
+def global_params(local: Dict[str, Any], cfg: TransformerConfig,
+                  layout: MeshLayout) -> Tree:
+    """This rank's shards (flat names, as :func:`shard_params` and the
+    module's ``state_dict`` give them) as ``DTensor``s of the global
+    arrays, by :func:`param_specs`: the tree a
+    ``ShardedCheckpointer`` / ``ShardedTorchState`` commits.  Any flat
+    dict of tensors shaped like the shards wraps the same way (Adam's
+    ``exp_avg`` and ``exp_avg_sq`` by parameter name).  The blocks are
+    shared, not copied."""
+    from torch.distributed.tensor import DTensor
+
+    specs = flatten(param_specs(cfg, layout))
+    out = {}
+    for name, x in local.items():
+        spec = specs[name]
+        shape = list(x.shape)
+        for d, axis in enumerate(spec):
+            for a in (axis if isinstance(axis, tuple) else (axis,)):
+                if a is not None:
+                    shape[d] *= layout.shape[a]
+        out[name] = DTensor.from_local(
+            x.detach(), layout.mesh, _placements(spec, layout),
+            run_check=False, shape=torch.Size(shape),
+            stride=torch.empty(shape, device="meta").stride())
+    return unflatten(out)
+
+
+def local_params(tree: Tree) -> Dict[str, Any]:
+    """The inverse of :func:`global_params`: each ``DTensor``'s block of
+    this rank, by flat name (a ``load_state_dict`` argument)."""
+    return {name: x.to_local() for name, x in flatten(tree).items()}
 
 
 def reduction_axes(spec, layout: MeshLayout) -> Tuple[str, ...]:

@@ -27,7 +27,7 @@ from ..core.exceptions import (  # noqa: F401
     HorovodInternalError,
     HostsUpdatedInterrupt,
 )
-from ..elastic.state import ObjectState, State  # noqa: F401
+from ..elastic.state import ObjectState, ShardedTorchState, State  # noqa: F401
 from ..elastic.worker import RESET_EXIT_CODE, run  # noqa: F401
 
 
@@ -145,7 +145,8 @@ class ElasticSampler(torch.utils.data.Sampler):
 
 
 __all__ = [
-    "State", "ObjectState", "TorchState", "ElasticSampler", "run",
+    "State", "ObjectState", "TorchState", "ShardedTorchState",
+    "ElasticSampler", "run",
     "RESET_EXIT_CODE", "HorovodInternalError", "HostsUpdatedInterrupt",
     "DrainInterrupt",
 ]

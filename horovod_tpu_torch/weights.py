@@ -1,12 +1,15 @@
 """Carry weights from the JAX models to the PyTorch port.
 
-``resnet_params_from_jax(params, batch_stats)`` takes the flax
-``params`` and ``batch_stats`` trees of ``horovod_tpu.models.ResNet`` as
-nested dicts of numpy arrays and returns a ``state_dict`` for
-``horovod_tpu_torch.models.ResNet``: conv kernels HWIO -> OIHW, the Dense
-kernel (in, out) -> (out, in), BatchNorm scale/bias/mean/var as they
-are.  The module names are the same on both sides, so the mapping is one
-to one.
+``params_from_jax(params, batch_stats=None)`` takes the flax ``params``
+and ``batch_stats`` trees of any of ``horovod_tpu.models``' CNNs and the
+MLP (``ResNet*``, ``VGG*``, ``InceptionV3``, ``MLP``) as nested dicts of
+numpy arrays and returns a ``state_dict`` for the port's model of the
+same name: conv kernels HWIO -> OIHW, Dense kernels (in, out) -> (out,
+in), biases and BatchNorm scale/bias/mean/var as they are.  The module
+names are the same on both sides, so the mapping is one to one.
+``resnet_params_from_jax``, ``inception_params_from_jax``,
+``vgg_params_from_jax`` and ``mlp_params_from_jax`` are its names for
+each model (VGG and the MLP have no ``batch_stats``).
 
 ``transformer_params_from_jax(params, cfg, layout)`` takes the global
 parameter tree of ``horovod_tpu.models.transformer`` and returns this
@@ -18,7 +21,7 @@ float32).  The arrays are plain numpy: nothing of JAX is imported here.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -39,9 +42,9 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
 
 
-def resnet_params_from_jax(params: Mapping[str, Any],
-                           batch_stats: Mapping[str, Any]
-                           ) -> Dict[str, torch.Tensor]:
+def params_from_jax(params: Mapping[str, Any],
+                    batch_stats: Optional[Mapping[str, Any]] = None
+                    ) -> Dict[str, torch.Tensor]:
     state = {}
     for path, value in _flatten(params).items():
         module, leaf = path.rsplit(".", 1)
@@ -54,12 +57,18 @@ def resnet_params_from_jax(params: Mapping[str, Any],
             state[path] = _tensor(a)
         else:
             raise ValueError(f"unexpected flax parameter {path} {a.shape}")
-    for path, value in _flatten(batch_stats).items():
+    for path, value in _flatten(batch_stats or {}).items():
         module, leaf = path.rsplit(".", 1)
         if leaf not in ("mean", "var"):
             raise ValueError(f"unexpected flax batch stat {path}")
         state[path] = _tensor(np.asarray(value))
     return state
+
+
+resnet_params_from_jax = params_from_jax
+inception_params_from_jax = params_from_jax
+vgg_params_from_jax = params_from_jax
+mlp_params_from_jax = params_from_jax
 
 
 def transformer_params_from_jax(params: Mapping[str, Any], cfg,

@@ -13,10 +13,7 @@ import horovod_tpu_torch as port
 from torch_port_util import no_leaked_reference  # noqa: F401  (autouse)
 
 # names of the reference's root that the port's root lacks, and why
-MISSING = {
-    "ShardedCheckpointer": "ported with the sharded checkpoint (ROADMAP "
-                           "Queue A item 9c)",
-}
+MISSING = {}
 # names both roots have that are not the same thing, and why
 DIFFERENT = {
     "Compression": "the torch frontend's codecs (none, fp16, bf16): the "
@@ -29,11 +26,7 @@ DIFFERENT = {
 
 
 # names of the reference's models that the port's models lack, and why
-MODELS_MISSING = {
-    name: "not ported yet (ROADMAP Queue A item 10, the other models)"
-    for name in ("InceptionV3", "VGG", "VGG16", "VGG19", "MLP", "ResNet18",
-                 "ResNet34", "ResNet101", "ResNet152")
-}
+MODELS_MISSING = {}
 
 
 def test_every_reference_models_name_is_exported_but_the_exceptions():

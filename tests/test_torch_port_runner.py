@@ -493,6 +493,10 @@ def test_worker_pumps_prefix_and_first_failure(pkg, capfd):
     exe = PKGS[pkg][3]
     ok = exe.WorkerProcess(0, [sys.executable, "-c", "print('hello')"],
                            dict(os.environ))
+    # ``bad`` starts once ``ok`` has exited: a failure terminates every
+    # worker still running, and on a loaded machine ``ok`` could be
+    # killed before its interpreter prints
+    assert ok.proc.wait(timeout=30) == 0
     bad = exe.WorkerProcess(1, [sys.executable, "-c",
                                 "import sys; print('oops', file=sys.stderr);"
                                 " sys.exit(5)"], dict(os.environ))

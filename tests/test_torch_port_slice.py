@@ -230,7 +230,8 @@ def test_import_leaves_no_jax_or_reference_module():
             " horovod_tpu_torch.runner.nic, horovod_tpu_torch.elastic.driver,"
             " horovod_tpu_torch.elastic.discovery,"
             " horovod_tpu_torch.parallel,"
-            " horovod_tpu_torch.models.transformer;"
+            " horovod_tpu_torch.models.transformer,"
+            " horovod_tpu_torch.api.sharded_checkpoint;"
             " print('\\n'.join(sorted(sys.modules)))")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -271,7 +272,14 @@ def test_import_leaves_no_jax_or_reference_module():
             "horovod_tpu_torch.parallel.ring",
             "horovod_tpu_torch.parallel.pipeline",
             "horovod_tpu_torch.parallel.moe",
-            "horovod_tpu_torch.models.transformer"} <= set(out)
+            "horovod_tpu_torch.models.transformer",
+            "horovod_tpu_torch.models.tpu_norm",
+            "horovod_tpu_torch.models._layers",
+            "horovod_tpu_torch.models.resnet",
+            "horovod_tpu_torch.models.vgg",
+            "horovod_tpu_torch.models.inception",
+            "horovod_tpu_torch.models.mlp",
+            "horovod_tpu_torch.api.sharded_checkpoint"} <= set(out)
     assert [m for m in out if _forbidden(m)] == []
 
 
@@ -308,7 +316,10 @@ def test_ast_scan_finds_no_jax_or_reference_import():
                 "parallel/__init__.py", "parallel/_collectives.py",
                 "parallel/mesh.py", "parallel/tp.py", "parallel/ulysses.py",
                 "parallel/ring.py", "parallel/pipeline.py",
-                "parallel/moe.py", "models/transformer.py"):
+                "parallel/moe.py", "models/transformer.py",
+                "models/tpu_norm.py", "models/_layers.py", "models/resnet.py",
+                "models/vgg.py", "models/inception.py", "models/mlp.py",
+                "api/sharded_checkpoint.py"):
         assert REPO / "horovod_tpu_torch" / sub in files
     assert len(files) > 15
     bad = [(f.name, m) for f in files for m in _imports(f) if _forbidden(m)]

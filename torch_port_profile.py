@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Where the time of the port's training steps goes, on one GPU.
 
-    python3 torch_port_profile.py [--model resnet50|transformer]
+    python3 torch_port_profile.py [--model resnet50|transformer|
+                                   ResNet101|InceptionV3|VGG16]
                                   [--steps 3] [--out .profile_out]
 
 Builds the same step as ``chip_smoke.py``: ``resnet50`` (the default;
 ResNet-50 bf16, NHWC 224x224, batch 64, ``DistributedOptimizer`` with
-fp16 wire and predivide 2.0) or ``transformer`` (the reference's
+fp16 wire and predivide 2.0), ``transformer`` (the reference's
 ``TransformerConfig()``, bf16, ``megatron_sp``, batch 8 x 2049,
-``make_train_step`` with Adam 3e-3); runs its 7 steps as warm-up, then
+``make_train_step`` with Adam 3e-3) or a model of the benchmark trio
+(``chip_smoke.MODEL_TRIO``: its batch and lr, the same optimizer as
+ResNet-50's); runs its 7 steps as warm-up, then
 traces ``--steps`` steps with ``torch.profiler`` and prints one JSON
 line: step wall time, the card's busy and idle share over the traced
 steps (the union of kernel intervals against the steps' wall clock), and
@@ -45,6 +48,10 @@ GROUPS = {
         ("reduce", re.compile(r"reduce_kernel", re.I)),
     ],
 }
+
+
+for _name, *_ in chip_smoke.MODEL_TRIO:
+    GROUPS[_name] = GROUPS["resnet50"]
 
 
 def _union_us(intervals):
@@ -99,6 +106,21 @@ def _transformer_step(hvd):
     return step
 
 
+def _trio_step(hvd, name: str):
+    """A model of chip_smoke's trio at its benchmark batch, run 7 times."""
+    import torch
+
+    torch.backends.cudnn.benchmark = True
+    _, side, batch, lr = next(t for t in chip_smoke.MODEL_TRIO
+                              if t[0] == name)
+    step, _, _ = chip_smoke.model_step(hvd, hvd.device(), name, side, batch,
+                                       lr)
+    for _ in range(chip_smoke.WARMUP_STEPS + chip_smoke.TIMED_STEPS):
+        step()
+    torch.cuda.synchronize()
+    return step
+
+
 def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -115,8 +137,11 @@ def main() -> int:
     import horovod_tpu_torch as hvd
 
     hvd.init()
-    step = {"resnet50": _resnet50_step,
-            "transformer": _transformer_step}[args.model](hvd)
+    if args.model in ("resnet50", "transformer"):
+        step = {"resnet50": _resnet50_step,
+                "transformer": _transformer_step}[args.model](hvd)
+    else:
+        step = _trio_step(hvd, args.model)
     windows = []
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
