@@ -248,7 +248,32 @@ and, beside them, its C++ negotiation core from
    permutation once, every incarnation starting at the last verified
    commit (so the drain loses no step), every snapshot on disk
    verifying within the retention, 4 A1 launches every step of every
-   child, every batch on the card.
+   child, every batch on the card;
+10. drives the fleet (``python -m horovod_tpu_torch.fleet``): ``submit``
+   ``lo`` (priority 0) and ``hi`` (priority 10), each a job of one rank
+   running ``--elastic-child`` as the uninterrupted run (its own
+   ``HVT_LOG`` and ``HVT_OUT``, the runner's job-scoped state dir,
+   ``HVTPU_HEALTH_INTERVAL_S=1``), then ``serve --until-idle`` over a
+   discovery script printing ``localhost:1``: the arbiter's
+   ``ElasticJobRunner`` starts each under the port's elastic driver on
+   cuda:0.  Gates: hi starts first and lo waits PENDING while hi runs
+   (``state.json``), both end DONE with no charged restart, serve exits 0,
+   each job's final model and momentum bitwise the elastic phase's
+   uninterrupted run, 4 A1 launches every step, every batch on the card,
+   and each job's health rollup in ``state.json`` from rank 0's
+   ``HealthReporter`` (steps > 0, generation 0, no incident).  Then a job
+   ``gone`` under a serve of its own (2 s of sleep after each commit, so
+   that the cancel lands mid-run), and ``cancel gone`` once it has 2
+   verified commits: its worker drains at a commit (exit 79, the driver's
+   ``term``), the job ends FAILED ``cancelled`` with no charged restart
+   (serve exits 1 naming it).  Then the planned shrink past one rank on
+   CPU workers (``tests/torch_port_fleet_data_script.py``, gloo; NCCL takes
+   one rank of a communicator a card), a ``FleetArbiter`` over
+   ``localhost:4`` in this process: ``lo`` at 2-4 ranks holds the pool,
+   ``hi`` at 2 (priority 10) arrives once lo delivered a batch, lo's ranks
+   2 and 3 are drained through their notice files (exit 79) and lo
+   relaunches at 2; both ``max_restarts=0``, both DONE, no charged
+   restart, every sample of every epoch delivered exactly once.
 
 Prints one ``int8_quantized_allreduce {...}`` line, one ``async_path
 {...}`` line (its ``cores`` part the bursts on each negotiation core,
@@ -271,7 +296,11 @@ line (the launches, each rank's ms a call, B, the bytes a rank holds
 and maps, the epochs, the slice policy), one ``elastic {...}``
 line (the exits, the commits' ms in memory, on the training thread and
 on the writer, a snapshot's bytes, ``sync``'s ms, each child's seconds
-to its first step), one ``launcher {...}`` line (the ``--check-build``
+to its first step), one ``fleet {...}`` line (each card job's wall
+seconds, queue wait, seconds from spawn to first step, images/s over its
+steps after 2 and A1 launches, beside the elastic phase's uninterrupted
+run's images/s; the cancel's seconds to the worker's exit; the shrink's
+seconds from hi's submit to lo's relaunch at 2), one ``launcher {...}`` line (the ``--check-build``
 flags, the worker's ``HVTPU_AUTOTUNE*`` env, the static launch's rendezvous seconds, each relaunch's seconds
 from the driver seeing the exit to the next incarnation's first step,
 the driver's exits, outcomes and charged restarts, the negative gate),
@@ -282,7 +311,7 @@ A6's with ``spmd_launches``)
 ``stall_launches``, ``obs_launches_per_step``,
 ``models_launches_per_step``,
 ``elastic_launches`` and ``launcher_launches``, the last by the
-launcher's entry point) and, last,
+launcher's entry point, and ``fleet_launches``) and, last,
 ``{"ok": true,
 "device": {...}}``.  Exits non-zero, printing no result, when CUDA is
 absent, when the package is not beside this script, or when any phase
@@ -4788,6 +4817,8 @@ def elastic_child() -> int:
                                  ("TERM", signal.SIGTERM))}
     spe = ELASTIC_IMAGES // BATCH
     commits = [0]
+    # a slower job (the fleet's cancelled one): seconds after each commit
+    step_sleep = float(os.environ.get("HVT_STEP_SLEEP", "0"))
     record(kind="start", t_import=t_import, resume=resume,
            rendezvous_s=rdv["sum"])
 
@@ -4807,16 +4838,20 @@ def elastic_child() -> int:
                 loss.backward()
                 opt.step()
                 torch.cuda.synchronize(device)
+                # the training loop's progress for the metrics (and a
+                # fleet job's health summary: its steps and step rate)
+                obs_metrics.note_step(examples=BATCH)
                 record(kind="step", step=loader.state.epoch * spe
                        + loader.state.cursor // BATCH,
                        epoch=loader.state.epoch,
                        idx=[int(i) for i in idx], start=start,
                        a1=fused_scale_cast.launches - before,
                        device=[str(x.device), str(y.device)],
-                       loss=float(loss.detach()))
+                       loss=float(loss.detach()), t=time.time())
                 start = None
                 state.commit()
                 commits[0] += 1
+                time.sleep(step_sleep)
 
     fused_scale_cast.launches = 0       # this incarnation's path starts here
     train(state)
@@ -5080,6 +5115,434 @@ def elastic_phase(smi: str, tmp: Path) -> dict:
         "poll_s": ELASTIC_POLL_S})
 
 
+# -- the fleet phase: jobs of the port's fleet arbiter ---------------------------
+
+FLEET_CLI = ("-m", "horovod_tpu_torch.fleet")
+FLEET_TICK_S = 0.2
+FLEET_TIMEOUT_S = 300     # a serve of card jobs, and the CPU shrink
+FLEET_CANCEL_AFTER = 2    # gone's verified commits before its cancel
+# gone sleeps this long after each commit, so that the cancel (a CLI
+# process: its torch import alone takes seconds) lands mid-run
+FLEET_GONE_SLEEP_S = 2.0
+FLEET_WARMUP = 2          # steps of a job left out of its images/s
+# the planned shrink on CPU workers (tests/torch_port_fleet_data_script.py):
+# lo at 2-4 ranks, 2 epochs of 32 samples, 2 a rank a step; hi at 2 ranks,
+# one epoch of 8
+SHRINK_LO = {"ELASTIC_EPOCHS": "2", "DATA_SAMPLES": "32", "DATA_BATCH": "2",
+             "EPOCH_SLEEP": "0.4"}
+SHRINK_HI = {"ELASTIC_EPOCHS": "1", "DATA_SAMPLES": "8", "DATA_BATCH": "2",
+             "EPOCH_SLEEP": "0.1"}
+
+
+def _fleet_env() -> dict:
+    """This process's env less the rendezvous and the elastic phase's
+    interruptions, with the repo on ``PYTHONPATH``."""
+    env = dict(os.environ)
+    for k in ("MASTER_ADDR", "MASTER_PORT", "HVTPU_FAULT_SPEC",
+              "HVT_USR1_AFTER", "HVT_TERM_AFTER", "HVT_BY_GENERATION"):
+        env.pop(k, None)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(REPO)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                       if p])
+    return env
+
+
+def _fleet_cli(fleet_dir: Path, *argv: str):
+    return subprocess.run(
+        [sys.executable, *FLEET_CLI, "--fleet-dir", str(fleet_dir), *argv],
+        env=_fleet_env(), cwd=str(REPO), capture_output=True, text=True,
+        timeout=120)
+
+
+def _card_job(tmp: Path, name: str, priority: int) -> dict:
+    """A fleet job of one rank running ``chip_smoke.py --elastic-child``
+    (the elastic phase's uninterrupted run); its state dir is the
+    runner's own (``jobs/<name>/state``), so the child's env names none."""
+    env = {k: v for k, v in _child_env(tmp, name).items()
+           if k != "HVTPU_ELASTIC_STATE_DIR"}
+    env["HVTPU_HEALTH_INTERVAL_S"] = "1"
+    return {"name": name, "priority": priority, "min_np": 1, "max_np": 1,
+            "max_restarts": 0, "env": env,
+            "command": [sys.executable, str(Path(__file__).resolve()),
+                        "--elastic-child"]}
+
+
+def _submit(fleet_dir: Path, spec: dict) -> float:
+    """``submit --spec``; returns the wall time it was called."""
+    path = fleet_dir.parent / f"{spec['name']}.spec.json"
+    path.write_text(json.dumps(spec))
+    t = time.time()
+    proc = _fleet_cli(fleet_dir, "submit", "--spec", str(path))
+    check(proc.returncode == 0
+          and f"submitted {spec['name']!r}" in proc.stdout,
+          f"fleet: submit {spec['name']} exited {proc.returncode}:\n"
+          f"{proc.stdout}{proc.stderr[-2000:]}")
+    return t
+
+
+class _Serve:
+    """``python -m horovod_tpu_torch.fleet serve --until-idle`` over a
+    discovery script, each line of its output stamped with the wall time
+    it arrived (the arbiter's events on stdout, the drivers' on
+    stderr)."""
+
+    def __init__(self, fleet_dir: Path, discover: Path):
+        import threading
+
+        self.fleet_dir = fleet_dir
+        self.proc = subprocess.Popen(
+            [sys.executable, *FLEET_CLI, "--fleet-dir", str(fleet_dir),
+             "serve", "--host-discovery-script", str(discover), "--tick",
+             str(FLEET_TICK_S), "--until-idle"],
+            env=_fleet_env(), cwd=str(REPO), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, start_new_session=True)
+        self.out, self.err = [], []
+        self._pumps = [threading.Thread(target=self._pump, args=a,
+                                        daemon=True)
+                       for a in ((self.proc.stdout, self.out),
+                                 (self.proc.stderr, self.err))]
+        for t in self._pumps:
+            t.start()
+        self.deadline = time.time() + FLEET_TIMEOUT_S
+
+    @staticmethod
+    def _pump(stream, lines):
+        for line in stream:
+            lines.append((time.time(), line.rstrip("\n")))
+
+    def running(self) -> bool:
+        if self.proc.poll() is not None:
+            return False
+        if time.time() > self.deadline:
+            import signal
+
+            os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.wait()
+            raise SmokeFailure(f"fleet: serve ran past {FLEET_TIMEOUT_S} s:"
+                               f"\n{self.stderr()[-4000:]}")
+        return True
+
+    def finish(self) -> int:
+        rc = self.proc.wait()
+        for t in self._pumps:
+            t.join(10)
+        return rc
+
+    def state(self):
+        try:
+            with open(self.fleet_dir / "state.json") as f:
+                return json.load(f)
+        except (OSError, ValueError):
+            return None
+
+    def events(self, kind: str) -> list:
+        """(wall time, fields) of each ``hvtpu.fleet: <kind> k=v ...``"""
+        out = []
+        for t, line in self.out:
+            m = re.match(r"hvtpu\.fleet: (\w+)(.*)", line)
+            if m and m.group(1) == kind:
+                out.append((t, dict(kv.partition("=")[::2]
+                                    for kv in m.group(2).split())))
+        return out
+
+    def stderr(self) -> str:
+        return "\n".join(line for _, line in self.err)
+
+
+def _job_rows(state) -> dict:
+    return {j["name"]: j for j in (state or {}).get("jobs", [])}
+
+
+def _card_run(tmp: Path, discover: Path) -> dict:
+    """``lo`` (priority 0) then ``hi`` (priority 10) submitted, one
+    ``serve`` over ``localhost:1``: hi runs first, lo waits PENDING."""
+    fleet_dir = tmp / "fleet_card"
+    submitted = {name: _submit(fleet_dir, _card_job(tmp, name, pri))
+                 for name, pri in (("lo", 0), ("hi", 10))}
+    serve = _Serve(fleet_dir, discover)
+    seen = []                   # (wall, {job: state}) of every state.json
+    while serve.running():
+        rows = _job_rows(serve.state())
+        if rows and (not seen or seen[-1][1] != {
+                n: r["state"] for n, r in rows.items()}):
+            seen.append((time.time(), {n: r["state"]
+                                       for n, r in rows.items()}))
+        time.sleep(0.1)
+    rc = serve.finish()
+    return {"rc": rc, "serve": serve, "seen": seen, "submitted": submitted,
+            "rows": _job_rows(serve.state())}
+
+
+def _cancel_run(tmp: Path, discover: Path) -> dict:
+    """``gone`` alone under a serve of its own; ``cancel gone`` once it
+    has ``FLEET_CANCEL_AFTER`` verified commits."""
+    fleet_dir = tmp / "fleet_cancel"
+    spec = _card_job(tmp, "gone", 0)
+    spec["env"]["HVT_STEP_SLEEP"] = str(FLEET_GONE_SLEEP_S)
+    _submit(fleet_dir, spec)
+    serve = _Serve(fleet_dir, discover)
+    state_dir = fleet_dir / "jobs" / "gone" / "state"
+    log_path = tmp / "gone.jsonl"
+    cancel_t = cancel_cli_s = committed_at_cancel = None
+    while serve.running():
+        if cancel_t is None and log_path.exists():
+            writes = sum(1 for line in log_path.read_text().splitlines()
+                         if json.loads(line)["kind"] == "write")
+            if writes >= FLEET_CANCEL_AFTER:
+                committed_at_cancel = committed_step(state_dir)
+                if committed_at_cancel >= FLEET_CANCEL_AFTER:
+                    t = time.time()
+                    proc = _fleet_cli(fleet_dir, "cancel", "gone")
+                    check(proc.returncode == 0, f"fleet: cancel exited "
+                          f"{proc.returncode}: {proc.stderr[-2000:]}")
+                    # the record is in the journal when the CLI returns
+                    cancel_t = time.time()
+                    cancel_cli_s = cancel_t - t
+        time.sleep(0.1)
+    rc = serve.finish()
+    return {"rc": rc, "serve": serve, "cancel_t": cancel_t,
+            "cancel_cli_s": cancel_cli_s,
+            "committed_at_cancel": committed_at_cancel,
+            "committed_final": committed_step(state_dir),
+            "rows": _job_rows(serve.state())}
+
+
+class _StaticPool:
+    def __init__(self, hosts: dict):
+        self.hosts = dict(hosts)
+
+    def find_available_hosts_and_slots(self) -> dict:
+        return dict(self.hosts)
+
+
+def _deliveries(path: Path, epochs: int, samples: int, what: str) -> list:
+    """The world sizes of a job's DELIVER lines; fails unless every
+    sample of every epoch was delivered exactly once."""
+    per_epoch = {e: [] for e in range(epochs)}
+    sizes = set()
+    for m in re.finditer(r"DELIVER rank=\d+ size=(\d+) gen=\d+ epoch=(\d+) "
+                         r"idx=\[([0-9, ]*)\]", path.read_text()):
+        sizes.add(int(m.group(1)))
+        per_epoch[int(m.group(2))].extend(
+            int(v) for v in m.group(3).split(",") if v.strip())
+    for e in range(epochs):
+        check(sorted(per_epoch[e]) == list(range(samples)),
+              f"fleet shrink: {what} epoch {e} delivered "
+              f"{sorted(per_epoch[e])}, not each of {samples} once")
+    return sorted(sizes)
+
+
+def _shrink_run(tmp: Path) -> dict:
+    """The planned shrink past one rank, on CPU workers (NCCL takes one
+    rank of a communicator a card): ``lo`` (2-4 ranks) holds the whole
+    ``localhost:4`` pool, ``hi`` (2 ranks, priority 10) arrives once lo
+    delivered a batch, and the arbiter drains lo's ranks 2 and 3
+    through their notice files; ``max_restarts=0`` in both."""
+    import signal
+
+    from horovod_tpu_torch import fleet
+
+    script = REPO / "tests" / "torch_port_fleet_data_script.py"
+    check(script.is_file(), f"fleet shrink: {script} is missing")
+    tmp = tmp / "shrink"
+    tmp.mkdir()
+    ends, launches, events = [], [], []
+
+    def factory(job):
+        h = fleet.ElasticJobRunner(job, str(tmp / "jobs"))
+        drv, inner = h._driver, h._driver.listener
+
+        def spy(event, info):
+            if event == "launch":
+                launches.append((job.name, info["size"], time.time()))
+            elif event == "incarnation_end":
+                ends.append((job.name, info["outcome"],
+                             {w.rank: w.poll() for w in drv._workers}))
+            inner(event, info)
+
+        drv.listener = spy
+        return h
+
+    def job_env(name, extra):
+        return dict(extra, HVTPU_CPU_DEVICES="1", PYTHONPATH=str(REPO),
+                    FLEET_DELIVER_LOG=str(tmp / f"{name}.deliver"),
+                    HVTPU_ELASTIC_DISCOVERY_INTERVAL="0.2")
+
+    arb = fleet.FleetArbiter(
+        _StaticPool({"localhost": 4}), fleet_dir=str(tmp / "fleet"),
+        tick_s=FLEET_TICK_S, drain_grace_s=60.0, runner_factory=factory,
+        event_fn=lambda kind, **f: events.append((kind, f, time.time())),
+        register_debug=False)
+    lo = arb.submit(fleet.JobSpec(
+        "lo", [sys.executable, str(script)], priority=0, min_np=2,
+        max_np=4, max_restarts=0, env=job_env("lo", SHRINK_LO)))
+    hi = hi_t = None
+    deadline = time.time() + FLEET_TIMEOUT_S
+    try:
+        while time.time() < deadline and not arb.all_terminal():
+            arb.tick()
+            lo_log = tmp / "lo.deliver"
+            if hi is None and lo_log.exists() and lo_log.stat().st_size:
+                hi_t = time.time()
+                hi = arb.submit(fleet.JobSpec(
+                    "hi", [sys.executable, str(script)], priority=10,
+                    min_np=2, max_np=2, max_restarts=0,
+                    env=job_env("hi", SHRINK_HI)))
+            time.sleep(FLEET_TICK_S)
+    finally:
+        arb.close()
+        for j in arb.jobs.values():
+            if j.handle is not None and j.handle.poll() is None:
+                j.handle._driver.signal_ranks(range(8), signal.SIGKILL)
+    check(hi is not None, "fleet shrink: lo never delivered a batch")
+    check(lo.state == "DONE" and hi.state == "DONE",
+          f"fleet shrink: lo {lo.state} ({lo.reason}), hi {hi.state} "
+          f"({hi.reason}); events {[e[:2] for e in events]}")
+    preempts = [f for k, f, _ in events if k == "fleet.preempt"]
+    lo_ends = [e for e in ends if e[0] == "lo"]
+    check(lo.preemptions == 1 and lo.handle.drains >= 1
+          and lo.charged_restarts == 0 and hi.charged_restarts == 0
+          and [f["to_np"] for f in preempts] == [2],
+          f"fleet shrink: preemptions {lo.preemptions}, drains "
+          f"{lo.handle.drains}, charged {lo.charged_restarts} / "
+          f"{hi.charged_restarts}, preempts {preempts}")
+    check(lo_ends[0][1] == "drain" and lo_ends[0][2][2] == 79
+          and lo_ends[0][2][3] == 79 and lo_ends[-1][1] == "done",
+          f"fleet shrink: lo's incarnations ended {lo_ends}")
+    lo_sizes = _deliveries(tmp / "lo.deliver", 2, 32, "lo")
+    hi_sizes = _deliveries(tmp / "hi.deliver", 1, 8, "hi")
+    check(lo_sizes == [2, 4] and hi_sizes == [2],
+          f"fleet shrink: lo ran at {lo_sizes}, hi at {hi_sizes}")
+    relaunch = [t for name, size, t in launches
+                if name == "lo" and size == 2]
+    resized = [f for k, f, _ in events if k == "fleet.resized"]
+    return {"lo_incarnations": [[o, e] for _, o, e in lo_ends],
+            "lo_world_sizes": lo_sizes, "hi_world_sizes": hi_sizes,
+            "preemptions": lo.preemptions, "drains": lo.handle.drains,
+            "charged_restarts": [lo.charged_restarts, hi.charged_restarts],
+            "hi_queue_wait_s": hi.queue_wait_s,
+            "submit_to_relaunch_s": relaunch[0] - hi_t,
+            "arbiter_resize_s": resized[0]["resize_s"] if resized else None}
+
+
+def fleet_phase(smi: str, tmp: Path) -> dict:
+    """The fleet on the card, through ``python -m horovod_tpu_torch.fleet``
+    (submit, serve, cancel): card jobs of the elastic phase's
+    uninterrupted run under the port's runner and driver, a cancel, and
+    the planned shrink on CPU workers; the gates of the module's
+    docstring, and one ``fleet {...}`` line."""
+    import torch
+
+    elastic = tmp / "elastic"
+    tmp = tmp / "fleet"
+    tmp.mkdir()
+    discover = tmp / "discover.sh"
+    discover.write_text("#!/bin/sh\necho localhost:1\n")
+    discover.chmod(0o755)
+    t0 = time.time()
+    card = _card_run(tmp, discover)
+    serve = card["serve"]
+    check(card["rc"] == 0, f"fleet: serve exited {card['rc']}:\n"
+          f"{serve.stderr()[-4000:]}")
+    starts = serve.events("job_start")
+    ends = serve.events("job_end")
+    check([f["job"] for _, f in starts] == ["hi", "lo"]
+          and [f["job"] for _, f in ends] == ["hi", "lo"]
+          and starts[1][0] >= ends[0][0],
+          f"fleet: started {[f for _, f in starts]}, ended "
+          f"{[f for _, f in ends]}; hi must run first, lo after it")
+    check(all(s.get("lo") == "PENDING" for _, s in card["seen"]
+              if s.get("hi") == "RUNNING") and card["seen"],
+          f"fleet: lo was not PENDING while hi ran: {card['seen']}")
+    ref_final = torch.load(elastic / "plain.pt")
+    ref_recs = [json.loads(line) for line
+                in (elastic / "plain.jsonl").read_text().splitlines()]
+
+    def images_per_s(steps):
+        timed = steps[FLEET_WARMUP:]
+        return (BATCH * (len(timed) - 1) / (timed[-1]["t"] - timed[0]["t"])
+                if len(timed) > 1 else None)
+
+    jobs = {}
+    for name in ("hi", "lo"):
+        row = card["rows"][name]
+        h = row["health"] or {}
+        check(row["state"] == "DONE" and row["exit_code"] == 0
+              and row["charged_restarts"] == 0,
+              f"fleet: {name} {row['state']} exit {row['exit_code']}, "
+              f"{row['charged_restarts']} charged restarts")
+        check(h.get("job") == name and h.get("rank") == 0
+              and h.get("steps", 0) > 0 and h.get("generation") == 0
+              and h.get("incidents_total") == 0,
+              f"fleet: {name}'s health rollup {h}")
+        final = torch.load(tmp / f"{name}.pt")
+        for k, t in ref_final["model"].items():
+            check(torch.equal(final["model"][k], t),
+                  f"fleet: {name}'s {k} differs from the uninterrupted run")
+        check(len(final["momentum"]) == len(ref_final["momentum"]) and all(
+            torch.equal(a, b) for a, b in zip(final["momentum"],
+                                              ref_final["momentum"])),
+            f"fleet: {name}'s momentum differs from the uninterrupted run")
+        recs = [json.loads(line) for line
+                in (tmp / f"{name}.jsonl").read_text().splitlines()]
+        steps = [r for r in recs if r["kind"] == "step"]
+        check(len(steps) == ELASTIC_EPOCHS * ELASTIC_IMAGES // BATCH
+              and all(r["a1"] == 4 and r["device"] == ["cuda:0", "cuda:0"]
+                      for r in steps),
+              f"fleet: {name} ran {len(steps)} steps, A1 "
+              f"{sorted({r['a1'] for r in steps})} a step, on "
+              f"{sorted({tuple(r['device']) for r in steps})}")
+        start = next(t for t, f in starts if f["job"] == name)
+        end = next(t for t, f in ends if f["job"] == name)
+        first = next(r for r in recs if r["kind"] == "first_step")
+        jobs[name] = {
+            "wall_s": end - start,
+            "queue_wait_s": row["queue_wait_s"],
+            "spawn_to_first_step_s": first["t"] - start,
+            "images_per_s": images_per_s(steps),
+            "a1_launches_per_step": sorted({r["a1"] for r in steps}),
+            "a1_launches": sum(r["a1"] for r in steps),
+            "health": {k: h.get(k) for k in ("steps", "step_rate",
+                                             "generation",
+                                             "incidents_total", "stale")}}
+    cancel = _cancel_run(tmp, discover)
+    serve = cancel["serve"]
+    row = cancel["rows"]["gone"]
+    gone_ends = _driver_ends(serve.stderr())
+    check(cancel["cancel_t"] is not None,
+          f"fleet: gone never reached {FLEET_CANCEL_AFTER} verified commits")
+    check(cancel["rc"] == 1 and "jobs failed: gone" in serve.stderr()
+          and row["state"] == "FAILED" and row["reason"] == "cancelled"
+          and row["charged_restarts"] == 0
+          and [e[:2] for e in gone_ends] == [("term", [79])],
+          f"fleet: the cancel: serve exited {cancel['rc']}, gone "
+          f"{row['state']} ({row['reason']}), "
+          f"{row['charged_restarts']} charged, the driver ended "
+          f"{[e[:2] for e in gone_ends]}:\n{serve.stderr()[-3000:]}")
+    total = ELASTIC_EPOCHS * ELASTIC_IMAGES // BATCH
+    check(FLEET_CANCEL_AFTER <= cancel["committed_final"] < total,
+          f"fleet: gone's last verified commit {cancel['committed_final']}")
+    shrink = _shrink_run(tmp)
+    plain_steps = [r for r in ref_recs if r["kind"] == "step"]
+    result = {
+        "card": smi,
+        "jobs": jobs,
+        "elastic_plain_images_per_s": (images_per_s(plain_steps)
+                                       if "t" in plain_steps[0] else None),
+        "cancel": {"committed_at_cancel": cancel["committed_at_cancel"],
+                   "committed_final": cancel["committed_final"],
+                   "exit": gone_ends[0][1], "outcome": gone_ends[0][0],
+                   "cli_s": cancel["cancel_cli_s"],
+                   "seconds_to_exit": gone_ends[0][2] - cancel["cancel_t"],
+                   "state": row["state"], "reason": row["reason"]},
+        "shrink": shrink,
+        "phase_s": time.time() - t0,
+        "a1_launches": sum(j["a1_launches"] for j in jobs.values()),
+    }
+    log("fleet " + json.dumps(result))
+    return result
+
+
 def launcher_check_build() -> dict:
     """``python -m horovod_tpu_torch.runner --check-build`` after the
     build: the native C++ core, NCCL, gloo, CUDA and every kernel of
@@ -5245,6 +5708,7 @@ def main() -> int:
         del model, opt, x, y
         reference_phase(hvd, device)
         elastic = elastic_phase(smi, tmp)
+        fleet = fleet_phase(smi, tmp)
     finally:
         hvd.shutdown()
         shutil.rmtree(tmp, ignore_errors=True)
@@ -5285,6 +5749,12 @@ def main() -> int:
         # started them
         "launcher_launches": elastic["a1_launches_by_launcher"],
         "elastic_launches_per_step": elastic["a1_launches_per_step"],
+        # the fleet phase's card jobs (hi, lo), started by the fleet's
+        # runner through the port's elastic driver
+        "fleet_launches": fleet["a1_launches"],
+        "fleet_launches_per_step": sorted({
+            n for j in fleet["jobs"].values()
+            for n in j["a1_launches_per_step"]}),
         # the models phase: each model's A1 launches a step
         "models_launches_per_step": {
             name: r["a1_launches_per_step"] for name, r in

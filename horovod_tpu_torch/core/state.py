@@ -59,8 +59,14 @@ protocol over a fenced, journaled store client past one rank) and, in a
 relaunched incarnation (``HVTPU_ELASTIC_GENERATION`` > 0), replays this
 rank's journaled keys (``core/journal.py``) into the fresh store, as the
 reference's ``init()`` does; ``shutdown()`` uninstalls the watcher
-before the store goes away.  The reference's fleet health publisher is
-not part of the port.
+before the store goes away.
+
+In a fleet job (``HVTPU_FLEET_JOB``, set by the fleet runner) rank 0's
+``init()`` starts the fleet health publisher (``fleet/health.py``
+``HealthReporter``) over a fenced client of the store and the file
+channel ``HVTPU_FLEET_HEALTH_DIR``, as the reference's does; an install
+failure logs a warning and init goes on.  ``shutdown()`` stops it before
+the store goes away.
 """
 
 from __future__ import annotations
@@ -125,6 +131,8 @@ class GlobalState:
     topology: Any = None
     # the meshes (core/topology.Meshes), each made at its first use
     meshes: Any = None
+    # rank 0's fleet health publisher (fleet/health.py) in a fleet job
+    health_reporter: Any = None
 
 
 _state = GlobalState()
@@ -387,6 +395,7 @@ def init(device=None) -> GlobalState:
         _install_obs(cfg)
         if cfg.elastic:
             _install_preempt(cfg)
+        _install_health()
         if cfg.autotune:
             from ..obs.autotune import Autotuner
 
@@ -466,6 +475,28 @@ def _install_obs(cfg: Config) -> None:
             anomaly.install(rank=_state.rank, size=_state.size)
     except Exception:  # noqa: BLE001
         logger.warning("anomaly detection disabled: install failed",
+                       exc_info=True)
+
+
+def _install_health() -> None:
+    """Rank 0 of a fleet job (``HVTPU_FLEET_JOB``) publishes a compact
+    health summary each ``HVTPU_HEALTH_INTERVAL_S`` under the job's
+    prefixed store namespace and into ``HVTPU_FLEET_HEALTH_DIR`` (the
+    channel the arbiter polls: it is not a member of this world).  The
+    client is fenced, so a superseded zombie never publishes a stale
+    summary; the arbiter's reader is stamp-tolerant."""
+    job = os.environ.get("HVTPU_FLEET_JOB")
+    if _state.rank != 0 or not job:
+        return
+    try:
+        from ..fleet import health
+        from .retry import fenced_kv
+
+        _state.health_reporter = health.HealthReporter(
+            fenced_kv(_state.kv, rank=_state.rank), job, rank=_state.rank)
+        _state.health_reporter.start()
+    except Exception:  # noqa: BLE001 — health must not kill init
+        logger.warning("fleet health publisher disabled: install failed",
                        exc_info=True)
 
 
@@ -632,6 +663,10 @@ def shutdown():
             _state.controller.request_shutdown()
             _state.controller.stop()
             _state.controller = None
+        # the health publisher writes the store: stopped before it goes
+        if _state.health_reporter is not None:
+            _state.health_reporter.stop()
+            _state.health_reporter = None
         # the trace files are flushed before the store goes away
         _uninstall_obs()
         # the preemption watcher polls the store: stop it first (it also

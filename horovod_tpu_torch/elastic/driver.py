@@ -107,8 +107,12 @@ class ElasticDriver:
         restart_window: float = 0.0,
         blacklist_cooldown: Optional[float] = None,
         drain_grace: Optional[float] = None,
+        notice_dir: Optional[str] = None,
+        extra_env: Optional[Dict[str, str]] = None,
     ):
         self.command = command
+        # per-job environment overlay (fleet: the JobSpec's env block)
+        self.extra_env = dict(extra_env or {})
         self.hosts = HostManager(discovery,
                                  cooldown_base_s=blacklist_cooldown)
         self.min_np = min_np
@@ -174,9 +178,18 @@ class ElasticDriver:
         # relaunch; workers use it to run reset callbacks after a
         # world reconfiguration (HVTPU_ELASTIC_GENERATION)
         self._generation = 0
-        # the JAX driver's fleet seams (per-job env, per-rank notice
-        # files, a lifecycle listener, signal_ranks) come with the fleet
-        # runner (ROADMAP Queue A item 11)
+        # fleet seams (fleet/runner.py): notice_dir gives every rank its
+        # own pollable preemption-notice file (<notice_dir>/rank<N>), so
+        # an arbiter can drain a SUBSET of ranks through the planned
+        # core/preempt.py path; listener is an optional
+        # callable(event, info) told about launches and incarnation ends
+        # SYNCHRONOUSLY on the driver thread — a fleet runner flips the
+        # job's allocation view there, before the next discovery poll
+        # can race it.
+        self.notice_dir = notice_dir
+        self.listener = None
+        self.current_slots: List[hosts_mod.SlotInfo] = []
+        self._workers: List[safe_shell_exec.WorkerProcess] = []
 
     def _log(self, msg: str):
         if self.verbose:
@@ -246,6 +259,7 @@ class ElasticDriver:
     def _spawn(self, slots: List[hosts_mod.SlotInfo], port: int
                ) -> List[safe_shell_exec.WorkerProcess]:
         base_env = dict(os.environ)
+        base_env.update(self.extra_env)
         base_env["HVTPU_ELASTIC"] = "1"
         base_env["HVTPU_ELASTIC_STATE_DIR"] = self.state_dir
         base_env["HVTPU_ELASTIC_GENERATION"] = str(self._generation)
@@ -261,6 +275,12 @@ class ElasticDriver:
                 base_env, slot, coordinator_addr, port, self.args,
                 uniform_local=uniform,
             )
+            if self.notice_dir:
+                # per-rank notice file: the fleet arbiter touches
+                # <notice_dir>/rank<N> to drain exactly rank N (a
+                # job-wide --preempt-notice-file would drain everyone)
+                env["HVTPU_PREEMPT_NOTICE_FILE"] = os.path.join(
+                    self.notice_dir, f"rank{slot.rank}")
             if hosts_mod.is_local_host(slot.hostname):
                 cmd = list(self.command)
             else:
@@ -274,6 +294,36 @@ class ElasticDriver:
                 )
             )
         return workers
+
+    def _notify_listener(self, event: str, **info):
+        """Tell the fleet listener (if any) about a lifecycle event,
+        synchronously on the driver thread; listener errors are logged,
+        never fatal to the job."""
+        fn = self.listener
+        if fn is None:
+            return
+        try:
+            fn(event, info)
+        except Exception as e:  # noqa: BLE001 — listener must not kill the job
+            self._log(f"listener error on {event} (ignored): {e}")
+
+    def signal_ranks(self, ranks, sig=signal.SIGTERM) -> int:
+        """Send ``sig`` to the live workers of the CURRENT incarnation
+        whose global rank is in ``ranks``; returns how many were
+        signalled.  The fleet arbiter's drain-grace escalation uses
+        this: a SIGTERM outside a forwarded drain is classified as a
+        crash, so the expiry is charged to the restart budget — exactly
+        the documented escalation semantics."""
+        wanted = set(ranks)
+        sent = 0
+        for w in list(self._workers):
+            if w.rank in wanted and w.poll() is None:
+                try:
+                    os.kill(w.proc.pid, sig)
+                    sent += 1
+                except ProcessLookupError:
+                    pass
+        return sent
 
     def _notify_hosts_updated(self, workers):
         self._log("hosts updated; signalling workers (SIGUSR1)")
@@ -336,9 +386,16 @@ class ElasticDriver:
             )
             self.final_world_size = np_now
             workers = self._spawn(slots, port)
+            self.current_slots = slots
+            self._workers = workers
+            self._notify_listener(
+                "launch", generation=self._generation - 1, size=np_now)
             _M_RENDEZVOUS_S.observe(clock.monotonic() - t_rdv)
             _M_WORKERS.set(np_now)
             outcome = self._supervise(workers, slots)
+            self._notify_listener(
+                "incarnation_end", generation=self._generation - 1,
+                size=np_now, outcome=outcome)
             # what ended the incarnation, for --verbose readers: the
             # workers' exits and the wall time the driver saw them
             self._log(

@@ -3,8 +3,8 @@ Incidents that name the offending ranks.
 
 Counterpart of ``horovod_tpu/obs/anomaly.py``, copied as it is so that
 the port imports nothing of the JAX package: the same detectors, scores
-and incidents on the same series.  The fleet health rollup the
-reference feeds comes with the fleet plane.
+and incidents on the same series, whose counts feed the fleet
+health rollup (``fleet/health.py``) as the reference's do.
 
 The metrics plane (PR 1), tracing (PR 7), and the overlap profiler
 (PR 12) *measure*; nothing *watches*.  This module closes that gap with

@@ -231,7 +231,9 @@ def test_import_leaves_no_jax_or_reference_module():
             " horovod_tpu_torch.elastic.discovery,"
             " horovod_tpu_torch.parallel,"
             " horovod_tpu_torch.models.transformer,"
-            " horovod_tpu_torch.api.sharded_checkpoint;"
+            " horovod_tpu_torch.api.sharded_checkpoint,"
+            " horovod_tpu_torch.fleet, horovod_tpu_torch.fleet.__main__,"
+            " horovod_tpu_torch.fleet.health;"
             " print('\\n'.join(sorted(sys.modules)))")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -279,7 +281,15 @@ def test_import_leaves_no_jax_or_reference_module():
             "horovod_tpu_torch.models.vgg",
             "horovod_tpu_torch.models.inception",
             "horovod_tpu_torch.models.mlp",
-            "horovod_tpu_torch.api.sharded_checkpoint"} <= set(out)
+            "horovod_tpu_torch.api.sharded_checkpoint",
+            "horovod_tpu_torch.fleet.job", "horovod_tpu_torch.fleet.placement",
+            "horovod_tpu_torch.fleet.admission",
+            "horovod_tpu_torch.fleet.intake",
+            "horovod_tpu_torch.fleet.autoscale",
+            "horovod_tpu_torch.fleet.health",
+            "horovod_tpu_torch.fleet.runner",
+            "horovod_tpu_torch.fleet.arbiter",
+            "horovod_tpu_torch.fleet.__main__"} <= set(out)
     assert [m for m in out if _forbidden(m)] == []
 
 
@@ -319,7 +329,11 @@ def test_ast_scan_finds_no_jax_or_reference_import():
                 "parallel/moe.py", "models/transformer.py",
                 "models/tpu_norm.py", "models/_layers.py", "models/resnet.py",
                 "models/vgg.py", "models/inception.py", "models/mlp.py",
-                "api/sharded_checkpoint.py"):
+                "api/sharded_checkpoint.py", "fleet/__init__.py",
+                "fleet/__main__.py", "fleet/job.py", "fleet/placement.py",
+                "fleet/admission.py", "fleet/intake.py",
+                "fleet/autoscale.py", "fleet/health.py", "fleet/runner.py",
+                "fleet/arbiter.py"):
         assert REPO / "horovod_tpu_torch" / sub in files
     assert len(files) > 15
     bad = [(f.name, m) for f in files for m in _imports(f) if _forbidden(m)]
