@@ -15,7 +15,15 @@ and, beside them, its C++ negotiation core from
    more than the cards
    (``-np 2`` on one card): it exits non-zero within the start timeout,
    its output names the local rank that has no card and the card count,
-   and no worker is left behind;
+   and no worker is left behind; then, before ``init()``, runs the
+   port's fabric simulator (``horovod_tpu_torch.sim``): the 15 scenarios
+   at 64 virtual ranks, seed 7, in this process (the controller
+   scenarios' payloads and controllers on cuda:0),
+   ``compression-negotiation`` at 256 on the card, and ``python -m
+   horovod_tpu_torch.sim run steady-drain --ranks 256 --seed 7`` twice as
+   subprocesses beside them: every event log's and ``stats``' sha256
+   equal to the reference's pinned in ``SIM_DIGESTS``, every controller
+   on cuda:0, the phase within 120 s;
 2. holds kernel A1 bitwise against its plain PyTorch versions: one
    tensor (``fused_scale_cast``, a table of one entry) over all 9 dtype
    pairs, lengths 1..2^20+3, aligned and unaligned buffers and every
@@ -275,7 +283,9 @@ and, beside them, its C++ negotiation core from
    relaunches at 2; both ``max_restarts=0``, both DONE, no charged
    restart, every sample of every epoch delivered exactly once.
 
-Prints one ``int8_quantized_allreduce {...}`` line, one ``async_path
+Prints one ``sim {...}`` line (each scenario's wall seconds, events,
+virtual seconds, digest match and A1 launches, the card's name and
+power limit), one ``int8_quantized_allreduce {...}`` line, one ``async_path
 {...}`` line (its ``cores`` part the bursts on each negotiation core,
 its ``autotune`` part the tuned bursts, its ``zero_copy`` part the
 route's bursts), one ``adasum
@@ -5618,6 +5628,167 @@ def launcher_negative_gate() -> dict:
             "left_alive": alive}
 
 
+# -- the fabric simulator -----------------------------------------------------
+
+SIM_SEED = 7
+SIM_RANKS = 64
+SIM_BUDGET_S = 120.0
+#: The reference simulator's digests (``horovod_tpu/sim`` under
+#: ``PYTHONHASHSEED=0``, seed 7): "scenario@ranks" -> (sha256 of the event
+#: log's canonical JSONL, sha256 of the canonical JSON of ``stats``).
+#: ``tests/test_torch_port_sim_digests.py`` and
+#: ``tests/test_torch_port_sim_cli.py`` recompute every row from the
+#: reference and from the port on the CPU and hold them to this table.
+SIM_DIGESTS = {
+    "thundering-rendezvous@64": (
+        "117ff2d27a83550f5574046d13866e4a75d7788b4ccae9a7a86a5db4a7f6ee5f",
+        "8efb7faef34f6a32155ceb282f01145f823efeda1a3da6b5f02e19981e70d7fd"),
+    "steady-drain@64": (
+        "67e2b0a6052f97f0140963c7b36a6a8fe9aac8b1b9df52b93b30fb6b8535689c",
+        "7097a4774a1e12011d1f7f82c91b0a8e2b2bd55391e35959476e95a087eaa08f"),
+    "rolling-preemption@64": (
+        "afb048220d17a1b416847ed11abf4a9fe92dd1deda47c691480cdf8e91e529b7",
+        "b6751294eca7bd16086376edcb271d5ffcaa842ec6e742dcfe3df3e4f4b8112b"),
+    "kill-blacklist@64": (
+        "77e6581704291c00cc65ebff4f0ff459c1319ebdc088a0a28901eaa2ee9a55d1",
+        "d4c72f468f190b6597846c9ad39cde8f76b5e71db3b336d98d116f31248ea4f2"),
+    "kv-brownout@64": (
+        "9ae0293ea6c1d43992d6818b4736c3180b135ecea9f0aa9bfc69425c0260c8bb",
+        "e1cb31bb04b2001b44620f9c03bc39ea7c3d58e7d90bed888d785f39167dc0c1"),
+    "straggler-tail@64": (
+        "e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855",
+        "2bc634abb14b9e598d5a690a1a5c2394a3719e91875798106ca4a890a1a0fdbb"),
+    "stream-matrix@64": (
+        "e9d73aa7082b2fc7f2471aaf8949e7377efcb849fa92842ccdbcb7c3c029d77a",
+        "afd2c6c8b855d0d0630072408676ce750722d24471b45aacd98469e954d83b15"),
+    "compression-negotiation@64": (
+        "59a93b4f492d864a6ac5ad17459c97b87eb9e608696023c13ee3b30772a91377",
+        "44f46514cb6d6aa57358d9f3b6f5d87ab6878ad2e538e58a6992ec42ce07bc33"),
+    "checkpoint-storm@64": (
+        "802576fd2155f527df469c3dc352d87efc84da16a64d3bf8e8be82152f8dc8cd",
+        "e11d6184f3edc33237009da95b0e12cebe16374f5a4c6533578344107347d538"),
+    "anomaly-detection@64": (
+        "bbf20dafb1fc48d45422f3cc0f8e4e7754aded867f394b65a31c78f53676b52f",
+        "4a75b7d7d289b546ae01213121265064cfeb0163488edf52ccc85936a85234fa"),
+    "coordinator-loss@64": (
+        "fb19418a569e7d15d9c58172f87382fac2ca2ff7efbc02bdc3608c1e79c9c091",
+        "c6542e19ed6cd61848e8382f0ac87d71d975139c133a3ba3277ed3aad092da4a"),
+    "partition-storm@64": (
+        "659e5a68c8add3ab179beaced0f90bd57ab93d47a62d37c7644aa49d841de8a4",
+        "c1153fe1dbbfa7a41924b57dda7714c28d8abe9e37999e77e0c9e15c41c8a493"),
+    "lossy-link@64": (
+        "97c3df78ee9868133f8726f57475b4f5b65a90b62e6356b9f617b99916e1c383",
+        "2bfb130d6adc96cbf4b43defd3133c97248c3535bba3312df0f4b4e05481d7a7"),
+    "multi-job-arbiter@64": (
+        "62f22fb36bbe6ab06d8cb0ea6943d1d3d73712d36e715cbf748176c1fd320b37",
+        "8273e68cf060a4aecf016fa5862e60a348c21dc98ef17e6d046f1e5bb6e4e492"),
+    "fleet-service@64": (
+        "c6c793a759719c41644b67043f260abfaf2dad592b7010be9b3631b2364897dc",
+        "9b7c703cd3e9d77172744dbd218e7d92585980f1cd1285b9bb18b36667504723"),
+    "steady-drain@256": (
+        "3b2307db083738649b4ab741a8b7959ec840e73ce62f96c307c60ff9da0c4ca8",
+        "8ee565caf9fca18f699cbe52708225f6418fca3d545b5113606c8597bb8d7b01"),
+    "compression-negotiation@256": (
+        "1b95617373f299f776e612691f5091917bbe522751408e4bd3dce35ae7793a8d",
+        "fe75f49de062865f44d6b2e07cbd67076d5215caf5ed6b1a3c22120124c375bc"),
+}
+
+
+def sim_digests(events, stats) -> tuple:
+    """(sha256 of the canonical JSONL of ``events``, sha256 of the
+    canonical JSON of ``stats``): what ``SIM_DIGESTS`` pins."""
+    import hashlib
+
+    log_text = "".join(json.dumps(e, sort_keys=True) + "\n" for e in events)
+    return (hashlib.sha256(log_text.encode()).hexdigest(),
+            hashlib.sha256(json.dumps(stats, sort_keys=True).encode())
+            .hexdigest())
+
+
+def sim_phase(smi: str, device=None) -> dict:
+    """The port's fabric simulator on the card's machine: the 15
+    scenarios at 64 virtual ranks, seed 7, in this process (the
+    controller scenarios' payloads and controllers on cuda:0),
+    ``compression-negotiation`` at 256 on the card, and
+    ``python -m horovod_tpu_torch.sim run steady-drain --ranks 256``
+    twice as subprocesses (started first, running beside the rest).
+    Every event log and ``stats`` digest must equal its row of
+    ``SIM_DIGESTS``, every controller's device must be cuda:0, and the
+    phase must end within ``SIM_BUDGET_S``.  One ``sim {...}`` line.
+    ``device`` (default cuda:0) lets the CPU rehearse the phase."""
+    import torch
+
+    from horovod_tpu_torch.ops import fused_scale_cast
+    from horovod_tpu_torch.sim import scenarios
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0) if device is None else torch.device(device)
+    # A1's launches a scenario (the zero-copy route's grouped unpack on
+    # card payloads); the counter is put back after the phase
+    a1_saved = fused_scale_cast.launches
+    # the CLI re-execs itself under PYTHONHASHSEED=0; its report goes to
+    # stdout, the ranks' warnings are dropped
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONHASHSEED"}
+    cli = [sys.executable, "-m", "horovod_tpu_torch.sim", "run",
+           "steady-drain", "--ranks", "256", "--seed", str(SIM_SEED)]
+    procs = [subprocess.Popen(cli, cwd=REPO, env=env, text=True,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.DEVNULL) for _ in range(2)]
+    rows, mismatched = {}, []
+    try:
+        runs = [(name, SIM_RANKS) for name in scenarios.SCENARIOS]
+        runs.append(("compression-negotiation", 256))
+        for name, ranks in runs:
+            key = f"{name}@{ranks}"
+            fused_scale_cast.launches = 0
+            t = time.perf_counter()
+            r = scenarios.run_scenario(name, ranks, SIM_SEED, device=dev)
+            wall = time.perf_counter() - t
+            got = sim_digests(r["events"], r["stats"])
+            match = got == SIM_DIGESTS[key]
+            if not match:
+                mismatched.append((key, got))
+            rows[key] = {"wall_s": wall, "events": len(r["events"]),
+                         "virtual_s": r["virtual_s"], "digest_match": match,
+                         "a1_launches": fused_scale_cast.launches}
+            if name in scenarios.CONTROLLER_SCENARIOS:
+                rows[key]["devices"] = r["devices"]
+                check(r["devices"] == [str(dev)],
+                      f"sim: {key} controllers on {r['devices']}, "
+                      f"expected ['{dev}']")
+        remaining = max(1.0, SIM_BUDGET_S - (time.perf_counter() - t_phase))
+        for i, proc in enumerate(procs):
+            out, _ = proc.communicate(timeout=remaining)
+            check(proc.returncode == 0,
+                  f"sim: CLI run {i} of steady-drain@256 exited "
+                  f"{proc.returncode}")
+            rep = json.loads(out)
+            got = (rep["event_log_sha256"],
+                   sim_digests([], rep["stats"])[1])
+            match = got == SIM_DIGESTS["steady-drain@256"]
+            if not match:
+                mismatched.append((f"steady-drain@256 (CLI run {i})", got))
+            rows[f"steady-drain@256 (CLI run {i})"] = {
+                "events": rep["events"], "digest_match": match,
+                "virtual_s": rep["stats"]["phases"]["drain"]["virtual_s"]}
+    finally:
+        fused_scale_cast.launches = a1_saved
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    phase_s = time.perf_counter() - t_phase
+    check(not mismatched,
+          f"sim: digests differ from the reference's table: {mismatched}")
+    check(phase_s <= SIM_BUDGET_S,
+          f"sim: the phase took {phase_s:.1f} s, over its "
+          f"{SIM_BUDGET_S:.0f} s budget")
+    line = {"card": smi, "seed": SIM_SEED, "phase_s": phase_s,
+            "scenarios": rows}
+    log("sim " + json.dumps(line))
+    return line
+
+
 def main() -> int:
     import torch
 
@@ -5674,6 +5845,9 @@ def main() -> int:
     log(f"launcher: --check-build {check_build}; -np {negative['np']} on "
         f"{negative['cards']} card(s) exited {negative['exit']} in "
         f"{negative['seconds']:.1f} s")
+    # before init: the simulator's virtual ranks share nothing with the
+    # one-rank world the phases below use
+    sim_phase(smi)
 
     # the flight recorder's postmortems go to a directory of this run
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))

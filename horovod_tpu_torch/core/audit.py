@@ -152,13 +152,19 @@ def digest_tree(tree: Any) -> Dict[str, str]:
 
 
 def _exchange(digests: Dict[str, str], label: str, st,
-              timeout_s: float) -> Dict[int, Dict[str, str]]:
-    """Allgather every rank's digest map over the process's store client
-    (``StoreKV`` over the default group's store; mirrors
-    ``obs.metrics.aggregate``'s sequence-numbered exchange)."""
+              timeout_s: float, client=None) -> Dict[int, Dict[str, str]]:
+    """Allgather every rank's digest map over the coordination client
+    (mirrors ``obs.metrics.aggregate``'s sequence-numbered exchange).
+    ``client`` injects the client (the fabric simulator's per-rank one);
+    the default is the process's ``StoreKV`` over the default group's
+    store."""
     from . import retry as core_retry
 
-    kv = core_retry.resilient_kv(st.kv, rank=st.rank)
+    if client is None:
+        client = getattr(st, "kv", None)
+    if client is None:
+        return {st.rank: digests}
+    kv = core_retry.resilient_kv(client, rank=st.rank)
     with _seq_lock:
         key = (st.init_generation, st.rank, label)
         seq = _seq.get(key, 0)
@@ -195,6 +201,15 @@ def _exchange(digests: Dict[str, str], label: str, st,
         except Exception:
             pass
     return per_rank
+
+
+def reset_sequences() -> None:
+    """Forget every (generation, rank, label) sequence counter.  The
+    fabric simulator starts a fresh virtual world a run inside ONE
+    process; without the reset a second run's exchange keys would
+    continue the first run's sequence and never meet a fresh fabric."""
+    with _seq_lock:
+        _seq.clear()
 
 
 def _find_divergence(per_rank: Dict[int, Dict[str, str]]
@@ -235,23 +250,31 @@ def format_report(label: str, divergent: Dict[str, Dict[int, str]]) -> str:
 
 
 def verify(tree: Any, label: str = "params", *, action: Optional[str] = None,
-           timeout_s: float = 60.0) -> dict:
+           timeout_s: float = 60.0, client=None, world=None) -> dict:
     """Audit ``tree`` across all ranks; returns the report dict
     ``{"label", "divergent": {tensor: {rank: digest}}, "ranks": [...]}``.
 
     COLLECTIVE: every rank must call with the same ``label`` at the
-    same point.  ``action`` overrides ``HVTPU_AUDIT_ACTION``."""
-    from . import state as core_state
-
+    same point.  ``action`` overrides ``HVTPU_AUDIT_ACTION``.
+    ``world`` (an object with rank/size/init_generation, treated as
+    initialized) and ``client`` (the coordination client) inject the
+    exchange's endpoints: the fabric simulator's per-rank view.  Left
+    None, the process's global state and store client are used."""
     action = audit_action() if action is None else action
     if action not in ("abort", "warn"):
         raise ValueError(f"audit action must be abort|warn, got {action!r}")
     digests = digest_tree(tree)
-    st = core_state.global_state()
-    if not st.initialized or st.size <= 1:
+    if world is not None:
+        st, initialized = world, True
+    else:
+        from . import state as core_state
+
+        st = core_state.global_state()
+        initialized = st.initialized
+    if not initialized or st.size <= 1:
         per_rank = {st.rank: digests}
     else:
-        per_rank = _exchange(digests, label, st, timeout_s)
+        per_rank = _exchange(digests, label, st, timeout_s, client=client)
     divergent = _find_divergence(per_rank)
     _M_RUNS.inc()
     report = {

@@ -92,6 +92,11 @@ _M_DRAIN_COMMIT_S = obs_metrics.histogram(
 
 _coord: Optional["_DrainCoordinator"] = None
 _module_lock = threading.Lock()
+# Thread-local coordinator override: the fabric simulator (``sim/``)
+# installs one _DrainCoordinator a virtual-rank thread, so N ranks' drain
+# protocols coexist in one process without sharing the module-global
+# fast path.  Nothing else installs one.
+_tls = threading.local()
 
 
 
@@ -278,15 +283,20 @@ class _DrainCoordinator:
     def _dir_entries(self):
         """[(kind, rank, value)] under this generation's namespace: one
         directory read a kind (``notice/``, ``plan/``; ``StoreKV`` reads
-        a flat prefix with one probe a rank), per-rank try_get when the
-        client has no directory read."""
+        a flat prefix with one probe a rank), or one read of the whole
+        namespace where the client reads nested keys
+        (``nested_dir_get``, the fabric simulator's client, as the JAX
+        coordination service does), per-rank try_get when the client has
+        no directory read."""
         prefix = f"{_NS}/{self.gen}/"
         out = []
         dir_get = getattr(self._kv, "key_value_dir_get", None)
         if dir_get is not None:
+            nested = getattr(self._kv, "nested_dir_get", False) is True
+            kinds = ("",) if nested else ("notice/", "plan/")
             try:
-                for kind in ("notice", "plan"):
-                    for k, v in dir_get(f"{prefix}{kind}/"):
+                for kind in kinds:
+                    for k, v in dir_get(f"{prefix}{kind}"):
                         parts = k.rsplit("/", 2)
                         if len(parts) < 2:
                             continue
@@ -537,9 +547,25 @@ class _DrainCoordinator:
 
 # -- module surface (what the rest of the framework calls) -------------
 
+def use(coord: Optional["_DrainCoordinator"]) -> None:
+    """Install ``coord`` as the CALLING THREAD's drain coordinator (None
+    to uninstall).  The fabric simulator gives each virtual-rank thread
+    its own coordinator this way; every module-level entry point below
+    then routes to it instead of the process-wide one."""
+    _tls.coord = coord
+
+
+def _current() -> Optional["_DrainCoordinator"]:
+    c = getattr(_tls, "coord", None)
+    return c if c is not None else _coord
+
+
 def pending() -> bool:
-    """Is any drain pending, as seen by this process?  The hot path:
-    one attribute read."""
+    """Is any drain pending, as seen by the calling thread?  The hot
+    path: one thread-local read plus one attribute read."""
+    c = getattr(_tls, "coord", None)
+    if c is not None:
+        return c.pending
     return PENDING
 
 
@@ -615,7 +641,7 @@ def uninstall() -> None:
 def notice(source: str = "api") -> None:
     """Deliver a preemption notice to this rank programmatically (the
     ``preempt`` fault action and tests use this)."""
-    coord = _coord
+    coord = _current()
     if coord is None:
         logger.warning(
             "preemption notice (%s) ignored: the drain coordinator is "
@@ -627,7 +653,7 @@ def notice(source: str = "api") -> None:
 def drain_boundary(commit_count: int) -> bool:
     """True when this commit boundary is the agreed drain commit.
     Callers guard on :func:`pending` first (hot path)."""
-    coord = _coord
+    coord = _current()
     if coord is None:
         return False
     return coord.drain_boundary(commit_count)
@@ -636,7 +662,7 @@ def drain_boundary(commit_count: int) -> bool:
 def finish_drain(commit_count: int) -> None:
     """Complete the drain after the commit persisted: the departing
     rank exits :data:`DRAIN_EXIT_CODE`; peers raise DrainInterrupt."""
-    coord = _coord
+    coord = _current()
     if coord is not None:
         coord.finish_drain(commit_count)
 
@@ -644,14 +670,14 @@ def finish_drain(commit_count: int) -> None:
 def draining_ranks() -> Dict[int, float]:
     """rank -> remaining grace seconds for ranks currently draining
     (stall inspectors report these instead of blaming them)."""
-    coord = _coord
+    coord = _current()
     if coord is None:
         return {}
     return coord.draining_ranks()
 
 
 def debug_state() -> dict:
-    coord = _coord
+    coord = _current()
     if coord is None:
         return {"pending": pending(), "installed": False}
     return coord.debug_state()

@@ -102,7 +102,6 @@ import logging
 import os
 import queue
 import threading
-import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -115,6 +114,7 @@ from ..comm.eager import _is_int8
 from ..comm.packing import pack_flat, unpack_flat
 from ..comm import stall as sync_stall
 from ..comm.reduce_ops import ReduceOp
+from ..core import clock
 from ..core import faults
 from ..core import preempt
 from ..core import retry as core_retry
@@ -445,7 +445,7 @@ class KVTransport:
 
     def _get(self, key: str, deadline_s: Optional[float] = None) -> bytes:
         wait = self.timeout_ms / 1000.0 if deadline_s is None else deadline_s
-        deadline = time.monotonic() + wait
+        deadline = clock.monotonic() + wait
         sleep = 0.0
         while True:
             if self._closed.is_set():
@@ -461,12 +461,12 @@ class KVTransport:
                 # included) poll again under the same deadline
                 if not core_retry.kv_retryable(e):
                     raise
-            if time.monotonic() > deadline:
+            if clock.monotonic() > deadline:
                 raise TimeoutError(
                     f"coordination key {key!r} not posted within "
                     f"{wait:.0f}s")
             sleep = min(self.poll_s, sleep * 2 if sleep else 2e-4)
-            time.sleep(sleep)
+            clock.sleep(sleep)
 
     def _delete(self, key: str):
         try:
@@ -806,7 +806,7 @@ class EagerController:
         negotiation (the outstanding confirmations abandoned, a resync
         forced) and the quiesce succeeds.  Idle, it returns the open
         exchange buffers to the pool (the pack plan stays)."""
-        deadline = time.monotonic() + timeout
+        deadline = clock.monotonic() + timeout
         while True:
             with self._lock:
                 busy = bool(self._payloads) or self._undrained != 0
@@ -815,7 +815,7 @@ class EagerController:
                     self._release_open_packs()
             if not busy and not unconfirmed:
                 return True
-            if time.monotonic() >= deadline:
+            if clock.monotonic() >= deadline:
                 rolled_back = 0
                 with self._lock:
                     if (not self._payloads and self._undrained == 0
@@ -833,7 +833,7 @@ class EagerController:
                     return True
                 return False
             self._wake.set()
-            time.sleep(0.01)
+            clock.sleep(0.01)
 
     def request_shutdown(self):
         """Announce this rank's shutdown WITHOUT stopping the threads
@@ -863,8 +863,8 @@ class EagerController:
             t_ms = getattr(self._transport, "timeout_ms", None)
             if t_ms:
                 linger = min(linger, t_ms / 1000.0)
-            deadline = time.monotonic() + linger
-            while time.monotonic() < deadline:
+            deadline = clock.monotonic() + linger
+            while clock.monotonic() < deadline:
                 if self._shutdown_seen.wait(timeout=0.1):
                     break
                 if (self._thread is None or not self._thread.is_alive()
@@ -973,7 +973,7 @@ class EagerController:
             rop=op, prescale=prescale_factor, postscale=postscale_factor,
             compressor=compression, splits=splits, kind=kind,
             process_set=process_set, psid=psid, root_rank=root_rank,
-            t_enqueue=time.monotonic(),
+            t_enqueue=clock.monotonic(),
             out=None if out is None else out.detach(),
         )
         with self._lock:
@@ -992,7 +992,7 @@ class EagerController:
             self._by_name[name] = seq
             self._undrained += 1
             self._pending_buf.append(name)
-            self._last_enqueue_t = time.monotonic()
+            self._last_enqueue_t = clock.monotonic()
             # the zero-copy plane: when a learned pack plan covers this
             # op, its bytes go into the pooled exchange buffer now
             self._maybe_prepack(payload)
@@ -1078,11 +1078,20 @@ class EagerController:
         # an already negotiated, stall-inspected schedule: exempt from
         # the sync watchdog (comm/stall.py).
         sync_stall.bypass_thread()
+        # run_cycle_once inspects stalls every 256 cycles; a cycle is a
+        # store round trip whose time grows with the host's load, so the
+        # loop also inspects on the streamed plane's time cadence, and a
+        # stall warns and aborts near its configured time on a slow store
+        stall_every = self._stall_cadence()
+        next_stall = clock.monotonic() + stall_every
         idle_cycles = 0
         while not self._stop.is_set():
-            t0 = time.monotonic()
+            t0 = clock.monotonic()
             try:
                 active = self.run_cycle_once()
+                if clock.monotonic() >= next_stall:
+                    next_stall = clock.monotonic() + stall_every
+                    self._inspect_stalls()
             except TransportClosed:
                 break
             except BaseException as e:  # noqa: BLE001 — must fail futures
@@ -1092,7 +1101,7 @@ class EagerController:
                 return  # every rank announced shutdown: global quiesce
             idle_cycles = 0 if active else min(idle_cycles + 1, 3)
             if active:
-                sleep = self.cycle_time_s - (time.monotonic() - t0)
+                sleep = self.cycle_time_s - (clock.monotonic() - t0)
             else:
                 # a floor, not a target minus elapsed: a slow exchange
                 # must not turn idle cycles into a spin
@@ -1258,14 +1267,19 @@ class EagerController:
     # and hands executions to the EXECUTOR.  No step is an all-rank
     # barrier.
 
-    def _drain_loop(self):
-        sync_stall.bypass_thread()
-        # stall inspection is time-based here (the lockstep plane keys
-        # it to cycle counts); tight stall configs tighten the cadence
+    def _stall_cadence(self) -> float:
+        """Seconds between time-based stall inspections: half the
+        tighter of the warn and abort limits, within [0.05, 2]."""
         limits = [s for s in (self.stall_warn_s, self.stall_abort_s)
                   if s and s > 0 and s != float("inf")]
-        stall_every = min([2.0] + [max(0.05, s / 2) for s in limits])
-        next_stall = time.monotonic() + stall_every
+        return min([2.0] + [max(0.05, s / 2) for s in limits])
+
+    def _drain_loop(self):
+        sync_stall.bypass_thread()
+        # stall inspection is time-based here; tight stall configs
+        # tighten the cadence
+        stall_every = self._stall_cadence()
+        next_stall = clock.monotonic() + stall_every
         idle = 0
         while not self._stop.is_set():
             active = False
@@ -1274,8 +1288,8 @@ class EagerController:
                     active = self._drain_once()
                 if self.rank == 0:
                     active = self._service_once() or active
-                if time.monotonic() >= next_stall:
-                    next_stall = time.monotonic() + stall_every
+                if clock.monotonic() >= next_stall:
+                    next_stall = clock.monotonic() + stall_every
                     self._inspect_stalls()
             except TransportClosed:
                 break
@@ -1299,7 +1313,7 @@ class EagerController:
         blob directly); in steady state the agreed schedule is predicted
         and executed before the blob leaves this host, and the blob goes
         out flagged as a confirmation."""
-        t0 = time.monotonic()
+        t0 = clock.monotonic()
         self._gate_burst()
         # Atomic-burst drain cap: with an established steady burst,
         # drain exactly one burst per wire unit — enqueues of the NEXT
@@ -1340,7 +1354,7 @@ class EagerController:
         if take < drained:
             self._wake.set()  # the capped remainder drains next pass
         _M_CYCLES.inc()
-        _M_CYCLE_S.observe(time.monotonic() - t0)
+        _M_CYCLE_S.observe(clock.monotonic() - t0)
         return True
 
     def _try_predict(self, parsed: wire.RequestList,
@@ -1630,7 +1644,7 @@ class EagerController:
             hint = self._burst_hint
         expected = (self._expected_burst
                     if self._burst_stable >= 2 else hint)
-        deadline = time.monotonic() + (
+        deadline = clock.monotonic() + (
             max(span, 0.25) if hint and expected
             else max(span, 0.05) if expected
             else span)
@@ -1638,7 +1652,7 @@ class EagerController:
             with self._lock:
                 undrained = self._undrained
                 last_t = self._last_enqueue_t
-            now = time.monotonic()
+            now = clock.monotonic()
             # A pending drain (core/preempt.py) must not wait out the
             # burst gate: drain whatever is queued NOW so in-flight
             # collectives finish before the drain commit's grace
@@ -1652,7 +1666,7 @@ class EagerController:
                     or now >= deadline or self._stop.is_set()
                     or preempt.pending()):
                 break
-            time.sleep(min(quiesce / 2, max(deadline - now, 1e-4)))
+            clock.sleep(min(quiesce / 2, max(deadline - now, 1e-4)))
 
     def _note_drained(self, drained: int, req: bytes) -> wire.RequestList:
         """Burst-stability bookkeeping for one drained request blob;
@@ -1734,7 +1748,7 @@ class EagerController:
         """One lockstep coordination cycle (parity: RunLoopOnce).
         Returns True when the cycle carried work (requests drained or
         responses executed) — the loop's idle-backoff signal."""
-        t_cycle0 = time.monotonic()
+        t_cycle0 = clock.monotonic()
         self._gate_burst()
         cycle = self._cycle
         self._cycle += 1
@@ -1757,7 +1771,7 @@ class EagerController:
         if cycle % 256 == 0:
             self._inspect_stalls()
         _M_CYCLES.inc()
-        _M_CYCLE_S.observe(time.monotonic() - t_cycle0)
+        _M_CYCLE_S.observe(clock.monotonic() - t_cycle0)
         return bool(rl.responses) or drained > 0
 
     def _inspect_stalls(self):
@@ -1803,7 +1817,7 @@ class EagerController:
         """Age-based watchdog for non-coordinator ranks: they cannot see
         which ranks are missing (only rank 0's message table can), but
         they can tell their own op has waited too long."""
-        now = time.monotonic()
+        now = clock.monotonic()
         with self._lock:
             pending = [(p.name, now - p.t_enqueue)
                        for p in self._payloads.values()]
@@ -1914,7 +1928,7 @@ class EagerController:
             prescale=1.0, postscale=1.0, compressor=NoneCompressor,
             splits=splits, kind=kind, process_set=rs.process_set_id,
             psid=rs.process_set_id, root_rank=rs.root_rank,
-            t_enqueue=time.monotonic(),
+            t_enqueue=clock.monotonic(),
         )
 
     def _take_payloads(self, rs: wire.Response,
@@ -1982,7 +1996,7 @@ class EagerController:
             payloads = self._take_payloads(rs)
             if not payloads:
                 continue  # every name resolved by a predicted execution
-            now = time.monotonic()
+            now = clock.monotonic()
             # one histogram lock for the whole fused group
             waits = [now - p.t_enqueue for p in payloads if p.seq != -1]
             if waits:

@@ -418,6 +418,12 @@ class _PrefixDir(_PrefixStr):
     """Adds the directory tier: results are re-rooted so callers see
     their own namespace, never the prefix."""
 
+    @property
+    def nested_dir_get(self) -> bool:
+        """The inner client's nested-directory capability (see
+        ``core/preempt.py``'s drain scan)."""
+        return getattr(self._kv, "nested_dir_get", False) is True
+
     def key_value_dir_get(self, prefix):
         full = self._k(prefix)
         return [(k[len(self._p):], v)

@@ -233,7 +233,8 @@ def test_import_leaves_no_jax_or_reference_module():
             " horovod_tpu_torch.models.transformer,"
             " horovod_tpu_torch.api.sharded_checkpoint,"
             " horovod_tpu_torch.fleet, horovod_tpu_torch.fleet.__main__,"
-            " horovod_tpu_torch.fleet.health;"
+            " horovod_tpu_torch.fleet.health, horovod_tpu_torch.sim,"
+            " horovod_tpu_torch.sim.__main__;"
             " print('\\n'.join(sorted(sys.modules)))")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -289,7 +290,13 @@ def test_import_leaves_no_jax_or_reference_module():
             "horovod_tpu_torch.fleet.health",
             "horovod_tpu_torch.fleet.runner",
             "horovod_tpu_torch.fleet.arbiter",
-            "horovod_tpu_torch.fleet.__main__"} <= set(out)
+            "horovod_tpu_torch.fleet.__main__",
+            "horovod_tpu_torch.sim", "horovod_tpu_torch.sim.kernel",
+            "horovod_tpu_torch.sim.fabric", "horovod_tpu_torch.sim.context",
+            "horovod_tpu_torch.sim.workers",
+            "horovod_tpu_torch.sim.transport",
+            "horovod_tpu_torch.sim.scenarios",
+            "horovod_tpu_torch.sim.__main__"} <= set(out)
     assert [m for m in out if _forbidden(m)] == []
 
 
@@ -333,7 +340,9 @@ def test_ast_scan_finds_no_jax_or_reference_import():
                 "fleet/__main__.py", "fleet/job.py", "fleet/placement.py",
                 "fleet/admission.py", "fleet/intake.py",
                 "fleet/autoscale.py", "fleet/health.py", "fleet/runner.py",
-                "fleet/arbiter.py"):
+                "fleet/arbiter.py", "sim/__init__.py", "sim/__main__.py",
+                "sim/kernel.py", "sim/fabric.py", "sim/context.py",
+                "sim/workers.py", "sim/transport.py", "sim/scenarios.py"):
         assert REPO / "horovod_tpu_torch" / sub in files
     assert len(files) > 15
     bad = [(f.name, m) for f in files for m in _imports(f) if _forbidden(m)]
