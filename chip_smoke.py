@@ -282,6 +282,16 @@ and, beside them, its C++ negotiation core from
    2 and 3 are drained through their notice files (exit 79) and lo
    relaunches at 2; both ``max_restarts=0``, both DONE, no charged
    restart, every sample of every epoch delivered exactly once.
+11. the TensorFlow and Keras frontends (``horovod_tpu_torch.tensorflow``,
+   ``.keras``), where ``tensorflow`` and ``keras`` are both
+   installed: a seeded tf.keras MLP trained ``FRONTEND_STEPS`` steps
+   through the port's keras ``DistributedOptimizer`` (SGD momentum 0.9,
+   ``gradient_predivide_factor=2.0``) with the port on cuda:0, every
+   gradient the bridge hands to the engine on cuda:0 (counted by
+   ``tensorflow.mpi_ops.bridged``), then the same steps with the port
+   re-initialized on the CPU (``init(device="cpu")``, the world the
+   smoke ends in): the weights bitwise equal.  Without either module the
+   phase only prints what it found.
 
 Prints one ``sim {...}`` line (each scenario's wall seconds, events,
 virtual seconds, digest match and A1 launches, the card's name and
@@ -314,6 +324,10 @@ seconds from hi's submit to lo's relaunch at 2), one ``launcher {...}`` line (th
 flags, the worker's ``HVTPU_AUTOTUNE*`` env, the static launch's rendezvous seconds, each relaunch's seconds
 from the driver seeing the exit to the next incarnation's first step,
 the driver's exits, outcomes and charged restarts, the negative gate),
+one ``frontends {...}`` line (``{"tensorflow": null, "keras": null,
+"ran": false}`` with the versions found when either module is missing;
+else the steps, the bridged tensors by device, the weights' match and
+the phase's seconds),
 one ``{"kernels": [...]}`` line of 13 entries (the last three the
 ring kernels with one rank a process, ``time_sliced`` beside their ms,
 A6's with ``spmd_launches``)
@@ -5789,6 +5803,106 @@ def sim_phase(smi: str, device=None) -> dict:
     return line
 
 
+FRONTEND_SEED = 0
+FRONTEND_STEPS = 4
+FRONTEND_BATCH = 64
+FRONTEND_WIDTHS = (784, 256, 10)   # an MNIST-sized MLP
+
+
+def _module_version(name: str):
+    """The installed version of module ``name``, None when it is not
+    installed; read from its distribution without importing it."""
+    import importlib.util
+    from importlib import metadata
+
+    if importlib.util.find_spec(name) is None:
+        return None
+    for dist in metadata.packages_distributions().get(name) or [name]:
+        try:
+            return metadata.version(dist)
+        except metadata.PackageNotFoundError:
+            continue
+    return __import__(name).__version__
+
+
+def _frontend_run(hvd) -> tuple:
+    """FRONTEND_STEPS steps of the seeded MLP through the port's keras
+    ``DistributedOptimizer`` on the world ``hvd`` is initialized on:
+    (weights, the bridge's tensors by device, losses)."""
+    import keras
+    import numpy as np
+
+    import horovod_tpu_torch.keras as hvd_keras
+    from horovod_tpu_torch.tensorflow import mpi_ops as tf_ops
+
+    d_in, d_hidden, d_out = FRONTEND_WIDTHS
+    keras.utils.set_random_seed(FRONTEND_SEED)
+    rng = np.random.RandomState(FRONTEND_SEED)
+    n = FRONTEND_BATCH * FRONTEND_STEPS
+    x = rng.rand(n, d_in).astype(np.float32)
+    y = rng.randint(0, d_out, size=n).astype(np.int32)
+    model = keras.Sequential([
+        keras.layers.Input((d_in,)),
+        keras.layers.Dense(d_hidden, activation="relu"),
+        keras.layers.Dense(d_out)])
+    opt = hvd_keras.DistributedOptimizer(
+        keras.optimizers.SGD(0.05, momentum=0.9),
+        gradient_predivide_factor=PREDIVIDE)
+    model.compile(optimizer=opt, loss=keras.losses.
+                  SparseCategoricalCrossentropy(from_logits=True))
+    tf_ops.bridged.clear()
+    hist = model.fit(x, y, batch_size=FRONTEND_BATCH, epochs=1,
+                     shuffle=False, verbose=0)
+    return (model.get_weights(), dict(tf_ops.bridged),
+            hist.history["loss"])
+
+
+def frontends_phase(hvd, smi: str, device: str = "cuda:0") -> dict:
+    """The tf/keras frontends where ``tensorflow`` and ``keras`` are
+    installed (see the module docstring, step 11); one ``frontends
+    {...}`` line.  Only a missing module skips the run; any other error
+    fails the smoke.  ``hvd`` is initialized on ``device`` when this is
+    called, and on the CPU when it returns from a run.  ``device="cpu"``
+    lets the CPU rehearse the phase."""
+    t0 = time.perf_counter()
+    line = {"tensorflow": _module_version("tensorflow"),
+            "keras": _module_version("keras"), "ran": False}
+    if line["tensorflow"] is None or line["keras"] is None:
+        log("frontends " + json.dumps(line))
+        return line
+    import numpy as np
+    import tensorflow as tf
+
+    # tf would otherwise reserve the card's memory for itself
+    for gpu in tf.config.list_physical_devices("GPU"):
+        tf.config.experimental.set_memory_growth(gpu, True)
+    check(str(hvd.device()) == device,
+          f"frontends: the port is on {hvd.device()}, not {device}")
+    weights, bridged, losses = _frontend_run(hvd)
+    grads = 2 * (len(FRONTEND_WIDTHS) - 1)
+    check(bridged == {device: grads * FRONTEND_STEPS},
+          f"frontends: bridged {bridged}, expected {grads} gradients a "
+          f"step on {device}")
+    check(all(np.isfinite(v) for v in losses),
+          f"frontends: losses {losses}")
+    hvd.shutdown()
+    hvd.init(device="cpu")
+    cpu_weights, cpu_bridged, cpu_losses = _frontend_run(hvd)
+    same = all(a.dtype == b.dtype and a.tobytes() == b.tobytes()
+               for a, b in zip(weights, cpu_weights))
+    check(same and losses == cpu_losses,
+          "frontends: the weights after the steps differ between the "
+          f"port on {device} and on the CPU")
+    line.update(ran=True, card=smi, steps=FRONTEND_STEPS,
+                bridged=bridged, cpu_bridged=cpu_bridged,
+                weights_equal_cpu=same, losses=losses,
+                tf_devices=[d.name for d in
+                            tf.config.list_logical_devices()],
+                phase_s=time.perf_counter() - t0)
+    log("frontends " + json.dumps(line))
+    return line
+
+
 def main() -> int:
     import torch
 
@@ -5883,6 +5997,8 @@ def main() -> int:
         reference_phase(hvd, device)
         elastic = elastic_phase(smi, tmp)
         fleet = fleet_phase(smi, tmp)
+        # last: a run re-initializes the port on the CPU
+        frontends_phase(hvd, smi, str(device))
     finally:
         hvd.shutdown()
         shutil.rmtree(tmp, ignore_errors=True)

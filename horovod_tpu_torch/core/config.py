@@ -11,9 +11,16 @@ coordinator the launcher sets (rank, size, local and cross rank and
 size, address, port, start timeout), the launcher's CPU request, the
 log level, and elastic training (the elastic flag, the preemption
 signal, notice file and drain grace, and the timeout the elastic driver
-takes when ``--elastic-timeout`` is not given).  The elastic driver
-reads its discovery interval, restart budget and blacklist cooldowns
-from the env itself, as the reference's does.
+takes when ``--elastic-timeout`` is not given).
+
+It also carries the reference's fields that nothing of either package
+applies (``batch_d2d_memcopies``, ``compression``, ``adasum``,
+``controller_addr``, ``controller_port``), read from the same variables
+so that a setting is never dropped without a trace, and the elastic
+driver's discovery interval, restart budget and blacklist cooldowns,
+which the driver and the discovery read from the env themselves, as
+the reference's do.  The reference's ``eager_multidevice`` is left out:
+the port runs one device a process.
 """
 
 from __future__ import annotations
@@ -61,6 +68,13 @@ class Config:
     fusion_threshold_bytes: int = 64 * 1024 * 1024
     cycle_time_ms: float = 1.0
     cache_capacity: int = 1024
+    batch_d2d_memcopies: bool = True
+
+    # --- wire format / reduction: read, and applied by neither package
+    # (the launcher refuses --compression; ROADMAP Queue C) ---
+    # "none" | "fp16" | "bf16" | "int8"
+    compression: str = "none"
+    adasum: bool = False
 
     # two-stage allreduce over the local and cross groups
     # (core/topology.py; parity: HOROVOD_HIERARCHICAL_ALLREDUCE)
@@ -121,9 +135,24 @@ class Config:
     # startup/rendezvous window (parity: horovodrun --start-timeout)
     start_timeout: float = 600.0
 
+    # --- the reference's controller transport; the port's controller
+    # rides the coordinator's store, so these are read and not used ---
+    controller_addr: Optional[str] = None
+    controller_port: int = 0
+
     # --- elastic (elastic/, core/durable.py) ---
     elastic: bool = False
     elastic_timeout: float = 600.0
+    elastic_discovery_interval: float = 1.0
+    # restart budget: total relaunches the elastic driver may perform
+    # (-1 = unlimited); with restart_window_seconds > 0 the budget
+    # applies to a sliding window instead of the whole job
+    max_restarts: int = -1
+    restart_window_seconds: float = 0.0
+    # blacklist cooldown (seconds): the first strike sidelines a host
+    # this long, doubling per strike up to the max
+    blacklist_cooldown_seconds: float = 300.0
+    blacklist_cooldown_max_seconds: float = 3600.0
 
     # --- graceful preemption / drain (core/preempt.py) ---
     # signal interpreted as a preemption notice; a name that does not
@@ -156,6 +185,9 @@ class Config:
             fusion_threshold_bytes=fusion_bytes,
             cycle_time_ms=_env_float("CYCLE_TIME", 1.0),
             cache_capacity=_env_int("CACHE_CAPACITY", 1024),
+            batch_d2d_memcopies=_env_bool("BATCH_D2D_MEMCOPIES", True),
+            compression=_env_str("COMPRESSION", "none"),
+            adasum=_env_bool("ADASUM", False),
             hierarchical_allreduce=_env_bool("HIERARCHICAL_ALLREDUCE",
                                              False),
             uniform_local_size=_env_int("UNIFORM_LOCAL_SIZE", 0),
@@ -189,8 +221,18 @@ class Config:
             coordinator_addr=_env_str("COORDINATOR_ADDR"),
             coordinator_port=_env_int("COORDINATOR_PORT", 0),
             start_timeout=_env_float("START_TIMEOUT", 600.0),
+            controller_addr=_env_str("CONTROLLER_ADDR"),
+            controller_port=_env_int("CONTROLLER_PORT", 0),
             elastic=_env_bool("ELASTIC", False),
             elastic_timeout=_env_float("ELASTIC_TIMEOUT", 600.0),
+            elastic_discovery_interval=_env_float(
+                "ELASTIC_DISCOVERY_INTERVAL", 1.0),
+            max_restarts=_env_int("MAX_RESTARTS", -1),
+            restart_window_seconds=_env_float("RESTART_WINDOW_SECONDS", 0.0),
+            blacklist_cooldown_seconds=_env_float(
+                "BLACKLIST_COOLDOWN_SECONDS", 300.0),
+            blacklist_cooldown_max_seconds=_env_float(
+                "BLACKLIST_COOLDOWN_MAX_SECONDS", 3600.0),
             preempt_signal=_env_str("PREEMPT_SIGNAL", "SIGTERM"),
             preempt_notice_file=_env_str("PREEMPT_NOTICE_FILE"),
             drain_grace_seconds=_env_float("DRAIN_GRACE_SECONDS", 30.0),

@@ -743,6 +743,9 @@ class EagerController:
         # restores uncapped drains).
         self._burst_cap_on = (
             os.environ.get("HVTPU_EAGER_BURST_CAP", "1") != "0")
+        # HVTPU_EAGER_DEBUG: prediction aborts go to stderr at error
+        # level (the reference's verbose diagnostics), not at debug
+        self._debug = bool(os.environ.get("HVTPU_EAGER_DEBUG"))
         # The zero-copy plane: once a steady schedule has shown the
         # fused groupings, _maybe_learn_pack_plan records each op's slot
         # so enqueue packs its bytes straight into a pooled exchange
@@ -1410,8 +1413,9 @@ class EagerController:
                 return False
         got = [n for rs in rl.responses for n in rs.tensor_names]
         if sorted(got) != sorted(names):
-            logger.debug("predict abort: schedule covers %r, drain holds "
-                         "%r", sorted(got), sorted(names))
+            logger.log(logging.ERROR if self._debug else logging.DEBUG,
+                       "predict abort: schedule covers %r, drain holds %r",
+                       sorted(got), sorted(names))
             return False
         key = frozenset(bits)
         with self._lock:

@@ -17,6 +17,11 @@ lock; each compiles to a private name and ``os.replace``s it into
 place, so nobody loads a half-written library.  Nothing is built at
 import time.  A failed build raises with the compiler's output: there is
 no quiet fallback to the Python core.
+
+``HVTPU_SKIP_NATIVE_BUILD`` (the reference's knob) never compiles: it
+takes the library of the current sources if it is built, else the
+newest one built before (``native/core.py`` checks its ABI), and raises
+when there is none, where the reference quietly runs its Python core.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ CXXFLAGS = ["-O2", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-pthread",
             "-fvisibility=hidden"]
 EXPORTS = "{\n  global: hvt_*;\n  local: *;\n};\n"
 FORCE_PY = "HVTPU_FORCE_PY_CONTROLLER"
+SKIP_BUILD = "HVTPU_SKIP_NATIVE_BUILD"
 
 
 def sources() -> List[Path]:
@@ -68,6 +74,8 @@ def build() -> Path:
     out = lib_path()
     if out.exists():
         return out
+    if os.environ.get(SKIP_BUILD):
+        return _prebuilt()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with open(BUILD_DIR / "libhvt_core.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
@@ -77,6 +85,18 @@ def build() -> Path:
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
     return out
+
+
+def _prebuilt() -> Path:
+    """The newest library already built, for ``HVTPU_SKIP_NATIVE_BUILD``."""
+    built = sorted(BUILD_DIR.glob("libhvt_core-*.so"),
+                   key=lambda p: p.stat().st_mtime)
+    if not built:
+        raise RuntimeError(
+            f"{SKIP_BUILD} is set and no native negotiation core is built "
+            f"under {BUILD_DIR}; unset it to build one, or set "
+            f"{FORCE_PY}=1 to run the Python core instead.")
+    return built[-1]
 
 
 def _compile(out: Path) -> None:

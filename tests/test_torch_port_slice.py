@@ -300,6 +300,53 @@ def test_import_leaves_no_jax_or_reference_module():
     assert [m for m in out if _forbidden(m)] == []
 
 
+def _modules_after(code: str) -> list:
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    return subprocess.run(
+        [sys.executable, "-c", code + "; print('\\n'.join(sorted("
+         "sys.modules)))"], cwd=REPO, env=env, capture_output=True,
+        text=True, timeout=180, check=True).stdout.split()
+
+
+def test_root_import_leaves_tensorflow_and_keras_out():
+    out = _modules_after("import sys, horovod_tpu_torch")
+    assert "horovod_tpu_torch" in out
+    assert [m for m in out
+            if m.split(".")[0] in ("tensorflow", "keras")] == []
+
+
+def test_frontends_add_no_jax_or_reference_module():
+    """Keras 3 and tensorflow import parts of JAX themselves: the
+    frontends may add no forbidden module to what ``import tensorflow,
+    keras`` alone leaves, and no module of the JAX package at all."""
+    import importlib.util
+
+    if importlib.util.find_spec("tensorflow") is None \
+            or importlib.util.find_spec("keras") is None:
+        pytest.skip("tensorflow and keras are not installed")
+    code = ("import sys, tensorflow, keras;"
+            " print('\\n'.join(sorted(sys.modules)));"
+            " print('--frontends--');"
+            " import horovod_tpu_torch.tensorflow,"
+            " horovod_tpu_torch.tensorflow.keras,"
+            " horovod_tpu_torch.tensorflow.keras.callbacks,"
+            " horovod_tpu_torch.tensorflow.keras.elastic,"
+            " horovod_tpu_torch.keras, horovod_tpu_torch.keras.callbacks,"
+            " horovod_tpu_torch.keras.elastic, horovod_tpu_torch._keras,"
+            " horovod_tpu_torch._keras.callbacks")
+    out = _modules_after(code)
+    cut = out.index("--frontends--")
+    alone, both = set(out[:cut]), set(out[cut + 1:])
+    assert {"horovod_tpu_torch.tensorflow.mpi_ops",
+            "horovod_tpu_torch.tensorflow.sync_batch_norm",
+            "horovod_tpu_torch.tensorflow.elastic",
+            "horovod_tpu_torch.tensorflow.compression",
+            "horovod_tpu_torch._keras.callbacks",
+            "horovod_tpu_torch.keras.elastic"} <= both
+    assert sorted(m for m in both - alone if _forbidden(m)) == []
+    assert [m for m in both if m.split(".")[0] == "horovod_tpu"] == []
+
+
 def _imports(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -342,7 +389,14 @@ def test_ast_scan_finds_no_jax_or_reference_import():
                 "fleet/autoscale.py", "fleet/health.py", "fleet/runner.py",
                 "fleet/arbiter.py", "sim/__init__.py", "sim/__main__.py",
                 "sim/kernel.py", "sim/fabric.py", "sim/context.py",
-                "sim/workers.py", "sim/transport.py", "sim/scenarios.py"):
+                "sim/workers.py", "sim/transport.py", "sim/scenarios.py",
+                "tensorflow/__init__.py", "tensorflow/compression.py",
+                "tensorflow/mpi_ops.py", "tensorflow/sync_batch_norm.py",
+                "tensorflow/elastic.py", "tensorflow/keras/__init__.py",
+                "tensorflow/keras/callbacks.py",
+                "tensorflow/keras/elastic.py", "_keras/__init__.py",
+                "_keras/callbacks.py", "keras/__init__.py",
+                "keras/callbacks.py", "keras/elastic.py"):
         assert REPO / "horovod_tpu_torch" / sub in files
     assert len(files) > 15
     bad = [(f.name, m) for f in files for m in _imports(f) if _forbidden(m)]
