@@ -282,7 +282,25 @@ and, beside them, its C++ negotiation core from
    2 and 3 are drained through their notice files (exit 79) and lo
    relaunches at 2; both ``max_restarts=0``, both DONE, no charged
    restart, every sample of every epoch delivered exactly once.
-11. the TensorFlow and Keras frontends (``horovod_tpu_torch.tensorflow``,
+11. drives the Spark estimator (``horovod_tpu_torch.spark``): a dict
+   frame of 160 seeded 224x224x3 float32 images and labels, no pandas,
+   through ``TorchEstimator`` on ResNet-50 (float32, 1000 classes, SGD
+   0.01 momentum 0.9, ``gradient_compression="fp16"``, batch 32, 2
+   epochs, ``validation=0.25``, seed 7) with ``LocalBackend(num_proc=1)``,
+   the port's default device: its worker trains on cuda:0 beside this
+   process's own world; the loss is ``nn.CrossEntropyLoss()``'s function
+   noting the first step's time, and a metric reads A1's launches in the
+   worker at each epoch's end (both module-level functions of this file,
+   pickled by reference).  Gates: ``loss`` and ``val_loss`` finite for
+   both epochs, 4 A1 launches a step, ``checkpoint.pt`` in the Store with
+   CPU tensors only, the trained module back on cuda:0 and
+   ``TorchModel.transform`` bitwise its own forward there at the same
+   batching (deterministic cuDNN); then ``spark.run`` and
+   ``RayExecutor(num_workers=1, use_gpu=True)`` (local mode, no Ray
+   cluster) run a probe that allreduces a tensor on its rank's device:
+   both on cuda:0.  Where keras and tensorflow import, a seeded keras MLP
+   also fits through ``KerasEstimator`` at one rank.
+12. the TensorFlow and Keras frontends (``horovod_tpu_torch.tensorflow``,
    ``.keras``), where ``tensorflow`` and ``keras`` are both
    installed: a seeded tf.keras MLP trained ``FRONTEND_STEPS`` steps
    through the port's keras ``DistributedOptimizer`` (SGD momentum 0.9,
@@ -324,6 +342,11 @@ seconds from hi's submit to lo's relaunch at 2), one ``launcher {...}`` line (th
 flags, the worker's ``HVTPU_AUTOTUNE*`` env, the static launch's rendezvous seconds, each relaunch's seconds
 from the driver seeing the exit to the next incarnation's first step,
 the driver's exits, outcomes and charged restarts, the negative gate),
+one ``spark {...}`` line (the card, the rows and npz bytes, the fit's
+wall seconds and its seconds to the worker's first step, the history,
+transform's ms, A1 a step, the devices of the worker, ``spark.run`` and
+``RayExecutor``, ``find_spec`` of cloudpickle, pandas, pyspark, ray,
+keras and tensorflow, the pickler, ``keras_estimator`` "ran" or null),
 one ``frontends {...}`` line (``{"tensorflow": null, "keras": null,
 "ran": false}`` with the versions found when either module is missing;
 else the steps, the bridged tensors by device, the weights' match and
@@ -335,7 +358,8 @@ A6's with ``spmd_launches``)
 ``stall_launches``, ``obs_launches_per_step``,
 ``models_launches_per_step``,
 ``elastic_launches`` and ``launcher_launches``, the last by the
-launcher's entry point, and ``fleet_launches``) and, last,
+launcher's entry point, ``fleet_launches`` and
+``spark_launches_per_step``) and, last,
 ``{"ok": true,
 "device": {...}}``.  Exits non-zero, printing no result, when CUDA is
 absent, when the package is not beside this script, or when any phase
@@ -5803,6 +5827,234 @@ def sim_phase(smi: str, device=None) -> dict:
     return line
 
 
+SPARK_SEED = 7
+SPARK_ROWS = 160           # 224x224x3 float32 images: ~96 MB of npz
+SPARK_IMAGE = 224
+SPARK_STAGES = (3, 4, 6, 3)   # ResNet-50
+SPARK_FILTERS = 64
+SPARK_CLASSES = 1000
+SPARK_BATCH = 32
+SPARK_EPOCHS = 2
+SPARK_VALIDATION = 0.25
+SPARK_KERAS_ROWS = 256     # the keras MLP's frame (16 features, 4 classes)
+SPARK_MARK_ENV = "CHIP_SMOKE_SPARK_MARK"
+
+
+def spark_a1_launches(outputs, labels) -> float:
+    """A metric of the estimator's workers: A1's launches in the worker
+    so far (``fused_scale_cast.launches``), read at each epoch's end.
+    The workers import this module, so it is pickled by reference."""
+    from horovod_tpu_torch.ops import fused_scale_cast
+
+    return float(fused_scale_cast.launches)
+
+
+def spark_cross_entropy(output, label):
+    """``nn.CrossEntropyLoss()``'s function, which also notes in the file
+    named by ``CHIP_SMOKE_SPARK_MARK`` the wall time of its first call in
+    the worker: the first step's forward."""
+    import torch.nn.functional as F
+
+    mark = os.environ.get(SPARK_MARK_ENV)
+    if mark and not os.path.exists(mark):
+        with open(mark, "w") as f:
+            f.write(repr(time.time()))
+    return F.cross_entropy(output, label)
+
+
+def spark_device_probe() -> str:
+    """``spark.run``'s and ``RayExecutor``'s function: ``init()``, an
+    allreduce of a tensor on the rank's device, that device."""
+    import torch
+
+    import horovod_tpu_torch.torch as hvd
+
+    hvd.init()
+    try:
+        t = hvd.allreduce(torch.ones(4, device=hvd.device()), name="probe")
+        if not bool((t == 1).all()):
+            raise RuntimeError(f"probe: allreduce gave {t}")
+        return str(t.device)
+    finally:
+        hvd.shutdown()
+
+
+def _spark_keras(spark, tmp: Path, cpu_devices) -> dict:
+    """A seeded keras MLP through the port's ``KerasEstimator`` at one
+    rank: the history finite, transform's column the trained model's own
+    ``predict`` at the same batching, bitwise."""
+    import keras
+    import numpy as np
+
+    rng = np.random.RandomState(SPARK_SEED)
+    x = rng.rand(SPARK_KERAS_ROWS, 16).astype(np.float32)
+    y = rng.randint(0, 4, SPARK_KERAS_ROWS)
+    keras.utils.set_random_seed(SPARK_SEED)
+    model = keras.Sequential([keras.layers.Input((16,)),
+                              keras.layers.Dense(32, activation="relu"),
+                              keras.layers.Dense(4, activation="softmax")])
+    est = spark.KerasEstimator(
+        model=model, optimizer=keras.optimizers.SGD(0.1),
+        loss="sparse_categorical_crossentropy", feature_cols=["features"],
+        label_cols=["label"], batch_size=SPARK_BATCH, epochs=SPARK_EPOCHS,
+        verbose=0, random_seed=SPARK_SEED,
+        store=spark.LocalStore(str(tmp / "keras")),
+        backend=spark.LocalBackend(num_proc=1, cpu_devices=cpu_devices))
+    t = time.perf_counter()
+    km = est.fit({"features": x, "label": y})
+    fit_s = time.perf_counter() - t
+    hist = km.getHistory()
+    check(len(hist["loss"]) == SPARK_EPOCHS
+          and all(math.isfinite(v) for v in hist["loss"]),
+          f"spark: the keras history {hist}")
+    pred = np.stack(km.transform({"features": x})["label__output"])
+    direct = km.getModel().predict(x, batch_size=SPARK_BATCH, verbose=0)
+    check(pred.shape == (SPARK_KERAS_ROWS, 4)
+          and pred.tobytes() == np.asarray(direct).tobytes(),
+          "spark: the keras transform differs from the model's predict")
+    return {"fit_s": fit_s, "history": hist}
+
+
+def spark_phase(smi: str, tmp: Path, device: str = "cuda:0") -> dict:
+    """The Spark estimator and the Ray executor on the card: the port's
+    ``TorchEstimator`` fits ResNet-50 through ``LocalBackend(num_proc=1)``
+    (the port's default device), then ``spark.run`` and
+    ``RayExecutor(use_gpu=True)`` (local mode) run a probe; the gates of
+    the module's docstring, and one ``spark {...}`` line.  This process
+    holds its own one-rank world on the card meanwhile, as the elastic
+    and fleet children's parent does.  ``device="cpu"`` rehearses the
+    phase on the CPU: every rank asks for the CPU (``cpu_devices=1``,
+    ``use_gpu=False``) and A1 launches nothing there."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    import chip_smoke as this   # what the workers import: by reference
+    from horovod_tpu_torch import spark
+    from horovod_tpu_torch.models import ResNet
+    from horovod_tpu_torch.ray import RayExecutor
+    from horovod_tpu_torch.runner import pickler
+
+    on_card = device != "cpu"
+    cpu_devices = None if on_card else 1
+    t0 = time.perf_counter()
+    probes = {m: importlib.util.find_spec(m) is not None
+              for m in ("cloudpickle", "pandas", "pyspark", "ray", "keras",
+                        "tensorflow")}
+    tmp = tmp / "spark"
+    tmp.mkdir()
+    rng = np.random.RandomState(SPARK_SEED)
+    frame = {"features": rng.rand(SPARK_ROWS, SPARK_IMAGE, SPARK_IMAGE, 3)
+             .astype(np.float32),
+             "label": rng.randint(0, SPARK_CLASSES, SPARK_ROWS)}
+    model = ResNet(list(SPARK_STAGES), num_classes=SPARK_CLASSES,
+                   num_filters=SPARK_FILTERS, dtype=torch.float32,
+                   generator=torch.Generator().manual_seed(SEED))
+    store = spark.LocalStore(str(tmp / "store"))
+    est = spark.TorchEstimator(
+        model=model,
+        optimizer=torch.optim.SGD(model.parameters(), lr=0.01,
+                                  momentum=0.9),
+        loss=this.spark_cross_entropy, metrics=[this.spark_a1_launches],
+        feature_cols=["features"], label_cols=["label"],
+        gradient_compression="fp16", batch_size=SPARK_BATCH,
+        epochs=SPARK_EPOCHS, validation=SPARK_VALIDATION,
+        random_seed=SPARK_SEED, verbose=0, run_id="smoke", store=store,
+        backend=spark.LocalBackend(num_proc=1, cpu_devices=cpu_devices))
+    mark = tmp / "first_step"
+    os.environ[SPARK_MARK_ENV] = str(mark)
+    if on_card:
+        torch.cuda.empty_cache()
+    t = time.time()
+    try:
+        tm = est.fit(frame)
+    finally:
+        os.environ.pop(SPARK_MARK_ENV, None)
+    fit_s = time.time() - t
+    first_step_s = float(mark.read_text()) - t
+    meta = store.read_json(store.get_data_metadata_path())
+    npz_bytes = sum(os.path.getsize(os.path.join(d, f)) for d, f in (
+        (store.get_train_data_path(), "train.npz"),
+        (store.get_val_data_path(), "val.npz")))
+    hist = tm.getHistory()
+    check(all(len(hist.get(k, [])) == SPARK_EPOCHS
+              and all(math.isfinite(v) for v in hist[k])
+              for k in ("loss", "val_loss")),
+          f"spark: the history {hist}")
+    steps = -(-meta["n_train"] // SPARK_BATCH)
+    launches = hist["spark_a1_launches"]
+    per_step = sorted({(b - a) / steps
+                       for a, b in zip([0.0] + launches[:-1], launches)})
+    want = 4 if on_card else 0
+    check(per_step == [want],
+          f"spark: A1 launched {launches} by the epochs' ends over "
+          f"{steps} steps an epoch, expected {want} a step")
+    check(store.get_checkpoints("smoke") == ["checkpoint.pt"],
+          f"spark: checkpoints {store.get_checkpoints('smoke')}")
+    ckpt = torch.load(os.path.join(store.get_checkpoint_path("smoke"),
+                                   "checkpoint.pt"), weights_only=True)
+    check(all(v.device.type == "cpu" for v in ckpt["model"].values()),
+          "spark: the checkpoint holds tensors off the CPU")
+    trained = tm.getModel()
+    on = next(trained.parameters()).device
+    check(str(on) == device, f"spark: the trained module is on {on}")
+    # transform and the module's own forward at the same batching, with
+    # deterministic cuDNN
+    saved = (torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        t = time.perf_counter()
+        out = np.stack(tm.transform(frame)["label__output"])
+        transform_ms = (time.perf_counter() - t) * 1e3
+        x = torch.from_numpy(frame["features"]).to(on)
+        with torch.no_grad():
+            direct = torch.cat([trained(x[lo:lo + SPARK_BATCH]) for lo in
+                                range(0, SPARK_ROWS, SPARK_BATCH)])
+        direct = direct.cpu().numpy()
+    finally:
+        (torch.backends.cudnn.benchmark,
+         torch.backends.cudnn.deterministic) = saved
+    same_shape = out.shape == direct.shape == (SPARK_ROWS, SPARK_CLASSES)
+    check(same_shape and np.isfinite(out).all()
+          and out.tobytes() == direct.tobytes(),
+          f"spark: transform ({out.shape}) differs from the trained "
+          f"module's forward on {on}, max "
+          f"{float(np.abs(out - direct).max()) if same_shape else None}")
+    del x, trained, tm
+    run_devices = spark.run(this.spark_device_probe, num_proc=1,
+                            cpu_devices=cpu_devices)
+    ray = RayExecutor(num_workers=1, use_gpu=on_card)
+    ray.start()
+    try:
+        ray_devices = ray.run(this.spark_device_probe)
+    finally:
+        ray.shutdown()
+    check(run_devices == [device] and ray_devices == [device],
+          f"spark: spark.run ran on {run_devices}, RayExecutor on "
+          f"{ray_devices}, expected {device}")
+    keras_run = None
+    if probes["keras"] and probes["tensorflow"]:
+        keras_run = _spark_keras(spark, tmp, cpu_devices)
+    line = {
+        "card": smi, "rows": SPARK_ROWS, "image": SPARK_IMAGE,
+        "npz_bytes": npz_bytes, "n_train": meta["n_train"],
+        "n_val": meta["n_val"], "fit_s": fit_s,
+        "first_step_s": first_step_s, "history": hist,
+        "transform_ms": transform_ms,
+        "a1_launches_per_step": per_step[0], "steps_per_epoch": steps,
+        "worker_device": device, "run_devices": run_devices,
+        "ray_devices": ray_devices, "find_spec": probes,
+        "pickler": pickler().__name__,
+        "keras_estimator": "ran" if keras_run else None,
+        "keras": keras_run, "phase_s": time.perf_counter() - t0,
+    }
+    log("spark " + json.dumps(line))
+    return line
+
+
 FRONTEND_SEED = 0
 FRONTEND_STEPS = 4
 FRONTEND_BATCH = 64
@@ -5859,7 +6111,7 @@ def _frontend_run(hvd) -> tuple:
 
 def frontends_phase(hvd, smi: str, device: str = "cuda:0") -> dict:
     """The tf/keras frontends where ``tensorflow`` and ``keras`` are
-    installed (see the module docstring, step 11); one ``frontends
+    installed (see the module docstring, step 12); one ``frontends
     {...}`` line.  Only a missing module skips the run; any other error
     fails the smoke.  ``hvd`` is initialized on ``device`` when this is
     called, and on the CPU when it returns from a run.  ``device="cpu"``
@@ -5997,6 +6249,7 @@ def main() -> int:
         reference_phase(hvd, device)
         elastic = elastic_phase(smi, tmp)
         fleet = fleet_phase(smi, tmp)
+        spark = spark_phase(smi, tmp, str(device))
         # last: a run re-initializes the port on the CPU
         frontends_phase(hvd, smi, str(device))
     finally:
@@ -6045,6 +6298,9 @@ def main() -> int:
         "fleet_launches_per_step": sorted({
             n for j in fleet["jobs"].values()
             for n in j["a1_launches_per_step"]}),
+        # the spark phase's estimator worker (TorchEstimator's
+        # DistributedOptimizer), counted in the worker
+        "spark_launches_per_step": spark["a1_launches_per_step"],
         # the models phase: each model's A1 launches a step
         "models_launches_per_step": {
             name: r["a1_launches_per_step"] for name, r in

@@ -120,7 +120,7 @@ def _ranks(tensors: Sequence[torch.Tensor], what: str
             raise NotImplementedError(
                 f"{what}: ranks on more than one card run one a process, "
                 "through ProcessRing(group); a process drives one card "
-                "until ROADMAP Queue A item 9")
+                "(ROADMAP Queue C, one device a process)")
         raise ValueError(
             f"{what}: ranks on mixed devices {sorted(map(str, devices))}")
     device = devices.pop()

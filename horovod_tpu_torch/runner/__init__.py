@@ -54,16 +54,24 @@ class RunError(RuntimeError):
         self.worker_traceback = worker_traceback
 
 
+def pickler():
+    """The function channel's pickler: ``cloudpickle`` where it is
+    installed (closures, lambdas), else ``pickle`` (module-level
+    functions only)."""
+    try:
+        import cloudpickle
+
+        return cloudpickle
+    except ImportError:
+        return pickle
+
+
 def _dump_fn(fn: Callable, args, kwargs, path: str, key: str):
     """Pickle + HMAC-sign the function blob (parity: secret.py-signed
     service messages; workers refuse unsigned/tampered payloads)."""
     from . import secret
 
-    try:
-        import cloudpickle as pickler
-    except ImportError:  # module-level functions only
-        import pickle as pickler
-    blob = pickler.dumps((fn, tuple(args), dict(kwargs or {})))
+    blob = pickler().dumps((fn, tuple(args), dict(kwargs or {})))
     with open(path, "wb") as f:
         f.write(secret.sign(key, blob))
 

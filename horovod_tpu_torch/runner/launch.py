@@ -576,15 +576,16 @@ def launch_workers(
 # launcher does, but which no module of the port reads yet: a job
 # launched with one would silently run without it, so the launcher
 # refuses it before any spawn.  (flag attribute, env name after the
-# HVTPU_ / HOROVOD_ prefix, values that ask for nothing, what brings it)
+# HVTPU_ / HOROVOD_ prefix, values that ask for nothing, why it stays
+# refused)
 UNPORTED = (
     ("compression", "COMPRESSION", ("", "none"),
      "a job-wide codec is not applied by the port: pass compression= "
-     "to DistributedOptimizer or the op (ROADMAP Queue A, what is left "
-     "of item 3a)"),
+     "to DistributedOptimizer or the op (ROADMAP Queue C, --compression "
+     "and --nonfinite-action stay refused)"),
     ("nonfinite_action", "NONFINITE_ACTION", ("", "off"),
      "the port's DistributedOptimizer has no non-finite check (ROADMAP "
-     "Queue A, what is left of item 3a)"),
+     "Queue C, --compression and --nonfinite-action stay refused)"),
 )
 
 

@@ -234,7 +234,8 @@ def test_import_leaves_no_jax_or_reference_module():
             " horovod_tpu_torch.api.sharded_checkpoint,"
             " horovod_tpu_torch.fleet, horovod_tpu_torch.fleet.__main__,"
             " horovod_tpu_torch.fleet.health, horovod_tpu_torch.sim,"
-            " horovod_tpu_torch.sim.__main__;"
+            " horovod_tpu_torch.sim.__main__, horovod_tpu_torch.spark,"
+            " horovod_tpu_torch.spark.lightning, horovod_tpu_torch.ray;"
             " print('\\n'.join(sorted(sys.modules)))")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -296,7 +297,16 @@ def test_import_leaves_no_jax_or_reference_module():
             "horovod_tpu_torch.sim.workers",
             "horovod_tpu_torch.sim.transport",
             "horovod_tpu_torch.sim.scenarios",
-            "horovod_tpu_torch.sim.__main__"} <= set(out)
+            "horovod_tpu_torch.sim.__main__",
+            "horovod_tpu_torch.spark", "horovod_tpu_torch.spark.common",
+            "horovod_tpu_torch.spark.common.params",
+            "horovod_tpu_torch.spark.common.store",
+            "horovod_tpu_torch.spark.common.data",
+            "horovod_tpu_torch.spark.common.backend",
+            "horovod_tpu_torch.spark.common.estimator",
+            "horovod_tpu_torch.spark.torch", "horovod_tpu_torch.spark.keras",
+            "horovod_tpu_torch.spark.lightning",
+            "horovod_tpu_torch.ray"} <= set(out)
     assert [m for m in out if _forbidden(m)] == []
 
 
@@ -313,6 +323,20 @@ def test_root_import_leaves_tensorflow_and_keras_out():
     assert "horovod_tpu_torch" in out
     assert [m for m in out
             if m.split(".")[0] in ("tensorflow", "keras")] == []
+
+
+def test_spark_and_ray_import_no_optional_framework():
+    """The estimators and the executors import pandas, pyspark, ray,
+    keras, tensorflow and cloudpickle only inside the calls that need
+    them, and nothing of JAX or the JAX package."""
+    out = _modules_after("import sys, horovod_tpu_torch.spark,"
+                         " horovod_tpu_torch.spark.lightning,"
+                         " horovod_tpu_torch.ray")
+    assert {"horovod_tpu_torch.spark.torch", "horovod_tpu_torch.spark.keras",
+            "horovod_tpu_torch.ray"} <= set(out)
+    assert [m for m in out if m.split(".")[0] in (
+        "jax", "jaxlib", "horovod_tpu", "pandas", "pyspark", "ray", "keras",
+        "tensorflow", "cloudpickle")] == []
 
 
 def test_frontends_add_no_jax_or_reference_module():
@@ -396,7 +420,13 @@ def test_ast_scan_finds_no_jax_or_reference_import():
                 "tensorflow/keras/callbacks.py",
                 "tensorflow/keras/elastic.py", "_keras/__init__.py",
                 "_keras/callbacks.py", "keras/__init__.py",
-                "keras/callbacks.py", "keras/elastic.py"):
+                "keras/callbacks.py", "keras/elastic.py",
+                "spark/__init__.py", "spark/common/__init__.py",
+                "spark/common/params.py", "spark/common/store.py",
+                "spark/common/data.py", "spark/common/backend.py",
+                "spark/common/estimator.py", "spark/torch/__init__.py",
+                "spark/keras/__init__.py", "spark/lightning/__init__.py",
+                "ray/__init__.py"):
         assert REPO / "horovod_tpu_torch" / sub in files
     assert len(files) > 15
     bad = [(f.name, m) for f in files for m in _imports(f) if _forbidden(m)]
