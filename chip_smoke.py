@@ -209,11 +209,15 @@ and, beside them, its C++ negotiation core from
    A6 within ``2(n-1) * max sum|x| / 127``, A4 bitwise ``torch.cat``;
    then rings of 2 and 3 ranks, and of 3 ranks of NaN/inf/subnormal
    values, bitwise the plain versions; a ring of 12 ranks of 1,000,003
-   elements on the global-slot A4/A5/A6 kernels, its own path, with the
-   same checks; timing against the plain versions and the library calls
-   that fill one output and every rank's (the 12-rank kernels at half a
-   bucket a rank, and a call's time at 1,000,003), and the last timed
-   call checked again;
+   elements, its own path: A4/A5 on the global-slot kernels, A6 on a
+   non-portable cluster of 12 CTAs, with the same checks; A6 rings of 9
+   and 16 ranks on non-portable clusters; a ring of 20 ranks, its own
+   path, on the global-slot A4/A5/A6 kernels; timing against the plain
+   versions and the library calls that fill one output and every rank's
+   (the 12-rank kernels at half a bucket a rank, A6 there on the
+   cluster and on the global-slot kernel in turns, A6 at 16 ranks of
+   the same size on the cluster, and a call's time at 1,000,003), and
+   the last timed call checked again;
    then the rings with one rank a process (``--ring-ipc-child``): 2,
    then 3 processes on cuda:0 in a gloo group over a ``TCPStore`` on
    localhost, each rank's ``ProcessRing`` (its slots and flags a
@@ -407,8 +411,11 @@ FLT_MIN = 2.0 ** -126
 # mean's standard deviation is below 0.5 / sqrt(25.56e6) = 1e-4
 UNBIASED_BOUND = 1e-3
 RING_RANKS = 8            # phase 3's batch of 64 as 8 ranks of 8 images
-RING_SMALL = 1_000_003    # elements a rank of the 2-, 3- and 12-rank rings
-RING_WIDE = 12            # ranks of the ring past a cluster's 8 CTAs
+RING_SMALL = 1_000_003    # elements a rank of the rings besides the main
+RING_WIDE = 12            # ranks: A4/A5 past a portable cluster's 8 CTAs,
+                          # A6 on a non-portable cluster of 12
+RING_A6_RINGS = (9, 16)   # A6 on non-portable clusters, an odd one first
+RING_GLOBAL = 20          # ranks past A6's cluster of 16: ring.cu's A4/A5/A6
 
 
 class SmokeFailure(Exception):
@@ -4242,6 +4249,48 @@ def _time_a6(buckets, reps: int, plain_reps: int = 2):
     return dict(a6, **_a6_bound(len(buckets), buckets[0].numel()))
 
 
+def _time_a6_pair(xs, reps: int, turns: int = 2):
+    """ms of A6 over the same inputs on the cluster (the wrapper's route)
+    and on ring.cu's global-slot kernel (``global_allreduce``), in turns
+    (cluster, global, global, cluster), and of its plain version; the
+    last call of each is checked again."""
+    from horovod_tpu_torch.ops import ring_allreduce, ring_allreduce_plain
+    from horovod_tpu_torch.ops.ring import global_allreduce
+
+    n = len(xs)
+    check(_ring_key("A6", n) == "A6_cluster",
+          f"ring: A6 at {n} ranks is not on the cluster")
+    last = {}
+    calls = {"cluster": lambda: last.__setitem__(
+                 "cluster", ring_allreduce(xs, quantized=True)),
+             "global": lambda: last.__setitem__(
+                 "global", global_allreduce(xs, True))}
+    times = {k: [] for k in calls}
+    for turn in range(turns):
+        for k in (("cluster", "global") if turn % 2 == 0
+                  else ("global", "cluster")):
+            times[k].append(time_cuda(calls[k], reps))
+    want = ring_allreduce_plain(xs, quantized=True)
+    for k in calls:
+        _held(last[k], want, f"A6 {k} n={n} after timing")
+    del last, want
+    plain_ms = time_cuda(lambda: ring_allreduce_plain(xs, quantized=True),
+                         2, 1)
+    bound = _a6_bound(n, xs[0].numel())
+    return {k: dict(ms=sum(v) / len(v), turns=v, plain_ms=plain_ms,
+                    library_ms=None, library_all_ranks_ms=None, **bound)
+            for k, v in times.items()}
+
+
+def _a6_dsmem_bytes(n: int, size: int) -> int:
+    """What A6's cluster ring moves through distributed shared memory:
+    (2n-2) hops of a chunk a rank, 1 byte an element and 4 a 1024."""
+    from horovod_tpu_torch.ops.ring import chunk_elems
+
+    e = chunk_elems(size, n)
+    return n * (2 * n - 2) * (e + 4 * e // 1024)
+
+
 def _ring_bounds(n: int, size: int, e: int):
     """The least bytes of A4 and A5 (each rank's input read once, its
     output written once) and A5's float32 additions."""
@@ -4266,10 +4315,12 @@ def _wide_ranks(buckets, m: int, elements: int):
 def ring_phase(buckets, reps: int):
     """The ring collectives at full width (8 ranks x 25.56 M float32
     gradients, the main path: A4, A5 and A6 on the cluster kernels),
-    rings of 2 and 3 ranks, the 12-rank ring on the global-slot A4/A5/A6
-    kernels (a path of its own), timing (the 12-rank kernels at half a
-    bucket a rank, where the kernel and not the call around it takes the
-    time), and calls back to back."""
+    rings of 2 and 3 ranks, the 12-rank ring (a path of its own: A4/A5
+    on the global-slot kernels, A6 on a non-portable cluster), A6 on
+    clusters of 9 and 16, the 20-rank ring on the global-slot A4/A5/A6
+    kernels (a path of its own), timing (the 12- and 16-rank kernels at
+    half a bucket a rank, where the kernel and not the call around it
+    takes the time), and calls back to back."""
     import torch
 
     from horovod_tpu_torch.ops import (
@@ -4278,7 +4329,11 @@ def ring_phase(buckets, reps: int):
         ring_allreduce,
         ring_allreduce_plain,
     )
-    from horovod_tpu_torch.ops.ring import chunk_elems, cluster_info
+    from horovod_tpu_torch.ops.ring import (
+        chunk_elems,
+        cluster_info,
+        global_allreduce,
+    )
 
     n, size = len(buckets), buckets[0].numel()
     e = chunk_elems(size, n)
@@ -4327,26 +4382,65 @@ def ring_phase(buckets, reps: int):
                                        f"A4 {what}"))
         check(same_bits(outs[0], torch.cat(bl)), f"ring: A4 {what} cat")
 
-    # the 12-rank ring: past a cluster's 8 CTAs, so A4, A5 and A6 take
-    # the global-slot kernels; each rank a distinct RING_SMALL slice of
-    # the gradients
+    # the 12-rank ring: past a portable cluster's 8 CTAs, so A4 and A5
+    # take the global-slot kernels and A6 a non-portable cluster of 12;
+    # each rank a distinct RING_SMALL slice of the gradients
     m = RING_WIDE
     wide = _wide_ranks(buckets, m, RING_SMALL)
     wide_blocks = _rank_blocks(wide)
     wsums, wavgs, wquant, wgathered, wide_launches = _ring_path(
         wide, wide_blocks, True)
-    check(all(_ring_key(k, m).endswith("_global")
-              for k in ("A4", "A5", "A6")),
-          f"ring: {m} ranks not on the global-slot kernels")
+    check([_ring_key(k, m) for k in ("A4", "A5", "A6")]
+          == ["A4_global", "A5_global", "A6_cluster"],
+          f"ring: {m} ranks not on the global-slot A4/A5 and cluster A6")
     err["A5_global"] = _sum_checks(wsums, wavgs, wide, f"n={m}")
-    err["A6_global"], wide_a6_max, _, wide_q_bound = _quantized_checks(
+    held, wide_a6_max, _, wide_q_bound = _quantized_checks(
         wquant, wide, f"n={m}")
+    err["A6_cluster"] = max(err["A6_cluster"], held)
+    a6_rings = {m: dict(max_err=wide_a6_max, bound=wide_q_bound)}
     err["A4_global"] = _held(wgathered, ring_allgather_2d_plain(wide_blocks),
                              f"A4 n={m}")
     check(same_bits(wgathered[0], torch.cat(wide_blocks)),
           f"ring: A4 n={m} is not torch.cat")
     del wsums, wavgs, wquant, wgathered
-    log(f"ring: {m} ranks x {RING_SMALL} elements on the global-slot "
+    log(f"ring: {m} ranks x {RING_SMALL} elements, A4/A5 on the "
+        f"global-slot kernels and A6 on a cluster of {m}, identical on "
+        "every rank and bitwise the plain versions")
+
+    # A6 on the other non-portable clusters: 9 (odd) and 16 CTAs
+    for k in RING_A6_RINGS:
+        xs = _wide_ranks(buckets, k, RING_SMALL)
+        check(_ring_key("A6", k) == "A6_cluster",
+              f"ring: A6 at {k} ranks is not on the cluster")
+        outs = _one_launch("A6_cluster", lambda: ring_allreduce(
+            xs, quantized=True))
+        held, q_max, _, bound = _quantized_checks(outs, xs, f"n={k}")
+        err["A6_cluster"] = max(err["A6_cluster"], held)
+        a6_rings[k] = dict(max_err=q_max, bound=bound)
+        del xs, outs
+    log(f"ring: A6 on clusters of {sorted(a6_rings)} ranks x {RING_SMALL} "
+        "elements, identical on every rank and bitwise the plain version")
+
+    # the 20-rank ring: past A6's cluster of 16, so A4, A5 and A6 take
+    # the global-slot kernels
+    g = RING_GLOBAL
+    gxs = _wide_ranks(buckets, g, RING_SMALL)
+    g_blocks = _rank_blocks(gxs)
+    gsums, gavgs, gquant, ggathered, global_launches = _ring_path(
+        gxs, g_blocks, True)
+    check(all(_ring_key(k, g).endswith("_global")
+              for k in ("A4", "A5", "A6")),
+          f"ring: {g} ranks not on the global-slot kernels")
+    err["A5_global"] = max(err["A5_global"],
+                           _sum_checks(gsums, gavgs, gxs, f"n={g}"))
+    err["A6_global"], global_a6_max, _, global_q_bound = _quantized_checks(
+        gquant, gxs, f"n={g}")
+    err["A4_global"] = max(err["A4_global"], _held(
+        ggathered, ring_allgather_2d_plain(g_blocks), f"A4 n={g}"))
+    check(same_bits(ggathered[0], torch.cat(g_blocks)),
+          f"ring: A4 n={g} is not torch.cat")
+    del gxs, g_blocks, gsums, gavgs, gquant, ggathered
+    log(f"ring: {g} ranks x {RING_SMALL} elements on the global-slot "
         "A4/A5/A6 kernels, identical on every rank and bitwise the plain "
         "versions")
 
@@ -4354,20 +4448,30 @@ def ring_phase(buckets, reps: int):
     saved = _ring_counts()
     a4c, a5c = _time_ring(buckets, blocks, reps)
     a6c = _time_a6(buckets, reps)
-    # the 12-rank kernels: per call at RING_SMALL (launch, flag memset,
-    # slot allocation and 22 handshakes a slice outweigh the bytes), then
-    # at half a bucket a rank, the size the kernel's rate is read at
+    # the 12-rank kernels: per call at RING_SMALL (on the global-slot
+    # kernels launch, flag memset, slot allocation and 22 handshakes a
+    # slice outweigh the bytes), then at half a bucket a rank, the size
+    # the kernel's rate is read at; A6 there on its cluster and on the
+    # global-slot kernel in turns, then on a cluster of 16
     wide_small_ms = {
         "A5_global": time_cuda(lambda: ring_allreduce(wide), reps),
         "A4_global": time_cuda(lambda: ring_allgather_2d(wide_blocks), reps),
-        "A6_global": time_cuda(
-            lambda: ring_allreduce(wide, quantized=True), reps)}
+        "A6_cluster": time_cuda(
+            lambda: ring_allreduce(wide, quantized=True), reps),
+        "A6_global": time_cuda(lambda: global_allreduce(wide, True), reps)}
     wide_elements = size // 2 // 4 * 4
     big = _wide_ranks(buckets, m, wide_elements)
     big_blocks = _rank_blocks(big)
     a4g, a5g = _time_ring(big, big_blocks, reps)
-    a6g = _time_a6(big, reps)
+    a6_wide = _time_a6_pair(big, reps)
+    a6g = a6_wide["global"]
     del big, big_blocks
+    k16 = max(RING_A6_RINGS)
+    big = _wide_ranks(buckets, k16, wide_elements)
+    check(_ring_key("A6", k16) == "A6_cluster",
+          f"ring: A6 at {k16} ranks is not on the cluster")
+    a6_16 = _time_a6(big, reps)
+    del big
     _set_ring_counts(saved)
 
     we = chunk_elems(wide_elements, m)
@@ -4383,22 +4487,49 @@ def ring_phase(buckets, reps: int):
     # local chunk again each reduce-scatter hop)
     dsmem_bytes = {"A5_cluster": n * 4 * e * (2 * n - 2),
                    "A4_cluster": n * 4 * e * (n - 1),
-                   "A6_cluster": n * (2 * n - 2) * (e + 4 * e // 1024)}
+                   "A6_cluster": _a6_dsmem_bytes(n, size)}
+    # A6's rings on the non-portable clusters: the timed ones at half a
+    # bucket a rank, the checked ones at RING_SMALL
+    a6_dsmem_bytes = {
+        "timed": {k: _a6_dsmem_bytes(k, wide_elements) for k in (m, k16)},
+        "small": {k: _a6_dsmem_bytes(k, RING_SMALL) for k in sorted(
+            a6_rings)}}
     hbm_ring_bytes = {
         "A6_global": m * we * (8 + 2 * (m - 1) * (6 + 1 / 128)),
         "A5_global": m * 4 * we * (6 * m - 4),
         "A4_global": m * 4 * we * (2 + 3 * (m - 1))}
     config = {f"{kind}_cluster": cluster_info(kind, n)
               for kind in ("A4", "A5", "A6")}
+    a6_config = {k: cluster_info("A6", k) for k in sorted(a6_rings)}
+    # A6 past 8 ranks at half a bucket a rank: 12 ranks on the cluster
+    # and on the global-slot kernel (same inputs, in turns), 16 on the
+    # cluster; each beside its bound
+    a6_wide_ms = {
+        m: {"cluster_ms": a6_wide["cluster"]["ms"],
+            "cluster_turns": a6_wide["cluster"]["turns"],
+            "global_ms": a6_wide["global"]["ms"],
+            "global_turns": a6_wide["global"]["turns"],
+            "plain_ms": a6_wide["cluster"]["plain_ms"],
+            "bound_ms": a6_wide["cluster"]["bound_ms"],
+            "share_of_bound": a6_wide["cluster"]["bound_ms"]
+            / a6_wide["cluster"]["ms"]},
+        k16: {"cluster_ms": a6_16["ms"], "plain_ms": a6_16["plain_ms"],
+              "bound_ms": a6_16["bound_ms"],
+              "share_of_bound": a6_16["bound_ms"] / a6_16["ms"]}}
     result = dict(ranks=n, elements=size, chunk=e, launches=launches,
                   wide_ranks=m, wide_elements=RING_SMALL,
                   wide_launches=wide_launches,
+                  global_ranks=g, global_launches=global_launches,
                   wide_small_ms=wide_small_ms,
                   wide_timed_elements=wide_elements, small_rings=[2, 3],
                   small_elements=RING_SMALL,
                   a6_max_err=a6_max, a6_mean_err=a6_mean,
                   a6_bound=q_bound, wide_a6_max_err=wide_a6_max,
-                  wide_a6_bound=wide_q_bound, max_abs_err=err,
+                  wide_a6_bound=wide_q_bound,
+                  global_a6_max_err=global_a6_max,
+                  global_a6_bound=global_q_bound, a6_rings=a6_rings,
+                  a6_wide_ms=a6_wide_ms, a6_cluster_config=a6_config,
+                  a6_dsmem_bytes=a6_dsmem_bytes, max_abs_err=err,
                   cluster_config=config, dsmem_bytes=dsmem_bytes,
                   hbm_ring_bytes=hbm_ring_bytes,
                   hbm_ring_ms={k: v / HBM_BYTES_PER_S * 1e3
@@ -6359,13 +6490,15 @@ def main() -> int:
              "ring.cu", "wide_launches"),
             ("A5_global", "ring_allreduce (global slots, n > 8)", 180,
              "ring.cu", "wide_launches"),
-            ("A6_cluster", "ring_allreduce (quantized, cluster, n <= 8)",
+            ("A6_cluster", "ring_allreduce (quantized, cluster, n <= 16)",
              296, "ring_cluster.cu", "launches"),
-            ("A6_global", "ring_allreduce (quantized, global slots, n > 8)",
-             296, "ring.cu", "wide_launches")):
+            ("A6_global", "ring_allreduce (quantized, global slots, "
+             "n > 16)", 296, "ring.cu", "global_launches")):
         # A5's library call is x.sum(0) on the stacked ranks, A4's
         # torch.cat, each filling one output; library_all_ranks_ms fills
-        # every rank's; A6 has none
+        # every rank's; A6 has none.  A6_cluster's ms is the 8-rank main
+        # path's, its 12- and 16-rank times beside; A6_global's ms is at
+        # 12 ranks on the same inputs as the cluster's 12-rank time
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -6380,6 +6513,11 @@ def main() -> int:
             "library_ms": ring[key]["library_ms"],
             "library_all_ranks_ms": ring[key]["library_all_ranks_ms"],
         })
+        if key == "A6_cluster":
+            kernels[-1].update(
+                wide_launches=ring["wide_launches"][key],
+                nonportable_ms=ring["a6_wide_ms"],
+                nonportable_config=ring["a6_cluster_config"])
     # the same kernels with one rank a process: 2 processes time-sliced
     # on this card at full width (ring_ipc phase); ms a call of a rank,
     # plain_ms the plain version over both ranks' inputs, library_ms

@@ -1,12 +1,12 @@
-// Ring collectives A4, A5 and A6 over 2 to 8 virtual ranks of one card,
-// as thread block clusters, for Hopper (sm_90a).
+// Ring collectives A4 and A5 over 2 to 8 virtual ranks of one card, and
+// A6 over 2 to 16, as thread block clusters, for Hopper (sm_90a).
 //
 // Replaces horovod_tpu/ops/ring.py:_allgather_kernel (A4, called from
 // ring_allgather_2d), :_allreduce_kernel (A5, called from
 // _ring_allreduce_2d with quantized=False) and
 // :_quantized_allreduce_kernel (A6, with _quantize_block and
 // _dequantize_block, called from _ring_allreduce_2d with quantized=True)
-// for 2 <= n <= 8 ranks.  There
+// for 2 <= n <= 8 ranks (A4, A5) and 2 <= n <= 16 (A6).  There
 // every rank is a TPU core that pushes its slot to the right neighbour by
 // remote DMA and meets it on DMA semaphores.  Here the n ranks are the n
 // CTAs of one thread block cluster: CTA rank r of the cluster is rank r,
@@ -16,7 +16,16 @@
 // reference's receive and ACK semaphores become one hardware cluster
 // barrier a hop (barrier.cluster.arrive.release / wait.acquire): a port of
 // what the kernel computes, not of its protocol.  csrc/ring.cu keeps the
-// global-slot kernels for n > 8.
+// global-slot kernels for A4 and A5 past 8 ranks and A6 past 16.
+//
+// Cluster sizes: 8 CTAs is the portable limit.  Hopper schedules
+// clusters of up to 16 CTAs inside one GPC once a kernel sets
+// cudaFuncAttributeNonPortableClusterSizeAllowed; A6 sets it for n > 8.
+// A 16-CTA cluster must find its CTAs' room inside one GPC, so fewer
+// clusters of 16 are resident than the CTA count alone suggests
+// (hvtpu_ring_cluster_info reports both, and the largest cluster the
+// card would schedule).  A cluster that cannot be resident at all is a
+// CUDA error; nothing gives way to ring.cu.
 //
 // Bound: bytes.  HBM sees only what the bound counts: each rank's input
 // read once and its output written once.  A5 reads its rank's chunk c in
@@ -68,7 +77,13 @@
 //   and pass every barrier.  One warp a block at 128 threads (a slice of
 //   4096, 5 CTAs an SM at 96 registers) measured fastest on an H100
 //   against 2 warps a block, 64-512 threads, a register cap and
-//   evict-first loads (torch_port_ring_sweep.py).
+//   evict-first loads at 8 ranks, and fastest of those shapes at 12 and
+//   16 ranks too, so one shape serves every n; there a register cap of
+//   6 CTAs an SM was 1-3% faster at 80 bytes of spills
+//   (torch_port_ring_sweep.py --kernels A6 --ranks 12|16).  A GPC holds
+//   fewer whole clusters of 12 or 16 than the CTA count suggests: 44
+//   clusters of 12 and 35 of 16 were resident on an H100 (4.0 and 4.2
+//   CTAs an SM), against 77 of 8 (4.7).
 // * Every CTA passes a cluster barrier before its first store into a
 //   neighbour (the neighbour must be running) and before it exits (no
 //   CTA's shared memory is written after it has exited).
@@ -107,7 +122,10 @@ using hvtpu::load4;
 using hvtpu::store4;
 using hvtpu::zero4;
 
-constexpr int kMaxRanks = 8;   // the portable cluster size
+constexpr int kPortableRanks = 8;    // A4, A5: the portable cluster size
+constexpr int kQMaxRanks = 16;       // A6: Hopper's non-portable size
+static_assert(kPortableRanks <= kQMaxRanks,
+              "the pointer table, sized for A6, holds every ring");
 constexpr int kVec = 4;        // float4 a thread a slice
 constexpr int kThreads = 128;  // a CTA of A4 and A5
 constexpr int64_t kSlice = (int64_t)kThreads * kVec * 4;  // elements
@@ -123,10 +141,12 @@ constexpr size_t kQSmem = 2 * (size_t)kQSlice + 2 * 4 * kQBlocks;
 static_assert(kQThreads % (32 * kQBlockWarps) == 0 && kQLaneVec % 4 == 0,
               "A6: whole blocks a CTA, whole 16-byte pieces a lane");
 
+// 16 + 16 pointers: a 256-byte __grid_constant__ parameter
 struct Ptrs {
-  const float* x[kMaxRanks];
-  float* out[kMaxRanks];
+  const float* x[kQMaxRanks];
+  float* out[kQMaxRanks];
 };
+static_assert(sizeof(Ptrs) == 256, "Ptrs: 32 device pointers");
 
 __device__ __forceinline__ unsigned cluster_ctarank() {
   unsigned r;
@@ -510,6 +530,11 @@ const void* kernel(Kind kind) {
 
 int threads(Kind kind) { return kind == kQuantized ? kQThreads : kThreads; }
 
+// the largest ring a kind's cluster takes
+int max_ranks(Kind kind) {
+  return kind == kQuantized ? kQMaxRanks : kPortableRanks;
+}
+
 int64_t slice_elems(Kind kind) {
   return kind == kQuantized ? kQSlice : kSlice;
 }
@@ -522,6 +547,13 @@ cudaError_t configure(Kind kind, int n, cudaStream_t stream,
   cudaError_t err = cudaFuncSetAttribute(
       kernel(kind), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
+  if (n > kPortableRanks) {
+    // past the portable size: before the occupancy query and the launch,
+    // both of which refuse the cluster without it
+    err = cudaFuncSetAttribute(
+        kernel(kind), cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = (unsigned)n;
   attr->val.clusterDim.y = 1;
@@ -540,7 +572,7 @@ cudaError_t configure(Kind kind, int n, cudaStream_t stream,
 // (kernel, n, device): the query costs more than the launch.
 int active_clusters(Kind kind, int n, const cudaLaunchConfig_t& cfg,
                     int* out) {
-  static int cache[kKinds][kMaxRanks + 1][8];  // 0: not yet asked
+  static int cache[kKinds][kQMaxRanks + 1][8];  // 0: not yet asked
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
@@ -560,7 +592,8 @@ int active_clusters(Kind kind, int n, const cudaLaunchConfig_t& cfg,
 
 int launch(Kind kind, const int64_t* xs, const int64_t* outs, int n,
            int64_t size, int64_t chunk, void* stream) {
-  if (n < 2 || n > kMaxRanks || chunk <= 0) return (int)cudaErrorInvalidValue;
+  if (n < 2 || n > max_ranks(kind) || chunk <= 0)
+    return (int)cudaErrorInvalidValue;
   Ptrs p{};
   for (int r = 0; r < n; ++r) {
     if (xs[r] % 16 || outs[r] % 16) return (int)cudaErrorInvalidValue;
@@ -621,14 +654,18 @@ extern "C" int hvtpu_ring_cluster_quantized_allreduce(const int64_t* xs,
   return launch(kQuantized, xs, outs, n, size, chunk, stream);
 }
 
-// What the card gives kernel `kind` (0 A4, 1 A5, 2 A6), for the record:
-// info[0] registers a thread, [1] local (spill) bytes a thread, [2]
-// shared memory a CTA (dynamic and static), [3] CTAs resident an SM, [4]
-// clusters of n resident at once, [5] elements a slice.
+// What the card gives kernel `kind` (0 A4, 1 A5, 2 A6) at n ranks (up to
+// 8 for A4 and A5, 16 for A6), for the record: info[0] registers a
+// thread, [1] local (spill) bytes a thread, [2] shared memory a CTA
+// (dynamic and static), [3] CTAs resident an SM, [4] clusters of n
+// resident at once, [5] elements a slice, [6] the largest cluster the
+// card would schedule for the kernel (cudaOccupancyMaxPotentialClusterSize;
+// for A6 with the non-portable attribute set, whatever n, so the answer
+// does not depend on the calls before; A4 and A5 never set it).
 extern "C" int hvtpu_ring_cluster_info(int kind, int n, int* info) {
-  if (n < 2 || n > kMaxRanks || kind < 0 || kind >= kKinds)
-    return (int)cudaErrorInvalidValue;
+  if (kind < 0 || kind >= kKinds) return (int)cudaErrorInvalidValue;
   const Kind k = static_cast<Kind>(kind);
+  if (n < 2 || n > max_ranks(k)) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes fa;
   cudaError_t err = cudaFuncGetAttributes(&fa, kernel(k));
   if (err != cudaSuccess) return (int)err;
@@ -643,11 +680,20 @@ extern "C" int hvtpu_ring_cluster_info(int kind, int n, int* info) {
   int clusters = 0;
   const int qerr = active_clusters(k, n, cfg, &clusters);
   if (qerr) return qerr;
+  if (k == kQuantized) {
+    err = cudaFuncSetAttribute(
+        kernel(k), cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return (int)err;
+  }
+  int potential = 0;
+  err = cudaOccupancyMaxPotentialClusterSize(&potential, kernel(k), &cfg);
+  if (err != cudaSuccess) return (int)err;
   info[0] = fa.numRegs;
   info[1] = (int)fa.localSizeBytes;
   info[2] = (int)(cfg.dynamicSmemBytes + fa.sharedSizeBytes);
   info[3] = per_sm;
   info[4] = clusters;
   info[5] = (int)slice_elems(k);
+  info[6] = potential;
   return 0;
 }

@@ -19,7 +19,9 @@ with the same arithmetic (:class:`ProcessRing`'s over the group's
 point-to-point ops).  CUDA tensors take a kernel; :func:`kernel_route`
 picks it for the ranks of one process from ``n`` alone:
 
-* ``"cluster"`` (A4, A5 and A6 at ``2 <= n <= 8``):
+* ``"cluster"`` (A4 and A5 at ``2 <= n <= 8``, the portable cluster
+  size :data:`CLUSTER_MAX_RANKS`; A6 at ``2 <= n <= 16``, Hopper's
+  non-portable size :data:`QUANTIZED_CLUSTER_MAX_RANKS`):
   ``csrc/ring_cluster.cu``, one thread block cluster of ``n`` CTAs a
   ring, the slots in shared memory, each hop's payload (float32, or A6's
   int8 codes and scales) stored into the neighbour's slot through
@@ -28,8 +30,10 @@ picks it for the ranks of one process from ``n`` alone:
   wrapper allocates only the outputs.  Counted in
   ``ring_allgather_2d.cluster_launches``,
   ``ring_allreduce.cluster_launches`` (A5) and
-  ``ring_allreduce.quantized_cluster_launches`` (A6).
-* ``"global"`` (A4, A5 and A6 at ``n > 8``): ``csrc/ring.cu``, one
+  ``ring_allreduce.quantized_cluster_launches`` (A6).  A cluster the
+  card cannot make resident raises with the CUDA error.
+* ``"global"`` (A4 and A5 at ``n > 8``, A6 at ``n > 16``):
+  ``csrc/ring.cu``, one
   cooperative launch of every rank through the reference's protocol:
   double-buffered slots per phase in device memory, per-slot receive
   flags and ACK backpressure, on fresh flags every call.  Counted in
@@ -80,18 +84,26 @@ from .quantize import QBLOCK, block_scale_inv, flush, fma_f32, round_codes
 LANES = 128
 ROW_QUANTUM = 8               # a rank's chunk is a multiple of 8 rows
 SLICE = 8 * QBLOCK            # elements a CUDA block carries a hop
-CLUSTER_MAX_RANKS = 8         # CTAs of a portable thread block cluster
+CLUSTER_MAX_RANKS = 8         # A4, A5: CTAs of a portable cluster
+QUANTIZED_CLUSTER_MAX_RANKS = 16   # A6: Hopper's non-portable cluster size
 CLUSTER_KINDS = ("A4", "A5", "A6")   # ring_cluster.cu's kernels, by index
+
+
+def cluster_max_ranks(kind: str) -> int:
+    """The largest ring the cluster kernel ``kind`` (one of
+    :data:`CLUSTER_KINDS`) takes."""
+    return QUANTIZED_CLUSTER_MAX_RANKS if kind == "A6" else CLUSTER_MAX_RANKS
 
 
 def kernel_route(n: int, quantized: bool = False) -> str:
     """The CUDA kernel that serves a ring of ``n >= 2`` ranks on one
-    card, A4, A5 and A6 (``quantized``) alike: ``"cluster"``
-    (``csrc/ring_cluster.cu``) at ``n <= 8``, ``"global"``
-    (``csrc/ring.cu``) past 8."""
+    card: ``"cluster"`` (``csrc/ring_cluster.cu``) up to the cluster
+    limit of the kind, 8 ranks for A4 and A5, 16 for A6
+    (``quantized``); ``"global"`` (``csrc/ring.cu``) past it."""
     if n < 2:
         raise ValueError(f"a ring needs 2 or more ranks, got {n}")
-    return "cluster" if n <= CLUSTER_MAX_RANKS else "global"
+    limit = cluster_max_ranks("A6" if quantized else "A5")
+    return "cluster" if n <= limit else "global"
 
 
 # -- shapes and checks --------------------------------------------------------
@@ -277,7 +289,7 @@ def bind_cluster(lib: ctypes.CDLL):
         fns[1].argtypes = fns[3].argtypes = [
             ptrs, ptrs, ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
             ctypes.c_void_p]
-        # kind (index in CLUSTER_KINDS), n, info[6]
+        # kind (index in CLUSTER_KINDS), n, info[7]
         fns[2].argtypes = [ctypes.c_int, ctypes.c_int,
                            ctypes.POINTER(ctypes.c_int)]
         for fn in fns:
@@ -289,15 +301,17 @@ def _cluster_kernels():
     return bind_cluster(_build.load("ring_cluster"))
 
 
-def _cluster_table(what: str, xs, outs, x_numel: int, out_numel: int):
-    """The per-rank pointer arrays of a cluster launch, after the checks
-    of what the kernel takes: 2 to 8 ranks, one output a rank, every
+def _cluster_table(what: str, kind: str, xs, outs, x_numel: int,
+                   out_numel: int):
+    """The per-rank pointer arrays of a launch of the cluster kernel
+    ``kind``, after the checks of what the kernel takes: 2 to its limit
+    of ranks (8 for A4 and A5, 16 for A6), one output a rank, every
     tensor float32, contiguous, of its length, on one device and at a
     16-byte aligned address."""
-    n = len(xs)
-    if not 2 <= n <= CLUSTER_MAX_RANKS:
-        raise ValueError(f"{what}: a cluster ring takes 2 to "
-                         f"{CLUSTER_MAX_RANKS} ranks, got {n}")
+    n, limit = len(xs), cluster_max_ranks(kind)
+    if not 2 <= n <= limit:
+        raise ValueError(f"{what}: a cluster ring of {kind} takes 2 to "
+                         f"{limit} ranks, got {n}")
     if len(outs) != n:
         raise ValueError(f"{what}: {n} inputs but {len(outs)} outputs")
     devices = {t.device for t in (*xs, *outs)}
@@ -329,13 +343,14 @@ def _cluster_call(what: str, fn, n: int, device, *args) -> None:
                            f"with cudaError {err}")
 
 
-def _cluster_allreduce(flats: Sequence[torch.Tensor], fn
+def _cluster_allreduce(flats: Sequence[torch.Tensor], kind: str, fn
                        ) -> List[torch.Tensor]:
     n, size = len(flats), flats[0].numel()
     e = chunk_elems(size, n)
     outs = [torch.empty(size, dtype=torch.float32, device=f.device)
             for f in flats]
-    xs, os_ = _cluster_table("ring_allreduce", flats, outs, size, size)
+    xs, os_ = _cluster_table("ring_allreduce", kind, flats, outs, size,
+                             size)
     _cluster_call("ring_allreduce", fn, n, flats[0].device, xs, os_, n,
                   size, e)
     return outs
@@ -345,7 +360,7 @@ def cluster_allreduce_sum(flats: Sequence[torch.Tensor]
                           ) -> List[torch.Tensor]:
     """A5's Sum by one cluster launch over 1-D float32 CUDA tensors, one
     a rank."""
-    outs = _cluster_allreduce(flats, _cluster_kernels()[1])
+    outs = _cluster_allreduce(flats, "A5", _cluster_kernels()[1])
     ring_allreduce.cluster_launches += 1
     return outs
 
@@ -353,8 +368,8 @@ def cluster_allreduce_sum(flats: Sequence[torch.Tensor]
 def cluster_quantized_allreduce(flats: Sequence[torch.Tensor]
                                 ) -> List[torch.Tensor]:
     """A6's Sum by one cluster launch over 1-D float32 CUDA tensors, one
-    a rank."""
-    outs = _cluster_allreduce(flats, _cluster_kernels()[3])
+    a rank, 2 to 16 ranks (past 8 a non-portable cluster)."""
+    outs = _cluster_allreduce(flats, "A6", _cluster_kernels()[3])
     ring_allreduce.quantized_cluster_launches += 1
     return outs
 
@@ -366,7 +381,8 @@ def cluster_allgather(blocks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     e = ch * LANES
     outs = [torch.empty((n * ch, LANES), dtype=torch.float32,
                         device=blocks[0].device) for _ in range(n)]
-    xs, os_ = _cluster_table("ring_allgather_2d", blocks, outs, e, n * e)
+    xs, os_ = _cluster_table("ring_allgather_2d", "A4", blocks, outs, e,
+                             n * e)
     _cluster_call("ring_allgather_2d", _cluster_kernels()[0], n,
                   blocks[0].device, xs, os_, n, e)
     ring_allgather_2d.cluster_launches += 1
@@ -375,15 +391,18 @@ def cluster_allgather(blocks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
 
 def cluster_info(kind: str, n: int) -> dict:
     """What the current card gives the cluster kernel ``kind`` (one of
-    :data:`CLUSTER_KINDS`): registers and spill bytes a thread, shared
-    memory a CTA, CTAs an SM, clusters of ``n`` resident at once, and
-    the kernel's slice in elements."""
-    info = (ctypes.c_int * 6)()
+    :data:`CLUSTER_KINDS`) at ``n`` ranks: registers and spill bytes a
+    thread, shared memory a CTA, CTAs an SM, clusters of ``n`` resident
+    at once, the kernel's slice in elements, and the largest cluster the
+    card would schedule for it (``cudaOccupancyMaxPotentialClusterSize``;
+    A6 with the non-portable attribute set)."""
+    info = (ctypes.c_int * 7)()
     err = _cluster_kernels()[2](CLUSTER_KINDS.index(kind), n, info)
     if err != 0:
         raise RuntimeError(f"cluster_info: cudaError {err}")
     return dict(zip(("registers", "spill_bytes", "shared_bytes",
-                     "ctas_per_sm", "clusters", "slice"), info))
+                     "ctas_per_sm", "clusters", "slice",
+                     "max_cluster_size"), info))
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -439,7 +458,7 @@ def global_allreduce(xs: Sequence[torch.Tensor], quantized: bool
     """A5's Sum (A6's when ``quantized``) by one cooperative launch of
     the global-slot kernel over 1-D float32 CUDA tensors, one a rank, at
     16-byte aligned addresses.  It takes any ``n >= 2``; the wrapper
-    sends it the rings past 8 ranks."""
+    sends it A5's rings past 8 ranks and A6's past 16."""
     n, size = len(xs), xs[0].numel()
     e = chunk_elems(size, n)
     outs = [torch.empty(size, dtype=torch.float32, device=x.device)
@@ -819,8 +838,9 @@ ring_allgather_2d.launches = 0            # csrc/ring.cu, n > 8
 ring_allgather_2d.cluster_launches = 0    # csrc/ring_cluster.cu, n <= 8
 ring_allreduce.launches = 0               # A5, csrc/ring.cu, n > 8
 ring_allreduce.cluster_launches = 0       # A5, csrc/ring_cluster.cu
-ring_allreduce.quantized_launches = 0     # A6, csrc/ring.cu, n > 8
-ring_allreduce.quantized_cluster_launches = 0   # A6, csrc/ring_cluster.cu
+ring_allreduce.quantized_launches = 0     # A6, csrc/ring.cu, n > 16
+# A6, csrc/ring_cluster.cu, n <= 16
+ring_allreduce.quantized_cluster_launches = 0
 ring_allgather_2d.ipc_launches = 0        # ProcessRing, csrc/ring.cu
 ring_allreduce.ipc_launches = 0           # A5, ProcessRing
 ring_allreduce.quantized_ipc_launches = 0   # A6, ProcessRing

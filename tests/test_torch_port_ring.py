@@ -18,13 +18,19 @@ rank:
 * NaN, inf and -inf among values over 50 decades at n = 3 (any NaN equal
   to any NaN);
 * a bfloat16 ``(10, 33)`` input, int32 (exact, its own dtype), n = 1;
-* A4, the all-gather of ``(n*16, 128)`` at n in {2, 3, 8}.
+* A4, the all-gather of ``(n*16, 128)`` at n in {2, 3, 8};
+* A6 at 12 ranks of 3001, past the 8 devices of ``conftest.py``: the
+  JAX ring runs in a subprocess of 12 virtual CPU devices, the
+  non-portable cluster sizes the port's A6 takes on a card.
 
 The wrappers take the plain versions for CPU tensors without counting a
 launch, and raise on inputs they cannot take.
 """
 
+import os
 import shutil
+import subprocess
+import sys
 import types
 from fractions import Fraction
 
@@ -160,6 +166,56 @@ def test_quantized_identical_on_every_rank(n, per_rank):
         assert torch.equal(got[r], got[0])
         np.testing.assert_array_equal(want["quantized"][r],
                                       want["quantized"][0])
+    err = np.abs(got[0].numpy() - x.sum(0))
+    assert err.max() <= 2 * (n - 1) * np.abs(x).sum(0).max() / 127
+
+
+# The JAX ring at n ranks in interpret mode, in a process of its own:
+# the device count is fixed when a process first asks for its devices.
+_WIDE_CHILD = """
+import sys
+import numpy as np
+import jax
+import jax.numpy as jnp
+from jax.sharding import Mesh, PartitionSpec as P
+from horovod_tpu.ops.ring import ring_allreduce
+
+src, dst, n = sys.argv[1], sys.argv[2], int(sys.argv[3])
+assert jax.device_count() == n, jax.device_count()
+mesh = Mesh(np.array(jax.devices()[:n]), ("x",))
+fn = jax.shard_map(
+    lambda v: ring_allreduce(v[0], axis_name="x", quantized=True)[None],
+    mesh=mesh, in_specs=(P("x"),), out_specs=P("x"), check_vma=False)
+np.save(dst, np.asarray(jax.jit(fn)(jnp.asarray(np.load(src)))))
+"""
+
+
+def test_quantized_past_eight_ranks_matches_jax(tmp_path):
+    """A6 at 12 ranks (a ring the port runs on a non-portable cluster of
+    12 CTAs on a card): the plain version bitwise the JAX ring on every
+    rank, the same seeded inputs, subnormals and a ragged last block
+    included."""
+    n, per_rank = 12, 3001
+    x = _inputs(n, per_rank)
+    src, dst = tmp_path / "x.npy", tmp_path / "out.npy"
+    np.save(src, x)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    flags = [f for f in os.environ.get("XLA_FLAGS", "").split()
+             if not f.startswith("--xla_force_host_platform_device_count")]
+    env = dict(os.environ, JAX_PLATFORMS="cpu", HVTPU_PALLAS_INTERPRET="1",
+               XLA_FLAGS=" ".join(
+                   flags + [f"--xla_force_host_platform_device_count={n}"]),
+               PYTHONPATH=os.pathsep.join(
+                   [repo, os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run(
+        [sys.executable, "-c", _WIDE_CHILD, str(src), str(dst), str(n)],
+        env=env, cwd=str(tmp_path), capture_output=True, text=True,
+        timeout=240)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    want = np.load(dst)
+    assert want.shape == (n, per_rank)
+    got = ring_allreduce_plain(_tensors(x), quantized=True)
+    _assert_bitwise(got, want, f"quantized n={n} per_rank={per_rank}")
     err = np.abs(got[0].numpy() - x.sum(0))
     assert err.max() <= 2 * (n - 1) * np.abs(x).sum(0).max() / 127
 

@@ -1,9 +1,11 @@
 """The ring's kernel dispatch and the cluster wrapper's checks, on the
 CPU.
 
-A4, A5 and A6 at 2 to 8 ranks run on ``csrc/ring_cluster.cu`` (one
-thread block cluster a ring), past 8 ranks on ``csrc/ring.cu`` (the
-global-slot kernels).  The choice is a function of ``n`` alone; it is tested here without a card by standing fake launch
+A4 and A5 at 2 to 8 ranks (the portable cluster size) and A6 at 2 to
+16 (Hopper's non-portable size) run on ``csrc/ring_cluster.cu`` (one
+thread block cluster a ring), past those on ``csrc/ring.cu`` (the
+global-slot kernels).  The choice is a function of ``n`` and the kind
+alone; it is tested here without a card by standing fake launch
 functions in for the compiled libraries, so each test sees which kernel
 a call reaches, with what arguments, and that a failed launch raises.
 The kernels' results are held bitwise against the plain versions on the
@@ -24,10 +26,17 @@ from torch_port_util import no_leaked_reference  # noqa: F401  (autouse)
 
 @pytest.mark.parametrize("n", range(2, 17))
 def test_route_is_a_function_of_n(n):
+    # A4 and A5 on the cluster up to 8 ranks, A6 at every n up to 16
     want = "cluster" if n <= 8 else "global"
     assert ring_mod.kernel_route(n) == want
     assert ring_mod.kernel_route(n, quantized=False) == want
-    assert ring_mod.kernel_route(n, quantized=True) == want
+    assert ring_mod.kernel_route(n, quantized=True) == "cluster"
+
+
+@pytest.mark.parametrize("n", [17, 20, 64])
+def test_quantized_route_past_sixteen_is_global(n):
+    assert ring_mod.kernel_route(n, quantized=True) == "global"
+    assert ring_mod.kernel_route(n) == "global"
 
 
 @pytest.mark.parametrize("n", [0, 1])
@@ -101,14 +110,14 @@ def test_allreduce_reaches_the_kernel_its_route_names(fake_card, n):
     assert tuple(a - b for a, b in zip(_counts(), before)) == delta
 
 
-@pytest.mark.parametrize("n", [2, 3, 5, 8, 9, 12])
+@pytest.mark.parametrize("n", [2, 3, 5, 8, 9, 12, 16, 17, 20])
 def test_quantized_reaches_the_kernel_its_route_names(fake_card, n):
     flats = _flats(n)
     before = _counts()
     outs = ring_mod._ring_sum_kernel(flats, True)
     ((name, args),) = fake_card.calls
     e = ring_mod.chunk_elems(3000, n)
-    if n <= 8:
+    if n <= 16:
         assert name == "cluster_quantized_allreduce"
         xs, os_, n_arg, size, chunk, stream = args
         assert (n_arg, size, chunk, stream) == (n, 3000, e, 7)
@@ -146,6 +155,8 @@ def test_allgather_reaches_the_kernel_its_route_names(fake_card, n):
 @pytest.mark.parametrize("fn,n", [
     (lambda xs: ring_mod._ring_sum_kernel(xs, False), 3),
     (lambda xs: ring_mod._ring_sum_kernel(xs, True), 5),
+    (lambda xs: ring_mod._ring_sum_kernel(xs, True), 9),
+    (lambda xs: ring_mod._ring_sum_kernel(xs, True), 16),
     (lambda xs: ring_mod.cluster_allgather(
         [x[:2048].reshape(16, 128) for x in xs]), 4),
 ])
@@ -167,8 +178,8 @@ def test_a_failed_cluster_query_raises(fake_card):
         ring_mod.cluster_info("A5", 8)
 
 
-def _table(xs, outs, x_numel=64, out_numel=64):
-    return ring_mod._cluster_table("t", xs, outs, x_numel, out_numel)
+def _table(xs, outs, x_numel=64, out_numel=64, kind="A5"):
+    return ring_mod._cluster_table("t", kind, xs, outs, x_numel, out_numel)
 
 
 def test_cluster_table_holds_the_pointers():
@@ -182,8 +193,25 @@ def test_cluster_table_holds_the_pointers():
 @pytest.mark.parametrize("n", [1, 9, 12])
 def test_cluster_table_takes_two_to_eight_ranks(n):
     ts = [torch.zeros(64) for _ in range(n)]
-    with pytest.raises(ValueError, match="2 to 8 ranks"):
-        _table(ts, ts)
+    for kind in ("A4", "A5"):
+        with pytest.raises(ValueError, match=f"{kind} takes 2 to 8 ranks"):
+            _table(ts, ts, kind=kind)
+
+
+@pytest.mark.parametrize("n", [1, 17, 20])
+def test_quantized_cluster_table_takes_two_to_sixteen_ranks(n):
+    ts = [torch.zeros(64) for _ in range(n)]
+    with pytest.raises(ValueError, match="A6 takes 2 to 16 ranks"):
+        _table(ts, ts, kind="A6")
+
+
+@pytest.mark.parametrize("n", [9, 12, 16])
+def test_quantized_cluster_table_holds_sixteen_pointers(n):
+    xs = [torch.zeros(64) for _ in range(n)]
+    outs = [torch.zeros(64) for _ in range(n)]
+    tx, to = _table(xs, outs, kind="A6")
+    assert list(tx) == [x.data_ptr() for x in xs]
+    assert list(to) == [o.data_ptr() for o in outs]
 
 
 def test_cluster_table_raises_on_what_the_kernel_cannot_take():
@@ -206,13 +234,14 @@ def test_cluster_table_raises_on_what_the_kernel_cannot_take():
 
 
 @pytest.mark.parametrize("kind,n", [("A4", 2), ("A5", 3), ("A4", 8),
-                                    ("A5", 8), ("A6", 2), ("A6", 8)])
+                                    ("A5", 8), ("A6", 2), ("A6", 8),
+                                    ("A6", 9), ("A6", 12), ("A6", 16)])
 def test_cluster_info_reads_what_the_library_reports(monkeypatch, kind, n):
     index = ring_mod.CLUSTER_KINDS.index(kind)
 
     def info_fn(k, ranks, info):
         assert (k, ranks) == (index, n)
-        for i in range(6):
+        for i in range(7):
             info[i] = 100 * k + 10 * ranks + i
         return 0
 
@@ -221,7 +250,8 @@ def test_cluster_info_reads_what_the_library_reports(monkeypatch, kind, n):
     base = 100 * index + 10 * n
     assert ring_mod.cluster_info(kind, n) == dict(
         registers=base, spill_bytes=base + 1, shared_bytes=base + 2,
-        ctas_per_sm=base + 3, clusters=base + 4, slice=base + 5)
+        ctas_per_sm=base + 3, clusters=base + 4, slice=base + 5,
+        max_cluster_size=base + 6)
 
 
 def test_the_kernel_file_compiles_one_slice():
@@ -241,4 +271,12 @@ def test_the_kernel_file_compiles_one_slice():
     for warps, threads in sweep.A6_SHAPES:
         assert warps in (1, 2) and threads % (32 * warps) == 0
     assert (1, 128) in sweep.A6_SHAPES and (2, 128) in sweep.A6_SHAPES
+    # A4 and A5 at the portable cluster size, A6 at the non-portable one
     assert ring_mod.CLUSTER_MAX_RANKS == 8
+    assert ring_mod.QUANTIZED_CLUSTER_MAX_RANKS == 16
+    assert [ring_mod.cluster_max_ranks(k) for k in ring_mod.CLUSTER_KINDS
+            ] == [8, 8, 16]
+    # the kernel file's own limits, and the attribute past 8 ranks
+    assert "constexpr int kPortableRanks = 8;" in text
+    assert "constexpr int kQMaxRanks = 16;" in text
+    assert "cudaFuncAttributeNonPortableClusterSizeAllowed" in text

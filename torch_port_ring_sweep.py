@@ -24,11 +24,17 @@ port's own wrappers:
   CTAs an SM (``q1w128_cap6``, ``_cap8``) and evict-first input loads
   (``q1w128_ldcs``).
 
+``--ranks`` goes up to 8 for A4/A5 (the portable cluster size) and up
+to 16 for ``--kernels A6``: past 8 ranks A6 runs on a non-portable
+cluster, which the copies, being copies of ``ring_cluster.cu``, allow as
+the shipped kernel does (``cudaFuncAttributeNonPortableClusterSizeAllowed``).
+
 For each copy: what the card gives the kernel (``cluster_info``:
 registers, spill bytes, shared memory and CTAs an SM, clusters resident
-at once); the kernel bitwise against its plain version (A6 any NaN equal
-to any NaN) at 2, 3, 5 and 8 ranks of a few thousand elements, ragged
-slices included (A6 also at 3 ranks of NaN/inf/subnormal values) and,
+at once, the largest cluster it would schedule); the kernel bitwise
+against its plain version (A6 any NaN equal to any NaN) at 2, 3, 5 and
+8 ranks of a few thousand elements, ragged slices included (A6 also at
+9, 12 and 16 ranks, and at 3 ranks of NaN/inf/subnormal values) and,
 once, at full width.  Then the time at ``--ranks`` ranks of
 ``--elements`` float32 (the default is the ring phase of
 ``chip_smoke.py``: 8 ranks of ResNet-50's 25,557,032 gradients), by CUDA
@@ -40,11 +46,15 @@ A6 of ``ring.cu`` at the same ranks (A6).
 ``--kernels global`` copies ``horovod_tpu_torch/csrc/ring.cu`` instead
 (``build/ring_sweep_global/c<n>/``) with its floor of CTAs an SM,
 ``kCtasPerSm``, at 1 (no register cap), 2 and 3 (the shipped one),
-holds each copy's one-launch A4/A5/A6 bitwise against the plain
-versions at 9 and 12 ranks and at full width, and times them in turns
+holds each copy's one-launch A4/A5 bitwise against the plain versions at
+9 and 12 ranks, its A6 at 17 and 20 (the rings the wrapper sends it),
+each at full width too, and times them in turns
 at ``--ranks`` ranks of ``--elements`` (default 12 x 12,778,516, the
 size ``chip_smoke.py`` times them at): ``sweep_global {...}`` lines and
 a ``best_global {...}`` line.
+
+``--ptxas`` prints each kernel's registers, shared memory and spill
+bytes as ``ptxas`` reports them.
 
 Prints the card's name and power limit, one ``variant {...}`` line a
 copy, one ``sweep {...}`` / ``sweep_a6 {...}`` line a copy and pass, and
@@ -82,10 +92,13 @@ A6_LEVERS = {
                     "v[k] = __ldcs(reinterpret_cast<const float4*>(x + block"},
 }
 SMALL_RINGS = [(2, 5000), (3, 4000), (5, 3001), (8, 40000)]
+# A6 only: non-portable clusters, an odd one among them
+SMALL_A6_RINGS = [(9, 3001), (12, 5000), (16, 40000)]
 # ring.cu: its floor of CTAs an SM (the register cap) and the copies'
 KCTAS = "constexpr int kCtasPerSm = 3;"
 GLOBAL_CTAS = (1, 2, 3)
-GLOBAL_RINGS = [(9, 5000), (12, 3001)]
+GLOBAL_RINGS = [(9, 5000), (12, 3001)]        # A4, A5: past 8 ranks
+GLOBAL_A6_RINGS = [(17, 5000), (20, 3001)]    # A6: past 16 ranks
 
 
 def _a6_name(shape) -> str:
@@ -102,6 +115,16 @@ def a6_copies() -> dict:
     return copies
 
 
+def _ptxas_lines(out: str):
+    """What ``ptxas -v`` says of each kernel: which kernel
+    (``Compiling``), registers and shared memory (``Used``), and its
+    stack frame and spills (a line of its own, without the ``ptxas
+    info`` prefix)."""
+    return [ln.strip() for ln in out.splitlines()
+            if ("ptxas info" in ln and ("Used" in ln or "Compiling" in ln))
+            or "spill" in ln]
+
+
 def build_copies(ptxas: bool, kinds) -> dict:
     """{name: (library path, ptxas lines)}: a copy of ring_cluster.cu at
     each A4/A5 thread count and each A6 shape, compiled in parallel."""
@@ -116,9 +139,7 @@ def build_copies(ptxas: bool, kinds) -> dict:
     built = _build.build_copies(
         "ring_cluster", variants, _build.BUILD_DIR.parent / "ring_sweep",
         ["-Xptxas", "-v"] if ptxas else [])
-    return {name: (path, [ln.strip() for ln in out.splitlines()
-                          if "ptxas info" in ln
-                          and ("Used" in ln or "Compiling" in ln)])
+    return {name: (path, _ptxas_lines(out))
             for name, (path, out) in built.items()}
 
 
@@ -128,8 +149,9 @@ def small_checks(ring_mod, device, kinds) -> int:
     import torch
 
     gen = torch.Generator(device=device).manual_seed(11)
+    sizes = SMALL_RINGS + (SMALL_A6_RINGS if "A6" in kinds else [])
     rings = [(f"n={n}", [torch.randn(size, generator=gen, device=device)
-                         for _ in range(n)]) for n, size in SMALL_RINGS]
+                         for _ in range(n)]) for n, size in sizes]
     if "A6" in kinds:
         special = [chip_smoke.wide_values(3001, torch.float32, device, gen)
                    for _ in range(3)]
@@ -143,7 +165,8 @@ def small_checks(ring_mod, device, kinds) -> int:
             want = ring_mod.ring_allreduce_plain(xs, quantized=True)
             for r in range(n):
                 check(same_bits(got[r], want[0]), f"A6 {what} rank {r}")
-        if "A4A5" in kinds and not what.startswith("special"):
+        if ("A4A5" in kinds and not what.startswith("special")
+                and n <= ring_mod.CLUSTER_MAX_RANKS):
             got = ring_mod.cluster_allreduce_sum(xs)
             want = ring_mod.ring_allreduce_plain(xs)
             for r in range(n):
@@ -240,15 +263,24 @@ def sweep_a6(ring_mod, use, xs, reps, device) -> None:
     infos = {}
     for name in a6_copies():
         use(name)
-        infos[name] = ring_mod.cluster_info("A6", n)
-        rings = small_checks(ring_mod, device, ("A6",))
-        got = ring_mod.cluster_quantized_allreduce(xs)
+        try:
+            info = ring_mod.cluster_info("A6", n)
+            rings = small_checks(ring_mod, device, ("A6",))
+            got = ring_mod.cluster_quantized_allreduce(xs)
+        except RuntimeError as err:
+            # a shape whose cluster of n the card cannot make resident:
+            # reported, and left out of the timing
+            log("variant " + json.dumps(dict(kernel="A6", copy=name,
+                                             error=str(err))))
+            continue
+        infos[name] = info
         for r in range(n):
             check(same_bits(got[r], want), f"A6 {name} full width rank {r}")
         del got
         log("variant " + json.dumps(dict(kernel="A6", copy=name,
                                          small_rings=rings, **infos[name])))
-    names = list(a6_copies()) + ["global"]
+    check(bool(infos), f"A6: no copy runs at {n} ranks")
+    names = list(infos) + ["global"]
     times = {name: [] for name in names}
     for order in (names, names[::-1]):
         for name in order:
@@ -278,10 +310,7 @@ def build_global_copies(ptxas: bool) -> dict:
                  for c in GLOBAL_CTAS},
         _build.BUILD_DIR.parent / "ring_sweep_global",
         ["-Xptxas", "-v"] if ptxas else [])
-    return {name: (path, [ln.strip() for ln in out.splitlines()
-                          if "ptxas info" in ln
-                          and ("Used" in ln or "spill" in ln
-                               or "Compiling" in ln)])
+    return {name: (path, _ptxas_lines(out))
             for name, (path, out) in built.items()}
 
 
@@ -292,24 +321,33 @@ def sweep_global(ring_mod, use, xs, reps, device) -> None:
 
     n, size = len(xs), xs[0].numel()
     gen = torch.Generator(device=device).manual_seed(12)
-    rings = [[torch.randn(m, generator=gen, device=device)
-              for _ in range(k)] for k, m in GLOBAL_RINGS] + [xs]
+
+    def make(spec):
+        return [[torch.randn(m, generator=gen, device=device)
+                 for _ in range(k)] for k, m in spec] + [xs]
+
+    rings, a6_rings = make(GLOBAL_RINGS), make(GLOBAL_A6_RINGS)
     names = [f"c{c}" for c in GLOBAL_CTAS]
     for name in names:
         use(name)
         for ring in rings:
             blocks = chip_smoke._rank_blocks(ring)
-            for q in (False, True):
-                want = ring_mod.ring_allreduce_plain(ring, quantized=q)[0]
-                got = ring_mod.global_allreduce(ring, q)
-                check(all(same_bits(g, want) for g in got),
-                      f"global {name} n={len(ring)} quantized={q}")
+            want = ring_mod.ring_allreduce_plain(ring)[0]
+            got = ring_mod.global_allreduce(ring, False)
+            check(all(same_bits(g, want) for g in got),
+                  f"global {name} A5 n={len(ring)}")
             want = ring_mod.ring_allgather_2d_plain(blocks)[0]
             check(all(same_bits(g, want)
                       for g in ring_mod._allgather_kernel(blocks)),
                   f"global {name} A4 n={len(ring)}")
-        log("variant " + json.dumps(dict(kernel="global", copy=name,
-                                         rings=[len(r) for r in rings])))
+        for ring in a6_rings:
+            want = ring_mod.ring_allreduce_plain(ring, quantized=True)[0]
+            got = ring_mod.global_allreduce(ring, True)
+            check(all(same_bits(g, want) for g in got),
+                  f"global {name} A6 n={len(ring)}")
+        log("variant " + json.dumps(dict(
+            kernel="global", copy=name, rings=[len(r) for r in rings],
+            a6_rings=[len(r) for r in a6_rings])))
     blocks = chip_smoke._rank_blocks(xs)
     calls = {"A5": lambda: ring_mod.global_allreduce(xs, False),
              "A6": lambda: ring_mod.global_allreduce(xs, True),
@@ -346,6 +384,11 @@ def main() -> int:
         args.elements = 12_778_516 if wide else 25_557_032
     if args.ranks is None:
         args.ranks = 12 if wide else 8
+    # the cluster kernels' limits; ring.cu takes any ring
+    limit = {"A6": 16, "global": args.ranks}.get(args.kernels, 8)
+    if not 2 <= args.ranks <= limit:
+        ap.error(f"--ranks {args.ranks}: --kernels {args.kernels} takes 2 "
+                 f"to {limit} ranks")
     if not torch.cuda.is_available():
         print("torch_port_ring_sweep: CUDA is not available",
               file=sys.stderr)
