@@ -209,15 +209,21 @@ and, beside them, its C++ negotiation core from
    A6 within ``2(n-1) * max sum|x| / 127``, A4 bitwise ``torch.cat``;
    then rings of 2 and 3 ranks, and of 3 ranks of NaN/inf/subnormal
    values, bitwise the plain versions; a ring of 12 ranks of 1,000,003
-   elements, its own path: A4/A5 on the global-slot kernels, A6 on a
-   non-portable cluster of 12 CTAs, with the same checks; A6 rings of 9
-   and 16 ranks on non-portable clusters; a ring of 20 ranks, its own
-   path, on the global-slot A4/A5/A6 kernels; timing against the plain
-   versions and the library calls that fill one output and every rank's
-   (the 12-rank kernels at half a bucket a rank, A6 there on the
-   cluster and on the global-slot kernel in turns, A6 at 16 ranks of
-   the same size on the cluster, and a call's time at 1,000,003), and
-   the last timed call checked again;
+   elements, its own path: A4, A5 and A6 on non-portable clusters of 12
+   CTAs, with the same checks; A4, A5 (Sum, Average) and A6 on
+   non-portable clusters of 9 and 16, one launch of the cluster kernel
+   each; a ring of 20 ranks, its own path, on the global-slot A4/A5/A6
+   kernels of ``ring.cu``; timing against the plain versions and the
+   library calls that fill one output and every rank's (A4, A5 and A6
+   at 12 ranks of half a bucket on the cluster and on ``ring.cu``'s
+   global-slot kernels, same inputs, in turns; at 16 ranks of the same
+   size on the cluster; a call's time at 1,000,003 on both kernels),
+   and the last timed call checked again.  In the kernels line the
+   cluster entries' ``ms`` is the 8-rank main path's, their 12- and
+   16-rank times and ``cluster_info`` at 9, 12 and 16 beside
+   (``nonportable_ms``, ``nonportable_config``); the global entries'
+   (``n > 16``) ``ms`` is the 12-rank turn on ``ring.cu`` and their
+   launches the 20-rank path's;
    then the rings with one rank a process (``--ring-ipc-child``): 2,
    then 3 processes on cuda:0 in a gloo group over a ``TCPStore`` on
    localhost, each rank's ``ProcessRing`` (its slots and flags a
@@ -412,10 +418,10 @@ FLT_MIN = 2.0 ** -126
 UNBIASED_BOUND = 1e-3
 RING_RANKS = 8            # phase 3's batch of 64 as 8 ranks of 8 images
 RING_SMALL = 1_000_003    # elements a rank of the rings besides the main
-RING_WIDE = 12            # ranks: A4/A5 past a portable cluster's 8 CTAs,
-                          # A6 on a non-portable cluster of 12
-RING_A6_RINGS = (9, 16)   # A6 on non-portable clusters, an odd one first
-RING_GLOBAL = 20          # ranks past A6's cluster of 16: ring.cu's A4/A5/A6
+RING_WIDE = 12            # ranks past a portable cluster's 8 CTAs: A4, A5
+                          # and A6 on a non-portable cluster of 12
+RING_NONPORTABLE = (9, 16)   # the other non-portable clusters, an odd one
+RING_GLOBAL = 20          # ranks past the clusters' 16: ring.cu's A4/A5/A6
 
 
 class SmokeFailure(Exception):
@@ -4061,7 +4067,7 @@ def _ring_key(kind: str, n: int) -> str:
     ``n`` ranks: the wrapper's own dispatch."""
     from horovod_tpu_torch.ops.ring import kernel_route
 
-    return f"{kind}_{kernel_route(n, kind == 'A6')}"
+    return f"{kind}_{kernel_route(n)}"
 
 
 def _one_launch(kernel: str, fn):
@@ -4168,11 +4174,27 @@ def _rank_blocks(buckets):
             .reshape(-1, 128) for r, b in enumerate(buckets)]
 
 
-def _time_ring(buckets, blocks, reps: int, plain_reps: int = 2):
+def _turns(calls, reps: int, turns: int):
+    """ms of each of ``calls`` ({name: fn}) in turns, forwards then
+    backwards (a, b, b, a, ...); {name: [ms a turn]}."""
+    names = list(calls)
+    times = {k: [] for k in names}
+    for turn in range(turns):
+        for k in (names if turn % 2 == 0 else names[::-1]):
+            times[k].append(time_cuda(calls[k], reps))
+    return times
+
+
+def _time_ring(buckets, blocks, reps: int, plain_reps: int = 2,
+               paired: bool = False):
     """ms of A5 (Sum) and A4 through the wrappers, their plain versions,
     one library call that fills one output and the library calls that
-    fill every rank's output; the last timed call of each is checked
-    again."""
+    fill every rank's output.  ``paired``: also on ring.cu's global-slot
+    kernels over the same inputs (``global_allreduce``,
+    ``global_allgather``), in turns with the wrappers (wrapper, global,
+    global, wrapper); ``ms`` is then the wrapper's mean, its turns in
+    ``turns``, and ``global_ms`` / ``global_turns`` stand beside.  The
+    last timed call of each is checked again."""
     import torch
 
     from horovod_tpu_torch.ops import (
@@ -4181,6 +4203,7 @@ def _time_ring(buckets, blocks, reps: int, plain_reps: int = 2):
         ring_allreduce,
         ring_allreduce_plain,
     )
+    from horovod_tpu_torch.ops.ring import global_allgather, global_allreduce
 
     n = len(buckets)
     stacked = torch.stack(buckets)
@@ -4203,23 +4226,39 @@ def _time_ring(buckets, blocks, reps: int, plain_reps: int = 2):
     def timed(key, fn):
         return lambda: last.__setitem__(key, fn())
 
-    a5 = dict(ms=time_cuda(timed("A5", lambda: ring_allreduce(buckets)),
-                           reps),
+    calls = {"A5": {"ms": timed("A5", lambda: ring_allreduce(buckets))},
+             "A4": {"ms": timed("A4", lambda: ring_allgather_2d(blocks))}}
+    if paired:
+        calls["A5"]["global_ms"] = timed(
+            "A5_global", lambda: global_allreduce(buckets, False))
+        calls["A4"]["global_ms"] = timed(
+            "A4_global", lambda: global_allgather(blocks))
+    out = {}
+    for kind, fns in calls.items():
+        times = _turns(fns, reps, 2 if paired else 1)
+        out[kind] = {k: sum(v) / len(v) for k, v in times.items()}
+        if paired:
+            out[kind].update(turns=times["ms"],
+                             global_turns=times["global_ms"])
+    a5 = dict(out["A5"],
               plain_ms=time_cuda(lambda: ring_allreduce_plain(buckets),
                                  plain_reps, 1),
               library_ms=time_cuda(lambda: stacked.sum(0), reps),
               library_all_ranks_ms=time_cuda(sum_all_ranks, reps))
-    _held(last["A5"], ring_allreduce_plain(buckets), f"A5 n={n} after timing")
+    want = ring_allreduce_plain(buckets)
+    for key in [k for k in last if k.startswith("A5")]:
+        _held(last.pop(key), want, f"{key} n={n} after timing")
     check(same_bits(sum_outs[-1], stacked.sum(0)),
           "ring: the all-ranks library call of A5 computes another sum")
-    a4 = dict(ms=time_cuda(timed("A4", lambda: ring_allgather_2d(blocks)),
-                           reps),
+    del want
+    a4 = dict(out["A4"],
               plain_ms=time_cuda(lambda: ring_allgather_2d_plain(blocks),
                                  plain_reps, 1),
               library_ms=time_cuda(lambda: torch.cat(blocks), reps),
               library_all_ranks_ms=time_cuda(cat_all_ranks, reps))
-    _held(last["A4"], ring_allgather_2d_plain(blocks),
-          f"A4 n={n} after timing")
+    want = ring_allgather_2d_plain(blocks)
+    for key in [k for k in last if k.startswith("A4")]:
+        _held(last.pop(key), want, f"{key} n={n} after timing")
     check(same_bits(cat_outs[-1], whole),
           "ring: the all-ranks library call of A4 is not torch.cat")
     return a4, a5
@@ -4265,11 +4304,7 @@ def _time_a6_pair(xs, reps: int, turns: int = 2):
                  "cluster", ring_allreduce(xs, quantized=True)),
              "global": lambda: last.__setitem__(
                  "global", global_allreduce(xs, True))}
-    times = {k: [] for k in calls}
-    for turn in range(turns):
-        for k in (("cluster", "global") if turn % 2 == 0
-                  else ("global", "cluster")):
-            times[k].append(time_cuda(calls[k], reps))
+    times = _turns(calls, reps, turns)
     want = ring_allreduce_plain(xs, quantized=True)
     for k in calls:
         _held(last[k], want, f"A6 {k} n={n} after timing")
@@ -4315,12 +4350,13 @@ def _wide_ranks(buckets, m: int, elements: int):
 def ring_phase(buckets, reps: int):
     """The ring collectives at full width (8 ranks x 25.56 M float32
     gradients, the main path: A4, A5 and A6 on the cluster kernels),
-    rings of 2 and 3 ranks, the 12-rank ring (a path of its own: A4/A5
-    on the global-slot kernels, A6 on a non-portable cluster), A6 on
-    clusters of 9 and 16, the 20-rank ring on the global-slot A4/A5/A6
-    kernels (a path of its own), timing (the 12- and 16-rank kernels at
-    half a bucket a rank, where the kernel and not the call around it
-    takes the time), and calls back to back."""
+    rings of 2 and 3 ranks, the 12-rank ring (a path of its own: A4, A5
+    and A6 on non-portable clusters of 12), A4/A5/A6 on clusters of 9
+    and 16, the 20-rank ring on the global-slot A4/A5/A6 kernels (a path
+    of its own), timing (the 12- and 16-rank kernels at half a bucket a
+    rank, where the kernel and not the call around it takes the time,
+    12 ranks on the cluster and on ring.cu in turns), and calls back to
+    back."""
     import torch
 
     from horovod_tpu_torch.ops import (
@@ -4332,6 +4368,7 @@ def ring_phase(buckets, reps: int):
     from horovod_tpu_torch.ops.ring import (
         chunk_elems,
         cluster_info,
+        global_allgather,
         global_allreduce,
     )
 
@@ -4382,47 +4419,62 @@ def ring_phase(buckets, reps: int):
                                        f"A4 {what}"))
         check(same_bits(outs[0], torch.cat(bl)), f"ring: A4 {what} cat")
 
-    # the 12-rank ring: past a portable cluster's 8 CTAs, so A4 and A5
-    # take the global-slot kernels and A6 a non-portable cluster of 12;
-    # each rank a distinct RING_SMALL slice of the gradients
+    # the 12-rank ring: past a portable cluster's 8 CTAs, so A4, A5 and
+    # A6 take non-portable clusters of 12; each rank a distinct
+    # RING_SMALL slice of the gradients
     m = RING_WIDE
     wide = _wide_ranks(buckets, m, RING_SMALL)
     wide_blocks = _rank_blocks(wide)
     wsums, wavgs, wquant, wgathered, wide_launches = _ring_path(
         wide, wide_blocks, True)
     check([_ring_key(k, m) for k in ("A4", "A5", "A6")]
-          == ["A4_global", "A5_global", "A6_cluster"],
-          f"ring: {m} ranks not on the global-slot A4/A5 and cluster A6")
-    err["A5_global"] = _sum_checks(wsums, wavgs, wide, f"n={m}")
+          == ["A4_cluster", "A5_cluster", "A6_cluster"],
+          f"ring: {m} ranks not on the cluster kernels")
+    err["A5_cluster"] = max(err["A5_cluster"],
+                            _sum_checks(wsums, wavgs, wide, f"n={m}"))
     held, wide_a6_max, _, wide_q_bound = _quantized_checks(
         wquant, wide, f"n={m}")
     err["A6_cluster"] = max(err["A6_cluster"], held)
     a6_rings = {m: dict(max_err=wide_a6_max, bound=wide_q_bound)}
-    err["A4_global"] = _held(wgathered, ring_allgather_2d_plain(wide_blocks),
-                             f"A4 n={m}")
+    err["A4_cluster"] = max(err["A4_cluster"], _held(
+        wgathered, ring_allgather_2d_plain(wide_blocks), f"A4 n={m}"))
     check(same_bits(wgathered[0], torch.cat(wide_blocks)),
           f"ring: A4 n={m} is not torch.cat")
     del wsums, wavgs, wquant, wgathered
-    log(f"ring: {m} ranks x {RING_SMALL} elements, A4/A5 on the "
-        f"global-slot kernels and A6 on a cluster of {m}, identical on "
-        "every rank and bitwise the plain versions")
+    log(f"ring: {m} ranks x {RING_SMALL} elements, A4, A5 and A6 on "
+        f"clusters of {m}, identical on every rank and bitwise the plain "
+        "versions, A4 bitwise torch.cat")
 
-    # A6 on the other non-portable clusters: 9 (odd) and 16 CTAs
-    for k in RING_A6_RINGS:
+    # the other non-portable clusters: 9 (odd) and 16 CTAs, each kind one
+    # launch of its cluster kernel
+    for k in RING_NONPORTABLE:
         xs = _wide_ranks(buckets, k, RING_SMALL)
-        check(_ring_key("A6", k) == "A6_cluster",
-              f"ring: A6 at {k} ranks is not on the cluster")
+        bl = _rank_blocks(xs)
+        check(all(_ring_key(kind, k).endswith("_cluster")
+                  for kind in ("A4", "A5", "A6")),
+              f"ring: {k} ranks not on the cluster kernels")
+        sums = _one_launch("A5_cluster", lambda: ring_allreduce(xs))
+        avgs = _one_launch("A5_cluster", lambda: ring_allreduce(
+            xs, average=True))
+        err["A5_cluster"] = max(err["A5_cluster"],
+                                _sum_checks(sums, avgs, xs, f"n={k}"))
         outs = _one_launch("A6_cluster", lambda: ring_allreduce(
             xs, quantized=True))
         held, q_max, _, bound = _quantized_checks(outs, xs, f"n={k}")
         err["A6_cluster"] = max(err["A6_cluster"], held)
         a6_rings[k] = dict(max_err=q_max, bound=bound)
-        del xs, outs
-    log(f"ring: A6 on clusters of {sorted(a6_rings)} ranks x {RING_SMALL} "
-        "elements, identical on every rank and bitwise the plain version")
+        outs = _one_launch("A4_cluster", lambda: ring_allgather_2d(bl))
+        err["A4_cluster"] = max(err["A4_cluster"], _held(
+            outs, ring_allgather_2d_plain(bl), f"A4 n={k}"))
+        check(same_bits(outs[0], torch.cat(bl)),
+              f"ring: A4 n={k} is not torch.cat")
+        del xs, bl, sums, avgs, outs
+    log(f"ring: A4, A5 and A6 on clusters of {sorted(a6_rings)} ranks x "
+        f"{RING_SMALL} elements, identical on every rank and bitwise the "
+        "plain versions, A4 bitwise torch.cat")
 
-    # the 20-rank ring: past A6's cluster of 16, so A4, A5 and A6 take
-    # the global-slot kernels
+    # the 20-rank ring: past the clusters' 16, so A4, A5 and A6 take the
+    # global-slot kernels
     g = RING_GLOBAL
     gxs = _wide_ranks(buckets, g, RING_SMALL)
     g_blocks = _rank_blocks(gxs)
@@ -4431,12 +4483,11 @@ def ring_phase(buckets, reps: int):
     check(all(_ring_key(k, g).endswith("_global")
               for k in ("A4", "A5", "A6")),
           f"ring: {g} ranks not on the global-slot kernels")
-    err["A5_global"] = max(err["A5_global"],
-                           _sum_checks(gsums, gavgs, gxs, f"n={g}"))
+    err["A5_global"] = _sum_checks(gsums, gavgs, gxs, f"n={g}")
     err["A6_global"], global_a6_max, _, global_q_bound = _quantized_checks(
         gquant, gxs, f"n={g}")
-    err["A4_global"] = max(err["A4_global"], _held(
-        ggathered, ring_allgather_2d_plain(g_blocks), f"A4 n={g}"))
+    err["A4_global"] = _held(ggathered, ring_allgather_2d_plain(g_blocks),
+                             f"A4 n={g}")
     check(same_bits(ggathered[0], torch.cat(g_blocks)),
           f"ring: A4 n={g} is not torch.cat")
     del gxs, g_blocks, gsums, gavgs, gquant, ggathered
@@ -4448,30 +4499,36 @@ def ring_phase(buckets, reps: int):
     saved = _ring_counts()
     a4c, a5c = _time_ring(buckets, blocks, reps)
     a6c = _time_a6(buckets, reps)
-    # the 12-rank kernels: per call at RING_SMALL (on the global-slot
-    # kernels launch, flag memset, slot allocation and 22 handshakes a
-    # slice outweigh the bytes), then at half a bucket a rank, the size
-    # the kernel's rate is read at; A6 there on its cluster and on the
-    # global-slot kernel in turns, then on a cluster of 16
+    # the 12-rank kernels: a call at RING_SMALL on the cluster and on
+    # ring.cu (on the global-slot kernels launch, flag memset, slot
+    # allocation and 22 handshakes a slice outweigh the bytes), then at
+    # half a bucket a rank, the size a kernel's rate is read at, on the
+    # cluster and on ring.cu in turns, then on clusters of 16
     wide_small_ms = {
-        "A5_global": time_cuda(lambda: ring_allreduce(wide), reps),
-        "A4_global": time_cuda(lambda: ring_allgather_2d(wide_blocks), reps),
+        "A5_cluster": time_cuda(lambda: ring_allreduce(wide), reps),
+        "A5_global": time_cuda(lambda: global_allreduce(wide, False), reps),
+        "A4_cluster": time_cuda(lambda: ring_allgather_2d(wide_blocks),
+                                reps),
+        "A4_global": time_cuda(lambda: global_allgather(wide_blocks), reps),
         "A6_cluster": time_cuda(
             lambda: ring_allreduce(wide, quantized=True), reps),
         "A6_global": time_cuda(lambda: global_allreduce(wide, True), reps)}
     wide_elements = size // 2 // 4 * 4
     big = _wide_ranks(buckets, m, wide_elements)
     big_blocks = _rank_blocks(big)
-    a4g, a5g = _time_ring(big, big_blocks, reps)
+    a4w, a5w = _time_ring(big, big_blocks, reps, paired=True)
     a6_wide = _time_a6_pair(big, reps)
     a6g = a6_wide["global"]
     del big, big_blocks
-    k16 = max(RING_A6_RINGS)
+    k16 = max(RING_NONPORTABLE)
     big = _wide_ranks(buckets, k16, wide_elements)
-    check(_ring_key("A6", k16) == "A6_cluster",
-          f"ring: A6 at {k16} ranks is not on the cluster")
+    big_blocks = _rank_blocks(big)
+    check(all(_ring_key(kind, k16).endswith("_cluster")
+              for kind in ("A4", "A5", "A6")),
+          f"ring: {k16} ranks not on the cluster kernels")
+    a4_16, a5_16 = _time_ring(big, big_blocks, reps)
     a6_16 = _time_a6(big, reps)
-    del big
+    del big, big_blocks
     _set_ring_counts(saved)
 
     we = chunk_elems(wide_elements, m)
@@ -4479,8 +4536,17 @@ def ring_phase(buckets, reps: int):
     a4c.update(b4)
     a5c.update(b5)
     wb4, wb5 = _ring_bounds(m, wide_elements, we)
-    a4g.update(wb4)
-    a5g.update(wb5)
+    a4w.update(wb4)
+    a5w.update(wb5)
+    b4_16, b5_16 = _ring_bounds(k16, wide_elements,
+                                chunk_elems(wide_elements, k16))
+    a4_16.update(b4_16)
+    a5_16.update(b5_16)
+    # ring.cu's A4 and A5 on the 12-rank inputs, in turns with the
+    # cluster's: the same function, so the same plain and library times
+    # and bound
+    a4g, a5g = ({**w, "ms": w["global_ms"], "turns": w["global_turns"]}
+                for w in (a4w, a5w))
     # what each ring moves besides the bound: the cluster kernels' hops
     # through distributed shared memory; the global-slot kernels' hops
     # through HBM (payload into the neighbour's slot and back out, the
@@ -4500,22 +4566,40 @@ def ring_phase(buckets, reps: int):
         "A4_global": m * 4 * we * (2 + 3 * (m - 1))}
     config = {f"{kind}_cluster": cluster_info(kind, n)
               for kind in ("A4", "A5", "A6")}
-    a6_config = {k: cluster_info("A6", k) for k in sorted(a6_rings)}
-    # A6 past 8 ranks at half a bucket a rank: 12 ranks on the cluster
-    # and on the global-slot kernel (same inputs, in turns), 16 on the
-    # cluster; each beside its bound
-    a6_wide_ms = {
+    # every kind on the non-portable clusters
+    nonportable_config = {kind: {k: cluster_info(kind, k) for k in sorted(
+        a6_rings)} for kind in ("A4", "A5", "A6")}
+
+    def share(d):
+        return d["bound_ms"] / d["ms"]
+
+    # past 8 ranks at half a bucket a rank: 12 ranks on the cluster and
+    # on ring.cu (same inputs, in turns), 16 on the cluster; each beside
+    # its bound, its plain version and (A4, A5) the library calls
+    nonportable_ms = {}
+    for kind, w, d16 in (("A4", a4w, a4_16), ("A5", a5w, a5_16)):
+        nonportable_ms[kind] = {
+            m: {"cluster_ms": w["ms"], "cluster_turns": w["turns"],
+                "global_ms": w["global_ms"],
+                "global_turns": w["global_turns"],
+                "plain_ms": w["plain_ms"], "bound_ms": w["bound_ms"],
+                "share_of_bound": share(w),
+                "library_ms": w["library_ms"],
+                "library_all_ranks_ms": w["library_all_ranks_ms"]},
+            k16: {"cluster_ms": d16["ms"], "plain_ms": d16["plain_ms"],
+                  "bound_ms": d16["bound_ms"], "share_of_bound": share(d16),
+                  "library_ms": d16["library_ms"],
+                  "library_all_ranks_ms": d16["library_all_ranks_ms"]}}
+    nonportable_ms["A6"] = {
         m: {"cluster_ms": a6_wide["cluster"]["ms"],
             "cluster_turns": a6_wide["cluster"]["turns"],
             "global_ms": a6_wide["global"]["ms"],
             "global_turns": a6_wide["global"]["turns"],
             "plain_ms": a6_wide["cluster"]["plain_ms"],
             "bound_ms": a6_wide["cluster"]["bound_ms"],
-            "share_of_bound": a6_wide["cluster"]["bound_ms"]
-            / a6_wide["cluster"]["ms"]},
+            "share_of_bound": share(a6_wide["cluster"])},
         k16: {"cluster_ms": a6_16["ms"], "plain_ms": a6_16["plain_ms"],
-              "bound_ms": a6_16["bound_ms"],
-              "share_of_bound": a6_16["bound_ms"] / a6_16["ms"]}}
+              "bound_ms": a6_16["bound_ms"], "share_of_bound": share(a6_16)}}
     result = dict(ranks=n, elements=size, chunk=e, launches=launches,
                   wide_ranks=m, wide_elements=RING_SMALL,
                   wide_launches=wide_launches,
@@ -4528,7 +4612,8 @@ def ring_phase(buckets, reps: int):
                   wide_a6_bound=wide_q_bound,
                   global_a6_max_err=global_a6_max,
                   global_a6_bound=global_q_bound, a6_rings=a6_rings,
-                  a6_wide_ms=a6_wide_ms, a6_cluster_config=a6_config,
+                  nonportable_ms=nonportable_ms,
+                  nonportable_config=nonportable_config,
                   a6_dsmem_bytes=a6_dsmem_bytes, max_abs_err=err,
                   cluster_config=config, dsmem_bytes=dsmem_bytes,
                   hbm_ring_bytes=hbm_ring_bytes,
@@ -6482,23 +6567,24 @@ def main() -> int:
             "big_buffer": {b: big[b] for b in buffers},
         })
     for key, name, line, source, path in (
-            ("A4_cluster", "ring_allgather_2d (cluster, n <= 8)", 94,
+            ("A4_cluster", "ring_allgather_2d (cluster, n <= 16)", 94,
              "ring_cluster.cu", "launches"),
-            ("A5_cluster", "ring_allreduce (cluster, n <= 8)", 180,
+            ("A5_cluster", "ring_allreduce (cluster, n <= 16)", 180,
              "ring_cluster.cu", "launches"),
-            ("A4_global", "ring_allgather_2d (global slots, n > 8)", 94,
-             "ring.cu", "wide_launches"),
-            ("A5_global", "ring_allreduce (global slots, n > 8)", 180,
-             "ring.cu", "wide_launches"),
+            ("A4_global", "ring_allgather_2d (global slots, n > 16)", 94,
+             "ring.cu", "global_launches"),
+            ("A5_global", "ring_allreduce (global slots, n > 16)", 180,
+             "ring.cu", "global_launches"),
             ("A6_cluster", "ring_allreduce (quantized, cluster, n <= 16)",
              296, "ring_cluster.cu", "launches"),
             ("A6_global", "ring_allreduce (quantized, global slots, "
              "n > 16)", 296, "ring.cu", "global_launches")):
         # A5's library call is x.sum(0) on the stacked ranks, A4's
         # torch.cat, each filling one output; library_all_ranks_ms fills
-        # every rank's; A6 has none.  A6_cluster's ms is the 8-rank main
-        # path's, its 12- and 16-rank times beside; A6_global's ms is at
-        # 12 ranks on the same inputs as the cluster's 12-rank time
+        # every rank's; A6 has none.  A cluster entry's ms is the 8-rank
+        # main path's, its 12- and 16-rank times beside; a global entry's
+        # ms is at 12 ranks on the same inputs as the cluster's 12-rank
+        # time, in turns with it
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -6513,11 +6599,11 @@ def main() -> int:
             "library_ms": ring[key]["library_ms"],
             "library_all_ranks_ms": ring[key]["library_all_ranks_ms"],
         })
-        if key == "A6_cluster":
+        if key.endswith("_cluster"):
             kernels[-1].update(
                 wide_launches=ring["wide_launches"][key],
-                nonportable_ms=ring["a6_wide_ms"],
-                nonportable_config=ring["a6_cluster_config"])
+                nonportable_ms=ring["nonportable_ms"][key[:2]],
+                nonportable_config=ring["nonportable_config"][key[:2]])
     # the same kernels with one rank a process: 2 processes time-sliced
     # on this card at full width (ring_ipc phase); ms a call of a rank,
     # plain_ms the plain version over both ranks' inputs, library_ms

@@ -10,9 +10,9 @@
 // in device memory, reached through one row of pointers (Rank) a rank:
 //
 // * Ranks in one launch (hvtpu_ring_allgather, hvtpu_ring_allreduce): the
-//   virtual ranks of one card past the cluster kernels' limits
-//   (ring_cluster.cu takes A4 and A5 at 2 to 8 ranks, A6 at 2 to 16;
-//   ops/ring.py kernel_route picks).  A table of n rows in device memory
+//   virtual ranks of one card past the cluster kernels' limit
+//   (ring_cluster.cu takes every kind at 2 to 16 ranks; ops/ring.py
+//   kernel_route picks), so rings of 17 ranks and more.  A table of n rows in device memory
 //   and one cooperative launch of n*B blocks; block k is rank k / B.  The
 //   wrapper allocates the slots and zeroes the flags for every call.
 // * A rank per process (hvtpu_ring_allgather_rank,

@@ -19,26 +19,25 @@ with the same arithmetic (:class:`ProcessRing`'s over the group's
 point-to-point ops).  CUDA tensors take a kernel; :func:`kernel_route`
 picks it for the ranks of one process from ``n`` alone:
 
-* ``"cluster"`` (A4 and A5 at ``2 <= n <= 8``, the portable cluster
-  size :data:`CLUSTER_MAX_RANKS`; A6 at ``2 <= n <= 16``, Hopper's
-  non-portable size :data:`QUANTIZED_CLUSTER_MAX_RANKS`):
-  ``csrc/ring_cluster.cu``, one thread block cluster of ``n`` CTAs a
-  ring, the slots in shared memory, each hop's payload (float32, or A6's
-  int8 codes and scales) stored into the neighbour's slot through
-  distributed shared memory and one cluster barrier a hop.  HBM sees
-  each input read once and each output written once, the bound; the
-  wrapper allocates only the outputs.  Counted in
-  ``ring_allgather_2d.cluster_launches``,
+* ``"cluster"`` (every kind at ``2 <= n <= 16``,
+  :data:`CLUSTER_MAX_RANKS`; past 8, the portable cluster size, on
+  Hopper's non-portable clusters): ``csrc/ring_cluster.cu``, one thread
+  block cluster of ``n`` CTAs a ring, the slots in shared memory, each
+  hop's payload (float32, or A6's int8 codes and scales) stored into the
+  neighbour's slot through distributed shared memory, the hop's sync a
+  cluster barrier.  HBM sees each input read once and each output
+  written once, the bound; the wrapper allocates only the outputs.
+  Counted in ``ring_allgather_2d.cluster_launches``,
   ``ring_allreduce.cluster_launches`` (A5) and
   ``ring_allreduce.quantized_cluster_launches`` (A6).  A cluster the
   card cannot make resident raises with the CUDA error.
-* ``"global"`` (A4 and A5 at ``n > 8``, A6 at ``n > 16``):
-  ``csrc/ring.cu``, one
-  cooperative launch of every rank through the reference's protocol:
-  double-buffered slots per phase in device memory, per-slot receive
-  flags and ACK backpressure, on fresh flags every call.  Counted in
-  ``ring_allgather_2d.launches``, ``ring_allreduce.launches`` (A5) and
-  ``ring_allreduce.quantized_launches`` (A6).
+* ``"global"`` (``n > 16``): ``csrc/ring.cu``, one cooperative launch of
+  every rank through the reference's protocol: double-buffered slots per
+  phase in device memory, per-slot receive flags and ACK backpressure,
+  on fresh flags every call.  Counted in ``ring_allgather_2d.launches``,
+  ``ring_allreduce.launches`` (A5) and
+  ``ring_allreduce.quantized_launches`` (A6); :func:`global_allreduce`
+  and :func:`global_allgather` launch it at any ``n``, for comparisons.
 
 :class:`ProcessRing` on a card runs the same ``csrc/ring.cu`` kernels
 with one rank a launch: each process's slots and flags are its own
@@ -84,26 +83,18 @@ from .quantize import QBLOCK, block_scale_inv, flush, fma_f32, round_codes
 LANES = 128
 ROW_QUANTUM = 8               # a rank's chunk is a multiple of 8 rows
 SLICE = 8 * QBLOCK            # elements a CUDA block carries a hop
-CLUSTER_MAX_RANKS = 8         # A4, A5: CTAs of a portable cluster
-QUANTIZED_CLUSTER_MAX_RANKS = 16   # A6: Hopper's non-portable cluster size
+CLUSTER_MAX_RANKS = 16   # every kind: Hopper's non-portable cluster size
 CLUSTER_KINDS = ("A4", "A5", "A6")   # ring_cluster.cu's kernels, by index
 
 
-def cluster_max_ranks(kind: str) -> int:
-    """The largest ring the cluster kernel ``kind`` (one of
-    :data:`CLUSTER_KINDS`) takes."""
-    return QUANTIZED_CLUSTER_MAX_RANKS if kind == "A6" else CLUSTER_MAX_RANKS
-
-
-def kernel_route(n: int, quantized: bool = False) -> str:
+def kernel_route(n: int) -> str:
     """The CUDA kernel that serves a ring of ``n >= 2`` ranks on one
-    card: ``"cluster"`` (``csrc/ring_cluster.cu``) up to the cluster
-    limit of the kind, 8 ranks for A4 and A5, 16 for A6
-    (``quantized``); ``"global"`` (``csrc/ring.cu``) past it."""
+    card, whatever the kind: ``"cluster"`` (``csrc/ring_cluster.cu``) up
+    to :data:`CLUSTER_MAX_RANKS`; ``"global"`` (``csrc/ring.cu``) past
+    it."""
     if n < 2:
         raise ValueError(f"a ring needs 2 or more ranks, got {n}")
-    limit = cluster_max_ranks("A6" if quantized else "A5")
-    return "cluster" if n <= limit else "global"
+    return "cluster" if n <= CLUSTER_MAX_RANKS else "global"
 
 
 # -- shapes and checks --------------------------------------------------------
@@ -304,14 +295,14 @@ def _cluster_kernels():
 def _cluster_table(what: str, kind: str, xs, outs, x_numel: int,
                    out_numel: int):
     """The per-rank pointer arrays of a launch of the cluster kernel
-    ``kind``, after the checks of what the kernel takes: 2 to its limit
-    of ranks (8 for A4 and A5, 16 for A6), one output a rank, every
-    tensor float32, contiguous, of its length, on one device and at a
-    16-byte aligned address."""
-    n, limit = len(xs), cluster_max_ranks(kind)
-    if not 2 <= n <= limit:
+    ``kind``, after the checks of what the kernel takes: 2 to
+    :data:`CLUSTER_MAX_RANKS` ranks, one output a rank, every tensor
+    float32, contiguous, of its length, on one device and at a 16-byte
+    aligned address."""
+    n = len(xs)
+    if not 2 <= n <= CLUSTER_MAX_RANKS:
         raise ValueError(f"{what}: a cluster ring of {kind} takes 2 to "
-                         f"{limit} ranks, got {n}")
+                         f"{CLUSTER_MAX_RANKS} ranks, got {n}")
     if len(outs) != n:
         raise ValueError(f"{what}: {n} inputs but {len(outs)} outputs")
     devices = {t.device for t in (*xs, *outs)}
@@ -394,8 +385,8 @@ def cluster_info(kind: str, n: int) -> dict:
     :data:`CLUSTER_KINDS`) at ``n`` ranks: registers and spill bytes a
     thread, shared memory a CTA, CTAs an SM, clusters of ``n`` resident
     at once, the kernel's slice in elements, and the largest cluster the
-    card would schedule for it (``cudaOccupancyMaxPotentialClusterSize``;
-    A6 with the non-portable attribute set)."""
+    card would schedule for it (``cudaOccupancyMaxPotentialClusterSize``,
+    with the non-portable attribute set)."""
     info = (ctypes.c_int * 7)()
     err = _cluster_kernels()[2](CLUSTER_KINDS.index(kind), n, info)
     if err != 0:
@@ -458,7 +449,7 @@ def global_allreduce(xs: Sequence[torch.Tensor], quantized: bool
     """A5's Sum (A6's when ``quantized``) by one cooperative launch of
     the global-slot kernel over 1-D float32 CUDA tensors, one a rank, at
     16-byte aligned addresses.  It takes any ``n >= 2``; the wrapper
-    sends it A5's rings past 8 ranks and A6's past 16."""
+    sends it the rings past 16 ranks."""
     n, size = len(xs), xs[0].numel()
     e = chunk_elems(size, n)
     outs = [torch.empty(size, dtype=torch.float32, device=x.device)
@@ -471,10 +462,24 @@ def global_allreduce(xs: Sequence[torch.Tensor], quantized: bool
     return outs
 
 
+def global_allgather(blocks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """A4 by one cooperative launch of the global-slot kernel over
+    float32 ``(CH, 128)`` CUDA blocks, one a rank, at 16-byte aligned
+    addresses.  It takes any ``n >= 2``; the wrapper sends it the rings
+    past 16 ranks."""
+    n, ch = len(blocks), blocks[0].shape[0]
+    outs = [torch.empty((n * ch, LANES), dtype=torch.float32,
+                        device=blocks[0].device) for _ in range(n)]
+    e = ch * LANES
+    _launch(_kernels()[0], "ring_allgather_2d", blocks, outs, e, e, False)
+    ring_allgather_2d.launches += 1
+    return outs
+
+
 def _ring_sum_kernel(flats: Sequence[torch.Tensor], quantized: bool
                      ) -> List[torch.Tensor]:
     xs = [_aligned(f) for f in flats]
-    if kernel_route(len(xs), quantized) == "cluster":
+    if kernel_route(len(xs)) == "cluster":
         return (cluster_quantized_allreduce(xs) if quantized
                 else cluster_allreduce_sum(xs))
     return global_allreduce(xs, quantized)
@@ -493,16 +498,10 @@ def ring_allreduce(tensors: Sequence[torch.Tensor], *, average: bool = False,
 
 
 def _allgather_kernel(blocks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    n, ch = len(blocks), blocks[0].shape[0]
     xs = [_aligned(b) for b in blocks]
-    if kernel_route(n) == "cluster":
+    if kernel_route(len(xs)) == "cluster":
         return cluster_allgather(xs)
-    outs = [torch.empty((n * ch, LANES), dtype=torch.float32,
-                        device=xs[0].device) for _ in range(n)]
-    e = ch * LANES
-    _launch(_kernels()[0], "ring_allgather_2d", xs, outs, e, e, False)
-    ring_allgather_2d.launches += 1
-    return outs
+    return global_allgather(xs)
 
 
 def ring_allgather_2d(blocks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
@@ -834,9 +833,9 @@ class ProcessRing:
         self.epoch = 0
 
 
-ring_allgather_2d.launches = 0            # csrc/ring.cu, n > 8
-ring_allgather_2d.cluster_launches = 0    # csrc/ring_cluster.cu, n <= 8
-ring_allreduce.launches = 0               # A5, csrc/ring.cu, n > 8
+ring_allgather_2d.launches = 0            # csrc/ring.cu, n > 16
+ring_allgather_2d.cluster_launches = 0    # csrc/ring_cluster.cu, n <= 16
+ring_allreduce.launches = 0               # A5, csrc/ring.cu, n > 16
 ring_allreduce.cluster_launches = 0       # A5, csrc/ring_cluster.cu
 ring_allreduce.quantized_launches = 0     # A6, csrc/ring.cu, n > 16
 # A6, csrc/ring_cluster.cu, n <= 16

@@ -19,9 +19,12 @@ rank:
   to any NaN);
 * a bfloat16 ``(10, 33)`` input, int32 (exact, its own dtype), n = 1;
 * A4, the all-gather of ``(n*16, 128)`` at n in {2, 3, 8};
-* A6 at 12 ranks of 3001, past the 8 devices of ``conftest.py``: the
-  JAX ring runs in a subprocess of 12 virtual CPU devices, the
-  non-portable cluster sizes the port's A6 takes on a card.
+* A5 (Sum, Average), A6 and A4 at 12 and 16 ranks of 3001 (A4: the
+  first 8 rows of 128 of each rank's; the JAX all-gather does not finish
+  in interpret mode at 16 rows a rank of 16 ranks, ROADMAP Queue C),
+  past the 8 devices of ``conftest.py``: the JAX rings run in one
+  subprocess of n virtual CPU devices a ring size, the non-portable
+  cluster sizes the port's kernels take on a card.
 
 The wrappers take the plain versions for CPU tensors without counting a
 launch, and raise on inputs they cannot take.
@@ -31,6 +34,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import types
 from fractions import Fraction
 
@@ -55,6 +59,7 @@ from horovod_tpu_torch.ops import (
 from torch_port_util import no_leaked_reference  # noqa: F401  (autouse)
 
 AXIS = "x"
+LANES = 128
 CASES = [(8, 1024), (8, 4000), (8, 5), (3, 4000), (2, 1024), (5, 3001)]
 MODES = {"sum": {}, "average": {"average": True},
          "quantized": {"quantized": True}}
@@ -170,54 +175,104 @@ def test_quantized_identical_on_every_rank(n, per_rank):
     assert err.max() <= 2 * (n - 1) * np.abs(x).sum(0).max() / 127
 
 
-# The JAX ring at n ranks in interpret mode, in a process of its own:
+# The JAX rings at n ranks in interpret mode, in a process of its own:
 # the device count is fixed when a process first asks for its devices.
+# Sum, Average, quantized and the all-gather in one compiled call.
 _WIDE_CHILD = """
 import sys
 import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
-from horovod_tpu.ops.ring import ring_allreduce
+from horovod_tpu.ops.ring import ring_allgather_2d, ring_allreduce
 
 src, dst, n = sys.argv[1], sys.argv[2], int(sys.argv[3])
 assert jax.device_count() == n, jax.device_count()
 mesh = Mesh(np.array(jax.devices()[:n]), ("x",))
-fn = jax.shard_map(
-    lambda v: ring_allreduce(v[0], axis_name="x", quantized=True)[None],
-    mesh=mesh, in_specs=(P("x"),), out_specs=P("x"), check_vma=False)
-np.save(dst, np.asarray(jax.jit(fn)(jnp.asarray(np.load(src)))))
+modes = ({}, {"average": True}, {"quantized": True})
+
+
+def body(v, blocks):
+    outs = tuple(ring_allreduce(v[0], axis_name="x", **kw)[None]
+                 for kw in modes)
+    return outs + (ring_allgather_2d(blocks, axis_name="x")[None],)
+
+
+fn = jax.shard_map(body, mesh=mesh, in_specs=(P("x"), P("x")),
+                   out_specs=(P("x"),) * 4, check_vma=False)
+data = np.load(src)
+outs = jax.jit(fn)(jnp.asarray(data["x"]), jnp.asarray(data["blocks"]))
+np.savez(dst, **dict(zip(("sum", "average", "quantized", "allgather"),
+                         map(np.asarray, outs))))
 """
+WIDE_PER_RANK = 3001
+WIDE_ROWS = 8             # A4's rows a rank (the reference's row quantum)
+_WIDE = {}
 
 
-def test_quantized_past_eight_ranks_matches_jax(tmp_path):
+def _wide_jax(n, per_rank=WIDE_PER_RANK, rows=WIDE_ROWS):
+    """The seeded inputs at n ranks, each rank's first ``(rows, 128)``
+    of them for the all-gather, and the JAX rings' per-rank outputs by
+    mode (the three of :data:`MODES` and ``"allgather"``): one
+    subprocess a ring size, shared by the tests."""
+    if n not in _WIDE:
+        x = _inputs(n, per_rank)
+        blocks = x[:, :rows * LANES].reshape(n * rows, LANES)
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        flags = [f for f in os.environ.get("XLA_FLAGS", "").split()
+                 if not f.startswith("--xla_force_host_platform_device_count")]
+        count = f"--xla_force_host_platform_device_count={n}"
+        env = dict(os.environ, JAX_PLATFORMS="cpu",
+                   HVTPU_PALLAS_INTERPRET="1",
+                   XLA_FLAGS=" ".join(flags + [count]),
+                   PYTHONPATH=os.pathsep.join(
+                       [repo, os.environ.get("PYTHONPATH", "")]))
+        with tempfile.TemporaryDirectory() as tmp:
+            src, dst = os.path.join(tmp, "x.npz"), os.path.join(tmp, "o.npz")
+            np.savez(src, x=x, blocks=blocks)
+            proc = subprocess.run(
+                [sys.executable, "-c", _WIDE_CHILD, src, dst, str(n)],
+                env=env, cwd=tmp, capture_output=True, text=True,
+                timeout=400)
+            assert proc.returncode == 0, proc.stderr[-4000:]
+            with np.load(dst) as out:
+                want = {k: out[k] for k in out.files}
+        assert want["sum"].shape == (n, per_rank)
+        assert want["allgather"].shape == (n, n * rows, LANES)
+        _WIDE[n] = (x, blocks.reshape(n, rows, LANES), want)
+    return _WIDE[n]
+
+
+def test_quantized_past_eight_ranks_matches_jax():
     """A6 at 12 ranks (a ring the port runs on a non-portable cluster of
     12 CTAs on a card): the plain version bitwise the JAX ring on every
     rank, the same seeded inputs, subnormals and a ragged last block
     included."""
-    n, per_rank = 12, 3001
-    x = _inputs(n, per_rank)
-    src, dst = tmp_path / "x.npy", tmp_path / "out.npy"
-    np.save(src, x)
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    flags = [f for f in os.environ.get("XLA_FLAGS", "").split()
-             if not f.startswith("--xla_force_host_platform_device_count")]
-    env = dict(os.environ, JAX_PLATFORMS="cpu", HVTPU_PALLAS_INTERPRET="1",
-               XLA_FLAGS=" ".join(
-                   flags + [f"--xla_force_host_platform_device_count={n}"]),
-               PYTHONPATH=os.pathsep.join(
-                   [repo, os.environ.get("PYTHONPATH", "")]))
-    proc = subprocess.run(
-        [sys.executable, "-c", _WIDE_CHILD, str(src), str(dst), str(n)],
-        env=env, cwd=str(tmp_path), capture_output=True, text=True,
-        timeout=240)
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    want = np.load(dst)
-    assert want.shape == (n, per_rank)
+    n = 12
+    x, _, want = _wide_jax(n)
     got = ring_allreduce_plain(_tensors(x), quantized=True)
-    _assert_bitwise(got, want, f"quantized n={n} per_rank={per_rank}")
+    _assert_bitwise(got, want["quantized"],
+                    f"quantized n={n} per_rank={WIDE_PER_RANK}")
     err = np.abs(got[0].numpy() - x.sum(0))
     assert err.max() <= 2 * (n - 1) * np.abs(x).sum(0).max() / 127
+
+
+@pytest.mark.parametrize("mode", [*MODES, "allgather"])
+@pytest.mark.parametrize("n", [12, 16])
+def test_plain_rings_past_eight_ranks_match_jax(n, mode):
+    """A5 (Sum, Average), A6 and A4 at 12 and 16 ranks, the rings the
+    port runs on non-portable clusters on a card: the plain versions
+    bitwise the JAX rings on every rank, from the same seeded inputs,
+    subnormals included (A5, A6: a ragged last quantization block)."""
+    x, blocks, want = _wide_jax(n)
+    if mode == "allgather":
+        got = ring_allgather_2d_plain([torch.from_numpy(b.copy())
+                                       for b in blocks])
+        np.testing.assert_array_equal(want[mode][0],
+                                      blocks.reshape(-1, LANES))
+    else:
+        got = ring_allreduce_plain(_tensors(x), **MODES[mode])
+    _assert_bitwise(got, want[mode], f"{mode} n={n}")
 
 
 def test_ring_order_and_reciprocal_average_at_three_ranks():

@@ -1,11 +1,11 @@
 """The ring's kernel dispatch and the cluster wrapper's checks, on the
 CPU.
 
-A4 and A5 at 2 to 8 ranks (the portable cluster size) and A6 at 2 to
-16 (Hopper's non-portable size) run on ``csrc/ring_cluster.cu`` (one
-thread block cluster a ring), past those on ``csrc/ring.cu`` (the
-global-slot kernels).  The choice is a function of ``n`` and the kind
-alone; it is tested here without a card by standing fake launch
+A4, A5 and A6 at 2 to 16 ranks (past 8, the portable cluster size, on
+Hopper's non-portable clusters) run on ``csrc/ring_cluster.cu`` (one
+thread block cluster a ring), past 16 on ``csrc/ring.cu`` (the
+global-slot kernels).  The choice is a function of ``n`` alone,
+whatever the kind; it is tested here without a card by standing fake launch
 functions in for the compiled libraries, so each test sees which kernel
 a call reaches, with what arguments, and that a failed launch raises.
 The kernels' results are held bitwise against the plain versions on the
@@ -26,17 +26,16 @@ from torch_port_util import no_leaked_reference  # noqa: F401  (autouse)
 
 @pytest.mark.parametrize("n", range(2, 17))
 def test_route_is_a_function_of_n(n):
-    # A4 and A5 on the cluster up to 8 ranks, A6 at every n up to 16
-    want = "cluster" if n <= 8 else "global"
-    assert ring_mod.kernel_route(n) == want
-    assert ring_mod.kernel_route(n, quantized=False) == want
-    assert ring_mod.kernel_route(n, quantized=True) == "cluster"
+    # every kind on the cluster up to 16 ranks
+    assert ring_mod.kernel_route(n) == "cluster"
 
 
 @pytest.mark.parametrize("n", [17, 20, 64])
 def test_quantized_route_past_sixteen_is_global(n):
-    assert ring_mod.kernel_route(n, quantized=True) == "global"
+    # every kind, A6 included, on the global-slot kernels past 16 ranks
     assert ring_mod.kernel_route(n) == "global"
+    with pytest.raises(TypeError):
+        ring_mod.kernel_route(n, quantized=True)    # the kind is not asked
 
 
 @pytest.mark.parametrize("n", [0, 1])
@@ -88,14 +87,14 @@ def _flats(n, size=3000, seed=0):
             for _ in range(n)]
 
 
-@pytest.mark.parametrize("n", [2, 3, 8, 9, 12])
+@pytest.mark.parametrize("n", [2, 3, 8, 9, 12, 16, 17, 20])
 def test_allreduce_reaches_the_kernel_its_route_names(fake_card, n):
     flats = _flats(n)
     before = _counts()
     outs = ring_mod._ring_sum_kernel(flats, False)
     ((name, args),) = fake_card.calls
     e = ring_mod.chunk_elems(3000, n)
-    if n <= 8:
+    if n <= 16:
         assert name == "cluster_allreduce"
         xs, os_, n_arg, size, chunk, stream = args
         assert (n_arg, size, chunk, stream) == (n, 3000, e, 7)
@@ -132,14 +131,14 @@ def test_quantized_reaches_the_kernel_its_route_names(fake_card, n):
     assert tuple(a - b for a, b in zip(_counts(), before)) == delta
 
 
-@pytest.mark.parametrize("n", [2, 7, 8, 9])
+@pytest.mark.parametrize("n", [2, 7, 8, 9, 12, 16, 17, 20])
 def test_allgather_reaches_the_kernel_its_route_names(fake_card, n):
     blocks = [torch.zeros(24, 128) for _ in range(n)]
     before = _counts()
     outs = ring_mod._allgather_kernel(blocks)
     assert len(outs) == n and tuple(outs[0].shape) == (n * 24, 128)
     ((name, args),) = fake_card.calls
-    if n <= 8:
+    if n <= 16:
         assert name == "cluster_allgather"
         assert args[2:] == (n, 24 * 128, 7)
         assert list(args[0]) == [b.data_ptr() for b in blocks]
@@ -159,6 +158,9 @@ def test_allgather_reaches_the_kernel_its_route_names(fake_card, n):
     (lambda xs: ring_mod._ring_sum_kernel(xs, True), 16),
     (lambda xs: ring_mod.cluster_allgather(
         [x[:2048].reshape(16, 128) for x in xs]), 4),
+    (lambda xs: ring_mod._ring_sum_kernel(xs, False), 12),
+    (lambda xs: ring_mod._allgather_kernel(
+        [x[:2048].reshape(16, 128) for x in xs]), 16),
 ])
 def test_a_failed_cluster_launch_raises(fake_card, fn, n):
     fake_card.err = 98            # cudaErrorInvalidDeviceFunction
@@ -190,28 +192,22 @@ def test_cluster_table_holds_the_pointers():
     assert list(to) == [o.data_ptr() for o in outs]
 
 
-@pytest.mark.parametrize("n", [1, 9, 12])
-def test_cluster_table_takes_two_to_eight_ranks(n):
-    ts = [torch.zeros(64) for _ in range(n)]
-    for kind in ("A4", "A5"):
-        with pytest.raises(ValueError, match=f"{kind} takes 2 to 8 ranks"):
-            _table(ts, ts, kind=kind)
-
-
+@pytest.mark.parametrize("kind", ring_mod.CLUSTER_KINDS)
 @pytest.mark.parametrize("n", [1, 17, 20])
-def test_quantized_cluster_table_takes_two_to_sixteen_ranks(n):
+def test_cluster_table_takes_two_to_sixteen_ranks(kind, n):
     ts = [torch.zeros(64) for _ in range(n)]
-    with pytest.raises(ValueError, match="A6 takes 2 to 16 ranks"):
-        _table(ts, ts, kind="A6")
+    with pytest.raises(ValueError, match=f"{kind} takes 2 to 16 ranks"):
+        _table(ts, ts, kind=kind)
 
 
 @pytest.mark.parametrize("n", [9, 12, 16])
 def test_quantized_cluster_table_holds_sixteen_pointers(n):
     xs = [torch.zeros(64) for _ in range(n)]
     outs = [torch.zeros(64) for _ in range(n)]
-    tx, to = _table(xs, outs, kind="A6")
-    assert list(tx) == [x.data_ptr() for x in xs]
-    assert list(to) == [o.data_ptr() for o in outs]
+    for kind in ring_mod.CLUSTER_KINDS:
+        tx, to = _table(xs, outs, kind=kind)
+        assert list(tx) == [x.data_ptr() for x in xs]
+        assert list(to) == [o.data_ptr() for o in outs]
 
 
 def test_cluster_table_raises_on_what_the_kernel_cannot_take():
@@ -235,7 +231,9 @@ def test_cluster_table_raises_on_what_the_kernel_cannot_take():
 
 @pytest.mark.parametrize("kind,n", [("A4", 2), ("A5", 3), ("A4", 8),
                                     ("A5", 8), ("A6", 2), ("A6", 8),
-                                    ("A6", 9), ("A6", 12), ("A6", 16)])
+                                    ("A6", 9), ("A6", 12), ("A6", 16),
+                                    ("A4", 9), ("A4", 12), ("A4", 16),
+                                    ("A5", 9), ("A5", 12), ("A5", 16)])
 def test_cluster_info_reads_what_the_library_reports(monkeypatch, kind, n):
     index = ring_mod.CLUSTER_KINDS.index(kind)
 
@@ -256,27 +254,39 @@ def test_cluster_info_reads_what_the_library_reports(monkeypatch, kind, n):
 
 def test_the_kernel_file_compiles_one_slice():
     """ring_cluster.cu fixes each CTA at one shape, the lines the slice
-    sweep rewrites in its copies: A4/A5 at one thread count, A6 at one
-    thread count and one count of warps a quantization block.  A CTA's
-    slice holds whole quantization blocks, as A5's chunks do, and an A6
-    CTA whole blocks of whole warps."""
+    sweep rewrites in its copies: A4/A5 at one thread count and one hop
+    sync, A6 at one thread count and one count of warps a quantization
+    block.  A CTA's slice holds whole quantization blocks, as A5's chunks
+    do, and an A6 CTA whole blocks of whole warps."""
     import torch_port_ring_sweep as sweep
 
     text = (ring_mod._build.CSRC / "ring_cluster.cu").read_text()
     assert text.count(sweep.KTHREADS) == 1
+    assert text.count(sweep.KSYNC) == 1
     assert text.count(sweep.KQTHREADS) == 1
     assert text.count(sweep.KQBLOCKWARPS) == 1
     assert "template" not in text
     assert all(t * 16 % ring_mod.QBLOCK == 0 for t in sweep.THREADS)
+    assert 64 in sweep.THREADS and 128 in sweep.THREADS
+    assert text.count(sweep.KSLOTS) == 1
+    # every thread count with each hop sync, the shipped one among them,
+    # and more slots with mbarriers
+    copies = sweep.a4a5_copies()
+    assert set(copies) == {f"t{t}{s}" for t in sweep.THREADS
+                           for s in ("", "_mbar")} | {
+        f"t{t}_mbar_s{s}" for t, s in sweep.MBAR_SLOTS}
+    assert all(set(c) == {sweep.KTHREADS, sweep.KSYNC, sweep.KSLOTS}
+               for c in copies.values())
+    assert copies["t128"] == {k: k for k in copies["t128"]}   # shipped
     for warps, threads in sweep.A6_SHAPES:
         assert warps in (1, 2) and threads % (32 * warps) == 0
     assert (1, 128) in sweep.A6_SHAPES and (2, 128) in sweep.A6_SHAPES
-    # A4 and A5 at the portable cluster size, A6 at the non-portable one
-    assert ring_mod.CLUSTER_MAX_RANKS == 8
-    assert ring_mod.QUANTIZED_CLUSTER_MAX_RANKS == 16
-    assert [ring_mod.cluster_max_ranks(k) for k in ring_mod.CLUSTER_KINDS
-            ] == [8, 8, 16]
-    # the kernel file's own limits, and the attribute past 8 ranks
+    # one limit for every kind: Hopper's non-portable cluster size
+    assert ring_mod.CLUSTER_MAX_RANKS == 16
+    assert not hasattr(ring_mod, "QUANTIZED_CLUSTER_MAX_RANKS")
+    assert not hasattr(ring_mod, "cluster_max_ranks")
+    # the kernel file's own limit, and the attribute past 8 ranks
     assert "constexpr int kPortableRanks = 8;" in text
-    assert "constexpr int kQMaxRanks = 16;" in text
+    assert "constexpr int kMaxRanks = 16;" in text
+    assert "kQMaxRanks" not in text
     assert "cudaFuncAttributeNonPortableClusterSizeAllowed" in text

@@ -514,8 +514,6 @@ def test_the_occupancy_sweep_patches_one_line():
     assert text.count(sweep.KCTAS) == 1
     assert text.count("__launch_bounds__(kThreads, kCtasPerSm)") == 3
     assert 3 in sweep.GLOBAL_CTAS and 1 in sweep.GLOBAL_CTAS
-    # each kind's rings lie past its cluster limit: A4 and A5 past 8
-    # ranks, A6 past 16
+    # its rings lie past the cluster kernels' limit of 16 ranks, every
+    # kind's
     assert all(k > ring_mod.CLUSTER_MAX_RANKS for k, _ in sweep.GLOBAL_RINGS)
-    assert all(k > ring_mod.QUANTIZED_CLUSTER_MAX_RANKS
-               for k, _ in sweep.GLOBAL_A6_RINGS)

@@ -1,22 +1,31 @@
 #!/usr/bin/env python3
-"""The cluster ring kernels (A4, A5, A6) at each CTA shape, on one GPU;
-with ``--kernels global`` the global-slot ones at each occupancy.
+"""The cluster ring kernels (A4, A5, A6) at each CTA shape and hop sync,
+on one GPU; with ``--kernels global`` the global-slot ones at each
+occupancy.
 
     python3 torch_port_ring_sweep.py [--elements 25557032] [--ranks 8]
                                      [--reps 20] [--ptxas]
                                      [--kernels all|A4A5|A6|global]
 
 ``horovod_tpu_torch/csrc/ring_cluster.cu`` is compiled at one CTA shape
-a kernel: A4/A5 at 128 threads of 16 elements each (a slice of 2048),
-A6 at 128 threads and one warp a 1024-element quantization block (a
-slice of 4096).  This script copies the source, with the headers beside
-it, under ``build/ring_sweep/<name>/`` with other shapes set, compiles
-the copies in parallel (``--ptxas`` adds ``-Xptxas -v`` and prints each
+a kernel: A4/A5 at 128 threads of 16 elements each (a slice of 2048)
+with one cluster barrier a hop, A6 at 128 threads and one warp a
+1024-element quantization block (a slice of 4096).  This script copies
+the source, with the headers beside it, under
+``build/ring_sweep/<name>/`` with other constants set, compiles the
+copies in parallel (``--ptxas`` adds ``-Xptxas -v`` and prints each
 kernel's registers, shared memory and spills) and runs each through the
 port's own wrappers:
 
-* A4/A5 (copies ``t<threads>``): ``kThreads`` 128, 256, 512 and 1024,
-  slices of 2048 to 16384 elements;
+* A4/A5 (copies ``t<threads>`` and ``t<threads>_mbar``): ``kThreads``
+  64, 128, 256, 512 and 1024, slices of 1024 to 16384 elements, each
+  with the hop's sync as one cluster barrier and, in ``_mbar``, as
+  neighbour-only mbarriers (``kNeighbourSync``: a "full" barrier a slot
+  in the receiver's shared memory completed by the sender's
+  ``st.async`` stores, a "free" one in the sender's on which the
+  receiver arrives remotely once it has read the slot); with mbarriers
+  also 3 and 4 slots a CTA in place of 2 (``kSlots``; copies
+  ``t<threads>_mbar_s<slots>``);
 * A6 (copies ``q<warps>w<threads>``): one warp a block (a lane 32
   elements) or two (a lane 16, the block's absmax combined through
   shared memory), at CTAs of 64 to 512 threads, so a CTA holds whole
@@ -24,34 +33,38 @@ port's own wrappers:
   CTAs an SM (``q1w128_cap6``, ``_cap8``) and evict-first input loads
   (``q1w128_ldcs``).
 
-``--ranks`` goes up to 8 for A4/A5 (the portable cluster size) and up
-to 16 for ``--kernels A6``: past 8 ranks A6 runs on a non-portable
-cluster, which the copies, being copies of ``ring_cluster.cu``, allow as
-the shipped kernel does (``cudaFuncAttributeNonPortableClusterSizeAllowed``).
+``--ranks`` takes 2 to 16 for every kind of cluster copy: past 8 ranks
+a ring runs on a non-portable cluster, which the copies, being copies
+of ``ring_cluster.cu``, allow as the shipped kernels do
+(``cudaFuncAttributeNonPortableClusterSizeAllowed``).  A copy whose
+cluster of ``--ranks`` the card cannot make resident is reported and
+left out of the timing.
 
 For each copy: what the card gives the kernel (``cluster_info``:
 registers, spill bytes, shared memory and CTAs an SM, clusters resident
 at once, the largest cluster it would schedule); the kernel bitwise
-against its plain version (A6 any NaN equal to any NaN) at 2, 3, 5 and
-8 ranks of a few thousand elements, ragged slices included (A6 also at
-9, 12 and 16 ranks, and at 3 ranks of NaN/inf/subnormal values) and,
-once, at full width.  Then the time at ``--ranks`` ranks of
-``--elements`` float32 (the default is the ring phase of
-``chip_smoke.py``: 8 ranks of ResNet-50's 25,557,032 gradients), by CUDA
-events, the copies taken in turns, forwards and then backwards, beside
-the bound (each input read once, each output written once), the library
-calls that fill one output and every rank's (A4/A5) and the global-slot
-A6 of ``ring.cu`` at the same ranks (A6).
+against its plain version (A6 any NaN equal to any NaN) at 2, 3, 5, 8,
+9, 12 and 16 ranks of a few thousand elements, ragged slices included
+(A6 also at 3 ranks of NaN/inf/subnormal values) and, once, at full
+width.  Then the time at ``--ranks`` ranks of ``--elements`` float32
+(the default is the ring phase of ``chip_smoke.py``: 8 ranks of
+ResNet-50's 25,557,032 gradients; ``chip_smoke.py`` times 12 and 16
+ranks at 12,778,516), by CUDA events, the copies taken in turns,
+forwards and then backwards, beside the bound (each input read once,
+each output written once), the library calls that fill one output and
+every rank's (A4/A5), and in every turn the global-slot kernels of
+``ring.cu`` on the same inputs (``global_allreduce``,
+``global_allgather``, copy ``global``).
 
 ``--kernels global`` copies ``horovod_tpu_torch/csrc/ring.cu`` instead
 (``build/ring_sweep_global/c<n>/``) with its floor of CTAs an SM,
 ``kCtasPerSm``, at 1 (no register cap), 2 and 3 (the shipped one),
-holds each copy's one-launch A4/A5 bitwise against the plain versions at
-9 and 12 ranks, its A6 at 17 and 20 (the rings the wrapper sends it),
-each at full width too, and times them in turns
-at ``--ranks`` ranks of ``--elements`` (default 12 x 12,778,516, the
-size ``chip_smoke.py`` times them at): ``sweep_global {...}`` lines and
-a ``best_global {...}`` line.
+holds each copy's one-launch A4/A5/A6 bitwise against the plain
+versions at 17 and 20 ranks (the rings the wrapper sends it), each at
+full width too, and times them in turns at ``--ranks`` ranks of
+``--elements`` (default 12 x 12,778,516, the size ``chip_smoke.py``
+times them at): ``sweep_global {...}`` lines and a ``best_global
+{...}`` line.
 
 ``--ptxas`` prints each kernel's registers, shared memory and spill
 bytes as ``ptxas`` reports them.
@@ -61,6 +74,14 @@ copy, one ``sweep {...}`` / ``sweep_a6 {...}`` line a copy and pass, and
 a ``best {...}`` / ``best_a6 {...}`` line.  Inputs are random normal
 from a seed; the kernels' time does not depend on the values.  Needs
 one card; imports nothing of JAX.
+
+A4/A5 at 8, 12 and 16 ranks, the sizes ``chip_smoke.py`` times::
+
+    for r in 8 12 16; do
+        e=$([ $r -gt 8 ] && echo 12778516 || echo 25557032)
+        python3 torch_port_ring_sweep.py --kernels A4A5 --ranks $r \\
+            --elements $e
+    done
 """
 
 from __future__ import annotations
@@ -74,8 +95,14 @@ import sys
 import chip_smoke
 from chip_smoke import check, log, same_bits, time_cuda
 
-THREADS = (128, 256, 512, 1024)
+THREADS = (64, 128, 256, 512, 1024)
 KTHREADS = "constexpr int kThreads = 128;"
+# A4, A5: the hop's sync; the _mbar copies set it
+KSYNC = "constexpr bool kNeighbourSync = false;"
+# A4, A5: slots a CTA; with mbarriers a third or fourth slot lets a CTA run
+# further ahead of its right neighbour: (threads, slots) of those copies
+KSLOTS = "constexpr int kSlots = 2;"
+MBAR_SLOTS = ((128, 3), (128, 4), (256, 3))
 # A6: (warps a quantization block, threads a CTA)
 A6_SHAPES = ((1, 64), (1, 128), (1, 256), (1, 512),
              (2, 64), (2, 128), (2, 256), (2, 512))
@@ -92,13 +119,32 @@ A6_LEVERS = {
                     "v[k] = __ldcs(reinterpret_cast<const float4*>(x + block"},
 }
 SMALL_RINGS = [(2, 5000), (3, 4000), (5, 3001), (8, 40000)]
-# A6 only: non-portable clusters, an odd one among them
-SMALL_A6_RINGS = [(9, 3001), (12, 5000), (16, 40000)]
+# non-portable clusters, an odd one among them
+NONPORTABLE_RINGS = [(9, 3001), (12, 5000), (16, 40000)]
 # ring.cu: its floor of CTAs an SM (the register cap) and the copies'
 KCTAS = "constexpr int kCtasPerSm = 3;"
 GLOBAL_CTAS = (1, 2, 3)
-GLOBAL_RINGS = [(9, 5000), (12, 3001)]        # A4, A5: past 8 ranks
-GLOBAL_A6_RINGS = [(17, 5000), (20, 3001)]    # A6: past 16 ranks
+# every kind past the cluster kernels' 16 ranks: the rings ring.cu serves
+GLOBAL_RINGS = [(17, 5000), (20, 3001)]
+
+
+def a4a5_copies() -> dict:
+    """{name: patches} of every A4/A5 copy: each thread count with one
+    cluster barrier a hop (``t<threads>``) and with neighbour-only
+    mbarriers (``t<threads>_mbar``), and the mbarrier copies of
+    :data:`MBAR_SLOTS` at more slots (``t<threads>_mbar_s<slots>``)."""
+    def copy(t, mbar=False, slots=2):
+        return {KTHREADS: f"constexpr int kThreads = {t};",
+                KSYNC: f"constexpr bool kNeighbourSync = {str(mbar).lower()};",
+                KSLOTS: f"constexpr int kSlots = {slots};"}
+
+    copies = {}
+    for t in THREADS:
+        copies[f"t{t}"] = copy(t)
+        copies[f"t{t}_mbar"] = copy(t, True)
+    for t, slots in MBAR_SLOTS:
+        copies[f"t{t}_mbar_s{slots}"] = copy(t, True, slots)
+    return copies
 
 
 def _a6_name(shape) -> str:
@@ -127,13 +173,13 @@ def _ptxas_lines(out: str):
 
 def build_copies(ptxas: bool, kinds) -> dict:
     """{name: (library path, ptxas lines)}: a copy of ring_cluster.cu at
-    each A4/A5 thread count and each A6 shape, compiled in parallel."""
+    each A4/A5 thread count and sync and each A6 shape, compiled in
+    parallel."""
     from horovod_tpu_torch.ops import _build
 
     variants = {}
     if "A4A5" in kinds:
-        variants.update({f"t{t}": {KTHREADS: f"constexpr int kThreads = {t};"}
-                         for t in THREADS})
+        variants.update(a4a5_copies())
     if "A6" in kinds:
         variants.update(a6_copies())
     built = _build.build_copies(
@@ -149,9 +195,9 @@ def small_checks(ring_mod, device, kinds) -> int:
     import torch
 
     gen = torch.Generator(device=device).manual_seed(11)
-    sizes = SMALL_RINGS + (SMALL_A6_RINGS if "A6" in kinds else [])
     rings = [(f"n={n}", [torch.randn(size, generator=gen, device=device)
-                         for _ in range(n)]) for n, size in sizes]
+                         for _ in range(n)])
+             for n, size in SMALL_RINGS + NONPORTABLE_RINGS]
     if "A6" in kinds:
         special = [chip_smoke.wide_values(3001, torch.float32, device, gen)
                    for _ in range(3)]
@@ -165,8 +211,7 @@ def small_checks(ring_mod, device, kinds) -> int:
             want = ring_mod.ring_allreduce_plain(xs, quantized=True)
             for r in range(n):
                 check(same_bits(got[r], want[0]), f"A6 {what} rank {r}")
-        if ("A4A5" in kinds and not what.startswith("special")
-                and n <= ring_mod.CLUSTER_MAX_RANKS):
+        if "A4A5" in kinds and not what.startswith("special"):
             got = ring_mod.cluster_allreduce_sum(xs)
             want = ring_mod.ring_allreduce_plain(xs)
             for r in range(n):
@@ -182,6 +227,8 @@ def small_checks(ring_mod, device, kinds) -> int:
 
 
 def sweep_a4a5(ring_mod, use, xs, reps, device) -> None:
+    """Each A4/A5 copy checked and timed, the global-slot A4/A5 of
+    ring.cu on the same inputs beside it in every turn."""
     import torch
 
     n, size = len(xs), xs[0].numel()
@@ -211,41 +258,61 @@ def sweep_a4a5(ring_mod, use, xs, reps, device) -> None:
                 library_all_ranks_ms=time_cuda(cat_all_ranks, reps), **b4))
     log("library " + json.dumps(library))
     del stacked, total, cat_outs, sum_outs
+    got5 = ring_mod.global_allreduce(xs, False)
+    got4 = ring_mod.global_allgather(blocks)
+    for r in range(n):
+        check(same_bits(got5[r], want5), f"A5 global slots n={n} rank {r}")
+        check(same_bits(got4[r], want4), f"A4 global slots n={n} rank {r}")
+    del got5, got4
 
-    names = [f"t{t}" for t in THREADS]
-    slices = {}
-    for t, name in zip(THREADS, names):
+    infos = {}
+    for name in a4a5_copies():
         use(name)
-        info = {kind: ring_mod.cluster_info(kind, n) for kind in ("A4", "A5")}
-        slices[t] = info["A5"]["slice"]
-        rings = small_checks(ring_mod, device, ("A4A5",))
-        got5 = ring_mod.cluster_allreduce_sum(xs)
-        got4 = ring_mod.cluster_allgather(blocks)
+        try:
+            info = {kind: ring_mod.cluster_info(kind, n)
+                    for kind in ("A4", "A5")}
+            rings = small_checks(ring_mod, device, ("A4A5",))
+            got5 = ring_mod.cluster_allreduce_sum(xs)
+            got4 = ring_mod.cluster_allgather(blocks)
+        except RuntimeError as err:
+            # a copy whose cluster of n the card cannot make resident:
+            # reported, and left out of the timing
+            log("variant " + json.dumps(dict(kernel="A4A5", copy=name,
+                                             error=str(err))))
+            continue
         for r in range(n):
-            check(same_bits(got5[r], want5), f"A5 {t} threads full width")
-            check(same_bits(got4[r], want4), f"A4 {t} threads full width")
+            check(same_bits(got5[r], want5), f"A5 {name} full width")
+            check(same_bits(got4[r], want4), f"A4 {name} full width")
         del got5, got4
-        log("variant " + json.dumps(dict(threads=t, small_rings=rings,
-                                         **info)))
-    times = {t: {"A5": [], "A4": []} for t in THREADS}
-    for order in (THREADS, THREADS[::-1]):
-        for t in order:
-            use(f"t{t}")
-            times[t]["A5"].append(time_cuda(
-                lambda: ring_mod.cluster_allreduce_sum(xs), reps))
-            times[t]["A4"].append(time_cuda(
-                lambda: ring_mod.cluster_allgather(blocks), reps))
+        infos[name] = info
+        log("variant " + json.dumps(dict(kernel="A4A5", copy=name,
+                                         small_rings=rings, **info)))
+    check(bool(infos), f"A4/A5: no copy runs at {n} ranks")
+    names = list(infos) + ["global"]
+    calls = {"A5": (lambda: ring_mod.global_allreduce(xs, False),
+                    lambda: ring_mod.cluster_allreduce_sum(xs)),
+             "A4": (lambda: ring_mod.global_allgather(blocks),
+                    lambda: ring_mod.cluster_allgather(blocks))}
+    times = {name: {"A5": [], "A4": []} for name in names}
+    for order in (names, names[::-1]):
+        for name in order:
+            if name != "global":
+                use(name)
+            for kind, (on_global, on_cluster) in calls.items():
+                times[name][kind].append(time_cuda(
+                    on_global if name == "global" else on_cluster, reps))
             log("sweep " + json.dumps(dict(
-                slice=slices[t], threads=t, ranks=n, elements=size,
-                A5_ms=times[t]["A5"][-1], A4_ms=times[t]["A4"][-1])))
+                copy=name, ranks=n, elements=size,
+                slice=infos[name]["A5"]["slice"] if name in infos else None,
+                A5_ms=times[name]["A5"][-1], A4_ms=times[name]["A4"][-1])))
     torch.cuda.synchronize()
-    best = {kind: min(THREADS, key=lambda t: min(times[t][kind]))
+    best = {kind: min(names[:-1], key=lambda m: min(times[m][kind]))
             for kind in ("A5", "A4")}
-    log("best " + json.dumps(dict(
-        A5_slice=slices[best["A5"]], A4_slice=slices[best["A4"]],
-        A5_ms=min(times[best["A5"]]["A5"]),
-        A4_ms=min(times[best["A4"]]["A4"]), bound=dict(
-            A5=b5["bound_ms"], A4=b4["bound_ms"]))))
+    log("best " + json.dumps({kind: dict(
+        copy=best[kind], ms=min(times[best[kind]][kind]),
+        global_ms=min(times["global"][kind]),
+        bound_ms=(b5 if kind == "A5" else b4)["bound_ms"],
+        config=infos[best[kind]][kind]) for kind in ("A5", "A4")}))
 
 
 def sweep_a6(ring_mod, use, xs, reps, device) -> None:
@@ -321,37 +388,30 @@ def sweep_global(ring_mod, use, xs, reps, device) -> None:
 
     n, size = len(xs), xs[0].numel()
     gen = torch.Generator(device=device).manual_seed(12)
-
-    def make(spec):
-        return [[torch.randn(m, generator=gen, device=device)
-                 for _ in range(k)] for k, m in spec] + [xs]
-
-    rings, a6_rings = make(GLOBAL_RINGS), make(GLOBAL_A6_RINGS)
+    rings = [[torch.randn(m, generator=gen, device=device)
+              for _ in range(k)] for k, m in GLOBAL_RINGS] + [xs]
     names = [f"c{c}" for c in GLOBAL_CTAS]
     for name in names:
         use(name)
         for ring in rings:
             blocks = chip_smoke._rank_blocks(ring)
-            want = ring_mod.ring_allreduce_plain(ring)[0]
-            got = ring_mod.global_allreduce(ring, False)
-            check(all(same_bits(g, want) for g in got),
-                  f"global {name} A5 n={len(ring)}")
+            for quantized in (False, True):
+                want = ring_mod.ring_allreduce_plain(
+                    ring, quantized=quantized)[0]
+                got = ring_mod.global_allreduce(ring, quantized)
+                check(all(same_bits(g, want) for g in got),
+                      f"global {name} A{6 if quantized else 5} "
+                      f"n={len(ring)}")
             want = ring_mod.ring_allgather_2d_plain(blocks)[0]
             check(all(same_bits(g, want)
-                      for g in ring_mod._allgather_kernel(blocks)),
+                      for g in ring_mod.global_allgather(blocks)),
                   f"global {name} A4 n={len(ring)}")
-        for ring in a6_rings:
-            want = ring_mod.ring_allreduce_plain(ring, quantized=True)[0]
-            got = ring_mod.global_allreduce(ring, True)
-            check(all(same_bits(g, want) for g in got),
-                  f"global {name} A6 n={len(ring)}")
         log("variant " + json.dumps(dict(
-            kernel="global", copy=name, rings=[len(r) for r in rings],
-            a6_rings=[len(r) for r in a6_rings])))
+            kernel="global", copy=name, rings=[len(r) for r in rings])))
     blocks = chip_smoke._rank_blocks(xs)
     calls = {"A5": lambda: ring_mod.global_allreduce(xs, False),
              "A6": lambda: ring_mod.global_allreduce(xs, True),
-             "A4": lambda: ring_mod._allgather_kernel(blocks)}
+             "A4": lambda: ring_mod.global_allgather(blocks)}
     times = {name: {k: [] for k in calls} for name in names}
     for order in (names, names[::-1]):
         for name in order:
@@ -384,8 +444,8 @@ def main() -> int:
         args.elements = 12_778_516 if wide else 25_557_032
     if args.ranks is None:
         args.ranks = 12 if wide else 8
-    # the cluster kernels' limits; ring.cu takes any ring
-    limit = {"A6": 16, "global": args.ranks}.get(args.kernels, 8)
+    # the cluster kernels' limit; ring.cu takes any ring
+    limit = args.ranks if wide else 16
     if not 2 <= args.ranks <= limit:
         ap.error(f"--ranks {args.ranks}: --kernels {args.kernels} takes 2 "
                  f"to {limit} ranks")
