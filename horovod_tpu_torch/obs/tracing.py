@@ -40,15 +40,32 @@ applies it when fusing per-rank files.
 Zero-cost-when-off contract (mirrors ``core/faults.ACTIVE``): hot call
 sites guard every emission with ``if tracing.ACTIVE:`` — a single
 module-attribute check when ``HVTPU_TRACE`` is unset.
+
+Step spans (the port's own; the JAX package has none): while a
+``torch.profiler`` session is on, the optimizer's step path
+(``torch/optimizer.py``) records ``hvd.*`` spans of its hooks, bucket
+launches, ``synchronize`` and update, in memory and on one host clock
+(``time.perf_counter_ns``) for all threads, each also a
+``record_function`` range (``user_annotation``) of the same name in the
+profiler's trace.  A site tests
+``torch.autograd.profiler._is_profiler_enabled`` before it opens a
+span, so with the profiler off it costs that one read.
+:func:`step_spans` returns the record and :func:`trace_offset` maps it
+onto a profiler trace's clock.
 """
 
 from __future__ import annotations
 
+import collections
+import itertools
 import logging
 import os
+import statistics
 import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+
+import torch
 
 from .timeline import Timeline
 
@@ -338,3 +355,131 @@ def uninstall():
 
 def get_tracer() -> Optional[Tracer]:
     return _tracer
+
+
+# ---- step spans ------------------------------------------------------------
+# The names of the optimizer's spans (torch/optimizer.py), each on the
+# thread that does the work: the hooks on the autograd engine's device
+# thread, a bucket's launch where its last gradient became ready, the
+# rest on the thread that calls ``step()``.
+HOOK = "hvd.hook"
+BUCKET_LAUNCH = "hvd.bucket.launch"
+BUCKET_PACK = "hvd.bucket.pack"
+BUCKET_DISPATCH = "hvd.bucket.dispatch"
+OPTIMIZER_STEP = "hvd.optimizer.step"
+SYNCHRONIZE = "hvd.synchronize"
+BUCKET_WAIT = "hvd.bucket.wait"
+BUCKET_UNPACK = "hvd.bucket.unpack"
+UPDATE = "hvd.update"
+
+# the record keeps the newest spans: ~400 a ResNet-50 step
+STEP_SPAN_CAPACITY = 1 << 16
+
+
+class StepSpan(NamedTuple):
+    """One closed step span.  ``tid`` is the OS thread id, which the
+    profiler's trace gives its threads; ``parent`` is the ``id`` of the
+    span that encloses it on the same thread."""
+
+    name: str
+    tid: int
+    t0_ns: int
+    t1_ns: int
+    parent: Optional[int]
+    attrs: dict
+    id: int
+
+
+class OpenSpan:
+    """A step span that is open; :func:`span_close` ends it.  ``attrs``
+    may be filled in until then."""
+
+    __slots__ = ("name", "tid", "id", "parent", "attrs", "range", "t0_ns")
+
+    def __init__(self, name, tid, id, parent, attrs, rng, t0_ns):
+        self.name, self.tid, self.id, self.parent = name, tid, id, parent
+        self.attrs, self.range, self.t0_ns = attrs, rng, t0_ns
+
+
+# appends and next() are atomic under the interpreter lock; each thread
+# keeps its own stack of open spans, and its OS thread id, read once
+# since that is a system call
+_step_spans: "collections.deque[StepSpan]" = collections.deque(
+    maxlen=STEP_SPAN_CAPACITY)
+_span_ids = itertools.count()
+_open = threading.local()
+
+
+def span_open(name: str, **attrs) -> OpenSpan:
+    """Open a step span on this thread, inside the span open there, and
+    enter its range in the profiler's trace.  Call sites call it only
+    while ``torch.autograd.profiler._is_profiler_enabled``.
+
+    The range is the ``user_annotation`` that ``record_function``
+    makes, entered through the binding that keeps the interpreter lock:
+    ``record_function`` enters through an operator call, which releases
+    the lock, and each range then waits to take it back while another
+    thread runs Python."""
+    stack = getattr(_open, "stack", None)
+    if stack is None:
+        stack = _open.stack = []
+        _open.tid = threading.get_native_id()
+    # the clock is read next to the profiler's own stamps, just before
+    # the range's enter and just after its exit, so the span holds it
+    t0 = time.perf_counter_ns()
+    rng = torch._C._autograd._record_function_with_args_enter(name)
+    span = OpenSpan(name, _open.tid, next(_span_ids),
+                    stack[-1].id if stack else None, attrs, rng, t0)
+    stack.append(span)
+    return span
+
+
+def span_close(span: OpenSpan) -> None:
+    """Close ``span`` and record it.  Spans opened inside it and left
+    open by an exception are closed with it and not recorded."""
+    stack = _open.stack
+    while stack:
+        top = stack.pop()
+        torch._C._autograd._record_function_with_args_exit(top.range)
+        if top is span:
+            break
+    t1 = time.perf_counter_ns()
+    _step_spans.append(StepSpan(span.name, span.tid, span.t0_ns, t1,
+                                span.parent, span.attrs, span.id))
+
+
+def step_spans() -> List[StepSpan]:
+    """The recorded step spans, oldest first (at most
+    ``STEP_SPAN_CAPACITY``)."""
+    return list(_step_spans)
+
+
+def trace_offset(spans: Sequence[StepSpan],
+                 marks: Sequence[Tuple[float, float, str]]
+                 ) -> Optional[float]:
+    """The offset, in µs, from the step spans' clock to a profiler
+    trace's: a span's time in the trace is ``t_ns / 1e3 + offset``.
+
+    ``spans`` are one thread's spans, ``marks`` the same thread's ranges
+    as the trace shows them, ``(t0_us, t1_us, name)``.  Spans and ranges
+    of one name are matched in order; where one side holds more of a
+    name (the record spans several profiler sessions), the run of
+    consecutive pairs whose offsets agree best is taken.  Returns the
+    median of the matched pairs' offsets at both ends, or None when no
+    name is on both sides.  ``obs/stepprof.align_device_intervals``
+    shifts by one anchor; this takes many, so one late range moves
+    nothing."""
+    offsets: List[float] = []
+    for name in sorted({m[2] for m in marks}):
+        ranges = sorted((a, b) for a, b, n in marks if n == name)
+        mine = sorted((s.t0_ns / 1e3, s.t1_ns / 1e3) for s in spans
+                      if s.name == name)
+        short, long_, sign = ((ranges, mine, -1) if len(ranges) <= len(mine)
+                              else (mine, ranges, 1))
+        if not short:
+            continue
+        runs = ([sign * (lt - st) for pair in zip(short, long_[k:])
+                 for st, lt in zip(*pair)]
+                for k in range(len(long_) - len(short) + 1))
+        offsets += min(runs, key=lambda run: max(run) - min(run))
+    return statistics.median(offsets) if offsets else None

@@ -77,6 +77,17 @@ profiler's comm window.  A bucket of one gradient is its gradient's
 allreduce.  No step hook: the training loop notes steps with
 ``metrics.note_step()``.
 
+While a ``torch.profiler`` session is on, the step path also records
+the step spans of ``obs/tracing.py``, each a ``record_function`` range
+too: ``hvd.hook`` a gradient (on the autograd engine's thread),
+``hvd.bucket.launch`` a bucket (``index``, ``tensors``, ``wire_bytes``,
+``grouped``) around ``hvd.bucket.pack`` and ``hvd.bucket.dispatch``,
+and on the thread that steps ``hvd.optimizer.step`` around
+``hvd.synchronize`` (``buckets``; each bucket's ``hvd.bucket.wait`` and
+``hvd.bucket.unpack``, ``index``) and ``hvd.update``.  With the profiler
+off each site reads ``torch.autograd.profiler._is_profiler_enabled``
+and nothing more.
+
 Sparse gradients (``nn.Embedding(sparse=True)``) follow the reference
 (``horovod_tpu/torch/optimizer.py:127-142``): with
 ``sparse_as_dense=True`` a sparse gradient becomes dense in its hook and
@@ -95,6 +106,7 @@ import warnings
 from typing import Callable, List, Optional, Sequence
 
 import torch
+from torch.autograd import profiler as autograd_profiler
 
 from ..comm import eager, stall
 from ..comm.fusion import plan_buckets
@@ -134,6 +146,8 @@ class PendingGroup:
     # what an Average divides by once ``work`` is done: the set's size,
     # or the cross group's on the hierarchical route
     divisor: int = 1
+    # the bucket's place in the plan (the step spans' ``index``)
+    index: Optional[int] = None
 
 
 def apply_scale(t: torch.Tensor, factor: float,
@@ -185,106 +199,154 @@ class GroupReduction:
         in the plan (the watchdog's descriptor names it).  ``names``, the
         tensors' op names, turn on the reference's fused-path telemetry:
         the trace phases of each op and the group's allreduce span under
-        ``fused.<first name>.<n>``."""
-        if len(tensors) == 1 or self.op == ReduceOp.ADASUM:
-            return PendingGroup(outs=self._per_tensor(tensors, names))
-        if names is not None and tracing.ACTIVE:
-            tracing.op_phase_many(names, tracing.FUSE)
-        grouped = self.grouped(tensors)
-        if grouped:
-            flat, specs = self.pack(tensors, self.prescale, self.compression)
-            # each piece back to its gradient's dtype (under the none
-            # codec that is the piece's own)
-            ctxs = [t.dtype for t in tensors]
-        else:
-            wires, ctxs = [], []
-            for t in tensors:
-                if self.prescale != 1.0:
-                    t = apply_scale(t, self.prescale, self.scale)
-                t, ctx = self.compression.compress(t)
-                wires.append(t)
-                ctxs.append(ctx)
-            flat, specs = pack_flat(wires)
-        ps = self.process_set
-        st = core_state.global_state()
-        eager.count_collective("allreduce", flat, ps)
-        span = None
-        if names is not None:
-            if tracing.ACTIVE:
-                tracing.op_phase_many(names, tracing.EXEC)
-            # untraced: the ops' own trace spans cover the collective
-            with eager.untraced():
-                span = eager.AllreduceSpan(
-                    st, f"fused.{names[0]}.{len(names)}",
-                    flat.numel() * flat.element_size())
-        sdesc = stall.check(
-            st, ps, f"bucket:{'-' if index is None else index}:"
-            f"{flat.numel() * flat.element_size()}:{flat.dtype}")
-        work, divisor = stall.dispatch(
-            st, ps, eager.bucket_allreduce, (flat, ps, self.op),
-            owner="bucket", desc=sdesc)
-        return PendingGroup(flat, specs, ctxs, work, grouped=grouped,
-                            sdesc=sdesc,
-                            names=None if names is None else list(names),
-                            span=span, divisor=divisor)
+        ``fused.<first name>.<n>``.
 
-    def _per_tensor(self, tensors, names) -> List[torch.Tensor]:
+        While the profiler is on, the launch is an ``hvd.bucket.launch``
+        step span (``obs/tracing.py``) around ``hvd.bucket.pack`` and
+        ``hvd.bucket.dispatch``."""
+        sp = (tracing.span_open(tracing.BUCKET_LAUNCH, index=index,
+                                tensors=len(tensors))
+              if autograd_profiler._is_profiler_enabled else None)
+        try:
+            if len(tensors) == 1 or self.op == ReduceOp.ADASUM:
+                if sp is not None:
+                    sp.attrs.update(grouped=False, wire_bytes=sum(
+                        t.numel() * self.compression.wire_dtype(
+                            t.dtype).itemsize for t in tensors))
+                return PendingGroup(
+                    outs=self._per_tensor(tensors, names, sp is not None),
+                    index=index)
+            if names is not None and tracing.ACTIVE:
+                tracing.op_phase_many(names, tracing.FUSE)
+            grouped = self.grouped(tensors)
+            part = (None if sp is None
+                    else tracing.span_open(tracing.BUCKET_PACK))
+            if grouped:
+                flat, specs = self.pack(tensors, self.prescale,
+                                        self.compression)
+                # each piece back to its gradient's dtype (under the none
+                # codec that is the piece's own)
+                ctxs = [t.dtype for t in tensors]
+            else:
+                wires, ctxs = [], []
+                for t in tensors:
+                    if self.prescale != 1.0:
+                        t = apply_scale(t, self.prescale, self.scale)
+                    t, ctx = self.compression.compress(t)
+                    wires.append(t)
+                    ctxs.append(ctx)
+                flat, specs = pack_flat(wires)
+            nbytes = flat.numel() * flat.element_size()
+            if sp is not None:
+                tracing.span_close(part)
+                sp.attrs.update(grouped=grouped, wire_bytes=nbytes)
+            ps = self.process_set
+            st = core_state.global_state()
+            eager.count_collective("allreduce", flat, ps)
+            span = None
+            if names is not None:
+                if tracing.ACTIVE:
+                    tracing.op_phase_many(names, tracing.EXEC)
+                # untraced: the ops' own trace spans cover the collective
+                with eager.untraced():
+                    span = eager.AllreduceSpan(
+                        st, f"fused.{names[0]}.{len(names)}", nbytes)
+            part = (None if sp is None
+                    else tracing.span_open(tracing.BUCKET_DISPATCH))
+            sdesc = stall.check(
+                st, ps, f"bucket:{'-' if index is None else index}:"
+                f"{nbytes}:{flat.dtype}")
+            work, divisor = stall.dispatch(
+                st, ps, eager.bucket_allreduce, (flat, ps, self.op),
+                owner="bucket", desc=sdesc)
+            if part is not None:
+                tracing.span_close(part)
+            return PendingGroup(flat, specs, ctxs, work, grouped=grouped,
+                                sdesc=sdesc,
+                                names=None if names is None else list(names),
+                                span=span, divisor=divisor, index=index)
+        finally:
+            if sp is not None:
+                tracing.span_close(sp)
+
+    def _per_tensor(self, tensors, names,
+                    spans: bool = False) -> List[torch.Tensor]:
         """A group of one tensor, or Adasum's: each tensor its own
-        allreduce, under its op's name (the op's trace span covers it)."""
+        allreduce, under its op's name (the op's trace span covers it);
+        with ``spans``, each allreduce an ``hvd.bucket.dispatch``."""
         outs = []
         for i, t in enumerate(tensors):
             name = None if names is None else names[i]
             if name is not None and tracing.ACTIVE:
                 tracing.op_phase(name, tracing.EXEC)
+            part = (tracing.span_open(tracing.BUCKET_DISPATCH) if spans
+                    else None)
             with eager.untraced():
                 out = eager.allreduce(
                     t, op=self.op, prescale_factor=self.prescale,
                     postscale_factor=self.postscale,
                     compression=self.compression,
                     process_set=self.process_set, name=name)
+            if part is not None:
+                tracing.span_close(part)
             outs.append(out)
             if name is not None and tracing.ACTIVE:
-                wire = self.compression.wire_dtype(t.dtype)
-                tracing.op_done(name, bytes=t.numel() * torch.empty(
-                    (), dtype=wire).element_size())
+                tracing.op_done(name, bytes=t.numel() * self.compression
+                                .wire_dtype(t.dtype).itemsize)
         return outs
 
     def finish(self, pending: PendingGroup,
                outs: Optional[Sequence[torch.Tensor]] = None
                ) -> List[torch.Tensor]:
         """The group's reduced tensors, written into ``outs`` (the
-        launched tensors' shapes and dtypes) when given."""
-        if pending.outs is not None:
-            return _into(outs, pending.outs)
+        launched tensors' shapes and dtypes) when given.
+
+        While the profiler is on: an ``hvd.bucket.wait`` step span until
+        the reduced values are there (empty for a group reduced at
+        launch), then an ``hvd.bucket.unpack`` one."""
+        sp = (tracing.span_open(tracing.BUCKET_WAIT, index=pending.index)
+              if autograd_profiler._is_profiler_enabled else None)
         try:
-            eager.bucket_wait(core_state.global_state(), self.process_set,
-                              pending.work, pending.sdesc)
-            flat = pending.flat
-            if self.op == ReduceOp.AVERAGE:
-                eager.average_(flat, pending.divisor)
-        except BaseException:
-            if pending.span is not None:
-                pending.span.close()
-            raise
-        if pending.span is not None:
-            pending.span.close(flat, completed=True)
-        if pending.names is not None and tracing.ACTIVE:
-            size = flat.element_size()
-            tracing.op_done_many(
-                [(n, {"bytes": int(spec[2]) * size})
-                 for n, spec in zip(pending.names, pending.specs)],
-                fused=len(pending.names), zero_copy=False)
-        if pending.grouped:
-            return self.unpack(flat, pending.specs, pending.ctxs,
-                               self.postscale, outs)
-        results = []
-        for piece, ctx in zip(unpack_flat(flat, pending.specs),
-                              pending.ctxs):
-            out = self.compression.decompress(piece, ctx)
-            if self.postscale != 1.0:
-                out = apply_scale(out, self.postscale, self.scale)
-            results.append(out)
-        return _into(outs, results)
+            if pending.outs is None:
+                try:
+                    eager.bucket_wait(core_state.global_state(),
+                                      self.process_set, pending.work,
+                                      pending.sdesc)
+                    flat = pending.flat
+                    if self.op == ReduceOp.AVERAGE:
+                        eager.average_(flat, pending.divisor)
+                except BaseException:
+                    if pending.span is not None:
+                        pending.span.close()
+                    raise
+                if pending.span is not None:
+                    pending.span.close(flat, completed=True)
+                if pending.names is not None and tracing.ACTIVE:
+                    size = flat.element_size()
+                    tracing.op_done_many(
+                        [(n, {"bytes": int(spec[2]) * size})
+                         for n, spec in zip(pending.names, pending.specs)],
+                        fused=len(pending.names), zero_copy=False)
+            if sp is not None:
+                tracing.span_close(sp)
+                sp = tracing.span_open(tracing.BUCKET_UNPACK,
+                                       index=pending.index)
+            if pending.outs is not None:
+                return _into(outs, pending.outs)
+            if pending.grouped:
+                return self.unpack(flat, pending.specs, pending.ctxs,
+                                   self.postscale, outs)
+            results = []
+            for piece, ctx in zip(unpack_flat(flat, pending.specs),
+                                  pending.ctxs):
+                out = self.compression.decompress(piece, ctx)
+                if self.postscale != 1.0:
+                    out = apply_scale(out, self.postscale, self.scale)
+                results.append(out)
+            return _into(outs, results)
+        finally:
+            if sp is not None:
+                tracing.span_close(sp)
 
     def reduce(self, tensors: Sequence[torch.Tensor],
                names: Optional[Sequence[str]] = None
@@ -369,23 +431,29 @@ class _DistributedOptimizer(torch.optim.Optimizer):
 
     # -- hook plumbing ----------------------------------------------------
     def _on_grad_ready(self, p):
-        if p in self._ready:
-            raise AssertionError(
-                "Gradients were computed more than "
-                "backward_passes_per_step times before call to step(). "
-                "Increase backward_passes_per_step to accumulate more."
-            )
-        self._passes[p] += 1
-        if self._passes[p] == self.backward_passes_per_step:
-            self._begin_op(p)
-            if self._per_op:
-                self._handles[p] = self._allreduce_async(p)
-                self._ready.add(p)
-                return
-            if p.grad.is_sparse:
-                self._sparse_grad(p)
-            self._mark_ready(p)
-            self._launch_ready()
+        sp = (tracing.span_open(tracing.HOOK)
+              if autograd_profiler._is_profiler_enabled else None)
+        try:
+            if p in self._ready:
+                raise AssertionError(
+                    "Gradients were computed more than "
+                    "backward_passes_per_step times before call to step(). "
+                    "Increase backward_passes_per_step to accumulate more."
+                )
+            self._passes[p] += 1
+            if self._passes[p] == self.backward_passes_per_step:
+                self._begin_op(p)
+                if self._per_op:
+                    self._handles[p] = self._allreduce_async(p)
+                    self._ready.add(p)
+                    return
+                if p.grad.is_sparse:
+                    self._sparse_grad(p)
+                self._mark_ready(p)
+                self._launch_ready()
+        finally:
+            if sp is not None:
+                tracing.span_close(sp)
 
     def _op_name(self, p) -> str:
         return f"allreduce.{self._name_of[p]}"
@@ -464,35 +532,46 @@ class _DistributedOptimizer(torch.optim.Optimizer):
 
         A parameter whose hook never fired (unused this step, or a
         partial accumulation) is reduced too, with zeros when it has no
-        grad: every rank must issue the same collectives."""
-        if self._per_op:
-            self._synchronize_per_op()
-            return
-        for p in self._params:
-            if p not in self._ready:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-                elif p.grad.is_sparse:
-                    self._sparse_grad(p)
-                self._begin_op(p)
-                self._mark_ready(p)
-        self._launch_ready()
-        with torch.no_grad():
-            for dense, pending in self._pending:
-                self.reduction.finish(pending, [p.grad for p in dense])
-                self._end_ops(dense)
-        for p, handle in self._sparse.items():
-            # sparse results cannot land in place: the gradient is
-            # replaced (parity: p.grad = synchronize(handle))
-            p.grad = mpi_ops.synchronize(handle)
-        self._sparse.clear()
-        self._pending.clear()
-        self._ready.clear()
-        self._ready_count = [0] * len(self.buckets)
-        self._next_bucket = 0
-        for p in self._passes:
-            self._passes[p] = 0
-        self._synchronized = True
+        grad: every rank must issue the same collectives.
+
+        While the profiler is on, an ``hvd.synchronize`` step span whose
+        ``buckets`` counts the groups it waited for."""
+        sp = (tracing.span_open(tracing.SYNCHRONIZE, buckets=0)
+              if autograd_profiler._is_profiler_enabled else None)
+        try:
+            if self._per_op:
+                self._synchronize_per_op()
+                return
+            for p in self._params:
+                if p not in self._ready:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                    elif p.grad.is_sparse:
+                        self._sparse_grad(p)
+                    self._begin_op(p)
+                    self._mark_ready(p)
+            self._launch_ready()
+            if sp is not None:
+                sp.attrs["buckets"] = len(self._pending)
+            with torch.no_grad():
+                for dense, pending in self._pending:
+                    self.reduction.finish(pending, [p.grad for p in dense])
+                    self._end_ops(dense)
+            for p, handle in self._sparse.items():
+                # sparse results cannot land in place: the gradient is
+                # replaced (parity: p.grad = synchronize(handle))
+                p.grad = mpi_ops.synchronize(handle)
+            self._sparse.clear()
+            self._pending.clear()
+            self._ready.clear()
+            self._ready_count = [0] * len(self.buckets)
+            self._next_bucket = 0
+            for p in self._passes:
+                self._passes[p] = 0
+            self._synchronized = True
+        finally:
+            if sp is not None:
+                tracing.span_close(sp)
 
     def _synchronize_per_op(self):
         """Min/Max/Product: wait for every gradient's async allreduce
@@ -522,15 +601,29 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             self._should_synchronize = True
 
     def step(self, closure=None):
-        if self._should_synchronize:
-            if self._synchronized:
-                warnings.warn(
-                    "optimizer.step() called without a preceding "
-                    "backward; called synchronize() twice"
-                )
-            self.synchronize()
-        self._synchronized = False
-        return super(self.__class__, self).step(closure)
+        """Synchronize (unless skipped), then the wrapped optimizer's
+        update; while the profiler is on, an ``hvd.optimizer.step`` step
+        span around both, the update an ``hvd.update`` one."""
+        sp = (tracing.span_open(tracing.OPTIMIZER_STEP)
+              if autograd_profiler._is_profiler_enabled else None)
+        try:
+            if self._should_synchronize:
+                if self._synchronized:
+                    warnings.warn(
+                        "optimizer.step() called without a preceding "
+                        "backward; called synchronize() twice"
+                    )
+                self.synchronize()
+            self._synchronized = False
+            part = (None if sp is None
+                    else tracing.span_open(tracing.UPDATE))
+            loss = super(self.__class__, self).step(closure)
+            if part is not None:
+                tracing.span_close(part)
+            return loss
+        finally:
+            if sp is not None:
+                tracing.span_close(sp)
 
     def zero_grad(self, set_to_none: bool = True):
         if self._ready or self._pending or self._sparse or self._handles:
