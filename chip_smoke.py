@@ -52,7 +52,14 @@ and, beside them, its C++ negotiation core from
    lengths 1..2^20+3 (at the edges of the kernels' words and blocks),
    aligned and offset views, codes at an odd address, the NaN/inf/zero/
    subnormal blocks, every ResNet-50 gradient shape and one 25.56 M
-   buffer, and times them;
+   buffer, and times them; then the fused norm (``ops/norm.py``,
+   ``csrc/norm.cu``, ``norm_phase``) at every distinct norm shape of
+   ResNet-50 b256 and Inception V3 b128: bitwise the plain composition
+   where a and b round alike, within stated tolerances of float64, two
+   runs bitwise, device times (CUDA graphs of the calls) beside the
+   byte bound, the plain version
+   and ``F.batch_norm``; ResNet-50 with and without remat bitwise, and
+   its launches a step against the plan (``--norm``: this alone);
 6. drives the int8 path at full width: one backward of the ResNet-50 of
    phase 3, its 161 gradients and their packed buffer through the
    engine's ``Compression.int8`` and ``int8_stochastic`` (161 + 1 A2 and
@@ -756,13 +763,17 @@ def train_phase(hvd, device, batch: int, image: int, stage_sizes):
     import torch
     import torch.nn.functional as F
 
-    from horovod_tpu_torch.models import ResNet
+    from horovod_tpu_torch.models import ResNet, TpuBatchNorm
     from horovod_tpu_torch.ops import fused_scale_cast
+    from horovod_tpu_torch.ops.norm import fused_norm
 
     gen = torch.Generator().manual_seed(SEED)
     model = ResNet(stage_sizes, dtype=torch.bfloat16, device=device,
                    generator=gen)
     n_grads = sum(1 for p in model.parameters() if p.requires_grad)
+    # every norm runs once a forward: its 4 kernels a step (NORM_LAUNCHES)
+    norms = sum(isinstance(m, TpuBatchNorm) for m in model.modules())
+    norm_plan = NORM_LAUNCHES["train"] * norms
     dgen = torch.Generator(device=device).manual_seed(SEED)
     x = torch.randn(batch, image, image, 3, generator=dgen, device=device)
     y = torch.randint(0, 1000, (batch,), generator=dgen, device=device)
@@ -774,8 +785,10 @@ def train_phase(hvd, device, batch: int, image: int, stage_sizes):
 
     losses, step_s = [], []
     fused_scale_cast.launches = 0      # the main path's run starts here
+    fused_norm.launches = 0
     for step in range(WARMUP_STEPS + TIMED_STEPS):
         before = fused_scale_cast.launches
+        norm_before = fused_norm.launches
         t0 = time.perf_counter()
         opt.zero_grad()
         loss = F.cross_entropy(model(x), y)
@@ -788,8 +801,13 @@ def train_phase(hvd, device, batch: int, image: int, stage_sizes):
         check(delta == 2 * multi,
               f"step {step}: {delta} fused_scale_cast launches, expected "
               f"{2 * multi}")
+        norm_delta = fused_norm.launches - norm_before
+        check(norm_delta == norm_plan,
+              f"step {step}: {norm_delta} fused_norm launches, expected "
+              f"{norm_plan} ({norms} norms)")
         check(math.isfinite(losses[-1]), f"step {step}: loss {losses[-1]}")
     launches = fused_scale_cast.launches  # read just after the main path
+    norm_launches = fused_norm.launches
     timed = step_s[WARMUP_STEPS:]
 
     # the same step with the group reduction tensor by tensor (as before
@@ -814,12 +832,15 @@ def train_phase(hvd, device, batch: int, image: int, stage_sizes):
         turns[name].append(turn(reduction))
     opt.reduction = grouped
     fused_scale_cast.launches = launches
+    fused_norm.launches = norm_launches
     result = dict(
         batch=batch, image=image, grads=n_grads, losses=losses,
         step_ms=[t * 1e3 for t in step_s],
         images_per_s=batch * len(timed) / sum(timed),
         images_per_s_turns=turns,
         launches=launches, launches_per_step=launches // len(step_s),
+        norms=norms, norm_launches=norm_launches,
+        norm_launches_per_step=norm_launches // len(step_s),
         buckets=len(opt.buckets), multi_tensor_buckets=multi,
         peak_mem_gib=torch.cuda.max_memory_allocated(device) / 2 ** 30)
     log("train " + json.dumps(result))
@@ -3937,6 +3958,9 @@ def obs_phase(hvd, device, model, opt, x, y, smi: str, tmp: Path):
         torch.cuda._sleep(cycles)
         torch.cuda.synchronize()
         tb = time.time()
+    check(joined2.get("status") == "ok",
+          f"obs: the alignment window's trace is {joined2.get('status')} "
+          f"({joined2.get('reason')})")
     prof = profile.load_profile(str(aligndir))
     origin = profile.marker_us(prof["doc"], stepprof.WINDOW_MARKER)
     ivs = [iv for lane in prof["planes"].values() for iv in lane]
@@ -6371,6 +6395,596 @@ def frontends_phase(hvd, smi: str, device: str = "cuda:0") -> dict:
     return line
 
 
+# -- the fused norm (ops/norm.py, csrc/norm.cu) ---------------------------------
+
+NORM_MODELS = (("ResNet50", 256, 224), ("InceptionV3", 128, 299))
+NORM_REPS = 5
+NORM_REMAT_BATCH = 16     # ResNet-50 with and without remat, bitwise
+# tolerances of the kernels against float64 on the same inputs, each over
+# a stated scale (readings are reported as shares of them):
+# - the batch mean over sqrt(E[x^2]), 1e-5: fp32 sums of up to 3.2 M terms
+#   in two orders are each within ~1e-6 of the exact one;
+# - rsqrt(var + eps) relative, over E[x^2] / (var + eps), 2e-5: E[x^2] and
+#   mean^2 within ~1e-6 as above, var inherits it scaled by E[x^2] / var,
+#   rsqrt halves it, rsqrtf adds 2 ulp;
+# - d scale and d bias over the sums of magnitudes (rstd (sum |g x| +
+#   |mean| sum |g|), sum |g|), 1e-4: fp32 sums of at most ~6,000 terms a
+#   thread then the partials, random-walk ~1e-6, worst case 3.6e-4;
+# - dx: one rounding to bf16 (its unit roundoff, 2^-8 relative) plus 1e-4
+#   of |a g| + |c0| + |c1 x|, c0 and c1 at the magnitude of their fp32
+#   sums (d inv cancels sum g x against mean sum g);
+# - the rounded a and b against float64's a = scale rsqrt(var + eps) and
+#   b = bias - mean a: half a bf16 ulp (the rounding) plus what the mean
+#   and rsqrt tolerances above carry into them, plus fp32's own rounding;
+# - y where the kernels' a or b rounds otherwise than the plain version's:
+#   |x| |a - a_plain| + |b - b_plain|, plus one bf16 ulp a rounding (two,
+#   three with a residual) at twice the magnitude of the terms.
+# Each share of its tolerance must be at most 1 (norm_checks).
+# NORM_ROUNDED_OTHERWISE: the share of a shape's channels (at least one
+# channel) whose a or b may round to the other bf16 neighbour than the
+# plain version's, or float64's: only where the fp32 value lies within
+# the fp32 statistics' difference (~1e-6 relative) of a rounding boundary
+# (2^-8 relative apart), ~1e-3 of the channels, more for b near 0.
+NORM_MEAN_TOL = 1e-5
+NORM_RSTD_TOL = 2e-5
+NORM_SUM_TOL = 1e-4
+NORM_DX_ROUND = 2.0 ** -8
+NORM_ROUNDED_OTHERWISE = 0.02
+# the paths the models' shapes above do not take, each held to the same
+# checks: eval (the constants from the running stats), the synchronized
+# norm over the one-rank world axis (the moments and the backward's moment
+# gradients through pmean), and rows that are not whole 16-byte vectors
+# (one element a thread): (NCHW shape, residual, relu, epsilon, mode)
+NORM_PATHS = (
+    ((256, 512, 28, 28), True, True, 1e-5, "eval"),
+    ((256, 128, 28, 28), False, True, 1e-5, "eval"),
+    ((256, 256, 56, 56), False, False, 1e-5, "eval"),
+    ((256, 512, 28, 28), True, True, 1e-5, "sync"),
+    ((256, 128, 28, 28), False, True, 1e-5, "sync"),
+    ((256, 256, 56, 56), False, False, 1e-5, "sync"),
+    ((64, 12, 28, 28), True, True, 1e-5, "train"),
+    ((64, 12, 28, 28), False, True, 1e-3, "train"),
+    ((64, 36, 17, 17), False, False, 1e-3, "eval"),
+)
+# launches a norm, forward and backward, in each mode
+NORM_LAUNCHES = {"train": 4, "eval": 4, "sync": 5}
+NORM_AXIS = "world"
+
+
+def _bf16_ulp(t):
+    """bf16's unit in the last place at the magnitude of each element of
+    the float64 tensor ``t``: 2^(e - 8) for |t| = m 2^e, m in [0.5, 1)
+    (a normal number's at the least)."""
+    import torch
+
+    _, e = torch.frexp(t.abs().clamp(min=2.0 ** -126))
+    return torch.exp2((e - 8).to(t.dtype))
+
+
+def norm_calls(name: str, batch: int, side: int):
+    """Every ``TpuBatchNorm`` call of one training forward of ``name`` at
+    ``batch`` images of ``side`` x ``side``, in call order, from a forward
+    on the meta device: ``[(NCHW shape, residual, relu, epsilon)]``."""
+    import torch
+
+    from horovod_tpu_torch import models
+
+    model = getattr(models, name)(dtype=torch.bfloat16, device="meta")
+    calls = []
+
+    def hook(mod, args, kwargs, out):
+        calls.append((tuple(args[0].shape),
+                      kwargs.get("residual") is not None,
+                      bool(kwargs.get("relu", False)), mod.epsilon))
+
+    hooks = [m.register_forward_hook(hook, with_kwargs=True)
+             for m in model.modules()
+             if isinstance(m, models.TpuBatchNorm)]
+    model.train()
+    with torch.no_grad():
+        model(torch.empty(batch, side, side, 3, device="meta"))
+    for h in hooks:
+        h.remove()
+    return calls
+
+
+def _norm_bytes(shape, residual: bool, relu: bool):
+    """(forward, backward) bytes of the fused norm in bf16: each input
+    read once a pass, each output written once."""
+    n, c, h, w = shape
+    unit = 2 * n * c * h * w
+    return (unit * (4 if residual else 3),
+            unit * (8 if residual and relu else 5))
+
+
+def _norm_case(shape, residual: bool, relu: bool, eps: float, device, gen,
+               timed: bool, mode: str = "train", mesh=None) -> dict:
+    """One norm shape in one ``mode`` (``train``, ``eval``, ``sync``: the
+    synchronized norm over ``mesh``'s ``NORM_AXIS``): the kernels against
+    the plain composition and against float64 on the same bf16 inputs,
+    twice for the bits, then (``timed``) the kernels' forward and
+    backward, the plain version's and ``F.batch_norm``'s, by CUDA
+    events."""
+    import torch
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.ops import norm as N
+
+    n, c, h, w = shape
+    m = n * h * w
+    bf = torch.bfloat16
+    cl = dict(memory_format=torch.channels_last)
+    f32 = dict(device=device, dtype=torch.float32)
+    training = mode != "eval"
+
+    def act(scale, shift):
+        return (torch.randn(shape, generator=gen, device=device) * scale
+                + shift).to(bf).contiguous(**cl)
+
+    x, dy = act(1.5, 0.3), act(1.0, 0.0)
+    r = act(1.0, 0.0) if residual else None
+    scale = 1 + 0.2 * torch.randn(c, generator=gen, **f32)
+    bias = 0.1 * torch.randn(c, generator=gen, **f32)
+    rm0 = 0.1 * torch.randn(c, generator=gen, **f32)
+    rv0 = 1 + 0.2 * torch.rand(c, generator=gen, **f32)
+    kw = dict(training=training, momentum=0.9, epsilon=eps, relu=relu)
+    if mode == "sync":
+        kw.update(axis_name=NORM_AXIS, mesh=mesh)
+
+    def kernel(xs, s, b, rm, rv, rs):
+        return N.fused_norm(xs, s, b, rm, rv, residual=rs, **kw)
+
+    def plain(xs, s, b, rm, rv, rs):
+        return N.batch_norm_plain(xs, s, b, rm, rv, update_running=True,
+                                  dtype=bf, residual=rs, **kw)
+
+    def run(fn):
+        xs = x.clone().requires_grad_(True)
+        rs = r.clone().requires_grad_(True) if residual else None
+        s = scale.clone().requires_grad_(True)
+        b = bias.clone().requires_grad_(True)
+        rm, rv = rm0.clone(), rv0.clone()
+        y = fn(xs, s, b, rm, rv, rs)
+        stats = (y.grad_fn.saved_tensors[2] if fn is kernel else None)
+        y.backward(dy)
+        return dict(y=y.detach(), dx=xs.grad, dscale=s.grad, dbias=b.grad,
+                    dr=rs.grad if residual else None, mean=rm, var=rv,
+                    stats=stats)
+
+    launches = N.fused_norm.launches
+    k = run(kernel)
+    launches = N.fused_norm.launches - launches
+    k2 = run(kernel)
+    p = run(plain)
+    torch.cuda.synchronize()
+    what = f"norm {shape} ({mode})"
+    check(launches == NORM_LAUNCHES[mode],
+          f"{what}: {launches} launches, not {NORM_LAUNCHES[mode]}")
+    for key in ("y", "dx", "dscale", "dbias", "dr", "mean", "var", "stats"):
+        check(k[key] is None or same_bits(k[key], k2[key]),
+              f"{what}: two runs differ in {key}")
+    if not training:
+        check(same_bits(k["mean"], rm0) and same_bits(k["var"], rv0),
+              f"{what}: eval changed the running stats")
+
+    rows = lambda t: t.permute(0, 2, 3, 1).reshape(m, c)  # noqa: E731
+    x2 = rows(x)
+    xd = x2.double()
+    s64, bias64 = scale.double(), bias.double()
+    if training:
+        mean64 = xd.mean(0)
+        msq64 = xd.square().mean(0)
+        raw64 = msq64 - mean64.square()
+        var64 = raw64.clamp(min=0)
+        # the plain composition's statistics, as it computes them
+        mean_p = x2.mean(0, dtype=torch.float32)
+        var_p = torch.clamp(x2.float().square().mean(0) - mean_p.square(),
+                            min=0.0)
+    else:   # the running stats; E[x^2] at var + eps: no cancellation
+        mean64, var64 = rm0.double(), rv0.double()
+        raw64, msq64 = var64, var64 + eps
+        mean_p, var_p = rm0, rv0
+    rstd64 = torch.rsqrt(var64 + eps)
+    inv64 = s64 * rstd64
+    shift64 = bias64 - mean64 * inv64
+    st = k["stats"]
+    a_k, b_k = st[0], st[1]
+    ak, bk = a_k.double(), b_k.double()
+    # the plain composition's constants, rounded as it rounds them
+    inv_p = torch.rsqrt(var_p + eps) * scale
+    a_p = inv_p.to(bf).float()
+    b_p = (-mean_p * inv_p + bias).to(bf).float()
+    alike = (a_k == a_p) & (b_k == b_p)
+    alike64 = (a_k == inv64.to(bf).float()) & (b_k == shift64.to(bf).float())
+    otherwise = max(1, int(NORM_ROUNDED_OTHERWISE * c))
+    for name, same in (("the plain version's", alike), ("float64's", alike64)):
+        check(int((~same).sum()) <= otherwise,
+              f"{what}: a or b rounds otherwise than {name} on "
+              f"{int((~same).sum())} of {c} channels (at most {otherwise})")
+
+    # a and b against float64: half an ulp, and the statistics' error
+    rstd_rel = NORM_RSTD_TOL * msq64 / (var64 + eps)
+    a_tol = (0.5 * _bf16_ulp(torch.maximum(inv64.abs(), ak.abs()))
+             + inv64.abs() * (rstd_rel + 2.0 ** -23))
+    mi = (mean64 * inv64).abs()
+    b_tol = (0.5 * _bf16_ulp(torch.maximum(shift64.abs(), bk.abs()))
+             + inv64.abs() * NORM_MEAN_TOL * msq64.sqrt() + mi * rstd_rel
+             + 2.0 ** -22 * (mi + bias64.abs()))
+    a_share = ((ak - inv64).abs() / a_tol).max().item()
+    b_share = ((bk - shift64).abs() / b_tol).max().item()
+
+    # the forward: bitwise where a and b round alike, else within what
+    # the constants' difference and the roundings allow
+    yk, yp = rows(k["y"]), rows(p["y"])
+    check(same_bits(yk[:, alike], yp[:, alike]),
+          f"{what}: the forward differs where a and b round alike")
+    y_share = 0.0
+    if (~alike).any():
+        cols = ~alike
+        xo = x2[:, cols].double().abs()
+        ap, bp = a_p[cols].double(), b_p[cols].double()
+        ao, bo = ak[cols], bk[cols]
+        mag = xo * torch.maximum(ap.abs(), ao.abs()) + torch.maximum(
+            bp.abs(), bo.abs())
+        if residual:
+            mag = mag + rows(r)[:, cols].double().abs()
+        bound = (xo * (ao - ap).abs() + (bo - bp).abs()
+                 + (3 if residual else 2) * _bf16_ulp(2 * mag))
+        y_share = ((yk[:, cols].double() - yp[:, cols].double()).abs()
+                   / bound).max().item()
+
+    mean_share = ((st[2].double() - mean64).abs() / msq64.sqrt()).max().item()
+    rstd_share = ((st[3].double() - rstd64).abs() / rstd64
+                  / (msq64 / (var64 + eps))).max().item()
+    run_share = max(
+        ((k["mean"] - p["mean"]).double().abs() / msq64.sqrt()).max().item(),
+        ((k["var"] - p["var"]).double().abs() / msq64).max().item())
+    # the backward against float64, from float64's a and b rounded as the
+    # forward rounds them; on a channel where the kernels rounded one to
+    # the other neighbour (at most NORM_ROUNDED_OTHERWISE, each within
+    # a_tol / b_tol above), from theirs, so that the reference is the
+    # derivative of the forward that ran
+    a_use = torch.where(alike64, inv64.to(bf).double(), ak)
+    b_use = torch.where(alike64, shift64.to(bf).double(), bk)
+    a_bf = a_use.to(bf).view(1, c, 1, 1)
+    b_bf = b_use.to(bf).view(1, c, 1, 1)
+    if not relu:
+        src = None
+    elif residual:   # the output the mask reads, in bf16 torch ops
+        src = rows(r + (x * a_bf + b_bf)).double()
+    else:            # what the kernels recompute
+        src = rows(x * a_bf + b_bf).double()
+    dyd = rows(dy).double()
+    dx64, ds64, db64, g64, _, _ = N.grad_closed_form(
+        xd, dyd, src, a_use, mean64, var64, raw64, s64, eps,
+        training=training)
+    dxk = rows(k["dx"]).double()
+    # the scale of the fp32 error in c0 and c1: their sums' magnitudes
+    # (d inv cancels sum g x against mean sum g); eval has neither
+    gabs = g64.abs()
+    dinv_mag = (g64 * xd).abs().sum(0) + mean64.abs() * gabs.sum(0)
+    if training:
+        dvar_mag = 0.5 * dinv_mag * s64.abs() * rstd64 ** 3
+        c0_mag = (s64.abs() * rstd64 * gabs.sum(0)
+                  + 2 * mean64.abs() * dvar_mag) / m
+    else:
+        dvar_mag = c0_mag = torch.zeros_like(dinv_mag)
+    dx_tol = NORM_DX_ROUND * dx64.abs() + NORM_SUM_TOL * (
+        (a_use * g64).abs() + c0_mag + 2 * dvar_mag / m * xd.abs())
+    dx_share = ((dxk - dx64).abs() / dx_tol.clamp(min=1e-30)).max().item()
+    ds_scale = rstd64 * dinv_mag
+    ds_share = ((k["dscale"].double() - ds64).abs()
+                / ds_scale.clamp(min=1e-30)).max().item() / NORM_SUM_TOL
+    db_share = ((k["dbias"].double() - db64).abs()
+                / gabs.sum(0).clamp(min=1e-30)).max().item() / NORM_SUM_TOL
+    if residual:
+        dy2 = rows(dy)
+        want = (torch.where(src <= 0, torch.zeros_like(dy2), dy2)
+                if relu else dy2)
+        check(same_bits(rows(k["dr"]), want),
+              f"{what}: dr is not dy masked by the ReLU")
+    shares = {"a": a_share, "b": b_share, "y_otherwise": y_share,
+              "mean": mean_share / NORM_MEAN_TOL,
+              "rstd": rstd_share / NORM_RSTD_TOL,
+              "running": run_share / NORM_MEAN_TOL,
+              "dx": dx_share, "dscale": ds_share, "dbias": db_share}
+    # the plain version's autograd (bf16 roundings inside) beside, for
+    # the record
+    dx_plain = ((rows(p["dx"]).double() - dx64).abs().max()
+                / dx64.abs().max()).item()
+    out = {"shape": list(shape), "residual": residual, "relu": relu,
+           "epsilon": eps, "mode": mode, "launches": launches,
+           "vector": N.vector_width(c, bf),
+           "alike_share": alike.float().mean().item(),
+           "alike64_share": alike64.float().mean().item(),
+           "y_max_diff_not_alike": ((yk[:, ~alike].float()
+                                     - yp[:, ~alike].float()).abs().max()
+                                    .item() if (~alike).any() else 0.0),
+           "tolerance_shares": shares,
+           "plain_dx_rel_err": dx_plain,
+           "kernel_dx_rel_err": ((dxk - dx64).abs().max()
+                                 / dx64.abs().max()).item()}
+    del k, k2, p, xd, dyd, dx64, g64, dxk, dx_tol, src
+    if not timed:
+        return out
+    fwd_b, bwd_b = _norm_bytes(shape, residual, relu)
+    rm, rv = rm0.clone(), rv0.clone()
+    xs = x.detach().requires_grad_(True)
+    rs = r.detach().requires_grad_(True) if residual else None
+    s = scale.clone().requires_grad_(True)
+    b = bias.clone().requires_grad_(True)
+    with torch.no_grad():
+        fwd_ms = time_cuda(lambda: kernel(x, scale, bias, rm, rv, r),
+                           NORM_REPS)
+    y = kernel(xs, s, b, rm, rv, rs)
+    ctx = y.grad_fn
+    with torch.no_grad():
+        bwd_ms = time_cuda(lambda: N._FusedNorm.backward(ctx, dy), NORM_REPS)
+    inputs = [t for t in (xs, s, b, rs) if t is not None]
+
+    def plain_step():
+        torch.autograd.grad(plain(xs, s, b, rm, rv, rs), inputs, dy)
+
+    def library_step():
+        yl = F.batch_norm(xs, rm, rv, s, b, training=True, momentum=0.1,
+                          eps=eps)
+        torch.autograd.grad(yl, [xs, s, b], dy)
+
+    with torch.no_grad():
+        dev_fwd = _graph_ms(lambda: kernel(x, scale, bias, rm, rv, r),
+                            NORM_REPS)
+        dev_bwd = _graph_ms(lambda: N._FusedNorm.backward(ctx, dy),
+                            NORM_REPS)
+    out.update(
+        device_fwd_ms=dev_fwd, device_bwd_ms=dev_bwd,
+        device_ms=dev_fwd + dev_bwd,
+        fwd_ms=fwd_ms, bwd_ms=bwd_ms, ms=fwd_ms + bwd_ms,
+        fwd_bound_ms=fwd_b / HBM_BYTES_PER_S * 1e3,
+        bwd_bound_ms=bwd_b / HBM_BYTES_PER_S * 1e3,
+        bound_ms=(fwd_b + bwd_b) / HBM_BYTES_PER_S * 1e3,
+        plain_ms=time_cuda(plain_step, NORM_REPS),
+        library_ms=time_cuda(library_step, NORM_REPS))
+    out["roofline"] = out["bound_ms"] / out["device_ms"]
+    return out
+
+
+def _graph_ms(fn, reps: int) -> float:
+    """Device ms a call of ``fn``, from a CUDA graph of ``reps`` calls
+    replayed between two CUDA events: the kernels alone, no host work
+    between them, and no profiler session."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _norm_host_us(device) -> dict:
+    """Host µs a call of the fused norm's forward and backward, at a shape
+    whose kernels take a few µs, so the host paces the loop."""
+    import torch
+
+    from horovod_tpu_torch.ops import norm as N
+
+    shape = (8, 64, 7, 7)
+    cl = dict(memory_format=torch.channels_last)
+    x = torch.randn(shape, device=device).to(torch.bfloat16).contiguous(**cl)
+    r = torch.randn(shape, device=device).to(torch.bfloat16).contiguous(**cl)
+    vec = [torch.ones(64, device=device) for _ in range(4)]
+    xs = x.clone().requires_grad_(True)
+    y = N.fused_norm(xs, *vec, training=True, momentum=0.9, epsilon=1e-5,
+                     residual=r, relu=True)
+    ctx = y.grad_fn
+    out = {}
+    for name, fn in (
+            ("forward", lambda: N.fused_norm(
+                x, *vec, training=True, momentum=0.9, epsilon=1e-5,
+                residual=r, relu=True)),
+            ("backward", lambda: N._FusedNorm.backward(ctx, x))):
+        with torch.no_grad():
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(200):
+                fn()
+            out[name] = (time.perf_counter() - t) / 200 * 1e6
+            torch.cuda.synchronize()
+    return out
+
+
+def _norm_model_checks(device) -> dict:
+    """ResNet-50 at batch ``NORM_REMAT_BATCH``, one training forward and
+    backward without remat, with it, and without again, on the same
+    weights and batch under cuDNN's deterministic heuristics: logits,
+    loss, every gradient and running stat bitwise equal across the three;
+    ``fused_norm.launches`` of each against the plan (4 a norm, and 2 more
+    a block's norm under remat, whose recomputation runs the block's
+    forward again)."""
+    import torch
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch import models
+    from horovod_tpu_torch.ops.norm import fused_norm
+
+    calls = norm_calls("ResNet50", NORM_REMAT_BATCH, IMAGE)
+    block_norms = len(calls) - 1          # all but the stem's
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.benchmark, cudnn.deterministic)
+    cudnn.benchmark, cudnn.deterministic = False, True
+    try:
+        x, y = _model_batch("ResNet50", IMAGE, NORM_REMAT_BATCH, device, SEED)
+        runs, first = [], None
+        for remat in (False, True, False):
+            model = models.ResNet50(dtype=torch.bfloat16, device=device,
+                                    generator=_seeded(SEED), remat=remat)
+            if first is not None:
+                with torch.no_grad():
+                    for (_, p), q in zip(model.named_parameters(), first):
+                        p.copy_(q)
+            else:
+                first = [p.detach().clone() for p in model.parameters()]
+            model.train()
+            launches = fused_norm.launches
+            logits = model(x)
+            loss = F.cross_entropy(logits, y)
+            loss.backward()
+            torch.cuda.synchronize()
+            runs.append({
+                "remat": remat,
+                "launches": fused_norm.launches - launches,
+                "tensors": [logits.detach(), loss.detach()]
+                + [p.grad for p in model.parameters()]
+                + list(model.buffers())})
+            del model, logits, loss
+    finally:
+        cudnn.benchmark, cudnn.deterministic = saved
+    plan = {False: 4 * len(calls), True: 4 * len(calls) + 2 * block_norms}
+    for run in runs:
+        check(run["launches"] == plan[run["remat"]],
+              f"norm: ResNet-50 (remat {run['remat']}) ran "
+              f"{run['launches']} norm launches, the plan "
+              f"{plan[run['remat']]}")
+    base = runs[0]["tensors"]
+    for run in runs[1:]:
+        check(len(run["tensors"]) == len(base) and all(
+            same_bits(a, b) for a, b in zip(run["tensors"], base)),
+            f"norm: ResNet-50 (remat {run['remat']}) is not bitwise the "
+            "run without remat")
+    return {"norms": len(calls), "batch": NORM_REMAT_BATCH,
+            "launches": {str(r["remat"]).lower(): r["launches"]
+                         for r in runs[:2]},
+            "plan": {str(k).lower(): v for k, v in plan.items()},
+            "remat_bitwise": True, "repeat_bitwise": True}
+
+
+def norm_phase(device, smi: str, mesh) -> dict:
+    """The fused norm at each distinct norm shape of ResNet-50 (batch
+    256, 224x224) and Inception V3 (batch 128, 299x299): the kernels
+    against the plain composition (bitwise where a and b round alike) and
+    against float64 (within the stated tolerances), two runs bitwise, the
+    times beside the byte bound, the plain version and ``F.batch_norm``
+    (channels-last, a yardstick the port never calls); the same checks on
+    ``NORM_PATHS`` (eval, the synchronized norm over ``mesh``'s one-rank
+    ``NORM_AXIS``, rows of one element a thread), each with its launches;
+    then ResNet-50 with and without remat bitwise, and the launches a step
+    against the plan."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    shapes, per_model = {}, {}
+    for name, batch, side in NORM_MODELS:
+        calls = norm_calls(name, batch, side)
+        per_model[name] = calls
+        for call in calls:
+            shapes.setdefault(call, None)
+    t0 = time.perf_counter()
+    for call in shapes:
+        case = shapes[call] = _norm_case(*call, device, gen, timed=True)
+        log("norm_shape " + json.dumps({k: case[k] for k in (
+            "shape", "residual", "relu", "device_fwd_ms", "device_bwd_ms",
+            "device_ms", "ms",
+            "bound_ms", "plain_ms",
+            "library_ms", "fwd_ms", "bwd_ms", "alike_share",
+            "tolerance_shares")}))
+        torch.cuda.empty_cache()
+    paths = []
+    for shape, residual, relu, eps, mode in NORM_PATHS:
+        case = _norm_case(shape, residual, relu, eps, device, gen,
+                          timed=False, mode=mode, mesh=mesh)
+        paths.append(case)
+        log("norm_path " + json.dumps({k: case[k] for k in (
+            "shape", "mode", "residual", "relu", "vector", "launches",
+            "alike_share", "alike64_share", "tolerance_shares")}))
+        torch.cuda.empty_cache()
+    models_line = {}
+    for name, calls in per_model.items():
+        cases = [shapes[c] for c in calls]
+        models_line[name] = {
+            "norms": len(calls), "distinct": len(set(calls)),
+            **{k: sum(cs[k] for cs in cases)
+               for k in ("device_ms", "device_fwd_ms", "device_bwd_ms",
+                         "ms", "fwd_ms", "bwd_ms", "bound_ms", "plain_ms",
+                         "library_ms")}}
+        models_line[name]["roofline"] = (models_line[name]["bound_ms"]
+                                         / models_line[name]["device_ms"])
+    checks = _norm_model_checks(device)
+    checks["host_us"] = _norm_host_us(device)
+    every = list(shapes.values()) + paths
+    worst = {k: max(cs["tolerance_shares"][k] for cs in every)
+             for k in every[0]["tolerance_shares"]}
+    checks["path_launches"] = {
+        mode: sorted({cs["launches"] for cs in paths if cs["mode"] == mode})
+        for mode in NORM_LAUNCHES}
+    out = {"card": smi, "models": models_line, "checks": checks,
+           "worst_tolerance_shares": worst,
+           "least_alike_share": min(cs["alike_share"] for cs in every),
+           "least_alike64_share": min(cs["alike64_share"] for cs in every),
+           "seconds": time.perf_counter() - t0,
+           "shapes": list(shapes.values()), "paths": paths}
+    return out
+
+
+def norm_checks(out: dict) -> None:
+    """Every reading of the norm phase within its tolerance."""
+    for case in out["shapes"] + out["paths"]:
+        for what, share in case["tolerance_shares"].items():
+            check(share <= 1.0, f"norm {case['shape']} ({case['mode']}): "
+                  f"{what} at {share:.3g} of its tolerance")
+
+
+def norm_only(argv) -> int:
+    """``python3 chip_smoke.py --norm [--ptxas]``: the kernels' build and
+    the norm phase alone; ``--ptxas`` also compiles a copy of
+    ``csrc/norm.cu`` with ``-Xptxas -v`` and prints each kernel's
+    registers, spills and shared memory.  The per-shape lines go to
+    ``chiprun_out/norm_phase.json``."""
+    from horovod_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    _build.build_all()
+    log(f"build: {time.perf_counter() - t0:.1f} s")
+    if "--ptxas" in argv:
+        built = _build.build_copies(
+            "norm", {"ptxas": {}}, REPO / "build" / "norm_ptxas",
+            extra_flags=["-Xptxas", "-v"])
+        for line in built["ptxas"][1].splitlines():
+            if re.search(r"registers|spill|Compiling entry", line):
+                log("ptxas " + line.strip())
+    smi = nvidia_smi_line()
+    log(smi)
+    import horovod_tpu_torch as hvd
+
+    hvd.init()                            # one-rank NCCL world on cuda:0
+    try:
+        out = norm_phase(hvd.device(), smi, hvd.world_mesh())
+    finally:
+        hvd.shutdown()
+    dest = REPO / "chiprun_out"
+    dest.mkdir(exist_ok=True)
+    (dest / "norm_phase.json").write_text(json.dumps(out, indent=1))
+    log("norm " + json.dumps({k: v for k, v in out.items()
+                              if k != "shapes"}))
+    norm_checks(out)
+    print(json.dumps({"ok": True}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -6388,6 +7002,8 @@ def main() -> int:
         return ring_ipc_child(sys.argv[2:])
     if sys.argv[1:2] == ["--sharded-ckpt-child"]:
         return sharded_child(sys.argv[2:])
+    if sys.argv[1:2] == ["--norm"]:
+        return norm_only(sys.argv[2:])
     import threading
 
     import horovod_tpu_torch as hvd
@@ -6442,6 +7058,10 @@ def main() -> int:
         big_n = sum(math.prod(s) for s in grad_shapes)
         kern = kernel_phase(device, grad_shapes, big_n, reps=20)
         int8_kern = int8_kernel_phase(device, grad_shapes, big_n, reps=20)
+        norm = norm_phase(device, smi, hvd.world_mesh())
+        log("norm " + json.dumps({k: v for k, v in norm.items()
+                                  if k != "shapes"}))
+        norm_checks(norm)
 
         torch.backends.cudnn.benchmark = True
         model, opt, x, y, train = train_phase(hvd, device, BATCH, IMAGE,
@@ -6637,6 +7257,35 @@ def main() -> int:
     # A6's launches through spmd.allreduce(compression=int8) over a mesh
     # axis (the ring_ipc children, one a size a rank)
     kernels[-1]["spmd_launches"] = full["spmd"]["a6_launches"]
+    # N1, the fused norm (replaces no Pallas kernel: XLA fused the JAX
+    # norm): ms the device time of the 53 norms of a ResNet-50 b256 step,
+    # forward and backward, from CUDA graphs of the calls at each shape
+    # (call_ms by CUDA events around eager calls, the host's share
+    # included); launches those of each step of the main path's run
+    # (train_phase, checked a step against 4 a norm); the batch-16 run's
+    # without and with remat beside; library_ms F.batch_norm's at the
+    # same shapes
+    r50 = norm["models"]["ResNet50"]
+    kernels.append({
+        "name": "fused_norm (norm_stats / norm_apply / norm_grad_reduce / "
+                "norm_grad_input / norm_finalize)",
+        "route": "cuda",
+        "source": "horovod_tpu_torch/csrc/norm.cu",
+        "replaces": None,
+        "launches": train["norm_launches_per_step"],
+        "norms": train["norms"],
+        "batch16_launches": norm["checks"]["launches"]["false"],
+        "batch16_remat_launches": norm["checks"]["launches"]["true"],
+        "path_launches": norm["checks"]["path_launches"],
+        "ms": r50["device_ms"],
+        "call_ms": r50["ms"],
+        "plain_ms": r50["plain_ms"],
+        "bound_ms": r50["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": r50["library_ms"],
+        "inception_v3": norm["models"]["InceptionV3"],
+        "worst_tolerance_shares": norm["worst_tolerance_shares"],
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -27,7 +27,6 @@ from typing import List, Optional
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from ._layers import (
     Conv,
@@ -37,7 +36,7 @@ from ._layers import (
     nhwc_to_nchw,
     reset_all,
 )
-from .tpu_norm import TpuBatchNorm
+from .tpu_norm import TpuBatchNorm, norm_relu
 
 
 class ConvBN(nn.Module):
@@ -53,7 +52,7 @@ class ConvBN(nn.Module):
             epsilon=1e-3, axis_name=bn_axis_name, mesh=mesh)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(self.TpuBatchNorm_0(self.Conv_0(x)))
+        return norm_relu(self.TpuBatchNorm_0, self.Conv_0(x))
 
 
 class InceptionV3(nn.Module):

@@ -9,7 +9,11 @@ the same function:
   (``models/_layers.py``): the 7x7/2 stem on 224 pads (2, 3), a 3x3/2
   conv on an even size (0, 1); the stem's max pool pads with -inf.
 * The norm is ``TpuBatchNorm`` (``models/tpu_norm.py``) at momentum 0.9,
-  epsilon 1e-5; the last norm scale of each block starts at zero.
+  epsilon 1e-5; the last norm scale of each block starts at zero.  Each
+  norm takes the ReLU after it, and a block's last norm the residual add
+  before that ReLU (``norm_relu``: ``norm(y, residual=..., relu=True)``,
+  on the card one fused call, on the CPU ``F.relu(residual +
+  norm(y))``).
   ``bn_axis_name`` (with ``mesh=``) synchronizes its moments over that
   axis in training.
 * ``stem="s2d"``: space-to-depth of 2x2 blocks (12 channels), then a
@@ -40,7 +44,6 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from ._layers import (  # noqa: F401  (same_pads: the tests' name)
     Conv,
@@ -50,7 +53,7 @@ from ._layers import (  # noqa: F401  (same_pads: the tests' name)
     reset_all,
     same_pads as _same_pads,
 )
-from .tpu_norm import BatchNorm, TpuBatchNorm  # noqa: F401
+from .tpu_norm import BatchNorm, TpuBatchNorm, norm_relu  # noqa: F401
 
 # the flax ResNet's BatchNorm settings (horovod_tpu/models/resnet.py:135)
 BN_MOMENTUM = 0.9
@@ -109,10 +112,10 @@ class BottleneckBlock(_Block):
         self._project(in_ch, filters * 4, stride)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.TpuBatchNorm_0(self.Conv_0(x)))
-        y = F.relu(self.TpuBatchNorm_1(self.Conv_1(y)))
-        y = self.TpuBatchNorm_2(self.Conv_2(y))
-        return F.relu(self._residual(x) + y)
+        y = norm_relu(self.TpuBatchNorm_0, self.Conv_0(x))
+        y = norm_relu(self.TpuBatchNorm_1, self.Conv_1(y))
+        return norm_relu(self.TpuBatchNorm_2, self.Conv_2(y),
+                         self._residual(x))
 
 
 class BasicBlock(_Block):
@@ -132,9 +135,9 @@ class BasicBlock(_Block):
         self._project(in_ch, filters, stride)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.TpuBatchNorm_0(self.Conv_0(x)))
-        y = self.TpuBatchNorm_1(self.Conv_1(y))
-        return F.relu(self._residual(x) + y)
+        y = norm_relu(self.TpuBatchNorm_0, self.Conv_0(x))
+        return norm_relu(self.TpuBatchNorm_1, self.Conv_1(y),
+                         self._residual(x))
 
 
 def _conv_out_policy(ctx, op, *args, **kwargs):
@@ -227,7 +230,7 @@ class ResNet(nn.Module):
         if self.stem == "s2d":
             x = _space_to_depth(x, 2)
         x = nhwc_to_nchw(x, self.dtype)
-        x = F.relu(self.bn_init(self.conv_init(x)))
+        x = norm_relu(self.bn_init, self.conv_init(x))
         x = max_pool(x, 3, 2, "SAME")
         remat = self.remat and self.training and torch.is_grad_enabled()
         for name in self.block_names:

@@ -17,6 +17,14 @@ flattened ``(N*H*W, C)`` view.
   alone).  ``eval()`` normalizes by them.
 * ``(mean, inv, bias)`` fold into per-channel ``(a, b)`` in float32, then
   ``x * a + b`` in the compute dtype.
+* ``forward(x, residual=None, relu=False)`` also takes the layer's
+  epilogue: ``F.relu(residual + bn(x))``, ``F.relu(bn(x))``; the models
+  call it through ``norm_relu``, which keeps a norm module swapped in for
+  this one (``forward(x)`` alone) working.  It is
+  ``ops/norm.py`` ``fused_norm``: on a CPU tensor the eager composition
+  (``batch_norm_plain``), on a CUDA tensor the kernels of
+  ``csrc/norm.cu`` (statistics, normalize and epilogue, and their
+  backward) under one autograd node.
 
 The reference's class defaults are kept (``momentum=0.99``,
 ``epsilon=1e-5``); the models pass their own (ResNet 0.9 / 1e-5,
@@ -29,6 +37,9 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.norm import fused_norm
 
 
 class TpuBatchNorm(nn.Module):
@@ -60,30 +71,30 @@ class TpuBatchNorm(nn.Module):
             self.mean.zero_()
             self.var.fill_(1.0)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        c = x.shape[1]
-        if self.training:
-            x2 = x.permute(0, 2, 3, 1).reshape(-1, c)
-            mean = x2.mean(dim=0, dtype=torch.float32)
-            mean_sq = x2.float().square().mean(dim=0)
-            if self.axis_name is not None:
-                from ..parallel._collectives import pmean
+    def forward(self, x: torch.Tensor,
+                residual: Optional[torch.Tensor] = None,
+                relu: bool = False) -> torch.Tensor:
+        """The norm of ``x``; then ``residual + y`` where a residual is
+        given, and the ReLU where ``relu``: ``F.relu(residual + bn(x))`` as
+        one call."""
+        return fused_norm(
+            x, self.scale, self.bias, self.mean, self.var,
+            training=self.training, update_running=self.update_running,
+            momentum=self.momentum, epsilon=self.epsilon, dtype=self.dtype,
+            residual=residual, relu=relu, axis_name=self.axis_name,
+            mesh=self.mesh)
 
-                mean = pmean(mean, self.axis_name, mesh=self.mesh)
-                mean_sq = pmean(mean_sq, self.axis_name, mesh=self.mesh)
-            var = torch.clamp(mean_sq - mean.square(), min=0.0)
-            if self.update_running:
-                with torch.no_grad():
-                    m = self.momentum
-                    self.mean.copy_(m * self.mean + (1.0 - m) * mean)
-                    self.var.copy_(m * self.var + (1.0 - m) * var)
-        else:
-            mean, var = self.mean, self.var
-        inv = torch.rsqrt(var + self.epsilon) * self.scale
-        shift = -mean * inv + self.bias
-        a = inv.to(self.dtype).view(1, c, 1, 1)
-        b = shift.to(self.dtype).view(1, c, 1, 1)
-        return (x * a + b).to(self.dtype)
+
+def norm_relu(norm: nn.Module, x: torch.Tensor,
+              residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``relu(residual + norm(x))`` (``relu(norm(x))`` without a
+    residual): one call of a ``TpuBatchNorm``, its fused epilogue; a norm
+    swapped in from elsewhere (``hvd.SyncBatchNorm``, ``nn.BatchNorm2d``)
+    takes ``x`` alone and the epilogue follows in torch."""
+    if isinstance(norm, TpuBatchNorm):
+        return norm(x, residual=residual, relu=True)
+    y = norm(x)
+    return F.relu(y if residual is None else residual + y)
 
 
 BatchNorm = TpuBatchNorm

@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels of the PyTorch port and their plain PyTorch
 versions (counterpart of ``horovod_tpu/ops``)."""
 
+from .norm import batch_norm_plain, fused_norm
 from .quantize import (
     QBLOCK,
     dequantize_int8_blocks,
@@ -31,4 +32,5 @@ __all__ = [
     "dequantize_int8_blocks", "dequantize_int8_blocks_plain",
     "ring_allreduce", "ring_allreduce_plain",
     "ring_allgather_2d", "ring_allgather_2d_plain",
+    "fused_norm", "batch_norm_plain",
 ]

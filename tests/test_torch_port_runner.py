@@ -474,11 +474,11 @@ def test_check_build_reports_the_port(capsys):
     assert "horovod_tpu_torch" in out and "[X] PyTorch" in out
     assert "[X] native C++ core" in out and "[X] Python controller" in out
     for name in ("NCCL", "gloo", "CUDA", "MPI", "scale_cast",
-                 "quantize_int8", "ring", "ring_cluster"):
+                 "quantize_int8", "ring", "ring_cluster", "norm"):
         assert name in out
     assert "JAX" not in out and "XLA" not in out
     assert port_launch.kernels_built().keys() == {
-        "scale_cast", "quantize_int8", "ring", "ring_cluster"}
+        "scale_cast", "quantize_int8", "ring", "ring_cluster", "norm"}
 
 
 @both

@@ -67,3 +67,43 @@ def sync_bn_worker(rank: int, world: int, store_path: str,
     np.savez(os.path.join(out_dir, f"sbn{rank}.npz"),
              **{k: v.detach().numpy() for k, v in res.items()})
     _write_result(out_dir, rank, {"ok": True})
+
+
+def sync_bn_epilogue_worker(rank: int, world: int, store_path: str,
+                            out_dir: str) -> None:
+    """One rank of the synchronized norm with its epilogue:
+    ``bn(x, residual=r, relu=True)``, ``r`` the weights of the global
+    batch reversed along N, train mode, the weighted sum back-propagated:
+    the output, the input's and the residual's gradients, this rank's
+    parameter gradients and the running stats."""
+    torch.set_num_threads(1)
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import TpuBatchNorm
+
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    hvd.init(device="cpu")
+    a = sbn_arrays(world)
+    a["r"] = a["w"][::-1]
+    n = SBN_LOCAL[0]
+    nchw = lambda k: torch.from_numpy(  # noqa: E731
+        a[k][rank * n:(rank + 1) * n].transpose(0, 3, 1, 2).copy())
+    bn = TpuBatchNorm(SBN_LOCAL[3], dtype=torch.float32,
+                      momentum=SBN_MOMENTUM, epsilon=SBN_EPSILON,
+                      axis_name="world", mesh=hvd.world_mesh())
+    with torch.no_grad():
+        for k in ("scale", "bias", "mean", "var"):
+            getattr(bn, k).copy_(torch.from_numpy(a[k]))
+    bn.train()
+    x = nchw("x").requires_grad_(True)
+    r = nchw("r").requires_grad_(True)
+    y = bn(x, residual=r, relu=True)
+    (y * nchw("w")).sum().backward()
+    res = {"y": y.detach(), "dx": x.grad, "dr": r.grad,
+           "dscale": bn.scale.grad, "dbias": bn.bias.grad,
+           "mean": bn.mean, "var": bn.var}
+    hvd.shutdown()
+    dist.destroy_process_group()
+    np.savez(os.path.join(out_dir, f"sbn_epi{rank}.npz"),
+             **{k: v.detach().numpy() for k, v in res.items()})
+    _write_result(out_dir, rank, {"ok": True})
