@@ -5,6 +5,8 @@
 traffic, limits and per-layer metrics are files of their own under
 ``configs/``, ``traffic/``, ``limits/`` and ``metrics/``; ``reference/``
 is the frozen plain-PyTorch reference the check holds the program to;
-``counters/`` works out operations and bytes from shapes.  Nothing here
+``counters/`` works out operations and bytes from shapes; ``tasks/``
+holds what a configuration's task decides (the batches, the loss, the
+logits read, the work).  Nothing here
 imports JAX or the JAX package.
 """

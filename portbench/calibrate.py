@@ -2,22 +2,30 @@
 own size.
 
     python3 -m portbench.calibrate --workload <cell> --seeds 1,2,3 \\
-        --modes program,control,half_batch[,no_exchange]
+        --modes program,control,half_batch[,no_update,no_exchange] \\
+        [--ranks 2]
 
 ``program``: the program's checked steps against the reference on each
 seed (the lower readings; on several chips through the program's
-launcher, one rank a card).  ``control``: the reference computed in fp8
-put in the program's place (``reference/layers.py``); ``fp8_branches``
-and ``bf16_stats``: narrower controls, fp8 in the residual branches'
-convolutions alone, the norms' statistics in bfloat16.  ``half_batch`` and
-``no_exchange``: the reference with that fault put in the program's
-place (``reference/train.py``).  ``layout``: the reference in
-channels-last memory in the program's place, the same function through
-other kernels: how far rounding alone moves each number.  A state left
-unchanged reads 1 on
-``change_gap`` and ``grad_gap`` by the check's own measure and needs no
-run.  Prints one JSON line a seed and mode, then each number's largest
-program reading and smallest reading of each other mode.
+launcher, one rank a card).  ``no_update``: the same with the program's
+update left out (``opt.step()`` only synchronizes); under SGD a state
+left unchanged reads 1 on every gradient, buffer and change number by
+the check's own measure and needs no run, but AdamW's first gradient is
+the reduced ``.grad``, which it leaves as it is.  ``control``: the
+reference computed in fp8 put in the program's place (each reference's
+``layers.operand``); ``fp8_branches`` and ``bf16_stats``: narrower
+controls, fp8 in the residual branches' convolutions alone, the norms'
+statistics in bfloat16.  ``half_batch`` (the first half of each rank's
+rows: images, or sequences) and ``no_exchange``: the reference with that
+fault put in the program's place (``reference/train.py``).  The exchange
+exists past one rank: ``--ranks`` runs a one-chip cell's traffic on that
+many (the program through the launcher, the reference's ranks in one
+process).  ``layout``: the reference in channels-last memory in the
+program's place, the same function through other kernels: how far
+rounding alone moves each number.  Every mode runs on a configuration of
+either task (``tasks/``).  Prints one JSON line a seed and mode, then
+each number's largest program reading and smallest reading of each
+other mode.
 """
 
 from __future__ import annotations
@@ -55,7 +63,7 @@ def program_rank(spec: dict) -> list:
         model, opt, step, feed, weights = cell.build_program(
             hvd, config, traffic, seed, dev, rank, spec.get("fault"))
         prog = cell.program_readings(model, opt, step, feed, weights,
-                                     traffic["check_steps"], world)
+                                     traffic["check_steps"], world, config)
         buffers = prog.pop("buffers")
         del model, opt, step, feed, weights
         cell._free(dev)
@@ -82,7 +90,8 @@ def rank_main(spec_path: str) -> int:
 
 
 def program_readings(spec: dict) -> list:
-    """``[(seed, readings)]`` of the program, one process a rank."""
+    """``[(seed, readings)]`` of the program (with ``spec['fault']``
+    planted, if any), one process a rank."""
     work = Path(tempfile.mkdtemp(prefix="portbench-cal-"))
     try:
         env = run.environment(work)
@@ -141,24 +150,16 @@ def summary(rows: dict) -> dict:
     return out
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(prog="python3 -m portbench.calibrate")
-    ap.add_argument("--workload")
-    ap.add_argument("--seeds", default="")
-    ap.add_argument("--modes", default="program,control,half_batch")
-    ap.add_argument("--device", default="cuda")
-    ap.add_argument("--rank-spec")
-    args = ap.parse_args(argv)
-    if args.rank_spec:
-        return rank_main(args.rank_spec)
-    spec = run.make_spec(args.workload, 0, 0, 0)
-    spec["device"] = args.device
-    spec["seeds"] = [int(s) for s in args.seeds.split(",")]
+def calibrate(spec: dict, modes) -> int:
+    """Read each of ``modes`` on ``spec['seeds']`` and print the lines."""
     rows = {}
-    for mode in args.modes.split(","):
+    for mode in modes:
         t = time.perf_counter()
-        got = (program_readings(spec) if mode == "program"
-               else reference_in_place(spec, mode))
+        if mode in ("program", "no_update"):
+            got = program_readings(dict(
+                spec, fault=None if mode == "program" else mode))
+        else:
+            got = reference_in_place(spec, mode)
         rows[mode] = got
         for seed, r in got:
             print(json.dumps({"cell": spec["cell"], "mode": mode,
@@ -168,6 +169,25 @@ def main(argv=None) -> int:
     print(json.dumps({"cell": spec["cell"], "summary": summary(rows)}),
           flush=True)
     return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="python3 -m portbench.calibrate")
+    ap.add_argument("--workload")
+    ap.add_argument("--seeds", default="")
+    ap.add_argument("--modes", default="program,control,half_batch")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--ranks", type=int, default=0)
+    ap.add_argument("--rank-spec")
+    args = ap.parse_args(argv)
+    if args.rank_spec:
+        return rank_main(args.rank_spec)
+    spec = run.make_spec(args.workload, 0, 0, 0)
+    spec["device"] = args.device
+    spec["seeds"] = [int(s) for s in args.seeds.split(",")]
+    if args.ranks:
+        spec["chips"] = spec["traffic"]["ranks"] = args.ranks
+    return calibrate(spec, args.modes.split(","))
 
 
 if __name__ == "__main__":

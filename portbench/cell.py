@@ -2,18 +2,19 @@
 the measured (or traced) window, and, on rank 0, the reference.
 
 The path driven is the user's: ``hvd.init`` -> the model ->
-``hvd.DistributedOptimizer(SGD)`` -> ``hvd.broadcast_parameters`` ->
-back-to-back steps (``zero_grad``, forward, cross entropy, ``backward``
-with the optimizer's hooks launching the buckets, ``opt.step()``).  The
-benchmark makes the weights and the batches (``data.py``) and puts a
+``hvd.DistributedOptimizer(SGD or AdamW)`` -> ``hvd.broadcast_parameters``
+-> back-to-back steps (``zero_grad``, forward, the task's loss,
+``backward`` with the optimizer's hooks launching the buckets,
+``opt.step()``).  The benchmark makes the weights (``data.py``) and the
+batches (the configuration's task, ``tasks/``) and puts a
 ``record_function`` range around the forward pass, the backward pass and
 ``opt.step()``.
 
 The first ``check_steps`` steps run in set-up, each on a batch of its
 own, through the same step function the window calls; their losses, the
-first gradient as the optimizer got it and the parameters' change are
-read for the check.  The same model and optimizer then warm up and run
-the window.  Once it has closed and the peak memory is read, the
+first gradient as the optimizer got it, its momentum after the last and
+the parameters' change are read for the check.  The same model and
+optimizer then warm up and run the window.  Once it has closed and the peak memory is read, the
 program's state is freed and rank 0 runs the reference over the same
 weights and batches (``reference/``).
 """
@@ -29,12 +30,17 @@ import time
 from pathlib import Path
 from typing import Dict, List, Optional
 
-from . import check, data, reference, trace
-from .counters import a1_bytes, conv_flops
+from . import check, data, reference, tasks, trace
+from .counters import a1_bytes
 from .reference import train as ref_train
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "horovod_tpu")
 ROOT = Path(__file__).resolve().parent.parent
+PORT_MODULE = "horovod_tpu_torch.models"
+# where each optimizer keeps what the check reads: the first gradient as
+# the update got it (None: the reduced ``.grad`` itself) and the momentum
+STATE_KEYS = {"sgd": ("momentum_buffer", "momentum_buffer"),
+              "adamw": (None, "exp_avg")}
 
 
 def forbidden_modules() -> List[str]:
@@ -61,22 +67,41 @@ def _sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
+def make_optimizer(params, spec: dict):
+    """The wrapped optimizer the configuration's ``optimizer`` states:
+    ``sgd`` (``lr``, ``momentum``) or ``adamw`` (``lr``, ``betas``,
+    ``eps``, ``weight_decay``)."""
+    import torch
+
+    kind = spec["kind"]
+    if kind == "sgd":
+        return torch.optim.SGD(params, lr=spec["lr"],
+                               momentum=spec["momentum"])
+    if kind == "adamw":
+        return torch.optim.AdamW(params, lr=spec["lr"],
+                                 betas=tuple(spec["betas"]), eps=spec["eps"],
+                                 weight_decay=spec["weight_decay"])
+    raise ValueError(f"optimizer {kind!r}: one of {sorted(STATE_KEYS)}")
+
+
 def build_program(hvd, config: dict, traffic: dict, seed: int, dev,
                   rank: int, fault: Optional[str] = None):
     """The program's model and optimizer on the seed's weights, this
-    rank's batches, and the step function.  Returns ``(model, opt, step,
-    feed, weights)``."""
+    rank's batches, and the step function.  The model is
+    ``port_model`` of the port's models (of ``port_module`` for the
+    tests' configuration, which ``run.make_spec`` refuses in a cell).
+    Returns ``(model, opt, step, feed,
+    weights)``."""
     import torch
-    import torch.nn.functional as F
     from torch.profiler import record_function
 
-    from horovod_tpu_torch import models
-
+    task = tasks.of(config)
     dtype = getattr(torch, config["compute_dtype"])
     specs = [(n, p.shape) for n, p in
              reference.build(config, "meta").named_parameters()]
     weights = data.make_weights(specs, seed, dev,
                                config["init"])
+    models = importlib.import_module(config.get("port_module", PORT_MODULE))
     model = getattr(models, config["port_model"])(
         dtype=dtype, device="meta", **config["port_kwargs"])
     model = model.to_empty(device=dev)
@@ -88,19 +113,11 @@ def build_program(hvd, config: dict, traffic: dict, seed: int, dev,
     with torch.no_grad():
         for n, p in model.named_parameters():
             p.copy_(weights[n])
-        for n, b in model.named_buffers():
-            if n.endswith(".mean"):
-                b.zero_()
-            elif n.endswith(".var"):
-                b.fill_(1.0)
-            else:
-                raise RuntimeError(f"no value for the program's buffer {n}")
+    data.fill_buffers(model, config["init"])
     model.train()
-    batches = data.make_batches(traffic, config, seed, rank, dev)
-    opt_cfg = config["optimizer"]
+    batches = task.make_batches(traffic, config, seed, rank, dev)
     opt = hvd.DistributedOptimizer(
-        torch.optim.SGD(model.parameters(), lr=opt_cfg["lr"],
-                        momentum=opt_cfg["momentum"]),
+        make_optimizer(model.parameters(), config["optimizer"]),
         named_parameters=model.named_parameters(),
         compression=getattr(hvd.Compression, config["compression"]),
         gradient_predivide_factor=config["gradient_predivide_factor"])
@@ -128,7 +145,7 @@ def build_program(hvd, config: dict, traffic: dict, seed: int, dev,
     def step(x, y):
         opt.zero_grad()
         with record_function(trace.FORWARD):
-            loss = F.cross_entropy(model(x), y)
+            loss = task.loss(model(x), y)
         with record_function(trace.BACKWARD):
             loss.backward()
         with record_function(trace.OPT_STEP):
@@ -139,36 +156,39 @@ def build_program(hvd, config: dict, traffic: dict, seed: int, dev,
 
 
 def program_readings(model, opt, step, feed, weights, steps: int,
-                     world: int) -> dict:
-    """Run the checked steps and read them: each step's loss, the first
-    and the last step's logits (a hook on the model's output), each
-    leaf's momentum buffer from the optimizer's state after step 1 (its
-    first gradient) and after the last, each leaf's change after the
-    last, and (past one rank) its bit digest.  ``buffers`` holds the
-    buffers after step 1 themselves, on the host, for the reference to
-    judge."""
+                     world: int, config: dict) -> dict:
+    """Run the checked steps and read them: each step's loss, the
+    task's reading of the first and the last step's logits (a hook on
+    the model's output), each leaf's first gradient as step 1's update
+    got it (SGD's momentum buffer after step 1; the reduced ``.grad``
+    under AdamW) and its momentum after the last step (the buffer;
+    AdamW's ``exp_avg``), each leaf's change after the last, and (past
+    one rank) its bit digest.  ``buffers`` holds the first gradients
+    themselves, on the host, for the reference to judge."""
     import torch
 
+    read = tasks.of(config).reading
+    first_key, moment_key = STATE_KEYS[config["optimizer"]["kind"]]
     losses, logits = [], []
     params = list(model.named_parameters())
     hook = model.register_forward_hook(
-        lambda m, i, out: logits.append(out.detach().float().flatten()))
+        lambda m, i, out: logits.append(read(out)))
 
-    def buffers():
-        return {n: opt.state.get(p, {}).get("momentum_buffer")
+    def state(key):
+        return {n: p.grad if key is None else opt.state.get(p, {}).get(key)
                 for n, p in params}
 
     def on_host():
         return {n: (torch.zeros_like(p, device="cpu") if b is None
                     else b.detach().to("cpu", copy=True))
-                for (n, p), b in zip(params, buffers().values())}
+                for (n, p), b in zip(params, state(first_key).values())}
 
     for s in range(steps):
         losses.append(step(*feed(s)).detach())
         if s == 0:
             first = on_host()
     hook.remove()
-    last = buffers()
+    last = state(moment_key)
     change = {n: ref_train.leaf_norm(p.detach() - weights[n])
               for n, p in params}
     digests = ([ref_train.bit_digest(p) for _, p in params]
@@ -190,9 +210,9 @@ def reference_readings(config: dict, traffic: dict, seed: int, world: int,
                        against: Optional[dict] = None,
                        keep_buffers: bool = False) -> dict:
     """The reference's readings of the checked steps, all ranks' batches
-    made again from the seed; ``against``, the program's momentum
-    buffers after step 1, to judge them.  Its own stay in the readings
-    only with ``keep_buffers``."""
+    made again from the seed; ``against``, the program's first
+    gradients, to judge them.  Its own stay in the readings only with
+    ``keep_buffers``."""
     import torch
 
     torch.backends.cudnn.benchmark = False
@@ -202,12 +222,12 @@ def reference_readings(config: dict, traffic: dict, seed: int, world: int,
     specs = [(n, p.shape) for n, p in model.named_parameters()]
     weights = data.make_weights(specs, seed, dev,
                                config["init"])
-    per_rank = [data.make_batches(traffic, config, seed, r, dev)
+    per_rank = [tasks.of(config).make_batches(traffic, config, seed, r, dev)
                 for r in range(world)]
     steps = traffic["check_steps"]
     batches = [[per_rank[r][s] for r in range(world)] for s in range(steps)]
-    out = ref_train.run_steps(model, weights, batches, config, precision,
-                              fault, against)
+    out = ref_train.run_steps(model, weights, batches, config, traffic,
+                              precision, fault, against)
     if not keep_buffers:
         del out["buffers"]
     del model, weights, per_rank, batches
@@ -223,13 +243,14 @@ def _free(dev) -> None:
 
 
 def _window_work(config: dict, traffic: dict, opt) -> dict:
-    work = conv_flops.step_work(config, traffic["batch_per_rank"])
+    work = tasks.of(config).step_work(config, traffic)
     wire_bytes = {"fp16": 2, "bf16": 2}[config["compression"]]
     nbytes, passes = a1_bytes.a1_step(
         [[(p.numel(), p.element_size()) for p in b] for b in opt.buckets],
         wire_bytes)
     return {"flops_per_step": work["flops"],
             "conv_min_s_per_step": work["min_s"],
+            "attention_min_s_per_step": work["attention_min_s"],
             "a1_bytes_per_step": nbytes, "a1_passes_per_step": passes}
 
 
@@ -257,7 +278,8 @@ def execute(spec: dict) -> dict:
     model, opt, step, feed, weights = build_program(
         hvd, config, traffic, seed, dev, rank, fault)
     checked = traffic["check_steps"]
-    prog = program_readings(model, opt, step, feed, weights, checked, world)
+    prog = program_readings(model, opt, step, feed, weights, checked, world,
+                            config)
     buffers = prog.pop("buffers")
     del weights
     _free(dev)

@@ -2,8 +2,9 @@
 steps against the reference's, on the same weights and batches.
 
 Per leaf (parameter tensor) norms are compared: of the first gradient as
-the optimizer got it (the momentum buffer after step 1), of the momentum
-buffer after the last checked step, and of the parameters' change over
+the optimizer got it (SGD's momentum buffer after step 1, the reduced
+``.grad`` under AdamW), of the momentum after the last checked step
+(SGD's buffer, AdamW's ``exp_avg``), and of the parameters' change over
 the checked steps.  A leaf's gap is ``| |p| - |r| |`` over the larger of
 ``|r|`` and the floor, the median ``|r|`` of the leaves whose reference
 norm is not 0.  The change and the last buffer are compared on the
@@ -21,8 +22,9 @@ compared; which, and why, ``PERF.md`` says):
   over the checked steps; ``loss1_gap`` the same of the first step's
   alone (the forward pass on the seed's weights);
 * ``logits_gap`` / ``logits_last_gap``: ``|z - z_ref| / |z_ref|`` of
-  rank 0's logits at the first and at the last checked step (1 when
-  their shapes differ);
+  the logits the task reads of rank 0 (``tasks/``: all of an image
+  net's; a causal LM's first row's last 16 positions) at the first and
+  at the last checked step (1 when their shapes differ);
 * ``grad_gap`` / ``grad_median_gap``: the worst leaf's and the median
   leaf's gap of the first gradient, over the leaves whose reference
   gradient is not 0 (and every leaf where the program's is not 0);

@@ -7,10 +7,15 @@ tensor cores (PyTorch's default keeps float32 matrix products off TF32),
 3.35 TB/s of HBM.
 
 Groups, in the order a kernel is tried: ``a1`` (the program's kernel A1,
-``scale_cast_table_kernel``), ``nccl``, ``conv_gemm`` (cuDNN's and
-cuBLAS's convolution and matrix-product kernels, by the names they carry
-on Hopper: ``sm90_xmma_*``, ``nvjet_*``, cutlass, ``*gemm*``, and cuDNN's
-own helpers), then ``other`` (elementwise, reductions, pools, copies).
+``scale_cast_table_kernel``), ``nccl``, ``attention`` (fused attention
+kernels: PyTorch's SDPA backends on Hopper, ``pytorch_flash::flash_*``,
+``fmha_cutlass*`` and cuDNN's ``*_sdpa_*``, and any other whose name
+says flash, fmha, sdpa or attention; tried before ``conv_gemm``, whose
+``cudnn``, ``cutlass`` and ``sm90_`` would take them), ``conv_gemm``
+(cuDNN's and cuBLAS's convolution and matrix-product kernels, by the
+names they carry on Hopper: ``sm90_xmma_*``, ``nvjet_*``, cutlass,
+``*gemm*``, and cuDNN's own helpers), then ``other`` (elementwise,
+reductions, pools, copies).
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ PEAK_BF16_FLOPS = PEAK_FLOPS["bfloat16"]
 GROUPS = (
     ("a1", re.compile(r"scale_cast_table_kernel")),
     ("nccl", re.compile(r"nccl", re.I)),
+    ("attention", re.compile(r"flash|fmha|sdpa|attention", re.I)),
     ("conv_gemm", re.compile(
         r"cudnn|xmma|implicit_gemm|implicit_convolve|fprop|dgrad|wgrad|"
         r"winograd|nvjet|gemm|gemv|cutlass|cublas|splitKreduce|sm90_",

@@ -1,20 +1,26 @@
 """The reference's training steps: what a data-parallel step of the
 configuration computes, written out in plain PyTorch.
 
-Per step and rank: the loss (cross entropy of the float32 logits, the
-mean over the rank's rows) and its gradients.  The wire: each gradient
-times ``1 / gradient_predivide_factor`` in float32, cast to the wire
-dtype (``compression`` ``fp16``: float16), summed over the ranks, the
-sum rounded to the wire dtype, cast back to float32 and multiplied by
-``predivide / ranks``.  Then SGD with momentum in float32 (the buffer
-starts as the first gradient; ``buf = m * buf + g``; ``p -= lr * buf``).
+Per step and rank: the loss (the task's, ``tasks/``: the mean cross
+entropy of the float32 logits over the rank's rows, or over every token
+of them) and its gradients.  The wire: each gradient times ``1 /
+gradient_predivide_factor`` in float32, cast to the wire dtype
+(``compression`` ``fp16``: float16), summed over the ranks, the sum
+rounded to the wire dtype, cast back to float32 and multiplied by
+``predivide / ranks``.  Then the configuration's optimizer in float32:
+SGD with momentum (the buffer starts as the first gradient; ``buf = m *
+buf + g``; ``p -= lr * buf``), or AdamW as ``torch.optim.AdamW`` states
+it (``p *= 1 - lr wd``; ``m = b1 m + (1 - b1) g``; ``v = b2 v + (1 - b2)
+g^2``, both from 0; ``p -= lr / (1 - b1^t) * m / (sqrt(v) / sqrt(1 -
+b2^t) + eps)`` at step ``t``).
 
-Read after the steps: rank 0's loss of each step and its logits of the
-first and the last; each leaf's momentum buffer after the first step
-(its first gradient; and, where the program's is handed in, the norm of
+Read after the steps: rank 0's loss of each step and the task's reading
+of its logits at the first and the last; each leaf's first gradient as
+step 1's update got it (SGD's buffer after the first step, AdamW's
+reduced gradient; and, where the program's is handed in, the norm of
 their difference, which the steps that follow do not blur, as both sides
-start from the same weights and batch) and after the last; and each
-leaf's change.
+start from the same weights and batch) and its momentum after the last
+(SGD's buffer, AdamW's ``m``); and each leaf's change.
 
 ``fault`` puts a known fault in the reference's own steps, for the
 readings a check has to fail: ``half_batch`` (each rank's loss is the
@@ -24,10 +30,12 @@ its own gradient in place of the sum).
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
+
+from .. import tasks
 
 WIRE = {"fp16": torch.float16, "bf16": torch.bfloat16}
 
@@ -47,26 +55,41 @@ def bit_digest(t: torch.Tensor) -> int:
         torch.int64).sum())
 
 
+def _adamw(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+           v: torch.Tensor, step: int, opt: dict) -> None:
+    """One AdamW update of ``p`` in place, ``m`` and ``v`` its moments."""
+    lr, (b1, b2) = opt["lr"], opt["betas"]
+    p.mul_(1.0 - lr * opt["weight_decay"])
+    m.mul_(b1).add_(g, alpha=1.0 - b1)
+    v.mul_(b2).addcmul_(g, g, value=1.0 - b2)
+    denom = (v.sqrt() / math.sqrt(1.0 - b2 ** step)).add_(opt["eps"])
+    p.addcdiv_(m, denom, value=-lr / (1.0 - b1 ** step))
+
+
 def run_steps(model: torch.nn.Module, weights: Dict[str, torch.Tensor],
               batches: Sequence[Sequence[Tuple[torch.Tensor, torch.Tensor]]],
-              config: dict, precision: str = "bf16",
+              config: dict, traffic: dict, precision: str = "bf16",
               fault: Optional[str] = None,
               against: Optional[Dict[str, torch.Tensor]] = None) -> dict:
     """``len(batches)`` steps from ``weights``; ``batches[s][r]`` is rank
     ``r``'s ``(x, y)`` at step ``s``.  Returns the readings the check
-    compares: rank 0's loss of each step and its logits of the first
-    and the last step, the norm of each leaf's momentum buffer after the
-    first step (``grad_norms``) and after the last (``momentum_norms``),
-    of each leaf's change over the steps, and, past one rank, each
-    rank's bit digest of each leaf after the steps.  ``against``, the
-    program's momentum buffers after the first step, adds the norm of
-    each leaf's difference from the reference's (``grad_diff_norms``):
-    the program's output, read only to judge it.  ``buffers``: the
-    reference's own buffers after the first step (rank 0's)."""
+    compares: rank 0's loss of each step and its reading of the logits
+    at the first and the last step, the norm of each leaf's first
+    gradient (``grad_norms``) and of its momentum after the last step
+    (``momentum_norms``), of each leaf's change over the steps, and,
+    past one rank, each rank's bit digest of each leaf after the steps.
+    ``against``, the program's first gradients, adds the norm of each
+    leaf's difference from the reference's (``grad_diff_norms``): the
+    program's output, read only to judge it.  ``buffers``: the
+    reference's own first gradients (rank 0's)."""
     if fault not in (None, "half_batch", "no_exchange"):
         raise ValueError(f"fault {fault!r}")
+    step_of = tasks.of(config).reference_step
     opt = config["optimizer"]
-    lr, momentum = opt["lr"], opt["momentum"]
+    kind = opt["kind"]
+    if kind not in ("sgd", "adamw"):
+        raise ValueError(f"optimizer {kind!r}")
+    lr, momentum = opt["lr"], opt.get("momentum")
     wire = WIRE[config["compression"]]
     predivide = float(config["gradient_predivide_factor"])
     world = len(batches[0])
@@ -80,8 +103,10 @@ def run_steps(model: torch.nn.Module, weights: Dict[str, torch.Tensor],
     ranks_apart = fault == "no_exchange"
     state = [{n: weights[n].clone() for n in names}
              for _ in range(world if ranks_apart else 1)]
+    # SGD's buffers, or AdamW's m beside its v
     bufs: List[Dict[str, torch.Tensor]] = [{} for _ in state]
-    losses, grad_norms = [], {}
+    squares: List[Dict[str, torch.Tensor]] = [{} for _ in state]
+    losses, grad_norms, first = [], {}, {}
     for s, step_batches in enumerate(batches):
         sums = None
         own = []
@@ -93,16 +118,16 @@ def run_steps(model: torch.nn.Module, weights: Dict[str, torch.Tensor],
             with torch.no_grad():
                 for n in names:
                     params[n].copy_(p_rank[n])
-            z = model(x, precision)
-            loss = F.cross_entropy(z, y)
-            grads = torch.autograd.grad(loss, [params[n] for n in names])
+            loss, grads, read = step_of(model, x, y,
+                                        [params[n] for n in names],
+                                        precision)
             if r == 0:
                 losses.append(float(loss.detach()))
                 if s == 0:
-                    logits = z.detach().float().flatten().tolist()
+                    logits = read.tolist()
                 if s == len(batches) - 1:
-                    logits_last = z.detach().float().flatten().tolist()
-            del z
+                    logits_last = read.tolist()
+            del read
             sent = [(g.float() * pre.to(g.device)).to(wire).float()
                     for g in grads]
             del grads
@@ -117,6 +142,15 @@ def run_steps(model: torch.nn.Module, weights: Dict[str, torch.Tensor],
         for k, sent in enumerate(got):
             for i, n in enumerate(names):
                 g = sent[i].to(wire).float() * post.to(sent[i].device)
+                if kind == "adamw":
+                    if s == 0:
+                        bufs[k][n] = torch.zeros_like(g)
+                        squares[k][n] = torch.zeros_like(g)
+                        if k == 0:
+                            first[n] = g.clone()
+                    _adamw(state[k][n], g, bufs[k][n], squares[k][n], s + 1,
+                           opt)
+                    continue
                 buf = bufs[k].get(n)
                 if buf is None:
                     buf = bufs[k][n] = g.clone()
@@ -124,8 +158,9 @@ def run_steps(model: torch.nn.Module, weights: Dict[str, torch.Tensor],
                     buf.mul_(momentum).add_(g)
                 state[k][n].add_(buf, alpha=-lr)
         if s == 0:
-            grad_norms = {n: leaf_norm(bufs[0][n]) for n in names}
-            first = {n: b.clone() for n, b in bufs[0].items()}
+            if kind == "sgd":
+                first = {n: b.clone() for n, b in bufs[0].items()}
+            grad_norms = {n: leaf_norm(first[n]) for n in names}
             diff_norms = None
             if against is not None:
                 diff_norms = {n: leaf_norm(against[n].to(first[n].device)

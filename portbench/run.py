@@ -68,14 +68,28 @@ def make_spec(cell: str, seed: int, seconds: float, trace: int,
                         / f"{entry['config']}.json")
     traffic = _read_json(root / "portbench" / "traffic"
                          / f"{entry['traffic']}.json")
+    if "port_module" in config:
+        # a cell times and checks the port's own models, never a
+        # stand-in; only the tests' configuration (tests/tiny.py) names one
+        raise RunError(f"{cell}: configuration {entry['config']} names "
+                       f"port_module {config['port_module']!r}")
     if traffic["ranks"] != entry["chips"]:
         raise RunError(f"{cell}: traffic {entry['traffic']} runs "
                        f"{traffic['ranks']} ranks on {entry['chips']} chips")
     limits_path = root / "portbench" / "limits" / f"{cell}.json"
     limits = _read_json(limits_path) if limits_path.exists() else {}
+    return spec_of(bench, cell, config, traffic, limits, seed, seconds,
+                   trace, root)
+
+
+def spec_of(bench: dict, cell: str, config: dict, traffic: dict,
+            limits: dict, seed: int, seconds: float, trace: int,
+            root: Path = ROOT) -> dict:
+    """A run's spec from its parts; the metrics are ``bench``'s that
+    apply to ``cell``."""
     return {
         "cell": cell, "seed": int(seed), "seconds": float(seconds),
-        "trace": int(trace), "chips": entry["chips"], "config": config,
+        "trace": int(trace), "chips": traffic["ranks"], "config": config,
         "traffic": traffic, "limits": limits, "device": "cuda",
         "t0": T0, "trace_dir": str(root / TRACE_DIR),
         "end_to_end": [m for m in bench["end_to_end"] if _applies(m, cell)],
@@ -115,6 +129,7 @@ def assemble(spec: dict, ranks: List[dict]) -> dict:
                                      "unit": spec["units"][name]}
     else:
         attempted = sum(r["steps"] for r in ranks)
+        # samples: an image, or a sequence of a causal LM's seq_len tokens
         images = sum(r["steps"] * r["images_per_step"] for r in ranks)
         values = {"images_per_s": images / r0["wall_s"],
                   "step_ms_p90": p90(r0["step_ms"]),

@@ -37,12 +37,40 @@ def test_cell_spec_loads(name):
     assert spec["per_layer"]
 
 
+# a width, which no cut may name: a hidden, intermediate, latent, state
+# or projection size, a key ending in _dim or _rank, a head size, an
+# expansion factor, the experts a token picks
+WIDTH = re.compile(r"(_dim|_rank)$|^hidden_size$|intermediate|latent|state"
+                   r"|proj|head_size|expan|expand|per_tok|^d_model$|^n_embd$"
+                   r"|^num_filters$")
+
+
+@pytest.mark.parametrize("key,width", [
+    ("hidden_size", True), ("moe_intermediate_size", True),
+    ("kv_lora_rank", True), ("qk_rope_head_dim", True), ("d_state", True),
+    ("num_experts_per_tok", True), ("expand", True), ("num_filters", True),
+    ("num_hidden_layers", False), ("n_routed_experts", False),
+    ("vocab_size", False), ("first_k_dense_replace", False),
+])
+def test_width_keys_are_told_apart(key, width):
+    assert bool(WIDTH.search(key)) == width
+
+
 @pytest.mark.parametrize("config", BENCH["configs"], ids=lambda c: c["name"])
 def test_config_file_matches_entry(config):
     data = json.loads((ROOT / config["file"]).read_text())
     assert data["name"] == config["name"]
     assert data["source"] == config["source"]
-    assert data["reduced"] == config["reduced"] == []
+    # a cell runs the port's own models, never a stand-in
+    assert "port_module" not in data
+    # a chip's share (a model_config's experts, vocabulary, depth) is
+    # named in both, each key cut is one the file holds and none is a
+    # width; an image network runs whole
+    assert data["reduced"] == config["reduced"]
+    assert set(data["reduced"]) <= set(data)
+    assert not [k for k in data["reduced"] if WIDTH.search(k)]
+    if data.get("task", "image_classification") == "image_classification":
+        assert data["reduced"] == []
     model = reference.build(data, "meta")
     assert sum(p.numel() for p in model.parameters()) == data["parameters"]
 
@@ -81,3 +109,27 @@ def test_published_forward_macs():
     first = conv_flops.layers(r)[0].macs
     want = 2 * (3 * conv_flops.forward_macs(r) - first) * 256
     assert conv_flops.step_work(r, 256)["flops"] == pytest.approx(want)
+
+
+def test_cell_refuses_a_stand_in_model(tmp_path):
+    """A cell whose configuration names ``port_module`` is refused before
+    it runs: a cell times and checks the port's own models."""
+    entry = BENCH["workloads"][0]
+    for sub in ("configs", "traffic"):
+        (tmp_path / "portbench" / sub).mkdir(parents=True)
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(BENCH))
+    config = json.loads((ROOT / "portbench" / "configs"
+                         / f"{entry['config']}.json").read_text())
+    config["port_module"] = "portbench.tests.tiny_lm"
+    (tmp_path / "portbench" / "configs" / f"{entry['config']}.json"
+     ).write_text(json.dumps(config))
+    traffic = ROOT / "portbench" / "traffic" / f"{entry['traffic']}.json"
+    (tmp_path / "portbench" / "traffic" / traffic.name).write_text(
+        traffic.read_text())
+    with pytest.raises(run.RunError, match="port_module"):
+        run.make_spec(entry["name"], 1, 1, 0, root=tmp_path)
+    del config["port_module"]
+    (tmp_path / "portbench" / "configs" / f"{entry['config']}.json"
+     ).write_text(json.dumps(config))
+    assert run.make_spec(entry["name"], 1, 1, 0, root=tmp_path)["config"] \
+        == config

@@ -1,6 +1,8 @@
 """The run's path at a tiny size on the CPU, in a fresh process each:
 a sound run is correct and loads no JAX module; each fault the cell can
-have, planted under the timed path, comes out not correct."""
+have, planted under the timed path, comes out not correct.  ``tiny_lm``
+is the tests' causal language model (``tiny.py``): token batches, the
+per-token loss, AdamW."""
 
 import json
 import os
@@ -26,7 +28,8 @@ def _run(cell, trace=0, fault=None, tmp_path=None, ranks=1):
 
 @pytest.mark.parametrize("cell,ranks", [("resnet50.b256.fp16", 1),
                                         ("vgg16.b64.fp16", 1),
-                                        ("vgg16.b64.fp16", 2)])
+                                        ("vgg16.b64.fp16", 2),
+                                        ("tiny_lm", 1), ("tiny_lm", 2)])
 def test_sound_run_is_correct(cell, ranks, tmp_path):
     line, err = _run(cell, tmp_path=tmp_path, ranks=ranks)
     assert list(line) == ["correct", "attempted", "failed", "metrics",
@@ -40,8 +43,9 @@ def test_sound_run_is_correct(cell, ranks, tmp_path):
     assert [t.split()[1] for t in tail] == list(line["checks"])
 
 
-def test_traced_run_gives_breakdown(tmp_path):
-    line, _ = _run("vgg16.b64.fp16", trace=1, tmp_path=tmp_path)
+@pytest.mark.parametrize("cell", ["vgg16.b64.fp16", "tiny_lm"])
+def test_traced_run_gives_breakdown(cell, tmp_path):
+    line, _ = _run(cell, trace=1, tmp_path=tmp_path)
     assert line["correct"]
     assert list(line)[-2:] == ["breakdown", "checks"]
     assert set(line["breakdown"]) == {"device_ops", "idle_gaps"}
@@ -56,6 +60,9 @@ def test_traced_run_gives_breakdown(tmp_path):
     ("vgg16.b64.fp16", "no_update", 1),
     ("vgg16.b64.fp16", "half_batch", 1),
     ("vgg16.b64.fp16", "no_exchange", 2),
+    ("tiny_lm", "no_update", 1),
+    ("tiny_lm", "half_batch", 1),
+    ("tiny_lm", "no_exchange", 2),
 ])
 def test_fault_is_not_correct(cell, fault, ranks, tmp_path):
     """Each fault a cell can have; the exchange between ranks only past

@@ -60,6 +60,8 @@ class Window:
     a1_bytes_per_step: int
     a1_passes_per_step: int
     a1_launches: Optional[int]
+    # the attention terms' least time a step (counters/transformer_flops.py)
+    attention_min_s_per_step: float = 0.0
     # the host clock's time of a step, the same steps run untraced just
     # before the window (the profiler slows the host's side of a step)
     untraced_step_s: Optional[float] = None
